@@ -1,0 +1,66 @@
+"""The port stands alone: importing it pulls in neither ``jax`` nor any
+module of ``ishara_tpu``, and its entry points never fall back to the CPU on
+their own."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = (
+        "import json, sys\n"
+        "import ishara_tpu_torch, ishara_tpu_torch.ops, ishara_tpu_torch.serve\n"
+        "import ishara_tpu_torch.bridge, ishara_tpu_torch.ops._build\n"
+        "import chip_smoke\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'jax'\n"
+        "    or m.startswith(('jax.', 'jaxlib', 'flax', 'ishara_tpu.'))\n"
+        "    or m == 'ishara_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    """Called without ``device`` on a host with no CUDA card, every entry
+    point raises instead of running on the CPU."""
+    import ishara_tpu_torch.config as tcfg
+    from ishara_tpu_torch import resolve_device
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.ops.fused_block import fused_encoder_forward
+    from ishara_tpu_torch.serve.engine import BatchedEngine, InferenceEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tcfg.EncoderConfig(variant="squeezeformer", dim=32,
+                             num_squeeze_blocks=1, num_heads=4, frame_len=16)
+    model = build_model(cfg, device="cpu")
+    calls = [
+        lambda: resolve_device(),
+        lambda: build_model(cfg),
+        lambda: InferenceEngine(model),
+        lambda: BatchedEngine(model),
+        lambda: fused_encoder_forward(cfg, model.state_dict(),
+                                      torch.zeros(16, cfg.input_dim)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert next(model.parameters()).device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result on this host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
