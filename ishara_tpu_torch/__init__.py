@@ -6,9 +6,11 @@ module layout and names so each counterpart is easy to find. It imports
 reference's numpy-only modules (landmark layout, vocabulary, config) lives
 here as its own copy.
 
-Ported so far: the batch-1 CTC serving path of ``baseline_config(5)``
-(preprocess -> encoder -> greedy collapse -> constant-phrase fallback), with
-the fused encoder blocks as hand-written CUDA kernels
+Ported so far: the batch-1 CTC serving path (preprocess -> encoder -> greedy
+collapse -> constant-phrase fallback) of the squeezeformer, conformer,
+hybrid, conv_hybrid and conv_transformer families, with the fused encoder
+blocks -- at bf16, f32 or int8 weight storage, launch by launch or as one
+persistent kernel per stack -- as hand-written CUDA kernels
 (:mod:`ishara_tpu_torch.ops.fused_block`). See ``ROADMAP.md`` for the rest.
 
 Entry points take a ``device``; without one they run on ``cuda`` and raise

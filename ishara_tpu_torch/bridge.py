@@ -11,15 +11,23 @@ returns them or ``params.msgpack`` holds them -- into the port's
 * LayerNorm / BatchNorm ``scale`` becomes ``weight``; BatchNorm
   ``batch_stats`` ``mean`` / ``var`` become ``running_mean`` /
   ``running_var`` (and ``num_batches_tracked`` is added as 0);
-* ``squeezeformer_{i}`` / ``conformer_{i}`` become ``squeezeformer.{i}`` /
-  ``conformer.{i}`` (``nn.ModuleList`` entries).
+* ``squeezeformer_{i}`` / ``conformer_{i}`` / ``transformer_{i}`` become
+  ``squeezeformer.{i}`` / ``conformer.{i}`` / ``transformer.{i}``
+  (``nn.ModuleList`` entries), and the conv families' ``conv_squeeze{i}_{j}``
+  / ``conv_conform{i}_{j}`` / ``conv_t{i}_{j}`` become ``conv_squeeze.{i}.{j}``
+  / ``conv_conform.{i}.{j}`` / ``conv_t.{i}.{j}``.
 
 It works on any subtree, so a single block's variables bridge to that
 block's ``state_dict``.
 
-:func:`squeeze_block_args` and :func:`conformer_block_args` go from the
+:func:`squeeze_block_args`, :func:`conformer_block_args`,
+:func:`transformer_block_args` and :func:`conv1d_block_args` go from the
 port's ``state_dict`` to the per-block argument tuples of the fused kernels,
-in the order of the reference's ``_squeeze_args`` / ``_conformer_args``.
+in the order of the reference's ``_squeeze_args`` / ``_conformer_args`` /
+``_transformer_args`` / ``_conv1d_args``. With ``dt == "int8"`` the
+``state_dict`` must be a quantized one and every matmul leaf becomes a pair
+(q int8 ``[in, out]``, scale f32 ``[out]``); depthwise and ECA kernels are
+dequantized to f32.
 """
 
 from __future__ import annotations
@@ -34,8 +42,13 @@ _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 
 
 def _module_name(key: str) -> str:
-    m = re.fullmatch(r"(squeezeformer|conformer)_(\d+)", key)
-    return f"{m.group(1)}.{m.group(2)}" if m else key
+    m = re.fullmatch(r"(squeezeformer|conformer|transformer)_(\d+)", key)
+    if m:
+        return f"{m.group(1)}.{m.group(2)}"
+    m = re.fullmatch(r"conv_(squeeze|conform|t)(\d+)_(\d+)", key)
+    if m:                     # conv stack i, Conv1DBlock j
+        return f"conv_{m.group(1)}.{m.group(2)}.{m.group(3)}"
+    return key
 
 
 def _convert_kernel(a: np.ndarray) -> np.ndarray:
@@ -74,10 +87,35 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def is_quantized(v) -> bool:
+    """An int8 entry of a quantized ``state_dict``: {"q": int8 in the
+    weight's layout, "scale": f32 [out]} (see
+    ``ops.fused_block.quantize_serving_weights``)."""
+    return isinstance(v, dict) and set(v) == {"q", "scale"}
+
+
+def dequantize(v) -> torch.Tensor:
+    """f32 value of a ``state_dict`` entry, int8 or float."""
+    if is_quantized(v):
+        q, s = v["q"], v["scale"]
+        return q.to(torch.float32) * s.reshape((-1,) + (1,) * (q.dim() - 1))
+    return v.to(torch.float32)
+
+
 def _mat(sd, key, dt):
     """Linear.weight [out, in] or 1x1 Conv1d.weight [out, in, 1] -> the
-    kernel layout [in, out] at the storage dtype."""
+    kernel layout [in, out] at the storage dtype; at ``dt == "int8"`` the
+    pair (q int8 [in, out], scale f32 [out]) of a quantized entry."""
     w = sd[key]
+    if dt == "int8":
+        if not is_quantized(w):
+            raise ValueError(
+                f'compute_dtype="int8" requires weights quantized with '
+                f"quantize_serving_weights (the export int8 scheme); "
+                f"{key} is not")
+        q = w["q"][:, :, 0] if w["q"].dim() == 3 else w["q"]
+        return (q.T.contiguous(), w["scale"].to(torch.float32).contiguous())
+    w = dequantize(w)
     if w.dim() == 3:
         w = w[:, :, 0]
     return w.T.to(dt).contiguous()
@@ -88,8 +126,9 @@ def _vec(sd, key):
 
 
 def _dw(sd, key):
-    """Depthwise Conv1d.weight [C, 1, K] -> [K, C] f32."""
-    return sd[key][:, 0, :].T.to(torch.float32).contiguous()
+    """Depthwise Conv1d.weight [C, 1, K] -> [K, C] f32 (an int8 entry is
+    dequantized here, as the reference does on load)."""
+    return dequantize(sd[key])[:, 0, :].T.contiguous()
 
 
 def squeeze_block_args(sd, prefix: str, dt) -> tuple[torch.Tensor, ...]:
@@ -142,4 +181,40 @@ def conformer_block_args(sd, prefix: str, dt) -> tuple[torch.Tensor, ...]:
         v("ln2.weight"), v("ln2.bias"),
         m("ffn2.fc1.weight"), v("ffn2.fc1.bias"),
         m("ffn2.fc2.weight"), v("ffn2.fc2.bias"),
+    )
+
+
+def transformer_block_args(sd, prefix: str, dt) -> tuple:
+    """A TransformerBlock's kernel arguments (reference
+    ``_transformer_args`` order)."""
+    def m(k):
+        return _mat(sd, prefix + k, dt)
+
+    def v(k):
+        return _vec(sd, prefix + k)
+
+    return (
+        v("ln1.weight"), v("ln1.bias"),
+        m("mha.qkv.weight"), m("mha.proj.weight"),
+        v("ln2.weight"), v("ln2.bias"),
+        m("fc1.weight"), m("fc2.weight"),
+    )
+
+
+def conv1d_block_args(sd, prefix: str, dt) -> tuple:
+    """A Conv1DBlock's kernel arguments (reference ``_conv1d_args`` order),
+    BN running stats included; the ECA window is [k] f32."""
+    def m(k):
+        return _mat(sd, prefix + k, dt)
+
+    def v(k):
+        return _vec(sd, prefix + k)
+
+    return (
+        m("expand.weight"), v("expand.bias"),
+        _dw(sd, prefix + "dw.dwconv.weight"),
+        v("bn.weight"), v("bn.bias"),
+        v("bn.running_mean"), v("bn.running_var"),
+        dequantize(sd[prefix + "eca.conv.weight"])[0, 0, :].contiguous(),
+        m("project.weight"), v("project.bias"),
     )

@@ -1,6 +1,12 @@
-from .blocks import ConformerBlock, SqueezeformerBlock
+from .blocks import (
+    Conv1DBlock,
+    ConformerBlock,
+    SqueezeformerBlock,
+    TransformerBlock,
+)
 from .encoder import IsharaEncoder, build_model
 from .layers import (
+    ECA,
     CausalDWConv1D,
     ConformerConvModule,
     FeedForwardModule,
@@ -12,14 +18,17 @@ from .layers import (
 
 __all__ = [
     "CausalDWConv1D",
+    "Conv1DBlock",
     "ConformerBlock",
     "ConformerConvModule",
+    "ECA",
     "FeedForwardModule",
     "IsharaEncoder",
     "MultiHeadSelfAttention",
     "SqueezeExcite",
     "SqueezeformerBlock",
     "SqueezeformerConvModule",
+    "TransformerBlock",
     "build_model",
     "positional_encoding",
 ]

@@ -1,18 +1,47 @@
-"""Encoder blocks as ``nn.Module``s (port of ``ishara_tpu/models/blocks.py``
-``SqueezeformerBlock`` and ``ConformerBlock``), eval mode. Dropouts are eval
-no-ops and are not built."""
+"""Encoder blocks as ``nn.Module``s (port of ``ishara_tpu/models/blocks.py``:
+``Conv1DBlock``, ``SqueezeformerBlock``, ``ConformerBlock`` and
+``TransformerBlock``), eval mode. Dropouts are eval no-ops and are not
+built."""
 
 from __future__ import annotations
 
+import torch.nn.functional as F
 from torch import nn
 
 from .layers import (
+    BN_EPS,
+    BN_MOMENTUM,
+    ECA,
     LN_EPS,
+    CausalDWConv1D,
     ConformerConvModule,
     FeedForwardModule,
     MultiHeadSelfAttention,
     SqueezeformerConvModule,
 )
+
+
+class Conv1DBlock(nn.Module):
+    """MBConv-style conv block: Linear expand (swish) -> causal depthwise
+    conv -> BN -> ECA -> Linear project, plus the input when the channel
+    counts match."""
+
+    def __init__(self, channels_in: int, channels: int, kernel_size: int,
+                 dilation_rate: int = 1, expand_ratio: int = 2):
+        super().__init__()
+        c = channels_in * expand_ratio
+        self.skip = channels_in == channels
+        self.expand = nn.Linear(channels_in, c)
+        self.dw = CausalDWConv1D(c, kernel_size, dilation_rate)
+        self.bn = nn.BatchNorm1d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.eca = ECA()
+        self.project = nn.Linear(c, channels)
+
+    def forward(self, x, mask=None):
+        h = self.dw(F.silu(self.expand(x)))
+        h = self.bn(h.transpose(1, 2)).transpose(1, 2)
+        h = self.project(self.eca(h, mask))
+        return h + x if self.skip else h
 
 
 class SqueezeformerBlock(nn.Module):
@@ -56,3 +85,20 @@ class ConformerBlock(nn.Module):
         x = x + self.mha(self.ln1(x), mask)
         x = self.conv(x)
         return x + self.ffn2(self.ln2(x))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN MHSA, then pre-LN swish FFN whose two Linears have no bias,
+    each with a plain residual."""
+
+    def __init__(self, dim: int = 256, num_heads: int = 6, expand: int = 4):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mha = MultiHeadSelfAttention(dim, num_heads)
+        self.ln2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.fc1 = nn.Linear(dim, dim * expand, bias=False)
+        self.fc2 = nn.Linear(dim * expand, dim, bias=False)
+
+    def forward(self, x, mask=None):
+        x = x + self.mha(self.ln1(x), mask)
+        return x + self.fc2(F.silu(self.fc1(self.ln2(x))))

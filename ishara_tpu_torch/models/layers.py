@@ -68,6 +68,22 @@ class SqueezeExcite(nn.Module):
         return x * g[:, None, :]
 
 
+class ECA(nn.Module):
+    """Efficient channel attention: masked GAP -> Conv1d(1, 1, k) over the
+    channel axis ('same' zero padding ((k-1)//2, k//2), no bias) -> sigmoid
+    gate."""
+
+    def __init__(self, kernel_size: int = 5):
+        super().__init__()
+        self.pad = ((kernel_size - 1) // 2, kernel_size // 2)
+        self.conv = nn.Conv1d(1, 1, kernel_size, bias=False)
+
+    def forward(self, x, mask=None):
+        g = masked_global_average_pool(x, mask)[:, None, :]    # [B, 1, C]
+        g = torch.sigmoid(self.conv(F.pad(g, self.pad)))[:, 0, :]
+        return x * g[:, None, :]
+
+
 class CausalDWConv1D(nn.Module):
     """Left-padded depthwise conv: pad (k-1)*dilation, then VALID."""
 

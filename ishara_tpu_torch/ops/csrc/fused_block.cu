@@ -1,51 +1,75 @@
-// Eval-mode Squeezeformer and Conformer block stacks for batch-1 serving on
-// Hopper (sm_90a).
+// Eval-mode encoder block stacks for batch-1 serving on Hopper (sm_90a):
+// Squeezeformer, Conformer and Transformer blocks, alone or each behind a few
+// Conv1DBlocks (the conv_hybrid / conv_transformer families), at f32, bf16 or
+// int8 weight storage, as a sequence of launches or as one persistent kernel.
 //
-// Replaces the Pallas kernels fused_squeezeformer_stack and
-// fused_conformer_stack of ishara_tpu/ops/fused_block.py (both grid-pipelined
-// through _stack_call). The host entries below run N blocks of one type; each
-// block launches, in turn, a few kernels of this file:
+// Replaces the Pallas kernels fused_squeezeformer_stack, fused_conformer_stack
+// and fused_conv_group_stack of ishara_tpu/ops/fused_block.py: the
+// grid-pipelined _stack_call, its int8 weight mode (_mm's (q, scale) branch)
+// and the manually double-buffered _stack_call_dma.
 //
-//   gemm_kernel       [T,K] @ [K,N] with an optional LayerNorm prologue on the
-//                     rows of A and a bias / swish / residual epilogue; one
-//                     16 x 32 output tile per block, whose whole A panel and
-//                     B panel are loaded into shared memory at once and
-//                     whose K is split over 4 warp groups
-//   attention_kernel  one (head, 8-query tile) per block; the head's K and V
-//                     sit in shared memory, one warp per query row
-//   dwconv_kernel     depthwise conv over time: causal (Squeezeformer, swish
-//                     epilogue) or 'same' with bias, GLU on its input and a BN
-//                     epilogue (Conformer)
-//   se_gate_kernel    masked GAP -> SE gate, one block
-//   se_apply_kernel   x += h * gate
-//   layernorm_kernel  the Conformer conv module's post-LN, one warp per row
+// A stack is a list of stages, written once (make_stage) and run two ways.
+// Each stage is a grid of independent tiles of one of these device functions:
+//
+//   gemm_tile       [T,K] @ [K,N] with an optional LayerNorm or per-column
+//                   gate (ECA) prologue on A and a scale / bias / swish /
+//                   residual epilogue; one 16 x 32 output tile, whose whole A
+//                   panel and B panel are loaded into shared memory at once
+//                   and whose K is split over 4 warp groups
+//   attention_tile  one (head, 8-query tile); the head's K and V sit in
+//                   shared memory, one warp per query row
+//   dwconv_tile     depthwise conv over time: causal or 'same', optional GLU
+//                   on its input, bias, BN (running stats) and swish
+//   se_gate_tile    masked GAP -> SE gate, one tile
+//   eca_gate_tile   masked GAP -> k-tap window over channels -> sigmoid
+//   apply_tile      x += h * gate
+//   layernorm_tile  the Conformer conv module's post-LN, one warp per row
+//
+// dma = 0 launches every stage as its own kernel, in stream order. dma = 1 is
+// the counterpart of the TPU kernel that fetches block i+1's weights itself
+// while block i computes: ONE cooperative launch per stack
+// (stack_persistent_kernel) walks all stages of all blocks with a grid-wide
+// barrier between stages, and at the start of block i every thread issues L2
+// prefetches for the weight leaves of block i+1. Both ways call the same
+// compiled tile functions (__noinline__), so every output element sees the
+// same operations in the same order: dma = 1 equals dma = 0 bit for bit.
+// Activations written by one stage and read by the next are never read
+// through the read-only (ld.global.nc) path: only weight pointers are
+// __restrict__ const.
 //
 // Numerics follow _mm / _mhsa of the reference: activations and accumulation
-// are f32; matmul weights arrive at their storage type (bf16 or f32) and are
-// widened to f32 at the product; at bf16 storage the attention q, k, v and
-// the normalised probabilities are rounded to bf16 (round to nearest even)
-// before their products, which accumulate in f32; a masked key adds -1e30.
-// The products run on the CUDA cores in f32 FMA, not on the tensor cores: the
-// bf16 mma instructions would need the activations in bf16 too, which the
-// reference does not do.
+// are f32; matmul weights arrive at their storage type (f32, bf16 or int8)
+// and are widened to f32 at the product; an int8 product is multiplied by its
+// per-output-channel scale after the dot and before bias, swish and residual;
+// at bf16 and int8 storage the attention q, k, v and the normalised
+// probabilities are rounded to bf16 (round to nearest even) before their
+// products, which accumulate in f32; a masked key adds -1e30. The products
+// run on the CUDA cores in f32 FMA, not on the tensor cores: the bf16 mma
+// instructions would need the activations in bf16 too, which the reference
+// does not do.
 //
-// Bound on an H100 SXM at T=176, dim 256, 8 heads, 4 blocks: the stack must
-// stream its matmul weights once (about 8.4-9.1 MB at bf16, 2.5-2.7 us at
-// 3.35 TB/s) and do about 1.5-1.6 GFLOP (1.6 us at the bf16 tensor-core rate,
-// 24 us at the 67 TFLOP/s f32 rate these f32 FMAs run at). Every activation
-// of a block (at most 176 x 768 f32, 540 KB) stays in L2 between launches.
-// What the design does about latency, which bounds it at this size: each GEMM
-// block has all its loads in flight at once (cp.async, 16 bytes each, one
-// memory latency per launch, not one per K step), splits K over 4 groups of
-// 2 warps and does 8 FMAs for 3 shared-memory loads; tiles are small enough that the widest
-// GEMM fills 264 blocks. The ~12 dependent launches per block remain; wgmma,
-// TMA and a single persistent launch per stack are the levers for a later
-// change.
+// Bound on an H100 SXM at T=176, dim 256, 8 heads: a stack must stream its
+// weights once (about 2 MB a block at bf16, 1 MB at int8) and do about
+// 0.4 GFLOP a block, so bytes bound it at a few microseconds; the f32 FMAs
+// these products run at (67 TFLOP/s) would allow about 6 us a block. Every
+// activation of a block (at most 176 x 1024 f32) stays in L2 between stages.
+// What bounds the kernels in fact is latency: a block is 11-12 dependent
+// stages (4 more for each Conv1DBlock), each a few microseconds of fill and
+// drain. Each GEMM tile has all its loads in flight at once (cp.async, 16
+// bytes each), splits K over 4 groups of 2 warps and does 8 FMAs for 3
+// shared-memory loads; tiles are small enough that the widest GEMM fills 264
+// blocks. The persistent form trades the launches for grid barriers. wgmma
+// and TMA are the levers for a later change.
 
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -58,6 +82,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -81,6 +106,13 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   o[2] = __uint_as_float(u.y << 16);
   o[3] = __uint_as_float(u.y & 0xffff0000u);
 }
+__device__ __forceinline__ void load4(const int8_t* p, float* o) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  o[0] = (float)v.x;
+  o[1] = (float)v.y;
+  o[2] = (float)v.z;
+  o[3] = (float)v.w;
+}
 
 // 16 bytes from global to shared memory without passing through registers;
 // with valid false the 16 bytes are zero-filled and nothing is read.
@@ -92,6 +124,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -124,23 +159,69 @@ __device__ __forceinline__ void row_stats(const float* row, int K, float eps,
 }
 
 // ---------------------------------------------------------------------------
+// One stage of a stack: an operation and its operands. Pointers to
+// activations (in, res, mask, gate, out) may have been written by an earlier
+// stage of the same launch; the others are weights.
+// ---------------------------------------------------------------------------
+enum Op {
+  OP_GEMM,
+  OP_ATTENTION,
+  OP_DWCONV,
+  OP_SE_GATE,
+  OP_ECA_GATE,
+  OP_APPLY,
+  OP_LAYERNORM
+};
+
+struct Stage {
+  int op;
+  int M, K, N;   // rows T; inner width or taps; output width or channels
+  int swish, glu, pad_left, heads;
+  float eps, scale;
+  const float* in;
+  const float* res;
+  const float* mask;
+  const float* gate;
+  float* out;
+  const void* w;         // matrix, depthwise kernel, ECA window, SE fc1
+  const void* w2;        // SE fc2
+  const float* wscale;   // int8 scales of w and w2
+  const float* w2scale;
+  const float* ln_g;
+  const float* ln_b;
+  const float* bias;
+  const float* bias2;
+  const float* bn_g;
+  const float* bn_b;
+  const float* bn_m;
+  const float* bn_v;
+};
+
+// Threads of every tile function but the SE and ECA gates, which take any
+// multiple of 32.
+constexpr int GTHREADS = 256;
+
+// ---------------------------------------------------------------------------
 // C[M,N] = epilogue(prologue(A)[M,K] @ B[K,N])
-//   prologue: LayerNorm of each row of A (gamma ln_g, beta ln_b) if ln_g
-//   epilogue: + bias[n] if bias; swish if swish; res[m,n] + . if res
+//   prologue: LayerNorm of each row of A (gamma ln_g, beta ln_b) if ln_g, or
+//             A[m,k] * gate[k] if gate
+//   epilogue: * wscale[n] at int8; + bias[n] if bias; swish if swish;
+//             res[m,n] + . if res
 // res may alias C (each element is read and then written by one thread).
 // Needs K % (4 * GSPLIT) == 0, N % GBN == 0 and 16-byte aligned rows
-// (checked by the host entries). The block's GSPLIT groups of 64 threads
+// (checked by the host entry). The block's GSPLIT groups of 64 threads
 // each take one K / GSPLIT slice of the products, so that a grid of few
 // tiles still keeps enough warps on each SM; in a group, each thread owns
 // rows ty, ty+8 and columns 4tx..4tx+3 of the tile and sums its slice over
 // k in order. The slices' sums are then added in group order.
 // ---------------------------------------------------------------------------
-constexpr int GBM = 16, GBN = 32, GSPLIT = 4, GTHREADS = 64 * GSPLIT;
+constexpr int GBM = 16, GBN = 32, GSPLIT = 4;
+static_assert(GTHREADS == 64 * GSPLIT, "a GEMM tile is GSPLIT groups of 64");
 
 __host__ __device__ inline int gemm_lda(int K) { return K + 4; }
 
-// A panel [GBM][lda], LayerNorm gamma and beta [K] each, the partial sums
-// of groups 1.. [GSPLIT-1][GBM][GBN], B panel [K][GBN].
+// A panel [GBM][lda], LayerNorm gamma and beta (or the gate) [K] each, the
+// partial sums of groups 1.. [GSPLIT-1][GBM][GBN], B panel [K][GBN].
 template <typename W>
 __host__ __device__ inline size_t gemm_smem_bytes(int K) {
   return ((size_t)GBM * gemm_lda(K) + 2 * (size_t)K +
@@ -148,25 +229,31 @@ __host__ __device__ inline size_t gemm_smem_bytes(int K) {
          (size_t)K * GBN * sizeof(W);
 }
 
+__host__ __device__ inline int gemm_tiles(int M, int N) {
+  return (N / GBN) * ((M + GBM - 1) / GBM);
+}
+
 template <typename W>
-__global__ void __launch_bounds__(GTHREADS)
-gemm_kernel(const float* __restrict__ A, int M, int K,
-            const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-            float ln_eps, const W* __restrict__ B, int N,
-            const float* __restrict__ bias, int swish, const float* res,
-            float* C) {
-  extern __shared__ __align__(16) unsigned char gsm[];
+__device__ __noinline__ void gemm_tile(const Stage& st, int tile) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int M = st.M, K = st.K, N = st.N;
+  const float* A = st.in;
+  const W* __restrict__ B = static_cast<const W*>(st.w);
+  const float* __restrict__ ln_g = st.ln_g;
+  const float* __restrict__ ln_b = st.ln_b;
+  const float* gate = st.gate;
   const int lda = gemm_lda(K);  // rows 4 floats apart: distinct banks
-  float* As = reinterpret_cast<float*>(gsm);
+  float* As = reinterpret_cast<float*>(dyn_smem);
   float* Gs = As + GBM * lda;
   float* Bt = Gs + K;
   float* Part = Bt + K;
   W* Bs = reinterpret_cast<W*>(Part + (GSPLIT - 1) * GBM * GBN);
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  const int ntn = N / GBN;
+  const int m0 = (tile / ntn) * GBM, n0 = (tile % ntn) * GBN;
 
-  // Every load of the block in flight at once, 16 bytes each: the A panel
-  // (rows past M as zeros), gamma and beta, the B panel.
+  // Every load of the tile in flight at once, 16 bytes each: the A panel
+  // (rows past M as zeros), gamma and beta or the gate, the B panel.
   const int k4 = K / 4;
   for (int e = tid; e < GBM * k4; e += GTHREADS) {
     const int i = e / k4, j = (e - i * k4) * 4;
@@ -178,6 +265,9 @@ gemm_kernel(const float* __restrict__ A, int M, int K,
       cp_async16(Gs + j, ln_g + j, true);
       cp_async16(Bt + j, ln_b + j, true);
     }
+  } else if (gate) {
+    for (int j = 4 * tid; j < K; j += 4 * GTHREADS)
+      cp_async16(Gs + j, gate + j, true);
   }
   constexpr int VEC = 16 / sizeof(W), PER_ROW = GBN / VEC;
   for (int e = tid; e < K * PER_ROW; e += GTHREADS) {
@@ -191,9 +281,15 @@ gemm_kernel(const float* __restrict__ A, int M, int K,
     for (int r = tid / 32; r < GBM && m0 + r < M; r += GTHREADS / 32) {
       float* row = As + r * lda;
       float mu, rs;
-      row_stats(row, K, ln_eps, &mu, &rs);
+      row_stats(row, K, st.eps, &mu, &rs);
       for (int k = tid & 31; k < K; k += 32)
         row[k] = (row[k] - mu) * rs * Gs[k] + Bt[k];
+    }
+    __syncthreads();
+  } else if (gate) {
+    for (int e = tid; e < GBM * K; e += GTHREADS) {
+      const int i = e / K, k = e - i * K;
+      As[i * lda + k] *= Gs[k];
     }
     __syncthreads();
   }
@@ -224,38 +320,46 @@ gemm_kernel(const float* __restrict__ A, int M, int K,
         mine[(ty + 8 * r) * GBN + 4 * tx + c] = acc[r][c];
   }
   __syncthreads();
-  if (grp > 0) return;
-  for (int g = 0; g < GSPLIT - 1; ++g) {
-    const float* p = Part + g * GBM * GBN;
+  if (grp == 0) {
+    for (int g = 0; g < GSPLIT - 1; ++g) {
+      const float* p = Part + g * GBM * GBN;
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        acc[r][c] += p[(ty + 8 * r) * GBN + 4 * tx + c];
-  }
+        for (int c = 0; c < 4; ++c)
+          acc[r][c] += p[(ty + 8 * r) * GBN + 4 * tx + c];
+    }
 
-  const int n = n0 + 4 * tx;
-  float bv[4] = {0.f, 0.f, 0.f, 0.f};
-  if (bias) load4(bias + n, bv);
+    const int n = n0 + 4 * tx;
+    float bv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (st.bias) load4(st.bias + n, bv);
+    float sv[4] = {1.f, 1.f, 1.f, 1.f};
+    if (std::is_same<W, int8_t>::value) load4(st.wscale + n, sv);
+    const float* res = st.res;
+    float* C = st.out;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int m = m0 + ty + 8 * r;
-    if (m >= M) continue;
-    const size_t o = (size_t)m * N + n;
-    float v[4];
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + ty + 8 * r;
+      if (m >= M) continue;
+      const size_t o = (size_t)m * N + n;
+      float v[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      v[c] = acc[r][c] + bv[c];
-      if (swish) v[c] = swish_f(v[c]);
+      for (int c = 0; c < 4; ++c) {
+        v[c] = acc[r][c];
+        if (std::is_same<W, int8_t>::value) v[c] *= sv[c];
+        v[c] += bv[c];
+        if (st.swish) v[c] = swish_f(v[c]);
+      }
+      if (res) {
+        float rv[4];
+        load4(res + o, rv);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = rv[c] + v[c];
+      }
+      *reinterpret_cast<float4*>(C + o) = make_float4(v[0], v[1], v[2], v[3]);
     }
-    if (res) {
-      float rv[4];
-      load4(res + o, rv);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) v[c] = rv[c] + v[c];
-    }
-    *reinterpret_cast<float4*>(C + o) = make_float4(v[0], v[1], v[2], v[3]);
   }
+  __syncthreads();  // the next tile of a persistent block reuses the panels
 }
 
 // ---------------------------------------------------------------------------
@@ -264,7 +368,7 @@ gemm_kernel(const float* __restrict__ A, int M, int K,
 // columns h*Dh .. (h+1)*Dh. s = q.k * scale + (1 - mask) * -1e30, softmax by
 // max-subtract / exp / divide as the reference does. Needs Dh % 4 == 0.
 // ---------------------------------------------------------------------------
-constexpr int AQ = 8, ATHREADS = 128, AWARPS = ATHREADS / 32;
+constexpr int AWARPS = GTHREADS / 32, AQ = AWARPS;  // one query row a warp
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -275,24 +379,31 @@ __host__ __device__ inline size_t attention_smem_floats(int T, int Dh) {
          (size_t)AWARPS * round4(T) + (size_t)AWARPS * Dh;
 }
 
+__host__ __device__ inline int attention_tiles(int T, int H) {
+  return H * ((T + AQ - 1) / AQ);
+}
+
 template <bool RB>
-__global__ void __launch_bounds__(ATHREADS)
-attention_kernel(const float* __restrict__ qkv,
-                 const float* __restrict__ mask, float* __restrict__ out,
-                 int T, int D, int H, float scale) {
-  extern __shared__ __align__(16) float att_sm[];
+__device__ __noinline__ void attention_tile(const Stage& st, int tile) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  float* att_sm = reinterpret_cast<float*>(dyn_smem);
+  const int T = st.M, D = st.N, H = st.heads;
+  const float scale = st.scale;
+  const float* qkv = st.in;
+  const float* mask = st.mask;
+  float* out = st.out;
   const int Dh = D / H, ks = Dh + 4, tp = round4(T);
   float* Ks = att_sm;
   float* Vs = Ks + (size_t)T * ks;
   float* bias = Vs + (size_t)T * Dh;
   float* P = bias + tp;
   float* Q = P + (size_t)AWARPS * tp;
-  const int h = blockIdx.x, q0 = blockIdx.y * AQ;
+  const int h = tile % H, q0 = (tile / H) * AQ;
   const size_t ld = 3 * (size_t)D;
   const int base = h * 3 * Dh, dh4 = Dh / 4;
 
 #pragma unroll 4
-  for (int e = threadIdx.x; e < T * dh4; e += ATHREADS) {
+  for (int e = threadIdx.x; e < T * dh4; e += GTHREADS) {
     const int t = e / dh4, d = (e - t * dh4) * 4;
     float4 kv = *reinterpret_cast<const float4*>(qkv + t * ld + base + Dh + d);
     float4 vv =
@@ -306,7 +417,7 @@ attention_kernel(const float* __restrict__ qkv,
     *reinterpret_cast<float4*>(Ks + t * ks + d) = kv;
     *reinterpret_cast<float4*>(Vs + t * Dh + d) = vv;
   }
-  for (int t = threadIdx.x; t < T; t += ATHREADS)
+  for (int t = threadIdx.x; t < T; t += GTHREADS)
     bias[t] = (1.0f - mask[t]) * NEG;
   __syncthreads();
 
@@ -364,124 +475,238 @@ attention_kernel(const float* __restrict__ qkv,
     }
     __syncwarp();
   }
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
-// Depthwise conv over time, one thread per output element. The input row is
-// [C] or, with glu, [2C] whose halves (a, b) give a * sigmoid(b). Zero padding
-// of pad_left frames before and Kw-1-pad_left after. Then + bias, BN with
-// running stats, swish, each if given.
+// Depthwise conv over time, one thread per output element of [T, C]. The
+// input row is [C] or, with glu, [2C] whose halves (a, b) give a *
+// sigmoid(b). Zero padding of pad_left frames before and Kw-1-pad_left
+// after. Then + bias, BN with running stats, swish, each if given.
+// Squeezeformer: causal + swish; Conformer: 'same' + GLU + bias + BN;
+// Conv1DBlock: causal + BN.
 // ---------------------------------------------------------------------------
-__global__ void dwconv_kernel(const float* __restrict__ in, int glu,
-                              const float* __restrict__ w, int Kw, int pad_left,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ bn_g,
-                              const float* __restrict__ bn_b,
-                              const float* __restrict__ bn_m,
-                              const float* __restrict__ bn_v, int swish,
-                              float* __restrict__ out, int T, int C) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+__host__ __device__ inline int elementwise_tiles(int n) {
+  return (n + GTHREADS - 1) / GTHREADS;
+}
+
+__device__ __noinline__ void dwconv_tile(const Stage& st, int tile) {
+  const int T = st.M, C = st.N, Kw = st.K;
+  const int idx = tile * GTHREADS + threadIdx.x;
   if (idx >= T * C) return;
+  const float* in = st.in;
+  const float* __restrict__ w = static_cast<const float*>(st.w);
   const int t = idx / C, c = idx % C;
-  const int ld = glu ? 2 * C : C;
+  const int ld = st.glu ? 2 * C : C;
   float acc = 0.f;
   for (int i = 0; i < Kw; ++i) {
-    const int s = t + i - pad_left;
+    const int s = t + i - st.pad_left;
     if (s < 0 || s >= T) continue;
     float u = in[(size_t)s * ld + c];
-    if (glu) u = u * sigmoid_f(in[(size_t)s * ld + C + c]);
+    if (st.glu) u = u * sigmoid_f(in[(size_t)s * ld + C + c]);
     acc += u * w[i * C + c];
   }
-  if (bias) acc += bias[c];
-  if (bn_g) acc = (acc - bn_m[c]) * rsqrtf(bn_v[c] + BN_EPS) * bn_g[c] + bn_b[c];
-  if (swish) acc = swish_f(acc);
-  out[idx] = acc;
+  if (st.bias) acc += st.bias[c];
+  if (st.bn_g)
+    acc = (acc - st.bn_m[c]) * rsqrtf(st.bn_v[c] + BN_EPS) * st.bn_g[c] +
+          st.bn_b[c];
+  if (st.swish) acc = swish_f(acc);
+  st.out[idx] = acc;
 }
 
 // ---------------------------------------------------------------------------
-// Squeeze-excite gate of the conv-module output h [T, D], one block:
-// g = masked mean of h over time (denominator max(sum mask, 1)),
-// gate = sigmoid(swish(g @ w1 + b1) @ w2 + b2). The time sum is split over
-// P = blockDim / D interleaved parts, added at the end.
+// Masked mean over time of h [T, C] into g [C] (shared memory), denominator
+// max(sum mask, 1). The time sum is split over P = gap_parts(C) interleaved
+// parts, added in order at the end: the order depends on C alone, not on the
+// number of threads. part is [P, C] scratch, den one float. Needs C % 4 == 0
+// and 16-byte aligned rows.
 // ---------------------------------------------------------------------------
-constexpr int SE_THREADS = 1024;
+constexpr int GATE_THREADS = 1024;  // of a gate launched on its own
 
-__host__ __device__ inline int se_parts(int D) {
-  return D < SE_THREADS ? SE_THREADS / D : 1;
+__host__ __device__ inline int gap_parts(int C) {
+  return C < GATE_THREADS ? GATE_THREADS / C : 1;
 }
 
-template <typename W>
-__global__ void __launch_bounds__(SE_THREADS)
-se_gate_kernel(const float* __restrict__ h, const float* __restrict__ mask,
-               const W* __restrict__ w1, const float* __restrict__ b1,
-               const W* __restrict__ w2, const float* __restrict__ b2,
-               float* __restrict__ gate, int T, int D, int R) {
-  extern __shared__ __align__(16) float se_sm[];
-  const int P = se_parts(D);
-  float* part = se_sm;        // [P, D]
-  float* g = part + P * D;  // [D]
-  float* r = g + D;         // [R]
-  __shared__ float s_den;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
-  if (warp == 0) {
+__device__ __forceinline__ void masked_gap(const float* h, const float* mask,
+                                           int T, int C, float* part,
+                                           float* g, float* den) {
+  const int P = gap_parts(C);
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < 32) {
     float m = 0.f;
     for (int t = lane; t < T; t += 32) m += mask[t];
     m = warp_sum(m);
-    if (lane == 0) s_den = fmaxf(m, 1.0f);
+    if (lane == 0) *den = fmaxf(m, 1.0f);
   }
-  for (int e = tid; e < P * D; e += blockDim.x) {
-    const int p = e / D, c = e - p * D;
-    float s = 0.f;
+  // one thread sums four neighbouring channels of one part, 16 bytes a
+  // load, so that 256 threads cover [P, C] = 1024 columns in one pass
+  const int c4 = C / 4;
+  for (int e = tid; e < P * c4; e += blockDim.x) {
+    const int p = e / c4, c = (e - p * c4) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-    for (int t = p; t < T; t += P) s += h[(size_t)t * D + c] * mask[t];
-    part[e] = s;
+    for (int t = p; t < T; t += P) {
+      const float4 v = *reinterpret_cast<const float4*>(h + (size_t)t * C + c);
+      const float m = mask[t];
+      s.x += v.x * m;
+      s.y += v.y * m;
+      s.z += v.z * m;
+      s.w += v.w * m;
+    }
+    *reinterpret_cast<float4*>(part + p * C + c) = s;
   }
   __syncthreads();
-  for (int c = tid; c < D; c += blockDim.x) {
+  for (int c = tid; c < C; c += blockDim.x) {
     float s = 0.f;
-    for (int p = 0; p < P; ++p) s += part[p * D + c];
-    g[c] = s / s_den;
+    for (int p = 0; p < P; ++p) s += part[p * C + c];
+    g[c] = s / *den;
   }
   __syncthreads();
+}
+
+// Squeeze-excite gate of the conv-module output h [T, D], one tile:
+// gate = sigmoid(swish(gap(h) @ w1 + b1) @ w2 + b2), [D].
+__host__ __device__ inline size_t se_gate_smem_bytes(int D, int R) {
+  return ((size_t)gap_parts(D) * D + D + R + 4) * sizeof(float);
+}
+
+template <typename W>
+__device__ __noinline__ void se_gate_tile(const Stage& st) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int T = st.M, D = st.N, R = st.K;
+  const W* __restrict__ w1 = static_cast<const W*>(st.w);
+  const W* __restrict__ w2 = static_cast<const W*>(st.w2);
+  float* part = reinterpret_cast<float*>(dyn_smem);  // [P, D]
+  float* g = part + gap_parts(D) * D;                // [D]
+  float* r = g + D;                                  // [R]
+  float* den = r + R;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
+  masked_gap(st.in, st.mask, T, D, part, g, den);
   for (int j = warp; j < R; j += blockDim.x / 32) {
     float a = 0.f;
     for (int c = lane; c < D; c += 32) a += g[c] * to_f(w1[(size_t)c * R + j]);
     a = warp_sum(a);
-    if (lane == 0) r[j] = swish_f(a + b1[j]);
+    if (std::is_same<W, int8_t>::value) a *= st.wscale[j];
+    if (lane == 0) r[j] = swish_f(a + st.bias[j]);
   }
   __syncthreads();
   for (int c = tid; c < D; c += blockDim.x) {
     float a = 0.f;
     for (int j = 0; j < R; ++j) a += r[j] * to_f(w2[(size_t)j * D + c]);
-    gate[c] = sigmoid_f(a + b2[c]);
+    if (std::is_same<W, int8_t>::value) a *= st.w2scale[c];
+    st.out[c] = sigmoid_f(a + st.bias2[c]);
+  }
+  __syncthreads();
+}
+
+// Efficient-channel-attention gate of h [T, C], one tile: the masked mean
+// g [C], a K-tap window slid over the CHANNEL axis (cross-correlation, zeros
+// (K-1)/2 before and K/2 after), sigmoid. gate [C].
+__host__ __device__ inline size_t eca_gate_smem_bytes(int C) {
+  return ((size_t)gap_parts(C) * C + C + 4) * sizeof(float);
+}
+
+__device__ __noinline__ void eca_gate_tile(const Stage& st) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int T = st.M, C = st.N, Kw = st.K;
+  const float* __restrict__ w = static_cast<const float*>(st.w);
+  float* part = reinterpret_cast<float*>(dyn_smem);
+  float* g = part + gap_parts(C) * C;
+  float* den = g + C;
+  masked_gap(st.in, st.mask, T, C, part, g, den);
+  const int left = (Kw - 1) / 2;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float a = 0.f;
+    for (int i = 0; i < Kw; ++i) {
+      const int s = c + i - left;
+      if (s >= 0 && s < C) a += g[s] * w[i];
+    }
+    st.out[c] = sigmoid_f(a);
+  }
+  __syncthreads();
+}
+
+// out[T, D] += in * gate[D]
+__device__ __noinline__ void apply_tile(const Stage& st, int tile) {
+  const int idx = tile * GTHREADS + threadIdx.x;
+  if (idx >= st.M * st.N) return;
+  st.out[idx] = st.out[idx] + st.in[idx] * st.gate[idx % st.N];
+}
+
+// LayerNorm of each row of out [T, D], in place; one warp per row.
+__host__ __device__ inline int layernorm_tiles(int T) {
+  return (T + GTHREADS / 32 - 1) / (GTHREADS / 32);
+}
+
+__device__ __noinline__ void layernorm_tile(const Stage& st, int tile) {
+  const int row = tile * (GTHREADS / 32) + threadIdx.x / 32;
+  if (row >= st.M) return;
+  const int D = st.N;
+  float* xr = st.out + (size_t)row * D;
+  float mu, rs;
+  row_stats(xr, D, st.eps, &mu, &rs);
+  for (int k = threadIdx.x & 31; k < D; k += 32)
+    xr[k] = (xr[k] - mu) * rs * st.ln_g[k] + st.ln_b[k];
+}
+
+// ---------------------------------------------------------------------------
+// A stage's grid and shared memory, and one kernel for each operation (the
+// launch-by-launch form).
+// ---------------------------------------------------------------------------
+__host__ __device__ inline int stage_tiles(const Stage& st) {
+  switch (st.op) {
+    case OP_GEMM: return gemm_tiles(st.M, st.N);
+    case OP_ATTENTION: return attention_tiles(st.M, st.heads);
+    case OP_DWCONV:
+    case OP_APPLY: return elementwise_tiles(st.M * st.N);
+    case OP_LAYERNORM: return layernorm_tiles(st.M);
+    default: return 1;
   }
 }
 
-// x[T, D] += h * gate[D]
-__global__ void se_apply_kernel(float* __restrict__ x,
-                                const float* __restrict__ h,
-                                const float* __restrict__ gate, int T, int D) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= T * D) return;
-  x[idx] = x[idx] + h[idx] * gate[idx % D];
+template <typename W>
+__host__ __device__ inline size_t stage_smem_bytes(const Stage& st) {
+  switch (st.op) {
+    case OP_GEMM: return gemm_smem_bytes<W>(st.K);
+    case OP_ATTENTION:
+      return attention_smem_floats(st.M, st.N / st.heads) * sizeof(float);
+    case OP_SE_GATE: return se_gate_smem_bytes(st.N, st.K);
+    case OP_ECA_GATE: return eca_gate_smem_bytes(st.N);
+    default: return 0;
+  }
 }
 
-// LayerNorm of each row of x [T, D], in place; one warp per row.
-__global__ void layernorm_kernel(float* x, const float* __restrict__ g,
-                                 const float* __restrict__ b, float eps, int T,
-                                 int D) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (row >= T) return;
-  float* xr = x + (size_t)row * D;
-  float mu, rs;
-  row_stats(xr, D, eps, &mu, &rs);
-  for (int k = threadIdx.x & 31; k < D; k += 32)
-    xr[k] = (xr[k] - mu) * rs * g[k] + b[k];
+template <typename W>
+__global__ void __launch_bounds__(GTHREADS)
+gemm_kernel(const __grid_constant__ Stage st) {
+  gemm_tile<W>(st, blockIdx.x);
 }
-
-// ---------------------------------------------------------------------------
-// Host-side launchers. Each returns the launch's cudaGetLastError().
-// ---------------------------------------------------------------------------
+template <bool RB>
+__global__ void __launch_bounds__(GTHREADS)
+attention_kernel(const __grid_constant__ Stage st) {
+  attention_tile<RB>(st, blockIdx.x);
+}
+__global__ void __launch_bounds__(GTHREADS)
+dwconv_kernel(const __grid_constant__ Stage st) {
+  dwconv_tile(st, blockIdx.x);
+}
+template <typename W>
+__global__ void __launch_bounds__(GATE_THREADS)
+se_gate_kernel(const __grid_constant__ Stage st) {
+  se_gate_tile<W>(st);
+}
+__global__ void __launch_bounds__(GATE_THREADS)
+eca_gate_kernel(const __grid_constant__ Stage st) {
+  eca_gate_tile(st);
+}
+__global__ void __launch_bounds__(GTHREADS)
+se_apply_kernel(const __grid_constant__ Stage st) {
+  apply_tile(st, blockIdx.x);
+}
+__global__ void __launch_bounds__(GTHREADS)
+layernorm_kernel(const __grid_constant__ Stage st) {
+  layernorm_tile(st, blockIdx.x);
+}
 
 // Dynamic shared memory above the default 48 KB must be allowed first.
 template <typename F>
@@ -491,83 +716,353 @@ cudaError_t allow_smem(F* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename W>
-cudaError_t gemm(cudaStream_t st, const float* A, int M, int K,
-                 const float* ln_g, const float* ln_b, float ln_eps,
-                 const W* B, int N, const float* bias, int swish,
-                 const float* res, float* C) {
-  if (K % (4 * GSPLIT) || N % GBN) return cudaErrorInvalidValue;
-  const size_t bytes = gemm_smem_bytes<W>(K);
-  const cudaError_t e = allow_smem(gemm_kernel<W>, bytes);
+template <typename F>
+cudaError_t launch(F* kernel, const Stage& st, int threads, size_t smem,
+                   cudaStream_t stream) {
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(N / GBN, (M + GBM - 1) / GBM);
-  gemm_kernel<W><<<grid, GTHREADS, bytes, st>>>(A, M, K, ln_g, ln_b, ln_eps,
-                                                B, N, bias, swish, res, C);
+  kernel<<<stage_tiles(st), threads, smem, stream>>>(st);
   return cudaGetLastError();
 }
 
-template <bool RB>
-cudaError_t attention(cudaStream_t st, const float* qkv, const float* mask,
-                      float* out, int T, int D, int H, float scale) {
-  if (D % H || (D / H) % 4) return cudaErrorInvalidValue;
-  const size_t bytes = attention_smem_floats(T, D / H) * sizeof(float);
-  const cudaError_t e = allow_smem(attention_kernel<RB>, bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(H, (T + AQ - 1) / AQ);
-  attention_kernel<RB><<<grid, ATHREADS, bytes, st>>>(qkv, mask, out, T, D, H,
-                                                      scale);
-  return cudaGetLastError();
-}
-
-cudaError_t dwconv(cudaStream_t st, const float* in, int glu, const float* w,
-                   int Kw, int pad_left, const float* bias, const float* bn_g,
-                   const float* bn_b, const float* bn_m, const float* bn_v,
-                   int swish, float* out, int T, int C) {
-  const int threads = 256, blocks = (T * C + threads - 1) / threads;
-  dwconv_kernel<<<blocks, threads, 0, st>>>(in, glu, w, Kw, pad_left, bias,
-                                            bn_g, bn_b, bn_m, bn_v, swish, out,
-                                            T, C);
-  return cudaGetLastError();
-}
-
-// x += h * SE-gate(h); gate is [D] scratch.
-template <typename W>
-cudaError_t squeeze_excite(cudaStream_t st, const float* h, const float* mask,
-                           const W* w1, const float* b1, const W* w2,
-                           const float* b2, float* gate, float* x, int T,
-                           int D, int R) {
-  const size_t bytes = ((size_t)se_parts(D) * D + D + R) * sizeof(float);
-  cudaError_t e = allow_smem(se_gate_kernel<W>, bytes);
-  if (e != cudaSuccess) return e;
-  se_gate_kernel<W><<<1, SE_THREADS, bytes, st>>>(h, mask, w1, b1, w2, b2,
-                                                  gate, T, D, R);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int threads = 256, blocks = (T * D + threads - 1) / threads;
-  se_apply_kernel<<<blocks, threads, 0, st>>>(x, h, gate, T, D);
-  return cudaGetLastError();
-}
-
-cudaError_t layernorm(cudaStream_t st, float* x, const float* g,
-                      const float* b, float eps, int T, int D) {
-  const int warps = 8;
-  layernorm_kernel<<<(T + warps - 1) / warps, 32 * warps, 0, st>>>(x, g, b, eps,
-                                                                   T, D);
-  return cudaGetLastError();
-}
-
-// The i-th leaf of block blk: leaves are stacked on a leading block axis.
-struct Leaves {
-  void* const* ptr;
-  const long long* stride;  // bytes from one block to the next
-  int blk;
-  template <typename P>
-  const P* at(int i) const {
-    return reinterpret_cast<const P*>(static_cast<const char*>(ptr[i]) +
-                                      (size_t)blk * stride[i]);
+template <typename W, bool RB>
+cudaError_t launch_stage(const Stage& st, cudaStream_t stream) {
+  const size_t smem = stage_smem_bytes<W>(st);
+  switch (st.op) {
+    case OP_GEMM: return launch(gemm_kernel<W>, st, GTHREADS, smem, stream);
+    case OP_ATTENTION:
+      return launch(attention_kernel<RB>, st, GTHREADS, smem, stream);
+    case OP_DWCONV: return launch(dwconv_kernel, st, GTHREADS, smem, stream);
+    case OP_SE_GATE:
+      return launch(se_gate_kernel<W>, st, GATE_THREADS, smem, stream);
+    case OP_ECA_GATE:
+      return launch(eca_gate_kernel, st, GATE_THREADS, smem, stream);
+    case OP_APPLY: return launch(se_apply_kernel, st, GTHREADS, smem, stream);
+    case OP_LAYERNORM:
+      return launch(layernorm_kernel, st, GTHREADS, smem, stream);
   }
-  const float* f(int i) const { return at<float>(i); }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The stages of a stack. A stack is nblocks groups; a group is nconv
+// Conv1DBlocks (4 stages each) and one inner block of kind 0 Squeezeformer
+// (12 stages), 1 Conformer (11) or 2 Transformer (5). Leaves are stacked on
+// a leading group axis: leaf i of group g is leaf[i] + g * stride[i]; the
+// first 10 * nconv are the Conv1DBlocks' (leaf order of _conv1d_args), the
+// rest the inner block's (_squeeze_args / _conformer_args /
+// _transformer_args). sleaf[i] is the int8 scale of matrix leaf i, or null.
+// ---------------------------------------------------------------------------
+constexpr int MAX_LEAVES = 72, MAX_CONV = 4, CONV_LEAVES = 10, CONV_STAGES = 4;
+
+struct StackParams {
+  int kind, nconv, nblocks, nleaves;
+  int T, D, H, F, E, Kw, R, C2;
+  int conv_k[MAX_CONV], eca_k[MAX_CONV];
+  float scale;
+  const float* x;
+  const float* mask;
+  float* out;
+  float *qkv, *hid, *hid2, *att, *hb, *gate;  // scratch
+  const char* leaf[MAX_LEAVES];
+  long long stride[MAX_LEAVES];
+  const char* sleaf[MAX_LEAVES];
+  long long sstride[MAX_LEAVES];
 };
+
+__host__ __device__ inline int inner_leaves(int kind) {
+  return kind == 0 ? 27 : kind == 1 ? 26 : 8;
+}
+__host__ __device__ inline int inner_stages(int kind) {
+  return kind == 0 ? 12 : kind == 1 ? 11 : 5;
+}
+__host__ __device__ inline int group_stages(const StackParams& P) {
+  return P.nconv * CONV_STAGES + inner_stages(P.kind);
+}
+
+// The leaves of one group, counted from base.
+struct Leaves {
+  const StackParams& P;
+  int base, grp;
+  __host__ __device__ const void* w(int i) const {
+    return P.leaf[base + i] + (size_t)grp * P.stride[base + i];
+  }
+  __host__ __device__ const float* f(int i) const {
+    return static_cast<const float*>(w(i));
+  }
+  __host__ __device__ const float* s(int i) const {  // int8 scale or null
+    const char* p = P.sleaf[base + i];
+    return p ? reinterpret_cast<const float*>(
+                   p + (size_t)grp * P.sstride[base + i])
+             : nullptr;
+  }
+};
+
+// out[M,N] = epilogue(LN(in) @ leaf wi), see gemm_tile.
+__host__ __device__ inline Stage gemm_stage(const Leaves& L, const float* in,
+                                            int M, int K, int ln_g, int ln_b,
+                                            int wi, int N, int bias, int swish,
+                                            const float* res, float* out) {
+  Stage st{};
+  st.op = OP_GEMM;
+  st.in = in;
+  st.M = M;
+  st.K = K;
+  st.N = N;
+  if (ln_g >= 0) {
+    st.ln_g = L.f(ln_g);
+    st.ln_b = L.f(ln_b);
+    st.eps = LN_EPS;
+  }
+  st.w = L.w(wi);
+  st.wscale = L.s(wi);
+  if (bias >= 0) st.bias = L.f(bias);
+  st.swish = swish;
+  st.res = res;
+  st.out = out;
+  return st;
+}
+
+__host__ __device__ inline Stage attention_stage(const StackParams& P) {
+  Stage st{};
+  st.op = OP_ATTENTION;
+  st.in = P.qkv;
+  st.mask = P.mask;
+  st.out = P.att;
+  st.M = P.T;
+  st.N = P.D;
+  st.heads = P.H;
+  st.scale = P.scale;
+  return st;
+}
+
+__host__ __device__ inline Stage dwconv_stage(const float* in, int glu,
+                                              const float* w, int Kw,
+                                              int pad_left, float* out, int T,
+                                              int C, int swish) {
+  Stage st{};
+  st.op = OP_DWCONV;
+  st.in = in;
+  st.glu = glu;
+  st.w = w;
+  st.K = Kw;
+  st.pad_left = pad_left;
+  st.out = out;
+  st.M = T;
+  st.N = C;
+  st.swish = swish;
+  return st;
+}
+
+// Stage s of Conv1DBlock j of group grp: expand (swish) -> causal depthwise
+// conv + BN -> ECA gate -> project of the gated rows + skip.
+__host__ __device__ inline Stage conv_stage(const StackParams& P, int grp,
+                                            int j, int s) {
+  const Leaves L{P, j * CONV_LEAVES, grp};
+  const float* cur = (grp == 0 && j == 0) ? P.x : P.out;
+  const int T = P.T, D = P.D, C = P.C2, Kc = P.conv_k[j];
+  switch (s) {
+    case 0: return gemm_stage(L, cur, T, D, -1, -1, 0, C, 1, 1, nullptr, P.hid);
+    case 1: {
+      Stage st = dwconv_stage(P.hid, 0, L.f(2), Kc, Kc - 1, P.hid2, T, C, 0);
+      st.bn_g = L.f(3);
+      st.bn_b = L.f(4);
+      st.bn_m = L.f(5);
+      st.bn_v = L.f(6);
+      return st;
+    }
+    case 2: {
+      Stage st{};
+      st.op = OP_ECA_GATE;
+      st.in = P.hid2;
+      st.mask = P.mask;
+      st.w = L.w(7);
+      st.K = P.eca_k[j];
+      st.out = P.gate;
+      st.M = T;
+      st.N = C;
+      return st;
+    }
+    default: {
+      Stage st = gemm_stage(L, P.hid2, T, C, -1, -1, 8, D, 9, 0, cur, P.out);
+      st.gate = P.gate;
+      return st;
+    }
+  }
+}
+
+// Stage s of the inner block of group grp.
+__host__ __device__ inline Stage inner_stage(const StackParams& P, int grp,
+                                             int s) {
+  const Leaves L{P, P.nconv * CONV_LEAVES, grp};
+  const float* cur = (grp == 0 && P.nconv == 0) ? P.x : P.out;
+  float* out = P.out;
+  const int T = P.T, D = P.D, F = P.F, E = P.E, Kw = P.Kw;
+  if (P.kind == 0) {  // Squeezeformer, leaf order of _squeeze_args
+    switch (s) {
+      // FFN1: x + W2 swish(W1 LN(x) + b1) + b2
+      case 0: return gemm_stage(L, cur, T, D, 0, 1, 2, F, 3, 1, nullptr, P.hid);
+      case 1: return gemm_stage(L, P.hid, T, F, -1, -1, 4, D, 5, 0, cur, out);
+      // MHSA: x + proj(attention(qkv(LN(x))))
+      case 2:
+        return gemm_stage(L, out, T, D, 6, 7, 8, 3 * D, -1, 0, nullptr, P.qkv);
+      case 3: return attention_stage(P);
+      case 4: return gemm_stage(L, P.att, T, D, -1, -1, 9, D, -1, 0, out, out);
+      // Conv module: LN -> pw1 swish -> causal dw swish -> pw2 -> SE -> +x
+      case 5:
+        return gemm_stage(L, out, T, D, 10, 11, 12, E, 13, 1, nullptr, P.hid);
+      case 6:
+        return dwconv_stage(P.hid, 0, L.f(14), Kw, Kw - 1, P.hid2, T, E, 1);
+      case 7:
+        return gemm_stage(L, P.hid2, T, E, -1, -1, 15, D, 16, 0, nullptr,
+                          P.hb);
+      case 8: {
+        Stage st{};
+        st.op = OP_SE_GATE;
+        st.in = P.hb;
+        st.mask = P.mask;
+        st.w = L.w(17);
+        st.wscale = L.s(17);
+        st.bias = L.f(18);
+        st.w2 = L.w(19);
+        st.w2scale = L.s(19);
+        st.bias2 = L.f(20);
+        st.out = P.gate;
+        st.M = T;
+        st.N = D;
+        st.K = P.R;
+        return st;
+      }
+      case 9: {
+        Stage st{};
+        st.op = OP_APPLY;
+        st.in = P.hb;
+        st.gate = P.gate;
+        st.out = out;
+        st.M = T;
+        st.N = D;
+        return st;
+      }
+      // FFN2
+      case 10:
+        return gemm_stage(L, out, T, D, 21, 22, 23, F, 24, 1, nullptr, P.hid);
+      default: return gemm_stage(L, P.hid, T, F, -1, -1, 25, D, 26, 0, out, out);
+    }
+  }
+  if (P.kind == 1) {  // Conformer, leaf order of _conformer_args
+    switch (s) {
+      // FFN1 and MHSA share ln1
+      case 0: return gemm_stage(L, cur, T, D, 0, 1, 2, F, 3, 1, nullptr, P.hid);
+      case 1: return gemm_stage(L, P.hid, T, F, -1, -1, 4, D, 5, 0, cur, out);
+      case 2:
+        return gemm_stage(L, out, T, D, 0, 1, 6, 3 * D, -1, 0, nullptr, P.qkv);
+      case 3: return attention_stage(P);
+      case 4: return gemm_stage(L, P.att, T, D, -1, -1, 7, D, -1, 0, out, out);
+      // Conv module: pw1 -> GLU -> 'same' dw + bias -> BN -> pw2 -> LN(h + x)
+      case 5:
+        return gemm_stage(L, out, T, D, -1, -1, 8, 2 * D, 9, 0, nullptr, P.hid);
+      case 6: {
+        Stage st = dwconv_stage(P.hid, 1, L.f(10), Kw, (Kw - 1) / 2, P.hid2, T,
+                                D, 0);
+        st.bias = L.f(11);
+        st.bn_g = L.f(12);
+        st.bn_b = L.f(13);
+        st.bn_m = L.f(14);
+        st.bn_v = L.f(15);
+        return st;
+      }
+      case 7:
+        return gemm_stage(L, P.hid2, T, D, -1, -1, 16, D, 17, 0, out, out);
+      case 8: {
+        Stage st{};
+        st.op = OP_LAYERNORM;
+        st.out = out;
+        st.ln_g = L.f(18);
+        st.ln_b = L.f(19);
+        st.eps = LN_EPS_DEFAULT;
+        st.M = T;
+        st.N = D;
+        return st;
+      }
+      // FFN2
+      case 9:
+        return gemm_stage(L, out, T, D, 20, 21, 22, F, 23, 1, nullptr, P.hid);
+      default: return gemm_stage(L, P.hid, T, F, -1, -1, 24, D, 25, 0, out, out);
+    }
+  }
+  switch (s) {  // Transformer, leaf order of _transformer_args
+    // pre-LN MHSA
+    case 0:
+      return gemm_stage(L, cur, T, D, 0, 1, 2, 3 * D, -1, 0, nullptr, P.qkv);
+    case 1: return attention_stage(P);
+    case 2: return gemm_stage(L, P.att, T, D, -1, -1, 3, D, -1, 0, cur, out);
+    // pre-LN swish FFN, no biases
+    case 3: return gemm_stage(L, out, T, D, 4, 5, 6, F, -1, 1, nullptr, P.hid);
+    default: return gemm_stage(L, P.hid, T, F, -1, -1, 7, D, -1, 0, out, out);
+  }
+}
+
+__host__ __device__ inline Stage make_stage(const StackParams& P, int grp,
+                                            int s) {
+  const int nc = P.nconv * CONV_STAGES;
+  return s < nc ? conv_stage(P, grp, s / CONV_STAGES, s % CONV_STAGES)
+                : inner_stage(P, grp, s - nc);
+}
+
+// ---------------------------------------------------------------------------
+// The persistent form: one cooperative launch walks every stage of every
+// group, all blocks taking tiles of the current stage in turn and meeting at
+// a grid-wide barrier before the next. At the start of group g each thread
+// asks L2 for its share of the lines of group g+1's weights (and, at g = 0,
+// of group 0's), so that their stream from device memory overlaps group g's
+// compute, as the TPU kernel's second buffer does.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void prefetch_group(const StackParams& P, int grp) {
+  if (grp >= P.nblocks) return;
+  const size_t first =
+      ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 128;
+  const size_t step = (size_t)gridDim.x * blockDim.x * 128;
+  for (int i = 0; i < P.nleaves; ++i) {
+    const char* w = P.leaf[i] + (size_t)grp * P.stride[i];
+    for (size_t o = first; o < (size_t)P.stride[i]; o += step)
+      prefetch_l2(w + o);
+    if (P.sleaf[i]) {
+      const char* s = P.sleaf[i] + (size_t)grp * P.sstride[i];
+      for (size_t o = first; o < (size_t)P.sstride[i]; o += step)
+        prefetch_l2(s + o);
+    }
+  }
+}
+
+template <typename W, bool RB>
+__global__ void __launch_bounds__(GTHREADS)
+stack_persistent_kernel(const __grid_constant__ StackParams P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ Stage st;
+  const int nst = group_stages(P);
+  for (int grp = 0; grp < P.nblocks; ++grp) {
+    if (grp == 0) prefetch_group(P, 0);
+    prefetch_group(P, grp + 1);
+    for (int s = 0; s < nst; ++s) {
+      if (threadIdx.x == 0) st = make_stage(P, grp, s);
+      __syncthreads();
+      const int nt = stage_tiles(st);
+      for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+        switch (st.op) {
+          case OP_GEMM: gemm_tile<W>(st, t); break;
+          case OP_ATTENTION: attention_tile<RB>(st, t); break;
+          case OP_DWCONV: dwconv_tile(st, t); break;
+          case OP_SE_GATE: se_gate_tile<W>(st); break;
+          case OP_ECA_GATE: eca_gate_tile(st); break;
+          case OP_APPLY: apply_tile(st, t); break;
+          case OP_LAYERNORM: layernorm_tile(st, t); break;
+        }
+      }
+      // the stage's writes are visible to every block after the barrier
+      if (grp + 1 < P.nblocks || s + 1 < nst) grid.sync();
+    }
+  }
+}
 
 #define TRY(call)                               \
   do {                                          \
@@ -575,78 +1070,54 @@ struct Leaves {
     if (e_ != cudaSuccess) return (int)e_;      \
   } while (0)
 
-// Leaf order of _squeeze_args in the reference.
+// info, if given, receives {grid blocks, blocks an SM holds, dynamic shared
+// memory bytes} of the persistent launch.
 template <typename W, bool RB>
-int squeeze_stack(const float* x, const float* mask, float* out,
-                  void* const* leaves, const long long* strides, int nblocks,
-                  int T, int D, int H, int F, int E, int Kw, int R, float scale,
-                  float* qkv, float* hid, float* hid2, float* att, float* hb,
-                  float* gate, cudaStream_t st) {
-  for (int blk = 0; blk < nblocks; ++blk) {
-    const Leaves L{leaves, strides, blk};
-    const float* cur = blk == 0 ? x : out;
-    // FFN1: x + W2 swish(W1 LN(x) + b1) + b2
-    TRY(gemm(st, cur, T, D, L.f(0), L.f(1), LN_EPS, L.at<W>(2), F, L.f(3), 1,
-             nullptr, hid));
-    TRY(gemm(st, hid, T, F, nullptr, nullptr, 0.f, L.at<W>(4), D, L.f(5), 0,
-             cur, out));
-    // MHSA: x + proj(attention(qkv(LN(x))))
-    TRY(gemm(st, out, T, D, L.f(6), L.f(7), LN_EPS, L.at<W>(8), 3 * D, nullptr,
-             0, nullptr, qkv));
-    TRY(attention<RB>(st, qkv, mask, att, T, D, H, scale));
-    TRY(gemm(st, att, T, D, nullptr, nullptr, 0.f, L.at<W>(9), D, nullptr, 0,
-             out, out));
-    // Conv module: LN -> pw1 swish -> causal dw swish -> pw2 -> SE -> +x
-    TRY(gemm(st, out, T, D, L.f(10), L.f(11), LN_EPS, L.at<W>(12), E, L.f(13),
-             1, nullptr, hid));
-    TRY(dwconv(st, hid, 0, L.f(14), Kw, Kw - 1, nullptr, nullptr, nullptr,
-               nullptr, nullptr, 1, hid2, T, E));
-    TRY(gemm(st, hid2, T, E, nullptr, nullptr, 0.f, L.at<W>(15), D, L.f(16), 0,
-             nullptr, hb));
-    TRY(squeeze_excite(st, hb, mask, L.at<W>(17), L.f(18), L.at<W>(19),
-                       L.f(20), gate, out, T, D, R));
-    // FFN2
-    TRY(gemm(st, out, T, D, L.f(21), L.f(22), LN_EPS, L.at<W>(23), F, L.f(24),
-             1, nullptr, hid));
-    TRY(gemm(st, hid, T, F, nullptr, nullptr, 0.f, L.at<W>(25), D, L.f(26), 0,
-             out, out));
+int run_stack(const StackParams& P, int persistent, int* info,
+              cudaStream_t stream) {
+  const int nst = group_stages(P);
+  if (!persistent) {
+    for (int grp = 0; grp < P.nblocks; ++grp)
+      for (int s = 0; s < nst; ++s)
+        TRY((launch_stage<W, RB>(make_stage(P, grp, s), stream)));
+    return 0;
   }
-  return 0;
-}
-
-// Leaf order of _conformer_args in the reference.
-template <typename W, bool RB>
-int conformer_stack(const float* x, const float* mask, float* out,
-                    void* const* leaves, const long long* strides, int nblocks,
-                    int T, int D, int H, int F, int Kw, float scale,
-                    float* qkv, float* hid, float* hid2, float* att,
-                    cudaStream_t st) {
-  for (int blk = 0; blk < nblocks; ++blk) {
-    const Leaves L{leaves, strides, blk};
-    const float* cur = blk == 0 ? x : out;
-    // FFN1 and MHSA share ln1
-    TRY(gemm(st, cur, T, D, L.f(0), L.f(1), LN_EPS, L.at<W>(2), F, L.f(3), 1,
-             nullptr, hid));
-    TRY(gemm(st, hid, T, F, nullptr, nullptr, 0.f, L.at<W>(4), D, L.f(5), 0,
-             cur, out));
-    TRY(gemm(st, out, T, D, L.f(0), L.f(1), LN_EPS, L.at<W>(6), 3 * D, nullptr,
-             0, nullptr, qkv));
-    TRY(attention<RB>(st, qkv, mask, att, T, D, H, scale));
-    TRY(gemm(st, att, T, D, nullptr, nullptr, 0.f, L.at<W>(7), D, nullptr, 0,
-             out, out));
-    // Conv module: pw1 -> GLU -> 'same' dw + bias -> BN -> pw2 -> LN(h + x)
-    TRY(gemm(st, out, T, D, nullptr, nullptr, 0.f, L.at<W>(8), 2 * D, L.f(9),
-             0, nullptr, hid));
-    TRY(dwconv(st, hid, 1, L.f(10), Kw, (Kw - 1) / 2, L.f(11), L.f(12),
-               L.f(13), L.f(14), L.f(15), 0, hid2, T, D));
-    TRY(gemm(st, hid2, T, D, nullptr, nullptr, 0.f, L.at<W>(16), D, L.f(17), 0,
-             out, out));
-    TRY(layernorm(st, out, L.f(18), L.f(19), LN_EPS_DEFAULT, T, D));
-    // FFN2
-    TRY(gemm(st, out, T, D, L.f(20), L.f(21), LN_EPS, L.at<W>(22), F, L.f(23),
-             1, nullptr, hid));
-    TRY(gemm(st, hid, T, F, nullptr, nullptr, 0.f, L.at<W>(24), D, L.f(25), 0,
-             out, out));
+  size_t smem = 0;
+  int tiles = 1;
+  for (int s = 0; s < nst; ++s) {
+    const Stage st = make_stage(P, 0, s);
+    const size_t b = stage_smem_bytes<W>(st);
+    smem = b > smem ? b : smem;
+    // the GEMM and attention stages size the grid: their tiles are long,
+    // while a block walks several elementwise tiles at little cost and
+    // every block more makes each barrier slower
+    const int t = (st.op == OP_GEMM || st.op == OP_ATTENTION)
+                      ? stage_tiles(st) : 1;
+    tiles = t > tiles ? t : tiles;
+  }
+  auto* kernel = stack_persistent_kernel<W, RB>;
+  // The grid may not exceed what is resident at once, or the barrier never
+  // completes: size it from the occupancy at this shared-memory size.
+  int device = 0, sms = 0, per_sm = 0, cooperative = 0;
+  TRY(cudaGetDevice(&device));
+  TRY(cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch,
+                             device));
+  if (!cooperative) return (int)cudaErrorNotSupported;
+  TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem));
+  TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GTHREADS,
+                                                    smem));
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const int blocks = tiles < per_sm * sms ? tiles : per_sm * sms;
+  void* args[] = {const_cast<StackParams*>(&P)};
+  TRY(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                  dim3(blocks), dim3(GTHREADS), args, smem,
+                                  stream));
+  if (info) {
+    info[0] = blocks;
+    info[1] = per_sm;
+    info[2] = (int)smem;
   }
   return 0;
 }
@@ -655,48 +1126,72 @@ int conformer_stack(const float* x, const float* mask, float* out,
 
 extern "C" {
 
-// x, out [T, D] f32; mask [T] f32 of 1/0; leaves: the 27 stacked leaves of
-// _squeeze_args, matrices at bf16 (bf16 != 0) or f32; scratch: qkv [T, 3D],
-// hid [T, max(F, E)], hid2 [T, E], att [T, D], hb [T, D], gate [D]. Every
-// pointer and block stride 16-byte aligned; D, F and E multiples of 32,
-// D / H a multiple of 4. Returns a cudaError_t (0 on success).
-int ishara_squeeze_stack(int device, const float* x, const float* mask,
-                         float* out, void* const* leaves,
-                         const long long* strides, int nblocks, int T, int D,
-                         int H, int F, int E, int Kw, int R, float scale,
-                         int bf16, float* qkv, float* hid, float* hid2,
-                         float* att, float* hb, float* gate, void* stream) {
+// N groups of (nconv Conv1DBlocks, one inner block of kind 0 Squeezeformer /
+// 1 Conformer / 2 Transformer) on x [T, D] f32 into out [T, D]; mask [T] f32
+// of 1/0. leaves / strides: the stacked leaves (see StackParams) and their
+// bytes from one group to the next; scales / scale_strides: for each leaf its
+// int8 scale leaf or null. conv_k, eca_k [nconv]: the Conv1DBlocks' depthwise
+// and ECA kernel sizes. storage: 0 f32, 1 bf16, 2 int8 matrices. persistent:
+// 0 one launch a stage, 1 one cooperative launch for the stack. Scratch:
+// qkv [T, 3D]; hid, hid2 [T, max(F, E, 2D, C2)]; att, hb [T, D];
+// gate [max(D, C2)]. Every matrix and vector leaf, its group stride and every
+// scratch pointer 16-byte aligned; D, F, E and C2 multiples of 32, D / H a
+// multiple of 4. Returns a cudaError_t (0 on success).
+int ishara_block_stack(int device, int kind, int nconv, const int* conv_k,
+                       const int* eca_k, const float* x, const float* mask,
+                       float* out, void* const* leaves,
+                       const long long* strides, void* const* scales,
+                       const long long* scale_strides, int nleaves,
+                       int nblocks, int T, int D, int H, int F, int E, int Kw,
+                       int R, int C2, float scale, int storage, int persistent,
+                       float* qkv, float* hid, float* hid2, float* att,
+                       float* hb, float* gate, void* stream, int* info) {
+  if (kind < 0 || kind > 2 || nconv < 0 || nconv > MAX_CONV ||
+      nleaves != nconv * CONV_LEAVES + inner_leaves(kind) ||
+      nleaves > MAX_LEAVES || nblocks < 1 || storage < 0 || storage > 2 ||
+      D % GBN || F % GBN || (kind == 0 && E % GBN) || (nconv && C2 % GBN) ||
+      D % H || (D / H) % 4)
+    return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  StackParams P{};
+  P.kind = kind;
+  P.nconv = nconv;
+  P.nblocks = nblocks;
+  P.nleaves = nleaves;
+  P.T = T;
+  P.D = D;
+  P.H = H;
+  P.F = F;
+  P.E = E;
+  P.Kw = Kw;
+  P.R = R;
+  P.C2 = C2;
+  for (int j = 0; j < nconv; ++j) {
+    P.conv_k[j] = conv_k[j];
+    P.eca_k[j] = eca_k[j];
+  }
+  P.scale = scale;
+  P.x = x;
+  P.mask = mask;
+  P.out = out;
+  P.qkv = qkv;
+  P.hid = hid;
+  P.hid2 = hid2;
+  P.att = att;
+  P.hb = hb;
+  P.gate = gate;
+  for (int i = 0; i < nleaves; ++i) {
+    P.leaf[i] = static_cast<const char*>(leaves[i]);
+    P.stride[i] = strides[i];
+    P.sleaf[i] = static_cast<const char*>(scales[i]);
+    P.sstride[i] = scale_strides[i];
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return squeeze_stack<__nv_bfloat16, true>(x, mask, out, leaves, strides,
-                                              nblocks, T, D, H, F, E, Kw, R,
-                                              scale, qkv, hid, hid2, att, hb,
-                                              gate, st);
-  return squeeze_stack<float, false>(x, mask, out, leaves, strides, nblocks, T,
-                                     D, H, F, E, Kw, R, scale, qkv, hid, hid2,
-                                     att, hb, gate, st);
-}
-
-// As above for the 26 leaves of _conformer_args; scratch: qkv [T, 3D],
-// hid [T, max(F, 2D)], hid2 [T, D], att [T, D].
-int ishara_conformer_stack(int device, const float* x, const float* mask,
-                           float* out, void* const* leaves,
-                           const long long* strides, int nblocks, int T, int D,
-                           int H, int F, int Kw, float scale, int bf16,
-                           float* qkv, float* hid, float* hid2, float* att,
-                           void* stream) {
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return conformer_stack<__nv_bfloat16, true>(x, mask, out, leaves, strides,
-                                                nblocks, T, D, H, F, Kw, scale,
-                                                qkv, hid, hid2, att, st);
-  return conformer_stack<float, false>(x, mask, out, leaves, strides, nblocks,
-                                       T, D, H, F, Kw, scale, qkv, hid, hid2,
-                                       att, st);
+  if (storage == 2) return run_stack<int8_t, true>(P, persistent, info, st);
+  if (storage == 1)
+    return run_stack<__nv_bfloat16, true>(P, persistent, info, st);
+  return run_stack<float, false>(P, persistent, info, st);
 }
 
 const char* ishara_error_string(int code) {

@@ -4,7 +4,9 @@ Raw landmark frames -> thin -> normalize/resample -> encoder -> greedy CTC
 collapse -> short-output fallback, all on the device: the host pads the raw
 sequence into a fixed ``[max_raw_frames, 276]`` buffer, and the only sync is
 the copy of the ids back. ``fused=True`` runs the encoder blocks through the
-hand-written CUDA kernels (:mod:`ishara_tpu_torch.ops.fused_block`).
+hand-written CUDA kernels (:mod:`ishara_tpu_torch.ops.fused_block`),
+``fused="int8"`` with the matmul weights stored as int8, ``dma=True`` with
+each block stack as one persistent kernel.
 
 The reference's fallback substitutes the constant phrase "2 a-e -aroe"
 whenever the decode yields fewer than 3 characters; reproduced here.
@@ -46,8 +48,12 @@ def make_serving_program(model: IsharaEncoder, stats: GroupStats,
     ``fused=True`` runs the encoder through :class:`~ishara_tpu_torch.ops.
     fused_block.FusedEncoder` with the block weights packed once, here, at
     ``compute_dtype`` (bf16, the reference's deploy default, or f32).
-    ``decode="beam"``, ``fused="int8"`` and ``dma=True`` are not ported yet
-    and raise ``NotImplementedError`` (ROADMAP.md)."""
+    ``fused="int8"`` quantizes the weights once, here, never per request
+    (the reference's ``prepare_serving_variables``), and the kernels scale
+    each product after the dot. ``dma=True`` (with either fused mode) runs
+    each stack as one persistent kernel that prefetches the next block's
+    weights. ``decode="beam"`` is not ported yet and raises
+    ``NotImplementedError`` (ROADMAP.md)."""
     cfg = model.cfg
     check_variant(cfg)
     if decode == "beam":
@@ -56,18 +62,17 @@ def make_serving_program(model: IsharaEncoder, stats: GroupStats,
             "CTC beam decoding)")
     if decode != "greedy":
         raise ValueError(f"decode must be 'greedy' or 'beam', got {decode!r}")
-    if fused == "int8" or dma:
-        raise NotImplementedError(
-            'fused="int8" and dma=True (kernels K5e, K5d) are not ported yet '
-            "(ROADMAP.md Queue 2, int8/dma fused serving)")
-    if fused not in (False, True):
+    if fused not in (False, True, "int8"):
         raise ValueError(f"fused must be False, True or 'int8', got {fused!r}")
     device = next(model.parameters()).device
     if fused:
-        from ..ops.fused_block import FusedEncoder
+        from ..ops.fused_block import FusedEncoder, quantize_serving_weights
 
-        encoder = FusedEncoder(cfg, model.state_dict(),
-                               compute_dtype=compute_dtype, device=device)
+        sd = model.state_dict()
+        if fused == "int8":
+            sd, compute_dtype = quantize_serving_weights(sd), "int8"
+        encoder = FusedEncoder(cfg, sd, compute_dtype=compute_dtype, dma=dma,
+                               device=device)
     else:
         def encoder(x):
             return model(x[None])[0]

@@ -1,7 +1,8 @@
 """The port's ``IsharaEncoder`` (PyTorch, CPU, f32) against the flax model's
 eval logits, with the flax variables bridged (non-trivial LN/BN affine
-parameters and BN running statistics). Tolerance: atol = rtol = 1e-4 (both
-f32; sums run in another order)."""
+parameters and BN running statistics). Tolerance: atol = rtol = 1e-4 for
+the encoder and the attention blocks (both f32; sums run in another order),
+1e-5 for the conv families' layers and blocks taken alone."""
 
 import jax
 import jax.numpy as jnp
@@ -9,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from ishara_tpu.models import blocks as jblocks
+from ishara_tpu.models import layers as jlayers
 from ishara_tpu.models.blocks import ConformerBlock as JConformerBlock
 from ishara_tpu.models.blocks import SqueezeformerBlock as JSqueezeBlock
 
 from ishara_tpu_torch.bridge import flax_to_state_dict
+from ishara_tpu_torch.models import blocks as tblocks
+from ishara_tpu_torch.models import layers as tlayers
 from ishara_tpu_torch.models.blocks import ConformerBlock, SqueezeformerBlock
 
 from torch_port_helpers import jax_model, perturb, port_model, small_config
@@ -31,7 +36,8 @@ def _inputs(kind, cfg):
 
 
 @pytest.mark.parametrize("kind", ["padded", "all_padding"])
-@pytest.mark.parametrize("variant", ["squeezeformer", "conformer", "hybrid"])
+@pytest.mark.parametrize("variant", ["squeezeformer", "conformer", "hybrid",
+                                     "conv_hybrid", "conv_transformer"])
 def test_encoder_matches_flax(variant, kind):
     cfg = small_config(variant)
     model, variables = jax_model(cfg)
@@ -66,6 +72,43 @@ def test_block_matches_flax(block):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["eca", "eca_even", "causal_dw",
+                                  "causal_dw_dilated", "conv1d_k7",
+                                  "conv1d_k3", "conv1d_widen", "transformer"])
+def test_conv_family_module_matches_flax(name):
+    """ECA, CausalDWConv1D, Conv1DBlock and TransformerBlock alone, bridged
+    from their own variables, on an input with masked frames (f32, 1e-5)."""
+    T, dim, heads = 24, 64, 4
+    jm, tm, masked = {
+        "eca": (jlayers.ECA(5), tlayers.ECA(5), True),
+        "eca_even": (jlayers.ECA(4), tlayers.ECA(4), True),
+        "causal_dw": (jlayers.CausalDWConv1D(7),
+                      tlayers.CausalDWConv1D(dim, 7), False),
+        "causal_dw_dilated": (jlayers.CausalDWConv1D(3, 2, True),
+                              tlayers.CausalDWConv1D(dim, 3, 2, True), False),
+        "conv1d_k7": (jblocks.Conv1DBlock(dim, 7),
+                      tblocks.Conv1DBlock(dim, dim, 7), True),
+        "conv1d_k3": (jblocks.Conv1DBlock(dim, 3),
+                      tblocks.Conv1DBlock(dim, dim, 3), True),
+        "conv1d_widen": (jblocks.Conv1DBlock(2 * dim, 5),  # no skip add
+                         tblocks.Conv1DBlock(dim, 2 * dim, 5), True),
+        "transformer": (jblocks.TransformerBlock(dim, heads, 2, 0.0, 0.0),
+                        tblocks.TransformerBlock(dim, heads, 2), True),
+    }[name]
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, T, dim)).astype(np.float32)
+    mask = rng.random((2, T)) > 0.3
+    args = (jnp.asarray(x), jnp.asarray(mask)) if masked else (jnp.asarray(x),)
+    variables = perturb(jm.init(jax.random.key(0), *args))
+    want = np.asarray(jm.apply(variables, *args))
+    tm.load_state_dict(flax_to_state_dict(variables))
+    targs = (torch.from_numpy(x), torch.from_numpy(mask)) if masked \
+        else (torch.from_numpy(x),)
+    with torch.no_grad():
+        got = tm.eval()(*targs).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_bridge_covers_every_tensor():
     """The bridged state_dict has exactly the port model's keys and
     shapes (load_state_dict is strict), and layouts are transposed."""
@@ -86,8 +129,25 @@ def test_bridge_covers_every_tensor():
     np.testing.assert_array_equal(sd["stem_bn.running_var"].numpy(), var)
 
 
-@pytest.mark.parametrize("variant", ["conv_hybrid", "conv_transformer",
-                                     "parallel_branches"])
+@pytest.mark.parametrize("variant", ["conv_hybrid", "conv_transformer"])
+def test_bridge_covers_every_conv_family_tensor(variant):
+    cfg = small_config(variant)
+    _, variables = jax_model(cfg)
+    sd = flax_to_state_dict(variables)
+    own = port_model(cfg, variables).state_dict()
+    assert set(sd) == set(own)
+    for k, v in own.items():
+        assert tuple(sd[k].shape) == tuple(v.shape), k
+    tag = "squeeze1" if variant == "conv_hybrid" else "t1"
+    eca = np.asarray(variables["params"][f"conv_{tag}_1"]["eca"]["conv"]
+                     ["kernel"])
+    np.testing.assert_array_equal(
+        sd[f"conv_{tag[:-1]}.1.1.eca.conv.weight"].numpy(),
+        eca.transpose(2, 1, 0))
+
+
+@pytest.mark.parametrize("variant", ["parallel_branches",
+                                     "squeezeformer_unet"])
 def test_unported_variants_raise(variant):
     from ishara_tpu_torch.config import EncoderConfig
     from ishara_tpu_torch.models.encoder import build_model
@@ -97,3 +157,22 @@ def test_unported_variants_raise(variant):
     with pytest.raises(NotImplementedError, match="causal"):
         build_model(EncoderConfig(variant="hybrid", dim=32, causal=True),
                     device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["conv_hybrid", "conv_transformer"])
+def test_causal_conv_family_raises_as_the_reference(variant):
+    """The reference refuses causal mode for the conv families with a
+    ValueError (their ECA gate sees the whole sequence); so does the port."""
+    from ishara_tpu.config import EncoderConfig as JConfig
+    from ishara_tpu.models.encoder import build_model as jbuild
+    from ishara_tpu_torch.config import EncoderConfig
+    from ishara_tpu_torch.models.encoder import build_model
+
+    with pytest.raises(ValueError, match="causal"):
+        jbuild(JConfig(variant=variant, dim=32, causal=True)).init(
+            jax.random.key(0), jnp.zeros((1, 176, 276)))
+    with pytest.raises(ValueError, match="causal"):
+        build_model(EncoderConfig(variant=variant, dim=32, causal=True),
+                    device="cpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        build_model(EncoderConfig(variant="no_such", dim=32), device="cpu")

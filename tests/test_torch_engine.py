@@ -114,10 +114,58 @@ def test_batched_engine_matches_inference_engine(models):
 
 def test_unported_options_raise(models):
     cfg, _, variables = models
-    for kw in ({"decode": "beam"}, {"fused": "int8"},
-               {"fused": True, "dma": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port(cfg, variables, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port(cfg, variables, decode="beam")
+    with pytest.raises(ValueError, match="fused"):
+        _port(cfg, variables, fused="int4")
+    with pytest.raises(ValueError, match="decode"):
+        _port(cfg, variables, decode="sample")
+
+
+@pytest.fixture(scope="module")
+def conv_models():
+    """A preset-3-shaped conv_hybrid (2+2 groups, top_mult 2) at small
+    size."""
+    cfg = small_config("conv_hybrid", top_mult=2)
+    model, variables = jax_model(cfg)
+    return cfg, model, _scaled(variables)
+
+
+@pytest.mark.parametrize("family,kw", [
+    ("hybrid", {"fused": "int8"}),
+    ("hybrid", {"fused": True, "dma": True}),
+    ("hybrid", {"fused": "int8", "dma": True}),
+    ("conv_hybrid", {}),
+    ("conv_hybrid", {"fused": True}),
+    ("conv_hybrid", {"fused": "int8"}),
+    ("conv_hybrid", {"fused": True, "dma": True}),
+])
+def test_engine_option_matches_jax_engine(models, conv_models, family, kw):
+    """The same ids and counts from both packages' ``InferenceEngine`` for
+    the int8, dma and conv_hybrid paths (JAX kernels in interpret mode, the
+    port's plain versions; weights quantized once at construction)."""
+    cfg, model, variables = models if family == "hybrid" else conv_models
+    want = JEngine(model, variables, max_raw_frames=MAX_RAW, **kw)
+    port = _port(cfg, variables, **kw)
+    for raw in _requests():
+        ids, count = want(raw)
+        got_ids, got_count = port(raw)
+        assert got_count == count
+        np.testing.assert_array_equal(got_ids, ids)
+
+
+def test_batched_engine_int8_matches_inference_engine(models):
+    cfg, _, variables = models
+    reqs = _requests()[:3]
+    single = _port(cfg, variables, fused="int8")
+    batched = BatchedEngine(port_model(cfg, variables), batch_size=3,
+                            max_raw_frames=MAX_RAW, fused="int8",
+                            device="cpu")
+    ids, counts = batched(reqs)
+    for i, raw in enumerate(reqs):
+        want_ids, want_count = single(raw)
+        assert counts[i] == want_count
+        np.testing.assert_array_equal(ids[i], want_ids)
 
 
 @pytest.mark.parametrize("T,max_len", [(30, 64), (30, 16), (64, 64)])

@@ -15,10 +15,13 @@ from ishara_tpu_torch.bridge import flax_to_state_dict
 
 
 def small_config(variant: str = "hybrid", **kw) -> EncoderConfig:
-    """dim 64, 4 heads, frame_len 24, 2+2 blocks, dw kernel 15."""
+    """dim 64, 4 heads, frame_len 24, 2+2 blocks, dw kernel 15; for the
+    conv families two Conv1DBlocks of kernel sizes 7 and 3 before each
+    attention block."""
     base = dict(variant=variant, dim=64, num_squeeze_blocks=2,
                 num_conform_blocks=2, num_heads=4, frame_len=24,
-                transformer_kernel_size=15, dropout=0.0, top_dropout=0.0,
+                transformer_kernel_size=15, kernel_sizes=(7, 3),
+                num_conv_per_block=2, dropout=0.0, top_dropout=0.0,
                 top_mult=1)
     base.update(kw)
     return EncoderConfig(**base)
