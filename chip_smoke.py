@@ -28,7 +28,30 @@ Phases, each of which raises on failure (the exit code is then not 0):
    launch counts over each nine-request run, p50/p99 request latency, device
    time by kernel under ``torch.profiler``, ``BatchedEngine``, and the
    constant-phrase fallback probe.
-4. One JSON line listing every ported kernel, then the card's name and
+4. Training kernels at the flagship training step's shapes (batch 256,
+   T = 176, dim 256, 8 heads of 32, hidden 512, 64 labels, 60 classes): the
+   CTC alpha / beta kernels, dropout and dropout-add, attention and the
+   feed-forward branch, each forward and every gradient against its plain
+   PyTorch version on the card, with dropout at 0.4 and at 0, at bf16 and
+   f32 (the feed-forward branch's f32 form is its general kernels), and
+   attention also with 4 heads of 64, whose backward splits the keys into
+   tiles; the feed-forward kernel's masks against
+   the plain PyTorch Philox bit for bit; CUDA-event times of forward and
+   backward beside the plain version's, the bound and one PyTorch library
+   call (``F.ctc_loss``, ``F.dropout``, ``F.scaled_dot_product_attention``;
+   for the feed-forward branch, which no one call computes, the
+   ``F.linear`` / ``silu`` / ``dropout`` composition).
+5. Training: ``baseline_config(4)`` (hybrid 4 + 4, bf16, dropout 0.4) at
+   batch 256 on a synthetic corpus through ``make_optimizer`` ->
+   ``TrainState.create`` -> ``make_fused_ctc_train_step``: one step on the
+   kernels against the same step with every kernel replaced by its plain
+   version, from the same state and seeds (loss, gradient norm, parameters
+   and both moments); 20 steps of the recipe's ``TrainConfig()`` with the
+   launch counts read around them, the loss finite throughout and lower at
+   the end, and 20 more at an epoch a step, which walk the whole warm-up; the
+   non-finite guard; ``ctc_train_step`` and both eval steps; ms a step, and
+   the device's busy share under ``torch.profiler``.
+6. One JSON line listing every ported kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with a non-zero code, printing no result, when no CUDA device is
@@ -37,6 +60,9 @@ visible or the port's package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
 import json
 import math
 import re
@@ -70,6 +96,25 @@ FALLBACK_TEXT = "2 a-e -aroe"
 DEVICE = "cuda"
 SOURCE = "ishara_tpu_torch/ops/csrc/fused_block.cu"
 REF = "ishara_tpu/ops/fused_block.py"
+CSRC = "ishara_tpu_torch/ops/csrc/"
+# Training kernels against their plain versions, |kernel - plain| <= tol *
+# (max|plain| + |plain|). f32: the same arithmetic in another summation
+# order, with expf / logf of another library. bf16: kernel and plain version
+# round at the same points, but a last-bit difference before a rounding moves
+# a value by one bf16 ulp (2^-8 relative), and a gradient sums many such
+# values. Dropout itself is exact (one multiply, one rounding).
+TRAIN_TOL = {"f32": 2e-4, "bf16": 2e-2, "ctc": 2e-5, "dropout": 0.0}
+# One training step on the kernels against the same step on the plain
+# versions (bf16 model, dropout 0.4, identical masks): relative tolerance of
+# the loss and of the gradient norm; the largest difference of a parameter
+# after the update as a share of the largest movement the step gave a
+# parameter, and likewise the optimizer's first and second moments as a share
+# of their largest entries. RAdam's first step is lr times the clipped
+# gradient, so the parameter and first-moment shares are the largest error of
+# a gradient entry over the largest entry, and the second moment's is about
+# twice that.
+STEP_TOL = {"loss": 5e-3, "grad_norm": 1e-3, "param": 1e-2, "mu": 1e-2,
+            "nu": 2e-2}
 
 
 def log(*a):
@@ -229,6 +274,7 @@ def kernel_phase(models, reqs):
     Returns {(config, kind, storage tag, dma): row}."""
     import torch
 
+    from ishara_tpu_torch.models import fused as fenc
     from ishara_tpu_torch.ops import fused_block as fb
 
     flush = torch.empty(4 * L2_BYTES, dtype=torch.uint8, device=DEVICE)
@@ -263,7 +309,7 @@ def kernel_phase(models, reqs):
                 name = fn.__name__
             outs = {}
             for tag, dma in forms:
-                conv, leaves = fb.encoder_segment_args(
+                conv, leaves = fenc.encoder_segment_args(
                     cfg, qsd if tag == "int8" else sd, kind, storages[tag])
 
                 def run(dma=dma, conv=conv, leaves=leaves):
@@ -467,6 +513,7 @@ def engine_phase(models, reqs, smi):
     import torch
 
     from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.models import fused as fenc
     from ishara_tpu_torch.models.encoder import build_model
     from ishara_tpu_torch.ops import fused_block as fb
     from ishara_tpu_torch.preprocess.pipeline import preprocess
@@ -545,7 +592,7 @@ def engine_phase(models, reqs, smi):
                 sd = fb.quantize_serving_weights(sd)
                 ref_model = build_model(cfg, device=DEVICE)
                 ref_model.load_state_dict(fb.dequantize_serving_weights(sd))
-            enc = fb.FusedEncoder(
+            enc = fenc.FusedEncoder(
                 cfg, sd, device=DEVICE,
                 compute_dtype="int8" if fused == "int8" else torch.bfloat16)
             worst = 0.0
@@ -633,6 +680,780 @@ def engine_phase(models, reqs, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Training kernels and the training step
+# ---------------------------------------------------------------------------
+
+# The flagship training step's shapes (baseline_config(4) at batch 256).
+TB, TT, TD, TH, TM, TU, TC = 256, 176, 256, 8, 512, 64, 60
+
+
+def close(what, got, ref, tol):
+    """max |got - ref|; raises unless every element is finite and within
+    tol * (max|ref| + |ref|)."""
+    got, ref = got.detach().float(), ref.detach().float()
+    err = (got - ref).abs()
+    bound = tol * (ref.abs().max() + ref.abs())
+    if not bool(got.isfinite().all()) or not bool((err <= bound).all()):
+        raise AssertionError(
+            f"{what}: max_abs_err {float(err.max()):.3e} against max|plain| "
+            f"{float(ref.abs().max()):.3e} is outside tol {tol}")
+    return float(err.max())
+
+
+def bound_of(nbytes, ops, dtype_tag):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_tag] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def train_row(name, wrapper, direction, source, replaces, err, ms, plain_ms,
+              nbytes, ops, tag, library_ms, smi):
+    bound_ms, bound_by = bound_of(nbytes, ops, tag)
+    log(f"kernel {name}: max_abs_err {err:.3e} PASS; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
+        f"{bound_ms:.5f} ms ({nbytes} bytes, {ops} operations, by "
+        f"{bound_by}) on {smi}")
+    return dict(name=name, route="cuda", source=CSRC + source,
+                replaces=replaces, launches=None, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, counter=(wrapper, direction))
+
+
+def ctc_kernel_rows(smi, runs):
+    """K1: alpha (forward) and beta (backward) against the plain recursions
+    and beside F.ctc_loss, at B 256, T 176, U 64, C 60."""
+    import torch
+    import torch.nn.functional as F
+
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    logits = (2.0 * torch.randn((TB, TT, TC), generator=g, device=DEVICE)
+              ).requires_grad_()
+    rng = np.random.default_rng(11)
+    labels = np.full((TB, TU), 59, np.int32)
+    for b in range(TB):
+        n = int(rng.integers(1, 31))
+        labels[b, :n] = rng.integers(0, 59, n)
+    labels[0] = 59                          # a row of all-blank labels
+    labels[1, :6] = [7, 7, 7, 3, 3, 7]      # repeats
+    labels[2] = rng.integers(0, 59, TU)     # all 64 labels used
+    labels_t = torch.from_numpy(labels).to(DEVICE)
+    dy = torch.rand((TB,), generator=g, device=DEVICE) + 0.5
+
+    def fwd():
+        return ck.ctc_loss_kernel(logits, labels_t, reduction="none")
+
+    nll = fwd()
+
+    def bwd():
+        return torch.autograd.grad(nll, logits, dy, retain_graph=True)[0]
+
+    grad = bwd()
+    torch.cuda.synchronize()
+    x = logits.detach()
+    with torch.no_grad():
+        ref_nll, alpha = ck.ctc_forward_plain(x, labels_t)
+        ref_grad = ck.ctc_backward_plain(x, labels_t, alpha, ref_nll, dy)
+    e_f = close("ctc alpha kernel nll", nll, ref_nll, TRAIN_TOL["ctc"])
+    e_b = close("ctc beta kernel gradient", grad, ref_grad, TRAIN_TOL["f32"])
+
+    # the library's CTC on the same inputs (log-softmax included, as the
+    # kernel includes it); also a third opinion on the value
+    lens = torch.full((TB,), TT, dtype=torch.long)
+    tlens = torch.from_numpy((labels != 59).sum(1)).to(torch.long)
+    lx = x.clone().requires_grad_()
+
+    def lib_fwd():
+        return F.ctc_loss(F.log_softmax(lx, -1).transpose(0, 1), labels_t,
+                          lens, tlens, blank=59, reduction="none")
+
+    lib = lib_fwd()
+    close("ctc kernel nll against F.ctc_loss", nll, lib.detach(), 1e-4)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib, lx, dy, retain_graph=True)[0]
+
+    with torch.no_grad():
+        p_f = time_ms(lambda: ck.ctc_forward_plain(x, labels_t), runs=3,
+                      warmup=1, head_start=False)
+        p_b = time_ms(lambda: ck.ctc_backward_plain(x, labels_t, alpha,
+                                                    ref_nll, dy),
+                      runs=3, warmup=1, head_start=False)
+    S = 2 * TU + 1
+    b_f = logits.numel() * 4 + labels.size * 4 + TB * 4
+    b_b = 2 * logits.numel() * 4 + labels.size * 4 + 2 * TB * 4
+    ops = TB * TT * (S * 12 + TC * 4)   # two log-add-exps a state, softmax
+    src, ref = "ctc.cu", "ishara_tpu/ops/ctc_kernel.py"
+    return [
+        train_row("ctc_loss_kernel[alpha]", ck.ctc_loss_kernel, "launches",
+                  src, f"{ref}:163", e_f, time_ms(fwd, runs=runs), p_f, b_f,
+                  ops, "f32", time_ms(lib_fwd, runs=runs), smi),
+        train_row("ctc_loss_kernel[beta]", ck.ctc_loss_kernel,
+                  "launches_bwd", src, f"{ref}:218", e_b,
+                  time_ms(bwd, runs=runs), p_b, b_b, ops, "f32",
+                  time_ms(lib_bwd, runs=runs), smi),
+    ]
+
+
+def dropout_kernel_rows(smi, runs):
+    """K2: dropout and dropout-add, forward and backward, bf16 and f32,
+    against the plain Philox version (exact) and beside F.dropout."""
+    import torch
+    import torch.nn.functional as F
+
+    from ishara_tpu_torch.ops import dropout as dr
+
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    seed = torch.tensor([20240], dtype=torch.int32, device=DEVICE)
+    rows = []
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        x = torch.randn((TB, TT, TD), generator=g, device=DEVICE).to(dt)
+        res = torch.randn((TB, TT, TD), generator=g, device=DEVICE).to(dt)
+        dy = torch.randn((TB, TT, TD), generator=g, device=DEVICE).to(dt)
+        size = x.numel() * x.element_size()
+        for form in ("fast_dropout", "fast_dropout_add"):
+            add = form == "fast_dropout_add"
+            wrapper = getattr(dr, form)
+            errs = []
+            for rate in (0.4, 0.0):
+                xr = x.clone().requires_grad_()
+                out = wrapper(res, xr, seed, rate) if add \
+                    else wrapper(xr, seed, rate)
+                dx = torch.autograd.grad(out, xr, dy)[0]
+                ref = dr.dropout_plain(x, seed, rate, res if add else None)
+                ref_dx = dr.dropout_plain(dy, seed, rate)
+                errs.append(close(f"{form} {tag} rate {rate}", out, ref,
+                                  TRAIN_TOL["dropout"]))
+                errs.append(close(f"{form} {tag} rate {rate} dx", dx, ref_dx,
+                                  TRAIN_TOL["dropout"]))
+            kept = float((dr.fast_dropout(x, seed, 0.4) != 0).float().mean())
+            if abs(kept - 0.6) > 2e-3:
+                raise AssertionError(f"{form} {tag}: keep share {kept}")
+            xr = x.clone().requires_grad_()
+            out = wrapper(res, xr, seed, 0.4) if add \
+                else wrapper(xr, seed, 0.4)
+
+            def fwd(add=add, wrapper=wrapper, x=x, res=res):
+                return wrapper(res, x, seed, 0.4) if add \
+                    else wrapper(x, seed, 0.4)
+
+            def bwd(out=out, xr=xr, dy=dy):
+                return torch.autograd.grad(out, xr, dy, retain_graph=True)
+
+            lx = x.clone().requires_grad_()
+
+            def lib(add=add, x=lx, res=res):
+                y = F.dropout(x, 0.4, training=True)
+                return res + y if add else y
+
+            lout = lib()
+
+            def lib_bwd(lout=lout, lx=lx, dy=dy):
+                return torch.autograd.grad(lout, lx, dy, retain_graph=True)
+
+            def plain(add=add, x=x, res=res):
+                return dr.dropout_plain(x, seed, 0.4, res if add else None)
+
+            p_ms = time_ms(plain, runs=3, warmup=1, head_start=False)
+            f_ms, b_ms = time_ms(fwd, runs=runs), time_ms(bwd, runs=runs)
+            l_ms = time_ms(lib, runs=runs)
+            lb_ms = time_ms(lib_bwd, runs=runs)
+            log(f"kernel {form} [{tag}] [{TB}, {TT}, {TD}] rate 0.4 and 0, "
+                f"forward and dx: equal to the plain Philox version "
+                f"(max_abs_err {max(errs):.1e}), keep share {kept:.4f} PASS; "
+                f"forward {f_ms:.4f} ms backward {b_ms:.4f} ms plain "
+                f"{p_ms:.4f} ms F.dropout{' + add' if add else ''} "
+                f"{l_ms:.4f} ms, its backward {lb_ms:.4f} ms on {smi}")
+            if tag != "bf16":
+                continue        # the training step's tensors are bf16
+            ref_line = 154 if add else 93
+            for name, direction, ms, nb, lib_ms in (
+                    (form, "launches", f_ms, (3 if add else 2) * size, l_ms),
+                    (form + "[bwd]", "launches_bwd", b_ms, 2 * size, lb_ms)):
+                rows.append(train_row(
+                    name, wrapper, direction, "dropout.cu",
+                    f"ishara_tpu/ops/dropout.py:{ref_line}", max(errs), ms,
+                    p_ms, nb, x.numel(), tag, lib_ms, smi))
+    return rows
+
+
+def attention_kernel_rows(smi, runs):
+    """K3: forward and dq / dk / dv against the plain version with the same
+    Philox mask, dropout 0.4 and 0, bf16 and f32, a fully masked row; beside
+    F.scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from ishara_tpu_torch.ops import attention as at
+
+    Dh = TD // TH
+    scale = TD ** -0.5
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    seed = torch.tensor([977], dtype=torch.int32, device=DEVICE)
+    lengths = torch.randint(40, TT + 1, (TB,), generator=g, device=DEVICE)
+    lengths[0] = 0                                   # every key masked
+    lengths[1] = TT
+    bias = at.mask_to_bias(torch.arange(TT, device=DEVICE)[None, :]
+                           < lengths[:, None])
+    rows = []
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        # q, k, v as the layer makes them: views of one [B, T, H, 3 Dh] tensor
+        qkv = torch.randn((TB, TT, TH, 3 * Dh), generator=g,
+                          device=DEVICE).to(dt).requires_grad_()
+        d_o = torch.randn((TB, TH, TT, Dh), generator=g,
+                          device=DEVICE).to(dt)
+
+        def split(t):
+            return t.transpose(1, 2).split(Dh, dim=-1)
+
+        errs = {}
+        for rate in (0.4, 0.0):
+            q, k, v = split(qkv)
+            o = at.flash_mhsa(q, k, v, bias, seed, scale, rate)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), d_o)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                qd, kd, vd = split(qkv.detach())
+                ro, lse = at.mhsa_forward_plain(qd, kd, vd, bias, seed, scale,
+                                                rate)
+                rq, rk, rv = at.mhsa_backward_plain(
+                    qd, kd, vd, bias, seed, ro, lse, d_o, scale, rate)
+            tol = TRAIN_TOL[tag]
+            errs[rate] = (
+                close(f"attention {tag} rate {rate} o", o, ro, tol),
+                max(close(f"attention {tag} rate {rate} d{n}", a, b, tol)
+                    for n, a, b in (("q", dq, rq), ("k", dk, rk),
+                                    ("v", dv, rv))))
+            if rate == 0.0:     # and against the plain einsum oracle
+                close(f"attention {tag} against reference_mhsa", o,
+                      at.reference_mhsa(qd, kd, vd, bias, scale), tol)
+            del ro, lse, rq, rk, rv
+        q, k, v = split(qkv)
+        o = at.flash_mhsa(q, k, v, bias, seed, scale, 0.4)
+
+        def fwd(q=q, k=k, v=v):
+            return at.flash_mhsa(q, k, v, bias, seed, scale, 0.4)
+
+        def bwd(o=o, q=q, k=k, v=v, d_o=d_o):
+            return torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+
+        lq = qkv.detach().clone().requires_grad_()
+        mask = bias[:, None, None, :].to(dt)
+
+        def lib_fwd(lq=lq, mask=mask):
+            a, b, c = split(lq)
+            return F.scaled_dot_product_attention(
+                a, b, c, attn_mask=mask, dropout_p=0.4, scale=scale)
+
+        lo = lib_fwd()
+
+        def lib_bwd(lo=lo, lq=lq, d_o=d_o):
+            return torch.autograd.grad(lo, lq, d_o, retain_graph=True)
+
+        with torch.no_grad():
+            qd, kd, vd = split(qkv.detach())
+            ro, lse = at.mhsa_forward_plain(qd, kd, vd, bias, seed, scale, 0.4)
+            p_f = time_ms(lambda: at.mhsa_forward_plain(
+                qd, kd, vd, bias, seed, scale, 0.4), runs=3, warmup=1,
+                head_start=False)
+            p_b = time_ms(lambda: at.mhsa_backward_plain(
+                qd, kd, vd, bias, seed, ro, lse, d_o, scale, 0.4), runs=3,
+                warmup=1, head_start=False)
+        f_ms, b_ms = time_ms(fwd, runs=runs), time_ms(bwd, runs=runs)
+        lf_ms, lb_ms = time_ms(lib_fwd, runs=runs), time_ms(lib_bwd, runs=runs)
+        size = TB * TH * TT * Dh * qkv.element_size()
+        small = bias.numel() * 4 + TB * TH * TT * 4       # bias and lse
+        log(f"kernel flash_mhsa [{tag}] q, k, v [{TB}, {TH}, {TT}, {Dh}] "
+            f"(o, d(q|k|v)) max_abs_err: rate 0.4 {errs[0.4]}, rate 0 "
+            f"{errs[0.0]}, row 0 fully masked and finite PASS; forward "
+            f"{f_ms:.4f} ms backward {b_ms:.4f} ms; plain {p_f:.4f} / "
+            f"{p_b:.4f} ms; F.scaled_dot_product_attention {lf_ms:.4f} / "
+            f"{lb_ms:.4f} ms on {smi}")
+        if tag != "bf16":
+            continue
+        # heads of 64 (4 heads at dim 256, presets 1 and 2): the backward
+        # splits the keys into two tiles of 128
+        H4, D64 = TH // 2, 2 * Dh
+        q4 = torch.randn((TB, TT, H4, 3 * D64), generator=g,
+                         device=DEVICE).to(dt).requires_grad_()
+        d4 = torch.randn((TB, H4, TT, D64), generator=g, device=DEVICE).to(dt)
+        qa, ka, va = q4.transpose(1, 2).split(D64, dim=-1)
+        o4 = at.flash_mhsa(qa, ka, va, bias, seed, scale, 0.4)
+        g4 = torch.autograd.grad(o4, (qa, ka, va), d4, retain_graph=True)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            qd, kd, vd = q4.detach().transpose(1, 2).split(D64, dim=-1)
+            ro, lse = at.mhsa_forward_plain(qd, kd, vd, bias, seed, scale, 0.4)
+            rg = at.mhsa_backward_plain(qd, kd, vd, bias, seed, ro, lse, d4,
+                                        scale, 0.4)
+        e4 = (close("attention Dh 64 o", o4, ro, tol),
+              max(close(f"attention Dh 64 d{n}", a, b, tol)
+                  for n, a, b in zip("qkv", g4, rg)))
+        f4 = time_ms(lambda: at.flash_mhsa(qa, ka, va, bias, seed, scale,
+                                           0.4), runs=5)
+        b4 = time_ms(lambda: torch.autograd.grad(
+            o4, (qa, ka, va), d4, retain_graph=True), runs=5)
+        log(f"kernel flash_mhsa [{tag}] q, k, v [{TB}, {H4}, {TT}, {D64}] "
+            f"rate 0.4 (o, d(q|k|v)) max_abs_err {e4}, backward in two key "
+            f"tiles PASS; forward {f4:.4f} ms backward {b4:.4f} ms on {smi}")
+        del q4, d4, o4, g4, ro, lse, rg
+        ref = "ishara_tpu/ops/attention.py"
+        ops_f = 4 * TB * TH * TT * TT * Dh          # q.k and p.v
+        rows.append(train_row(
+            "flash_mhsa", at.flash_mhsa, "launches", "attention.cu",
+            f"{ref}:131", errs[0.4][0], f_ms, p_f, 4 * size + small, ops_f,
+            tag, lf_ms, smi))
+        rows.append(train_row(
+            "flash_mhsa[bwd]", at.flash_mhsa, "launches_bwd", "attention.cu",
+            f"{ref}:168", errs[0.4][1], b_ms, p_b, 8 * size + small,
+            5 * ops_f // 2, tag, lb_ms, smi))
+    return rows
+
+
+def ffn_kernel_rows(smi, runs):
+    """K4: forward and all seven gradients against the plain version with
+    the same Philox masks, at the Squeezeformer sites' rates (0.4, 0.4), the
+    Conformer sites' (0.4, 0) and without dropout; the masks bit for bit;
+    beside the F.linear / silu / dropout composition."""
+    import torch
+    import torch.nn.functional as F
+
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+    from ishara_tpu_torch.ops.dropout import keep_mask
+
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    seeds = torch.tensor([31337, 4242], dtype=torch.int32, device=DEVICE)
+    N = TB * TT
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=DEVICE) * scale
+
+    x = rand(TB, TT, TD).to(torch.bfloat16).requires_grad_()
+    res = rand(TB, TT, TD).to(torch.bfloat16).requires_grad_()
+    dy = rand(TB, TT, TD).to(torch.bfloat16)
+    params = [rand(TD, TM, scale=TD ** -0.5), rand(TM, scale=0.1),
+              rand(TM, TD, scale=TM ** -0.5), rand(TD, scale=0.1)]
+    for p in params:
+        p.requires_grad_()
+    w1, b1, w2, b2 = params
+
+    k1, k2 = fk.debug_masks(N, TM, TD, seeds, 0.4, 0.4)
+    same = bool(torch.equal(k1.bool(), keep_mask(seeds[0:1], (N, TM), 0.4))) \
+        and bool(torch.equal(k2.bool(), keep_mask(seeds[1:2], (N, TD), 0.4)))
+    # ... and the plain Philox gives the same words on the CPU
+    cpu = keep_mask(seeds[0:1].cpu(), (64, TM), 0.4)
+    same = same and bool(torch.equal(k1[:64].bool().cpu(), cpu))
+    log(f"debug_masks [{N}, {TM}] and [{N}, {TD}] at rate 0.4: equal to the "
+        f"plain PyTorch Philox bit for bit: {same}; keep share "
+        f"{float(k1.mean()):.4f} {'PASS' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the kernels' masks differ from the plain "
+                             "PyTorch Philox")
+    del k1, k2
+
+    names = ("dx", "dres", "dw1", "db1", "dw2", "db2")
+    errs = {}
+    for r1, r2 in ((0.4, 0.4), (0.4, 0.0), (0.0, 0.0)):
+        out = fk.ffn_residual(x, res, w1, b1, w2, b2, seeds, r1, r2)
+        grads = torch.autograd.grad(out, [x, res] + params, dy)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            x2, dy2 = x.reshape(N, TD), dy.reshape(N, TD)
+            w1c, w2c = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+            ref = fk.ffn_forward_plain(x2, res.reshape(N, TD), w1c, b1, w2c,
+                                       b2, seeds, r1, r2)
+            rdx, rdw1, rdb1, rdw2, rdb2 = fk.ffn_backward_plain(
+                x2, dy2, w1c, b1, w2c, seeds, r1, r2)
+        tol = TRAIN_TOL["bf16"]
+        e_out = close(f"ffn rates {r1}/{r2} out", out.reshape(N, TD), ref, tol)
+        refs = (rdx, dy2, rdw1, rdb1, rdw2, rdb2)
+        e_g = {n: close(f"ffn rates {r1}/{r2} {n}",
+                        a.reshape(b.shape), b, tol)
+               for n, a, b in zip(names, grads, refs)}
+        errs[(r1, r2)] = (e_out, max(e_g.values()))
+        log(f"kernel ffn_residual [bf16] x [{N}, {TD}] hidden {TM} rates "
+            f"{r1}/{r2}: out max_abs_err {e_out:.3e}; gradients "
+            + ", ".join(f"{n} {e:.3e}" for n, e in e_g.items())
+            + f" (tol {tol} * (max|plain| + |plain|)) PASS")
+    # the weight gradients are sums in a fixed order: the same bits again
+    again = torch.autograd.grad(
+        fk.ffn_residual(x, res, w1, b1, w2, b2, seeds, 0.0, 0.0),
+        params, dy)
+    if not all(torch.equal(a, b) for a, b in zip(again, grads[2:])):
+        raise AssertionError("ffn weight gradients differ from run to run")
+    log("  weight gradients equal bit for bit from run to run PASS")
+
+    # the general kernels (f32 operands, which no tensor-core tile takes) at
+    # the same width: what an f32 model's training step runs
+    xf, rf = (t.detach().float().requires_grad_() for t in (x, res))
+    dyf = dy.float()
+    out = fk.ffn_residual(xf, rf, w1, b1, w2, b2, seeds, 0.4, 0.4)
+    grads = torch.autograd.grad(out, [xf, rf] + params, dyf,
+                                retain_graph=True)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        x2, dy2 = xf.reshape(N, TD), dyf.reshape(N, TD)
+        ref = fk.ffn_forward_plain(x2, rf.reshape(N, TD), w1, b1, w2, b2,
+                                   seeds, 0.4, 0.4)
+        refs = fk.ffn_backward_plain(x2, dy2, w1, b1, w2, seeds, 0.4, 0.4)
+    tol = TRAIN_TOL["f32"]
+    e_out = close("ffn f32 out", out.reshape(N, TD), ref, tol)
+    refs = (refs[0], dy2) + tuple(refs[1:])
+    e_g = max(close(f"ffn f32 {n}", a.reshape(b.shape), b, tol)
+              for n, a, b in zip(names, grads, refs))
+    f_ms = time_ms(lambda: fk.ffn_residual(xf, rf, w1, b1, w2, b2, seeds,
+                                           0.4, 0.4), runs=5)
+    b_ms = time_ms(lambda: torch.autograd.grad(
+        out, [xf, rf] + params, dyf, retain_graph=True), runs=5)
+    log(f"kernel ffn_residual [f32] x [{N}, {TD}] hidden {TM} rates 0.4/0.4: "
+        f"out max_abs_err {e_out:.3e}, gradients {e_g:.3e} (tol {tol} * "
+        f"(max|plain| + |plain|)) PASS; forward {f_ms:.4f} ms backward "
+        f"{b_ms:.4f} ms on {smi}")
+    del xf, rf, dyf, out, grads, ref, refs
+
+    out = fk.ffn_residual(x, res, w1, b1, w2, b2, seeds, 0.4, 0.4)
+
+    def fwd():
+        return fk.ffn_residual(x, res, w1, b1, w2, b2, seeds, 0.4, 0.4)
+
+    def bwd():
+        return torch.autograd.grad(out, [x, res] + params, dy,
+                                   retain_graph=True)
+
+    lx = x.detach().clone().requires_grad_()
+    lw = [p.detach().to(torch.bfloat16).requires_grad_() for p in params]
+
+    def lib_fwd():
+        h = F.dropout(F.silu(F.linear(lx, lw[0].t(), lw[1])), 0.4, True)
+        return res + F.dropout(F.linear(h, lw[2].t(), lw[3]), 0.4, True)
+
+    lo = lib_fwd()
+
+    def lib_bwd():
+        return torch.autograd.grad(lo, [lx] + lw, dy, retain_graph=True)
+
+    with torch.no_grad():
+        x2, dy2 = x.reshape(N, TD), dy.reshape(N, TD)
+        w1c, w2c = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+        p_f = time_ms(lambda: fk.ffn_forward_plain(
+            x2, res.reshape(N, TD), w1c, b1, w2c, b2, seeds, 0.4, 0.4),
+            runs=3, warmup=1, head_start=False)
+        p_b = time_ms(lambda: fk.ffn_backward_plain(
+            x2, dy2, w1c, b1, w2c, seeds, 0.4, 0.4), runs=3, warmup=1,
+            head_start=False)
+    size = N * TD * 2
+    weights = 2 * TD * TM * 2 + (TD + TM) * 4
+    ref = "ishara_tpu/ops/ffn_kernel.py"
+    return [
+        train_row("ffn_residual", fk.ffn_residual, "launches", "ffn.cu",
+                  f"{ref}:153", errs[(0.4, 0.4)][0], time_ms(fwd, runs=runs),
+                  p_f, 3 * size + weights, 4 * N * TD * TM, "bf16",
+                  time_ms(lib_fwd, runs=runs), smi),
+        # x and dy read, dx written, the weights read and their f32
+        # gradients written; five products (the hidden is recomputed)
+        train_row("ffn_residual[bwd]", fk.ffn_residual, "launches_bwd",
+                  "ffn.cu", f"{ref}:177", errs[(0.4, 0.4)][1],
+                  time_ms(bwd, runs=runs), p_b, 3 * size + 3 * weights,
+                  10 * N * TD * TM, "bf16", time_ms(lib_bwd, runs=runs), smi),
+    ]
+
+
+def train_kernel_phase(smi, runs: int = 20):
+    """Every training kernel against its plain version at full width, timed
+    beside its plain version, its bound and a library call."""
+    import torch
+
+    rows = []
+    for make in (ctc_kernel_rows, dropout_kernel_rows, attention_kernel_rows,
+                 ffn_kernel_rows):
+        rows += make(smi, runs)
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block every training wrapper computes with its plain
+    PyTorch version instead of launching its kernel, on the same tensors:
+    the yardstick for one whole training step. (The package itself has no
+    such switch: on a CUDA tensor a wrapper launches or raises.)"""
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+    from ishara_tpu_torch.ops import dropout as dr
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    swaps = [
+        (dr, "_launch", lambda x, res, seed, rate:
+            dr.dropout_plain(x, seed, rate, res)),
+        (at, "_launch_fwd", at.mhsa_forward_plain),
+        (at, "_launch_bwd", at.mhsa_backward_plain),
+        (fk, "_launch_fwd", fk.ffn_forward_plain),
+        (fk, "_launch_bwd", fk.ffn_backward_plain),
+        (ck, "_launch_alpha", lambda logits, labels, blank_id, want_alpha:
+            ck.ctc_forward_plain(logits, labels, blank_id)),
+        (ck, "_launch_beta", lambda logits, labels, alpha, nll, dy, blank_id:
+            ck.ctc_backward_plain(logits, labels, alpha, nll, dy, blank_id)),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_counters():
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+    from ishara_tpu_torch.ops import dropout as dr
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    return {"ctc_loss_kernel": ck.ctc_loss_kernel,
+            "fast_dropout": dr.fast_dropout,
+            "fast_dropout_add": dr.fast_dropout_add,
+            "flash_mhsa": at.flash_mhsa, "ffn_residual": fk.ffn_residual}
+
+
+# Launches a training step of baseline_config(4), forward and backward
+# alike, as the model implies them: 4 Squeezeformer + 4 Conformer blocks
+# with two feed-forward sites and one attention each; a dropout-add on each
+# Squeezeformer block's attention branch (the Conformer's is a plain add);
+# the top dropout; one CTC loss.
+STEP_LAUNCHES = {"ffn_residual": 16, "flash_mhsa": 8, "fast_dropout_add": 4,
+                 "fast_dropout": 1, "ctc_loss_kernel": 1}
+
+
+def train_phase(smi, steps: int = 20):
+    """The training slice on the card. Returns {(wrapper name, direction):
+    launches over the ``steps``-step run}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ishara_tpu_torch.config import TrainConfig, baseline_config
+    from ishara_tpu_torch.data.landmarks import MAX_PHRASE_LENGTH
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats, preprocess
+    from ishara_tpu_torch.train import (
+        TrainState,
+        ctc_eval_step,
+        ctc_train_step,
+        make_fused_ctc_eval_step,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = baseline_config(4).model
+    tcfg = TrainConfig()            # the recipe, as the main path takes it
+    torch.manual_seed(4)            # the weights: PyTorch's default init
+    model = build_model(cfg, device=DEVICE)
+    ds = SyntheticASLFR(num_sequences=TB, seed=3)
+    host = ds.batch(range(TB), CTCTokenizer(), max_frames=96)
+    batch = {k: torch.from_numpy(host[k]).to(DEVICE)
+             for k in ("raw", "lengths", "labels")}
+    tx, schedule = make_optimizer(tcfg)
+    state0 = TrainState.create(model, tx, device=DEVICE)
+    stats = GroupStats.identity()
+    step = make_fused_ctc_train_step(stats, cfg.frame_len,
+                                     aug_prob=tcfg.aug_prob,
+                                     blank_id=cfg.blank_id)
+    counters = train_counters()
+    log(f"train: baseline_config(4) ({cfg.variant} "
+        f"{cfg.num_squeeze_blocks}+{cfg.num_conform_blocks}, dim {cfg.dim}, "
+        f"{cfg.dtype}, dropout {cfg.dropout}), batch {TB}, raw "
+        f"{tuple(batch['raw'].shape)}, labels {tuple(batch['labels'].shape)}, "
+        f"{state0.params.numel()} parameters, {tcfg.optimizer}, lr "
+        f"{float(schedule(0)):.3e}")
+
+    # one step on the kernels against the same step on the plain versions
+    sk, sp = state0.clone(), state0.clone()
+    sk, mk = step(sk, batch, seed=0)
+    with plain_versions():
+        sp, mp = step(sp, batch, seed=0)
+    torch.cuda.synchronize()
+    d_loss = abs(float(mk["loss"]) - float(mp["loss"])) / abs(float(mp["loss"]))
+    d_norm = abs(float(mk["grad_norm"]) - float(mp["grad_norm"])) \
+        / float(mp["grad_norm"])
+    moved = float((sk.params - state0.params).abs().max())
+    d_par = float((sk.params - sp.params).abs().max()) / moved
+    d_mom = {n: float((sk.opt_state[n] - sp.opt_state[n]).abs().max()
+                      / sp.opt_state[n].abs().max()) for n in ("mu", "nu")}
+    d_bn = max(float((a - b).abs().max()) for a, b in
+               zip(sk.batch_stats.values(), sp.batch_stats.values()))
+    ok = (d_loss <= STEP_TOL["loss"] and d_norm <= STEP_TOL["grad_norm"]
+          and moved > 0.0 and d_par <= STEP_TOL["param"]
+          and all(d_mom[n] <= STEP_TOL[n] for n in d_mom))
+    log(f"train: one step, kernels vs plain versions from the same state and "
+        f"seeds: loss {float(mk['loss']):.5f} vs {float(mp['loss']):.5f} "
+        f"(rel {d_loss:.2e}, tol {STEP_TOL['loss']}), grad norm "
+        f"{float(mk['grad_norm']):.5f} vs {float(mp['grad_norm']):.5f} (rel "
+        f"{d_norm:.2e}, tol {STEP_TOL['grad_norm']}), largest parameter "
+        f"difference {d_par:.3e} of the largest movement {moved:.3e} (tol "
+        f"{STEP_TOL['param']}), first moment {d_mom['mu']:.3e} and second "
+        f"moment {d_mom['nu']:.3e} of their largest entries (tol "
+        f"{STEP_TOL['mu']}, {STEP_TOL['nu']}), batch statistics {d_bn:.3e} "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a training step on the kernels disagrees with "
+                             "the same step on the plain versions")
+    # the same (seed, step) gives the same step again
+    sk2, mk2 = step(state0.clone(), batch, seed=0)
+    if float(mk2["loss"]) != float(mk["loss"]) \
+            or not torch.equal(sk2.params, sk.params):
+        raise AssertionError("the same (seed, step) gave another step")
+    log("train: the same (seed, step) gives the same loss and parameters "
+        "bit for bit PASS")
+    del sk, sp, sk2
+
+    # the main path, with the launch counts read around it
+    state = state0.clone()
+    for w in counters.values():
+        w.launches = w.launches_bwd = 0
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, seed=0)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {(n, d): getattr(w, d) for n, w in counters.items()
+                for d in ("launches", "launches_bwd")}
+    losses = [float(v) for v in losses]
+    log(f"train: {steps} steps of make_fused_ctc_train_step, loss "
+        + " ".join(f"{v:.3f}" for v in losses))
+    log(f"train: kernel launches over the run {launches}")
+    for (name, direction), n in launches.items():
+        if n != steps * STEP_LAUNCHES[name]:
+            raise AssertionError(
+                f"{name}.{direction} = {n} over {steps} steps, expected "
+                f"{STEP_LAUNCHES[name]} a step")
+    # each step draws other masks and augmentations, so "lower at the end
+    # than at the start" compares the means of the first and the last three
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    if int(state.step) != steps or int(state.nonfinite_count) != 0 \
+            or int(state.opt_state["schedule_count"]) != steps:
+        raise AssertionError("step counters are off after the run")
+    log(f"train: loss finite at every step, mean of the first three "
+        f"{first:.3f} -> of the last three {last:.3f}; launches a step: "
+        + ", ".join(f"{n} {c} + {c}" for n, c in STEP_LAUNCHES.items())
+        + " (forward + backward) PASS")
+
+    # The recipe holds its first learning rate, 1.25e-4, for an epoch of
+    # 1000 steps, so the run above never leaves it. With an epoch a step the
+    # same 20 steps walk lrfn's five warm-up epochs (1.25e-4 doubling to
+    # 4e-3) and go on into its cosine, crossing RAdam's rectification
+    # threshold and four Lookahead syncs at rates that move the loss far.
+    fast_tx, _ = make_optimizer(TrainConfig(steps_per_epoch=1))
+    probe = TrainState.create(copy.deepcopy(state0.model), fast_tx,
+                              device=DEVICE)
+    falling = []
+    for _ in range(steps):
+        probe, m = step(probe, batch, seed=0)
+        falling.append(m["loss"])
+    falling = [float(v) for v in falling]
+    first, last = sum(falling[:3]) / 3, sum(falling[-3:]) / 3
+    log(f"train: {steps} steps at an epoch a step, loss "
+        + " ".join(f"{v:.3f}" for v in falling))
+    if not all(math.isfinite(v) for v in falling) or not last < first:
+        raise AssertionError(f"training loss did not fall: {falling}")
+    log(f"train: mean of the first three {first:.3f} -> of the last three "
+        f"{last:.3f} PASS")
+    del probe
+
+    # ms a step: host clock around a step that ends in a synchronize
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, m = step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(t for _, _, t in rows)
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    log(f"train: {step_ms:.2f} ms a step (median of 10, host clock, each "
+        f"ending in a synchronize; min {min(times):.2f} max {max(times):.2f})"
+        f", {TB / step_ms * 1e3:.0f} sequences/s; under the profiler over 3 "
+        f"steps: wall {wall_us / 3e3:.2f} ms a step, device busy "
+        f"{busy / 3e3:.2f} ms a step ({100 * busy / wall_us:.1f}% of wall), "
+        f"{sum(c for _, c, _ in rows) / 3:.0f} device kernels and copies a "
+        f"step, on {smi}")
+    for key, count, t in sorted(rows, key=lambda r: -r[2])[:16]:
+        log(f"  {t / 3e3:9.3f} ms/step {100 * t / busy:5.1f}% "
+            f"{count / 3:7.1f} calls/step  {key[:90]}")
+
+    # the non-finite guard: an infinite coordinate makes the loss non-finite
+    probe = state.clone()
+    before = (probe.params.clone(), probe.slow_params.clone(),
+              {k: v.clone() for k, v in probe.opt_state.items()},
+              [b.clone() for b in probe.batch_stats.values()])
+    bad = dict(batch, raw=batch["raw"].clone())
+    bad["raw"][:, :, :] = float("inf")
+    probe, m = step(probe, bad, seed=0)
+    same = (torch.equal(probe.params, before[0])
+            and torch.equal(probe.slow_params, before[1])
+            and all(torch.equal(v, before[2][k])
+                    for k, v in probe.opt_state.items())
+            and all(torch.equal(a, b) for a, b in
+                    zip(probe.batch_stats.values(), before[3])))
+    ok = (same and not math.isfinite(float(m["loss"]))
+          and int(probe.nonfinite_count) == 1
+          and int(probe.step) == int(state.step) + 1)
+    log(f"train: non-finite probe: loss {float(m['loss'])}, every leaf "
+        f"unchanged {same}, nonfinite_count {int(probe.nonfinite_count)}, "
+        f"step {int(probe.step)}, schedule count "
+        f"{int(probe.opt_state['schedule_count'])} "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the non-finite guard failed")
+    del probe, before
+
+    # ctc_train_step on a preprocessed batch, and the two eval steps
+    with torch.no_grad():
+        x = torch.vmap(lambda r, n: preprocess(r, n, stats, cfg.frame_len))(
+            batch["raw"], batch["lengths"])
+    state, m = ctc_train_step(state, {"x": x, "labels": batch["labels"]},
+                              seed=0)
+    ev = make_fused_ctc_eval_step(stats, cfg.frame_len,
+                                  blank_id=cfg.blank_id)(state, batch)
+    ev2 = ctc_eval_step(state, {"x": x, "labels": batch["labels"]})
+    torch.cuda.synchronize()
+    ok = (math.isfinite(float(m["loss"]))
+          and ev["loss_per_seq"].shape == (TB,)
+          and bool(ev["loss_per_seq"].isfinite().all())
+          and ev["ids"].shape == (TB, MAX_PHRASE_LENGTH)
+          and ev["counts"].shape == (TB,)
+          and ev2["logits"].shape == (TB, cfg.frame_len, cfg.num_classes)
+          and abs(float(ev2["loss"]) - float(ev["loss"]))
+          <= 1e-3 * abs(float(ev["loss"])))
+    log(f"train: ctc_train_step loss {float(m['loss']):.3f}; fused eval step "
+        f"loss {float(ev['loss']):.3f}, loss_per_seq "
+        f"{tuple(ev['loss_per_seq'].shape)}, ids {tuple(ev['ids'].shape)}, "
+        f"counts {tuple(ev['counts'].shape)}; ctc_eval_step loss "
+        f"{float(ev2['loss']):.3f} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("an eval step or ctc_train_step gave a bad "
+                             "result")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -658,17 +1479,20 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    entry = None
-    for line in _build.build_log("fused_block").splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+(\w+_kernel)(\w*)'",
-                      line)
-        if m:
-            entry = m.group(1) + " " + m.group(2)[:12]
-        elif "spill" in line and not line.strip().startswith("0 bytes"):
-            log(f"  ptxas {entry}: {line.strip()}")
-        elif "Used" in line and entry:
-            log(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
-            entry = None
+    for source in _build.sources():
+        entry = None
+        for line in _build.build_log(source).splitlines():
+            m = re.search(
+                r"Compiling entry function '\w*?\d+([a-z][a-z_]*_kernel)(\w*)'",
+                line)
+            if m:
+                entry = m.group(1) + " " + m.group(2)[:12]
+            elif "spill" in line and not line.strip().startswith("0 bytes"):
+                log(f"  ptxas {source}.cu {entry}: {line.strip()}")
+            elif "Used" in line and entry:
+                log(f"  ptxas {source}.cu {entry}: "
+                    f"{line.split(':', 1)[1].strip()}")
+                entry = None
     smi = nvidia_smi_line()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -676,10 +1500,13 @@ def main() -> int:
     # preset 5 (hybrid 4+4) and preset 3 (conv_hybrid 2+2, kernel sizes
     # 11/5/3, top_mult 2) as the package defines them; the JAX package has
     # no conv_transformer preset, so that family runs at the same widths
-    # with two groups and the 4x FFN of its TransformerBlock's default.
+    # with two groups and the 4x FFN of its TransformerBlock's default. The
+    # unfused model is the serving checks' f32 yardstick, so preset 3 (whose
+    # compute dtype is bfloat16) is built at float32 here, as preset 5 is.
     configs = {
         "preset5": baseline_config(5).model,
-        "preset3": baseline_config(3).model,
+        "preset3": dataclasses.replace(baseline_config(3).model,
+                                       dtype="float32"),
         "conv_transformer": EncoderConfig(
             variant="conv_transformer", dim=256, num_heads=8,
             num_squeeze_blocks=2, num_conform_blocks=0,
@@ -707,6 +1534,10 @@ def main() -> int:
 
     rows = kernel_phase(models, reqs)
     launches = engine_phase(models, reqs, smi)
+    del models
+    torch.cuda.empty_cache()
+    train_rows = train_kernel_phase(smi)
+    train_launches = train_phase(smi)
 
     # every ported kernel form that an engine path runs, with the launches
     # of that path's nine-request run
@@ -723,6 +1554,15 @@ def main() -> int:
             raise AssertionError(f"{row['name']} ({config}) was not launched "
                                  f"on its engine path")
         row["config"] = config
+        line.append(row)
+    # the training kernels, with the launches of the 20-step training run
+    for row in train_rows:
+        wrapper, direction = row.pop("counter")
+        row["launches"] = train_launches[(wrapper.__name__, direction)]
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched by the "
+                                 f"training run")
+        row["config"] = "preset4 training step, batch 256"
         line.append(row)
     log(json.dumps({"kernels": line}))
     log(smi)

@@ -18,7 +18,12 @@ returns them or ``params.msgpack`` holds them -- into the port's
   / ``conv_conform.{i}.{j}`` / ``conv_t.{i}.{j}``.
 
 It works on any subtree, so a single block's variables bridge to that
-block's ``state_dict``.
+block's ``state_dict``, and on any tree shaped like ``params`` -- gradients,
+or an optimizer's moments: ``flax_to_state_dict({"params": mu})`` names
+optax's ``mu`` leaves as the port names its parameters.
+:func:`state_dict_to_flax` is the reverse map, and :func:`load_train_state`
+carries flax ``params``, ``batch_stats`` and optax moments into a port
+``TrainState``.
 
 :func:`squeeze_block_args`, :func:`conformer_block_args`,
 :func:`transformer_block_args` and :func:`conv1d_block_args` go from the
@@ -85,6 +90,72 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     for prefix in bn_modules:
         out[prefix + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return out
+
+
+_LEAF_BACK = {v: k for k, v in _LEAF.items()}
+
+
+def _flax_module_name(parts: list[str]) -> list[str]:
+    """Port module path -> flax path: ``squeezeformer.{i}`` ->
+    ``squeezeformer_{i}``, ``conv_squeeze.{i}.{j}`` -> ``conv_squeeze{i}_{j}``."""
+    out, i = [], 0
+    while i < len(parts):
+        p = parts[i]
+        if p in ("squeezeformer", "conformer", "transformer") \
+                and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{p}_{parts[i + 1]}")
+            i += 2
+        elif p in ("conv_squeeze", "conv_conform", "conv_t") \
+                and i + 2 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{p}{parts[i + 1]}_{parts[i + 2]}")
+            i += 3
+        else:
+            out.append(p)
+            i += 1
+    return out
+
+
+def state_dict_to_flax(sd: dict) -> dict:
+    """The port's ``state_dict`` (or any dict with its names, such as
+    ``TrainState.param_dict()``) -> the JAX package's variables as nested
+    dicts of numpy arrays: ``{"params": ..., "batch_stats": ...}``."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, val in sd.items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        a = val.detach().to(torch.float32).cpu().numpy()
+        if leaf in ("running_mean", "running_var"):
+            tree, name = out["batch_stats"], _LEAF_BACK[leaf]
+        elif leaf == "weight" and a.ndim >= 2:
+            tree, name = out["params"], "kernel"
+            a = a.T if a.ndim == 2 else a.transpose(2, 1, 0)
+        else:
+            tree, name = out["params"], _LEAF_BACK[leaf]
+        for part in _flax_module_name(path):
+            tree = tree.setdefault(part, {})
+        tree[name] = np.ascontiguousarray(a)
+    return out
+
+
+def load_train_state(state, variables: dict, mu: dict | None = None,
+                     nu: dict | None = None, count: int = 0) -> None:
+    """Carry the JAX package's ``variables`` (``params`` + ``batch_stats``)
+    and, when given, optax's Adam moments ``mu`` / ``nu`` (trees shaped like
+    ``params``) and their update ``count`` into the port's ``TrainState``
+    ``state``, in place. The slow weights are reset to the parameters, as
+    ``TrainState.create`` leaves them."""
+    state.model.load_state_dict(flax_to_state_dict(variables))
+    state.slow_params.copy_(state.params)
+    for flat, tree in ((state.opt_state["mu"], mu),
+                       (state.opt_state["nu"], nu)):
+        if tree is None:
+            continue
+        named = flax_to_state_dict({"params": tree})
+        for name, sl in state.slices.items():
+            flat[sl] = named[name].reshape(-1).to(flat.device)
+    state.opt_state["count"].fill_(count)
+    state.opt_state["schedule_count"].fill_(count)
 
 
 def is_quantized(v) -> bool:

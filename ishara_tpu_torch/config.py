@@ -13,6 +13,14 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 
+# Keras parity epsilons of the encoder's norms, shared by the model layers
+# and the fused block kernels.
+LN_EPS = 1e-6
+BN_EPS = 1e-3
+# The reference Conformer conv module builds its norms with Keras defaults.
+LN_EPS_DEFAULT = 1e-3
+
+
 @dataclass
 class EncoderConfig:
     """Architecture config. ``variant`` selects the reference model family:

@@ -1,3 +1,3 @@
-from .greedy import greedy_decode
+from .greedy import greedy_decode, greedy_decode_batch
 
-__all__ = ["greedy_decode"]
+__all__ = ["greedy_decode", "greedy_decode_batch"]

@@ -1,6 +1,7 @@
 """The Ishara encoder (port of ``ishara_tpu/models/encoder.py``): stem ->
 block stack -> CTC head, for the ``squeezeformer``, ``conformer``,
-``hybrid``, ``conv_hybrid`` and ``conv_transformer`` families, eval mode."""
+``hybrid``, ``conv_hybrid`` and ``conv_transformer`` families, eval and
+training mode, at float32 or bfloat16 compute."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from torch import nn
 
 from ..config import EncoderConfig
 from ..device import resolve_device
+from ..ops.dropout import site_seed_table
 from ..preprocess.pipeline import frame_mask
 from .blocks import (
     Conv1DBlock,
@@ -16,7 +18,16 @@ from .blocks import (
     SqueezeformerBlock,
     TransformerBlock,
 )
-from .layers import BN_EPS, BN_MOMENTUM, positional_encoding
+from .layers import (
+    BN_EPS,
+    BN_MOMENTUM,
+    BatchNorm,
+    Dense,
+    FastDropout,
+    compute_dtype,
+    number_dropout_sites,
+    positional_encoding,
+)
 
 ATTENTION_VARIANTS = ("squeezeformer", "conformer", "hybrid")
 CONV_VARIANTS = ("conv_hybrid", "conv_transformer")
@@ -42,6 +53,11 @@ def check_variant(cfg: EncoderConfig) -> None:
         raise NotImplementedError(
             "causal mode is not ported yet (ROADMAP.md Queue 1 item 9, "
             "causal mode and streaming)")
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True (recomputing block activations in the backward pass) "
+            "is not ported yet (ROADMAP.md Queue 1 item 6, training)")
+    compute_dtype(cfg.dtype)
 
 
 def block_counts(cfg: EncoderConfig) -> tuple[int, int, int]:
@@ -62,30 +78,42 @@ class IsharaEncoder(nn.Module):
 
     Stem: Masking(0.0) -> biasless Linear -> + fixed sin/cos PE ->
     BatchNorm; then the block stack; then Linear(dim*top_mult, relu) ->
-    Linear(num_classes). Computes in float32."""
+    top dropout -> Linear(num_classes). Computes in ``cfg.dtype`` with
+    float32 parameters (see :mod:`.layers`) and returns float32 logits.
+
+    ``forward(x, training=True, seed=...)`` is the training forward: batch
+    statistics in every BatchNorm (whose running statistics move in place),
+    dropout at ``cfg.dropout`` / ``cfg.top_dropout`` with the masks of the
+    step's dropout ``seed``."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         check_variant(cfg)
         self.cfg = cfg
         d = cfg.dim
-        self.stem_conv = nn.Linear(cfg.input_dim, d, bias=False)
+        dt = compute_dtype(cfg.dtype)
+        drop = cfg.dropout
+        self.stem_conv = Dense(cfg.input_dim, d, bias=False, dtype=dt)
         self.register_buffer(
             "pos_enc",
             torch.as_tensor(positional_encoding(cfg.frame_len, d)),
             persistent=False)
-        self.stem_bn = nn.BatchNorm1d(d, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.stem_bn = BatchNorm(d, eps=BN_EPS, momentum=BN_MOMENTUM,
+                                 dtype=dt)
         nsq, ncf, ntr = block_counts(cfg)
         self.squeezeformer = nn.ModuleList(
             SqueezeformerBlock(d, cfg.num_heads, cfg.expansion_factor,
-                               cfg.transformer_kernel_size)
+                               cfg.transformer_kernel_size, drop, dtype=dt,
+                               use_flash=cfg.use_flash)
             for _ in range(nsq))
         self.conformer = nn.ModuleList(
             ConformerBlock(d, cfg.num_heads, cfg.expansion_factor,
-                           cfg.transformer_kernel_size)
+                           cfg.transformer_kernel_size, drop, drop, dtype=dt,
+                           use_flash=cfg.use_flash)
             for _ in range(ncf))
         self.transformer = nn.ModuleList(
-            TransformerBlock(d, cfg.num_heads, cfg.expansion_factor)
+            TransformerBlock(d, cfg.num_heads, cfg.expansion_factor, drop,
+                             drop, dtype=dt, use_flash=cfg.use_flash)
             for _ in range(ntr))
 
         def conv_stacks(n):
@@ -96,29 +124,35 @@ class IsharaEncoder(nn.Module):
             return nn.ModuleList(
                 nn.ModuleList(
                     Conv1DBlock(d, d, cfg.kernel_sizes[
-                        j % len(cfg.kernel_sizes)])
+                        j % len(cfg.kernel_sizes)], drop_rate=drop, dtype=dt)
                     for j in range(cfg.num_conv_per_block))
                 for _ in range(n))
 
         self.conv_squeeze = conv_stacks(nsq)
         self.conv_conform = conv_stacks(ncf)
         self.conv_t = conv_stacks(ntr)
-        self.top_conv = nn.Linear(d, d * cfg.top_mult)
-        self.classifier = nn.Linear(d * cfg.top_mult, cfg.num_classes)
+        self.top_conv = Dense(d, d * cfg.top_mult, dtype=dt)
+        self.top_drop = FastDropout(cfg.top_dropout)
+        self.classifier = Dense(d * cfg.top_mult, cfg.num_classes, dtype=dt)
+        self.num_sites = number_dropout_sites(self)
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False, seed=None):
+        if training and seed is not None:
+            # every site's seeds in one generator pass
+            seed = site_seed_table(seed, self.num_sites)
         mask = frame_mask(x)
-        x = self.stem_conv(x.to(torch.float32))
-        x = x + self.pos_enc[: x.shape[1]]
-        x = self.stem_bn(x.transpose(1, 2)).transpose(1, 2)
+        x = self.stem_conv(x)
+        x = x + self.pos_enc[: x.shape[1]].to(x.dtype)
+        x = self.stem_bn(x, training)
         for convs, blocks in ((self.conv_squeeze, self.squeezeformer),
                               (self.conv_conform, self.conformer),
                               (self.conv_t, self.transformer)):
             for i, blk in enumerate(blocks):
                 for conv in (convs[i] if len(convs) else ()):
-                    x = conv(x, mask)
-                x = blk(x, mask)
-        return self.classifier(torch.relu(self.top_conv(x)))
+                    x = conv(x, mask, training, seed)
+                x = blk(x, mask, training, seed)
+        x = self.top_drop(torch.relu(self.top_conv(x)), training, seed)
+        return self.classifier(x).to(torch.float32)
 
 
 def build_model(cfg: EncoderConfig, device=None) -> IsharaEncoder:

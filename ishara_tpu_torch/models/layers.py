@@ -1,5 +1,5 @@
 """Core encoder layers as ``nn.Module``s (port of ``ishara_tpu/models/
-layers.py``), eval mode and non-causal only.
+layers.py``), eval and training mode, non-causal only.
 
 Tensors are ``[B, T, C]`` as in the reference. The reference's quirks that
 affect weight parity are kept: attention scores scaled by ``dim**-0.5`` over
@@ -9,6 +9,22 @@ activation, post-LN residual and Keras-default eps (1e-3); masked GAP in SE.
 Parameter layout follows PyTorch: ``nn.Linear.weight`` is ``[out, in]`` and
 ``nn.Conv1d.weight`` ``[out, in/groups, K]``; :mod:`ishara_tpu_torch.bridge`
 converts the flax trees.
+
+**Compute dtype** (``cfg.dtype``, "float32" or "bfloat16") follows flax's
+rule, not ``torch.autocast``'s: parameters stay float32; :class:`Dense` and
+:class:`Conv` cast their input and their parameters to the compute dtype;
+:class:`LayerNorm` and :class:`BatchNorm` take their statistics and normalise
+in float32 and round once, to the compute dtype, on the way out.
+
+**Training mode** is an argument (``training=True``), not the module's flag.
+A step's dropout masks are a pure function of the step's dropout seed and
+of each site's number, given at construction by
+:func:`number_dropout_sites`: the encoder makes the table of every site's
+seeds from the step's seed once a step
+(:func:`ishara_tpu_torch.ops.dropout.site_seed_table`), and that table is the
+``seed`` argument of every layer and block below it; nothing draws
+from a stateful generator, so the same (seed, step) gives the same masks
+whatever path was taken before.
 """
 
 from __future__ import annotations
@@ -18,15 +34,26 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-# Keras parity epsilons.
-LN_EPS = 1e-6
-BN_EPS = 1e-3
-# The reference Conformer conv module builds its norms with Keras defaults.
-LN_EPS_DEFAULT = 1e-3
-# flax BatchNorm momentum is the decay of the running stats (0.95 / 0.99);
-# torch's is the weight of the new batch. Only training reads them.
-BN_MOMENTUM = 1.0 - 0.95
-BN_MOMENTUM_DEFAULT = 1.0 - 0.99
+from ..config import BN_EPS, LN_EPS, LN_EPS_DEFAULT
+from ..ops import attention, selection
+from ..ops.dropout import fast_dropout, fast_dropout_add, keep_mask, site_seeds
+from ..ops.ffn_kernel import ffn_residual
+
+# flax BatchNorm momentum: the decay of the running statistics.
+BN_MOMENTUM = 0.95
+BN_MOMENTUM_DEFAULT = 0.99
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` string."""
+    if isinstance(name, torch.dtype) and name in _DTYPES.values():
+        return name
+    if name not in _DTYPES:
+        raise ValueError(f"dtype must be 'float32' or 'bfloat16', got "
+                         f"{name!r}")
+    return _DTYPES[name]
 
 
 def positional_encoding(maxlen: int, dim: int) -> np.ndarray:
@@ -48,19 +75,175 @@ def masked_global_average_pool(x: torch.Tensor,
     return (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
 
 
-def _conv_tc(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """Apply a Conv1d to a [B, T, C] tensor."""
-    return conv(x.transpose(1, 2)).transpose(1, 2)
+class Dense(nn.Linear):
+    """``nn.Linear`` with float32 parameters that computes in ``dtype``."""
 
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class Conv(nn.Conv1d):
+    """``nn.Conv1d`` with float32 parameters that computes in ``dtype`` on a
+    channel-last ``[B, T, C]`` tensor."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(in_channels, out_channels, kernel_size, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = F.conv1d(x.to(dt).transpose(1, 2), self.weight.to(dt),
+                     None if self.bias is None else self.bias.to(dt),
+                     self.stride, self.padding, self.dilation, self.groups)
+        return y.transpose(1, 2)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis: float32 statistics and arithmetic, one
+    rounding to ``dtype``."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        y = F.layer_norm(x.to(torch.float32), self.normalized_shape,
+                         self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over a channel-last tensor with flax's semantics.
+
+    Training: statistics over every axis but the last -- batch and time, the
+    padding mask ignored -- in float32, the variance as ``mean(x^2) -
+    mean(x)^2`` clipped at 0; the running statistics move as ``running =
+    momentum * running + (1 - momentum) * batch`` with the **biased** batch
+    variance (``torch.nn.BatchNorm1d`` uses the unbiased one and the other
+    momentum convention), in place. Eval: the running statistics. Either
+    way the arithmetic is float32 and the result is rounded once to
+    ``dtype``. The ``state_dict`` keys are ``nn.BatchNorm1d``'s."""
+
+    def __init__(self, channels: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps, self.momentum, self.compute_dtype = eps, momentum, dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long))
+
+    def forward(self, x, training: bool = False):
+        xf = x.to(torch.float32)
+        if training:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+        return y.to(self.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dropout sites
+# ---------------------------------------------------------------------------
+
+def number_dropout_sites(module: nn.Module) -> int:
+    """Give every dropout site under ``module`` its number (``site`` = its
+    position in ``module.modules()``'s order) and return how many there are.
+    The encoder calls this once; a block built alone numbers its own."""
+    n = 0
+    for m in module.modules():
+        if hasattr(m, "site"):
+            m.site = n
+            n += 1
+    return n
+
+
+def _need_seed(seed):
+    if seed is None:
+        raise ValueError("training with dropout needs the step's dropout "
+                         "seed (the table of its sites' seeds)")
+    return seed
+
+
+class FastDropout(nn.Module):
+    """Inverted dropout with the (seed, position) mask of
+    :func:`ishara_tpu_torch.ops.dropout.fast_dropout`."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate, self.site = float(rate), 0
+
+    def forward(self, x, training: bool = False, seed=None):
+        if not training or self.rate <= 0.0:
+            return x
+        return fast_dropout(x, site_seeds(_need_seed(seed), 1, self.site),
+                            self.rate)
+
+
+class FastDropoutAdd(nn.Module):
+    """``res + dropout(h)`` in one pass (``fast_dropout_add``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate, self.site = float(rate), 0
+
+    def forward(self, res, h, training: bool = False, seed=None):
+        if not training or self.rate <= 0.0:
+            return res + h
+        return fast_dropout_add(
+            res, h, site_seeds(_need_seed(seed), 1, self.site), self.rate)
+
+
+class RowDropout(nn.Module):
+    """Keras ``Dropout(noise_shape=(None, 1, 1))``: drops whole samples. The
+    ``[B]`` keep mask is the same Philox function of (site seed, row)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate, self.site = float(rate), 0
+
+    def forward(self, x, training: bool = False, seed=None):
+        if not training or self.rate <= 0.0:
+            return x
+        keep = keep_mask(site_seeds(_need_seed(seed), 1, self.site),
+                         (x.shape[0],), self.rate)
+        scale = keep.to(x.dtype) / (1.0 - self.rate)
+        return x * scale.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
 
 class SqueezeExcite(nn.Module):
     """SE gate: masked GAP -> Linear(C/r, swish) -> Linear(C, sigmoid)."""
 
-    def __init__(self, channels: int, reduction_ratio: int = 8):
+    def __init__(self, channels: int, reduction_ratio: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         r = max(1, channels // reduction_ratio)
-        self.fc1 = nn.Linear(channels, r)
-        self.fc2 = nn.Linear(r, channels)
+        self.fc1 = Dense(channels, r, dtype=dtype)
+        self.fc2 = Dense(r, channels, dtype=dtype)
 
     def forward(self, x, mask=None):
         g = masked_global_average_pool(x, mask)
@@ -73,113 +256,172 @@ class ECA(nn.Module):
     channel axis ('same' zero padding ((k-1)//2, k//2), no bias) -> sigmoid
     gate."""
 
-    def __init__(self, kernel_size: int = 5):
+    def __init__(self, kernel_size: int = 5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pad = ((kernel_size - 1) // 2, kernel_size // 2)
         self.conv = nn.Conv1d(1, 1, kernel_size, bias=False)
+        self.compute_dtype = dtype
 
     def forward(self, x, mask=None):
+        dt = self.compute_dtype
         g = masked_global_average_pool(x, mask)[:, None, :]    # [B, 1, C]
-        g = torch.sigmoid(self.conv(F.pad(g, self.pad)))[:, 0, :]
-        return x * g[:, None, :]
+        g = F.conv1d(F.pad(g.to(dt), self.pad), self.conv.weight.to(dt))
+        return x * torch.sigmoid(g[:, 0, :])[:, None, :]
 
 
 class CausalDWConv1D(nn.Module):
     """Left-padded depthwise conv: pad (k-1)*dilation, then VALID."""
 
     def __init__(self, channels: int, kernel_size: int = 17,
-                 dilation_rate: int = 1, use_bias: bool = False):
+                 dilation_rate: int = 1, use_bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pad = dilation_rate * (kernel_size - 1)
-        self.dwconv = nn.Conv1d(channels, channels, kernel_size,
-                                dilation=dilation_rate, groups=channels,
-                                bias=use_bias)
+        self.dwconv = Conv(channels, channels, kernel_size, dtype=dtype,
+                           dilation=dilation_rate, groups=channels,
+                           bias=use_bias)
 
     def forward(self, x):
-        return _conv_tc(self.dwconv, F.pad(x, (0, 0, self.pad, 0)))
+        return self.dwconv(F.pad(x, (0, 0, self.pad, 0)))
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """Fused-QKV attention with padding mask (the reference's einsum path).
+    """Fused-QKV attention with padding mask.
 
     The QKV weight's output axis is laid out per head as ``[q|k|v]`` blocks
     of ``Dh`` -- not ``[Q|K|V]`` over the whole width. Scores are scaled by
-    ``dim**-0.5`` and masked keys filled with ``finfo.min``."""
+    ``dim**-0.5``.
 
-    def __init__(self, dim: int = 256, num_heads: int = 4):
+    Two paths, as in the reference. The einsum path fills masked keys with
+    ``finfo.min`` and, in training, puts ``fast_dropout`` on the
+    probabilities. The kernel path is
+    :func:`ishara_tpu_torch.ops.attention.flash_mhsa` with the dropout inside
+    it. Both key the mask by the same site seed and index it by the flat
+    position in ``[B, H, T, T]``, so the path taken does not change which
+    weights are dropped. The kernel path is taken in training when the tensor is on a CUDA device,
+    ``T <= 384`` and ``selection.train_attention`` says "flash" for the
+    geometry, and whenever ``use_flash`` forces it. The choice is the
+    table's alone: a geometry the kernel cannot take raises there."""
+
+    def __init__(self, dim: int = 256, num_heads: int = 4,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 use_flash: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
-        self.proj = nn.Linear(dim, dim, bias=False)
+        self.dropout, self.use_flash = float(dropout), use_flash
+        self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype)
+        self.proj = Dense(dim, dim, bias=False, dtype=dtype)
+        self.site = 0                       # the dropout site, either path
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, training: bool = False, seed=None):
         B, T, _ = x.shape
         H = self.num_heads
         Dh = self.dim // H
         qkv = self.qkv(x).reshape(B, T, H, 3 * Dh).transpose(1, 2)
         q, k, v = qkv.split(Dh, dim=-1)
-        attn = torch.einsum("bhqd,bhkd->bhqk", q, k) * self.dim ** -0.5
-        if mask is not None:
-            attn = attn.masked_fill(~mask[:, None, None, :],
-                                    torch.finfo(attn.dtype).min)
-        attn = attn.softmax(dim=-1)
-        out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
+        scale = self.dim ** -0.5
+        rate = self.dropout if training else 0.0
+        s = site_seeds(_need_seed(seed), 1, self.site) if rate > 0.0 else None
+        flash = self.use_flash or (
+            training and x.is_cuda and T <= attention.MAX_T
+            and selection.train_attention(self.dim, T, rate > 0.0, B)
+            == "flash")
+        if flash:
+            bias = attention.mask_to_bias(mask) if mask is not None else \
+                torch.zeros((B, T), dtype=torch.float32, device=x.device)
+            out = attention.flash_mhsa(q, k, v, bias, s, scale=scale,
+                                       dropout_rate=rate)
+        else:
+            attn = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+            if mask is not None:
+                attn = attn.masked_fill(~mask[:, None, None, :],
+                                        torch.finfo(attn.dtype).min)
+            attn = fast_dropout(attn.softmax(dim=-1), s, rate)
+            out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         return self.proj(out.transpose(1, 2).reshape(B, T, self.dim))
 
 
-class FeedForwardModule(nn.Module):
-    """Linear(dim*exp, swish) -> Linear(dim) (``FeedForwardModule`` and the
-    eval-mode math of ``FusedFFN``; the residual is added by the block)."""
+class FusedFFN(nn.Module):
+    """``res + drop_res(Linear(drop(swish(Linear(x)))))``: the block FFN with
+    its residual (reference ``FusedFFN``; ``fc1``/``fc2`` keep the keys of
+    the plain feed-forward module).
 
-    def __init__(self, dim: int, expansion_factor: int = 4):
+    In training, with a dropout site active, on a CUDA device, at a geometry
+    where ``selection.ffn_fused_when_dropout`` says so, the whole branch is
+    one kernel, :func:`ishara_tpu_torch.ops.ffn_kernel.ffn_residual`, which
+    reads ``fc1``/``fc2`` directly. Otherwise it is the composition, with
+    ``fast_dropout`` on the hidden and ``fast_dropout_add`` on the way out.
+    Both key the hidden's mask by the site's first seed and the output's by
+    its second, so the path taken does not change what is dropped.
+    ``res_rate`` is the residual branch's dropout (the Squeezeformer sites;
+    0 for the Conformer's)."""
+
+    def __init__(self, dim: int, expansion_factor: int = 4,
+                 dropout: float = 0.1, res_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(dim, dim * expansion_factor)
-        self.fc2 = nn.Linear(dim * expansion_factor, dim)
+        self.dim = dim
+        self.dropout, self.res_rate = float(dropout), float(res_rate)
+        self.fc1 = Dense(dim, dim * expansion_factor, dtype=dtype)
+        self.fc2 = Dense(dim * expansion_factor, dim, dtype=dtype)
+        self.site = 0                  # one site, two seeds, either path
 
-    def forward(self, x):
-        return self.fc2(F.silu(self.fc1(x)))
+    def forward(self, res, x, training: bool = False, seed=None):
+        dropping = training and (self.dropout > 0.0 or self.res_rate > 0.0)
+        if not dropping:
+            return res + self.fc2(F.silu(self.fc1(x)))
+        seeds = site_seeds(_need_seed(seed), 2, self.site)
+        if x.is_cuda and selection.ffn_fused_when_dropout(
+                self.dim, x.shape[1], x.shape[0]):
+            return ffn_residual(x, res, self.fc1.weight.t(), self.fc1.bias,
+                                self.fc2.weight.t(), self.fc2.bias, seeds,
+                                self.dropout, self.res_rate)
+        h = fast_dropout(F.silu(self.fc1(x)), seeds[0:1], self.dropout)
+        return fast_dropout_add(res, self.fc2(h), seeds[1:2], self.res_rate)
 
 
 class SqueezeformerConvModule(nn.Module):
     """LN -> pw(dim*exp) swish -> causal DW conv swish -> pw(dim) -> SE
     -> +residual."""
 
-    def __init__(self, dim: int, kernel_size: int, expansion_factor: int = 2):
+    def __init__(self, dim: int, kernel_size: int, expansion_factor: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         e = dim * expansion_factor
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
-        self.pw1 = nn.Conv1d(dim, e, 1)
-        self.dw = CausalDWConv1D(e, kernel_size)
-        self.pw2 = nn.Conv1d(e, dim, 1)
-        self.se = SqueezeExcite(dim)
+        self.norm = LayerNorm(dim, eps=LN_EPS, dtype=dtype)
+        self.pw1 = Conv(dim, e, 1, dtype=dtype)
+        self.dw = CausalDWConv1D(e, kernel_size, dtype=dtype)
+        self.pw2 = Conv(e, dim, 1, dtype=dtype)
+        self.se = SqueezeExcite(dim, dtype=dtype)
 
     def forward(self, x, mask=None):
-        h = F.silu(_conv_tc(self.pw1, self.norm(x)))
+        h = F.silu(self.pw1(self.norm(x)))
         h = F.silu(self.dw(h))
-        h = _conv_tc(self.pw2, h)
+        h = self.pw2(h)
         return self.se(h, mask) + x
 
 
 class ConformerConvModule(nn.Module):
     """pw(2*dim) -> GLU -> 'same' DW conv (+bias) -> BN -> pw(dim)
-    -> LN(x + residual), with Keras-default eps 1e-3 for BN and LN."""
+    -> LN(x + residual), with Keras-default eps 1e-3 for BN and LN and BN
+    momentum 0.99."""
 
-    def __init__(self, dim: int, kernel_size: int = 31):
+    def __init__(self, dim: int, kernel_size: int = 31,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim = dim
         # 'same' for stride 1: (k-1)//2 on the left, k//2 on the right
         self.pad = ((kernel_size - 1) // 2, kernel_size // 2)
-        self.pw1 = nn.Conv1d(dim, 2 * dim, 1)
-        self.dw = nn.Conv1d(dim, dim, kernel_size, groups=dim)
-        self.bn = nn.BatchNorm1d(dim, eps=BN_EPS, momentum=BN_MOMENTUM_DEFAULT)
-        self.pw2 = nn.Conv1d(dim, dim, 1)
-        self.ln = nn.LayerNorm(dim, eps=LN_EPS_DEFAULT)
+        self.pw1 = Conv(dim, 2 * dim, 1, dtype=dtype)
+        self.dw = Conv(dim, dim, kernel_size, dtype=dtype, groups=dim)
+        self.bn = BatchNorm(dim, eps=BN_EPS, momentum=BN_MOMENTUM_DEFAULT,
+                            dtype=dtype)
+        self.pw2 = Conv(dim, dim, 1, dtype=dtype)
+        self.ln = LayerNorm(dim, eps=LN_EPS_DEFAULT, dtype=dtype)
 
-    def forward(self, x):
-        h = _conv_tc(self.pw1, x)
-        a, b = h.split(self.dim, dim=-1)
+    def forward(self, x, training: bool = False):
+        a, b = self.pw1(x).split(self.dim, dim=-1)
         h = a * torch.sigmoid(b)
-        h = F.pad(h, (0, 0) + self.pad).transpose(1, 2)
-        h = self.bn(self.dw(h))
-        h = self.pw2(h).transpose(1, 2)
-        return self.ln(h + x)
+        h = self.bn(self.dw(F.pad(h, (0, 0) + self.pad)), training)
+        return self.ln(self.pw2(h) + x)

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` compiles, with ``nvcc`` for ``sm_90a``, into its own
 shared library with a plain C interface under ``ishara_tpu_torch/_build/``
 (listed in ``.gitignore``). All sources compile at once, one ``nvcc`` each.
-A library's file name carries a hash of its source and the flags, so an
-edited source builds anew and an unchanged one is loaded as it is.
+A library's file name carries a hash of its source, of the headers beside it
+(``csrc/*.cuh``, which any source may include) and of the flags, so an edited
+source or header builds anew and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -35,9 +38,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict[str, Path]:
@@ -80,3 +85,41 @@ def load(name: str) -> ctypes.CDLL:
 def build_log(name: str) -> str:
     """The compiler output kept from the build of ``csrc/<name>.cu``."""
     return _lib_path(SRC_DIR / f"{name}.cu").with_suffix(".log").read_text()
+
+
+def sources() -> list[str]:
+    """The stems of every ``csrc/*.cu``."""
+    return sorted(s.stem for s in SRC_DIR.glob("*.cu"))
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library, returning
+    a CUDA error code (0 on success); its argument types are declared on
+    first use. Pass its result to :func:`check`."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.ishara_error_string.argtypes = [ctypes.c_int]
+        lib.ishara_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+def check(name: str, rc: int, what: str) -> None:
+    """Raise when a kernel launch of library ``name`` returned ``rc`` != 0."""
+    if rc:
+        msg = load(name).ishara_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+
+def device_index(t: torch.Tensor) -> int:
+    """The CUDA device index of ``t``."""
+    return t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s device, as the C functions take
+    it."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -45,8 +45,8 @@ def make_serving_program(model: IsharaEncoder, stats: GroupStats,
     (ids [max_out], count)`` on the model's device: preprocess, encoder,
     greedy decode, fallback.
 
-    ``fused=True`` runs the encoder through :class:`~ishara_tpu_torch.ops.
-    fused_block.FusedEncoder` with the block weights packed once, here, at
+    ``fused=True`` runs the encoder through :class:`~ishara_tpu_torch.
+    models.fused.FusedEncoder` with the block weights packed once, here, at
     ``compute_dtype`` (bf16, the reference's deploy default, or f32).
     ``fused="int8"`` quantizes the weights once, here, never per request
     (the reference's ``prepare_serving_variables``), and the kernels scale
@@ -66,7 +66,8 @@ def make_serving_program(model: IsharaEncoder, stats: GroupStats,
         raise ValueError(f"fused must be False, True or 'int8', got {fused!r}")
     device = next(model.parameters()).device
     if fused:
-        from ..ops.fused_block import FusedEncoder, quantize_serving_weights
+        from ..models.fused import FusedEncoder
+        from ..ops.fused_block import quantize_serving_weights
 
         sd = model.state_dict()
         if fused == "int8":

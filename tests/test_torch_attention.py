@@ -1,0 +1,169 @@
+"""The port's attention module (``ishara_tpu_torch/ops/attention.py``, whose
+plain version runs here on the CPU) against the JAX package's
+``flash_mhsa(interpret=True)`` and ``reference_mhsa`` on the same numpy
+inputs. f32: forward rtol = atol = 1e-5, gradients 1e-4 (the JAX package's
+own tolerances for kernel against oracle). bf16: the output is rounded to
+bf16 on both sides, one ulp (2^-8 relative) apart at most where a last bit
+differs before the rounding: rtol = atol = 2e-2."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ishara_tpu.ops.attention import flash_mhsa as j_flash_mhsa
+from ishara_tpu.ops.attention import mask_to_bias as j_mask_to_bias
+from ishara_tpu.ops.attention import reference_mhsa as j_reference_mhsa
+
+from ishara_tpu_torch.ops import attention as at
+
+B, H, T, Dh = 2, 4, 32, 16
+SCALE = (H * Dh) ** -0.5
+TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+
+
+def case(seed=0):
+    r = np.random.default_rng(seed)
+    q, k, v = (r.standard_normal((B, H, T, Dh)).astype(np.float32)
+               for _ in range(3))
+    mask = r.random((B, T)) > 0.25
+    d_o = r.standard_normal((B, H, T, Dh)).astype(np.float32)
+    return q, k, v, mask, d_o
+
+
+def as_torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def as_np(t):
+    return t.detach().to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_and_grads_match_pallas_interpret(dtype):
+    q, k, v, mask, d_o = case()
+    jd = jnp.dtype(dtype)
+    bias = j_mask_to_bias(jnp.asarray(mask))
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    want, vjp = jax.vjp(
+        lambda a, b, c: j_flash_mhsa(a, b, c, bias, scale=SCALE,
+                                     interpret=True), jq, jk, jv)
+    want_g = vjp(jnp.asarray(d_o, jd))
+
+    tq, tk, tv = (as_torch(a, dtype).requires_grad_() for a in (q, k, v))
+    tbias = at.mask_to_bias(torch.from_numpy(mask))
+    got = at.flash_mhsa(tq, tk, tv, tbias, scale=SCALE)
+    got_g = torch.autograd.grad(got, (tq, tk, tv), as_torch(d_o, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    f_tol, g_tol = TOL[dtype]
+    np.testing.assert_allclose(as_np(got), np.asarray(want, np.float32),
+                               rtol=f_tol, atol=f_tol)
+    for a, b, name in zip(got_g, want_g, "qkv"):
+        np.testing.assert_allclose(as_np(a), np.asarray(b, np.float32),
+                                   rtol=g_tol, atol=g_tol, err_msg=name)
+
+
+def test_matches_reference_mhsa_of_both_packages():
+    q, k, v, mask, _ = case(1)
+    bias = j_mask_to_bias(jnp.asarray(mask))
+    want = np.asarray(j_reference_mhsa(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), bias, SCALE))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tbias = at.mask_to_bias(torch.from_numpy(mask))
+    np.testing.assert_array_equal(tbias.numpy(), np.asarray(bias))
+    np.testing.assert_allclose(
+        at.reference_mhsa(tq, tk, tv, tbias, SCALE).numpy(), want,
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        at.flash_mhsa(tq, tk, tv, tbias, scale=SCALE).numpy(), want,
+        rtol=1e-5, atol=1e-5)
+
+
+def test_backward_matches_autograd_of_the_reference():
+    q, k, v, mask, _ = case(2)
+    bias = at.mask_to_bias(torch.from_numpy(mask))
+    grads = []
+    for fn in (lambda a, b, c: at.flash_mhsa(a, b, c, bias, scale=SCALE),
+               lambda a, b, c: at.reference_mhsa(a, b, c, bias, SCALE)):
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+        grads.append(torch.autograd.grad((fn(tq, tk, tv) ** 2).sum(),
+                                         (tq, tk, tv)))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_fully_masked_row_is_finite():
+    """Every key masked: uniform weights, as the JAX kernel gives."""
+    r = np.random.default_rng(1)
+    x = r.standard_normal((1, 1, 8, 8)).astype(np.float32)
+    want = j_flash_mhsa(jnp.asarray(x), jnp.asarray(x), jnp.asarray(x),
+                        j_mask_to_bias(jnp.zeros((1, 8), bool)), scale=0.125,
+                        interpret=True)
+    t = torch.from_numpy(x).requires_grad_()
+    out = at.flash_mhsa(t, t, t, at.mask_to_bias(torch.zeros((1, 8),
+                                                             dtype=torch.bool)),
+                        scale=0.125)
+    (g,) = torch.autograd.grad(out.sum(), t)
+    assert bool(out.isfinite().all()) and bool(g.isfinite().all())
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def einsum_with_mask(q, k, v, mask, keep, rate):
+    """The layer's einsum path with an explicit keep mask on the
+    probabilities."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * SCALE
+    s = s.masked_fill(~mask[:, None, None, :], torch.finfo(s.dtype).min)
+    p = s.softmax(-1) * keep / (1.0 - rate)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def test_explicit_keep_mask_matches_einsum_composition():
+    q, k, v, mask, d_o = case(3)
+    rate = 0.3
+    keep = torch.from_numpy(
+        np.random.default_rng(4).random((B, H, T, T)) >= rate)
+    tmask = torch.from_numpy(mask)
+    bias = at.mask_to_bias(tmask)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    want = einsum_with_mask(tq, tk, tv, tmask, keep, rate)
+    want_g = torch.autograd.grad(want, (tq, tk, tv), torch.from_numpy(d_o))
+    with torch.no_grad():
+        o, lse = at.mhsa_forward_plain(tq, tk, tv, bias, None, SCALE, rate,
+                                       keep=keep)
+        got_g = at.mhsa_backward_plain(tq, tk, tv, bias, None, o, lse,
+                                       torch.from_numpy(d_o), SCALE, rate,
+                                       keep=keep)
+    np.testing.assert_allclose(o.numpy(), want.detach().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(got_g, want_g):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_philox_dropout_is_regenerated_in_the_backward():
+    """With dropout on, autograd of the wrapper equals the explicit-mask
+    oracle fed the Philox mask of the same seed; the same seed gives the
+    same output, another seed another."""
+    from ishara_tpu_torch.ops.dropout import keep_mask
+
+    q, k, v, mask, d_o = case(5)
+    rate = 0.4
+    seed = torch.tensor([77], dtype=torch.int32)
+    tmask = torch.from_numpy(mask)
+    bias = at.mask_to_bias(tmask)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = at.flash_mhsa(tq, tk, tv, bias, seed, SCALE, rate)
+    got_g = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(d_o))
+    keep = keep_mask(seed, (B, H, T, T), rate)
+    want = einsum_with_mask(tq, tk, tv, tmask, keep, rate)
+    want_g = torch.autograd.grad(want, (tq, tk, tv), torch.from_numpy(d_o))
+    np.testing.assert_allclose(out.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for a, b in zip(got_g, want_g):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
+    with torch.no_grad():
+        assert torch.equal(out, at.flash_mhsa(tq, tk, tv, bias, seed, SCALE,
+                                              rate))
+        assert not torch.equal(out, at.flash_mhsa(tq, tk, tv, bias, seed + 1,
+                                                  SCALE, rate))

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from ishara_tpu_torch.config import EncoderConfig
+from ishara_tpu_torch.models import fused
 from ishara_tpu_torch.models.encoder import build_model
 from ishara_tpu_torch.ops import fused_block as fb
 
@@ -85,7 +86,7 @@ def test_kernel_matches_plain(variant, kind, dt, dma, T):
     sd = model.state_dict()
     if dt == "int8":
         sd = fb.quantize_serving_weights(sd)
-    conv, leaves = fb.encoder_segment_args(model.cfg, sd, kind, tdt)
+    conv, leaves = fused.encoder_segment_args(model.cfg, sd, kind, tdt)
     x, mask = _inputs(T, model.cfg.dim)
     heads = model.cfg.num_heads
     if variant == "hybrid":
@@ -125,8 +126,277 @@ def test_fused_forward_matches_model(variant, dt, dma):
     if dt == "int8":  # against the model on the dequantized weights
         sd = fb.quantize_serving_weights(sd)
         model.load_state_dict(fb.dequantize_serving_weights(sd))
-    got = fb.fused_encoder_forward(model.cfg, sd, x, compute_dtype=tdt,
+    got = fused.fused_encoder_forward(model.cfg, sd, x, compute_dtype=tdt,
                                    dma=dma, device="cuda")
     with torch.no_grad():
         want = model(x[None])[0]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# Training kernels, at shapes the training step does not reach. Tolerances
+# as chip_smoke.py's: |kernel - plain| <= tol * (max|plain| + |plain|) with
+# tol 2e-4 at f32 (another summation order, the card's expf / logf), 2e-2 at
+# bf16 (one bf16 ulp where a last bit differs before a rounding); dropout
+# exact.
+# ---------------------------------------------------------------------------
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _close(got, want, tol):
+    got, want = got.float(), want.float()
+    assert bool(got.isfinite().all())
+    bound = tol * (want.abs().max() + want.abs())
+    assert bool(((got - want).abs() <= bound).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,C", [(3, 12, 5, 8), (2, 9, 1, 8),
+                                     (5, 40, 17, 33)])
+def test_ctc_kernels_match_plain(B, T, U, C):
+    """Alpha and beta kernels (odd sizes, repeats, an all-blank row) against
+    the plain recursions; the wrapper counts one launch each."""
+    _card()
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+
+    blank = C - 1
+    rng = np.random.default_rng(B + T)
+    labels = np.full((B, U), blank, np.int32)
+    for b in range(1, B):
+        n = int(rng.integers(0, U + 1))
+        labels[b, :n] = rng.choice([0, 1], size=n)
+    logits = torch.from_numpy(rng.standard_normal((B, T, C)).astype(
+        np.float32)).cuda().requires_grad_()
+    labels = torch.from_numpy(labels).cuda()
+    dy = torch.from_numpy(rng.random(B).astype(np.float32)).cuda()
+    before = (ck.ctc_loss_kernel.launches, ck.ctc_loss_kernel.launches_bwd)
+    nll = ck.ctc_loss_kernel(logits, labels, blank_id=blank, reduction="none")
+    (grad,) = torch.autograd.grad(nll, logits, dy)
+    torch.cuda.synchronize()
+    assert (ck.ctc_loss_kernel.launches, ck.ctc_loss_kernel.launches_bwd) \
+        == (before[0] + 1, before[1] + 1)
+    x = logits.detach()
+    want, alpha = ck.ctc_forward_plain(x, labels, blank)
+    _close(nll, want, 2e-5)
+    _close(grad, ck.ctc_backward_plain(x, labels, alpha, want, dy, blank),
+           2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1003,), (7, 33), (4, 16, 64)])
+def test_dropout_kernels_equal_plain(shape, dtype):
+    """Ragged and unaligned sizes: the kernel equals the plain Philox
+    version exactly, forward, add form and backward."""
+    _card()
+    from ishara_tpu_torch.ops import dropout as dr
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    res = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    seed = torch.tensor([321], dtype=torch.int32, device="cuda")
+    xr = x.clone().requires_grad_()
+    out = dr.fast_dropout(xr, seed, 0.3)
+    assert torch.equal(out, dr.dropout_plain(x, seed, 0.3))
+    (dx,) = torch.autograd.grad(out, xr, res)
+    assert torch.equal(dx, dr.dropout_plain(res, seed, 0.3))
+    assert torch.equal(dr.fast_dropout_add(res, x, seed, 0.3),
+                       dr.dropout_plain(x, seed, 0.3, res))
+    # a view that starts off a 16-byte boundary takes the scalar path
+    if x.numel() > 8:
+        flat = x.reshape(-1)[1:]
+        assert torch.equal(dr.fast_dropout(flat, seed, 0.3),
+                           dr.dropout_plain(flat, seed, 0.3))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        dr.fast_dropout(x.to(torch.float16), seed, 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,Dh", [(23, 16), (24, 8), (200, 32), (384, 16),
+                                  (176, 64), (301, 64), (384, 64)])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_attention_kernels_match_plain(T, Dh, rate, dtype, tol):
+    """T not a multiple of 4 (masks straddle Philox blocks), one to three
+    128-key passes, 64-wide heads whose backward splits the keys into two
+    and three tiles, a fully masked row; forward and dq, dk, dv."""
+    _card()
+    from ishara_tpu_torch.ops import attention as at
+
+    B, H = 2, 3
+    g = torch.Generator(device="cuda").manual_seed(T)
+    qkv = torch.randn((B, T, H, 3 * Dh), generator=g, device="cuda").to(
+        dtype).requires_grad_()
+    d_o = torch.randn((B, H, T, Dh), generator=g, device="cuda").to(dtype)
+    mask = torch.rand((B, T), generator=g, device="cuda") > 0.2
+    mask[1] = False
+    bias = at.mask_to_bias(mask)
+    seed = torch.tensor([55], dtype=torch.int32, device="cuda")
+    scale = (H * Dh) ** -0.5
+    q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    o = at.flash_mhsa(q, k, v, bias, seed, scale, rate)
+    grads = torch.autograd.grad(o, (q, k, v), d_o)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ro, lse = at.mhsa_forward_plain(q, k, v, bias, seed, scale, rate)
+        rgrads = at.mhsa_backward_plain(q, k, v, bias, seed, ro, lse, d_o,
+                                        scale, rate)
+    _close(o, ro, tol)
+    for a, b in zip(grads, rgrads):
+        _close(a, b, tol)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_refuses_what_it_cannot_take():
+    _card()
+    from ishara_tpu_torch.ops import attention as at
+
+    q = torch.zeros((1, 1, 385, 8), device="cuda")
+    with pytest.raises(ValueError, match="T <= 384"):
+        at.flash_mhsa(q, q, q, torch.zeros((1, 385), device="cuda"))
+    # K and V of a 128-wide head at T = 384 outgrow a block's shared
+    # memory: refused up front, not at the backward
+    assert not at.kernel_takes(torch.bfloat16, 384, 128)
+    assert at.kernel_takes(torch.bfloat16, 384, 64)
+    assert at.kernel_takes(torch.bfloat16, 176, 32)
+    q = torch.zeros((1, 1, 384, 128), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        at.flash_mhsa(q, q, q, torch.zeros((1, 384), device="cuda"))
+    q = torch.zeros((1, 1, 8, 8), device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        at.flash_mhsa(q, q, q, torch.zeros((1, 8), device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,k,m", [
+    (torch.bfloat16, 40, 128, 256), (torch.bfloat16, 96, 128, 128),
+    (torch.bfloat16, 515, 256, 512),
+    # the general kernels: f32, and bf16 at widths off the 128 grid
+    (torch.float32, 40, 128, 256), (torch.float32, 515, 256, 512),
+    (torch.float32, 77, 20, 36), (torch.bfloat16, 96, 64, 128),
+    (torch.bfloat16, 33, 70, 100)])
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.3, 0.2), (0.4, 0.0)])
+def test_ffn_kernels_match_plain(dtype, n, k, m, rates):
+    """Row counts that need padding to the 32-row tile, the narrowest
+    widths of the tensor-core kernels, f32 and odd widths on the general
+    ones; forward, all gradients, and the masks bit for bit."""
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+    from ishara_tpu_torch.ops.dropout import keep_mask
+
+    r1, r2 = rates
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    g = torch.Generator(device="cuda").manual_seed(n)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    x = rand(n, k).to(dtype).requires_grad_()
+    res = rand(n, k).to(dtype).requires_grad_()
+    dy = rand(n, k).to(dtype)
+    params = [rand(k, m, scale=k ** -0.5), rand(m, scale=0.1),
+              rand(m, k, scale=m ** -0.5), rand(k, scale=0.1)]
+    for p in params:
+        p.requires_grad_()
+    seeds = torch.tensor([9, 10], dtype=torch.int32, device="cuda")
+    before = (fk.ffn_residual.launches, fk.ffn_residual.launches_bwd)
+    out = fk.ffn_residual(x, res, *params, seeds, r1, r2)
+    grads = torch.autograd.grad(out, [x, res] + params, dy)
+    torch.cuda.synchronize()
+    assert (fk.ffn_residual.launches, fk.ffn_residual.launches_bwd) \
+        == (before[0] + 1, before[1] + 1)
+    w1, b1, w2, b2 = (p.detach() for p in params)
+    w1c, w2c = w1.to(dtype), w2.to(dtype)
+    want = fk.ffn_forward_plain(x.detach(), res.detach(), w1c, b1, w2c, b2,
+                                seeds, r1, r2)
+    rdx, rdw1, rdb1, rdw2, rdb2 = fk.ffn_backward_plain(
+        x.detach(), dy, w1c, b1, w2c, seeds, r1, r2)
+    _close(out, want, tol)
+    for a, b in zip(grads, (rdx, dy, rdw1, rdb1, rdw2, rdb2)):
+        _close(a, b, tol)
+    k1, k2 = fk.debug_masks(n, m, k, seeds, 0.3, 0.2)
+    assert torch.equal(k1.bool(), keep_mask(seeds[0:1], (n, m), 0.3))
+    assert torch.equal(k2.bool(), keep_mask(seeds[1:2], (n, k), 0.2))
+
+
+@pytest.mark.cuda
+def test_ffn_kernel_refuses_what_it_cannot_take():
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    seeds = torch.zeros(2, dtype=torch.int32, device="cuda")
+    x = torch.zeros((32, 128), device="cuda", dtype=torch.float16)
+    w1, w2 = torch.zeros((128, 256), device="cuda"), \
+        torch.zeros((256, 128), device="cuda")
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        fk.ffn_residual(x, x, w1, torch.zeros(256, device="cuda"), w2,
+                        torch.zeros(128, device="cuda"), seeds, 0.1, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_step_on_the_card_matches_the_cpu(dtype):
+    """One fused training step of a small hybrid model with dropout and
+    augmentation on, on the card (the kernels, chosen by the selection
+    table) and on the CPU (compositions and plain versions), from the same
+    weights and seeds. A site's masks are a function of its seeds and the
+    element's position whichever path runs, so the two steps are the same
+    computation: the loss, the gradient norm and every parameter's gradient
+    agree to LOSS_TOL, NORM_TOL and, per entry, GRAD_TOL of the leaf's
+    largest entry (of the largest over all leaves where a leaf's true
+    gradient is zero). At f32 the two differ in summation order and in
+    expf / logf; at bf16 the CPU's and the card's matmuls also round
+    apart."""
+    _card()
+    import copy
+
+    from ishara_tpu_torch.config import TrainConfig
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+    from ishara_tpu_torch.preprocess import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    # measured on an H100: 7e-8, 7e-7, 5e-5 at f32; 2e-5, 2e-4, 7e-2 at bf16
+    LOSS_TOL, NORM_TOL, GRAD_TOL = {"float32": (1e-6, 1e-5, 2e-4),
+                                    "bfloat16": (1e-3, 2e-3, 1e-1)}[dtype]
+    cfg = EncoderConfig(variant="hybrid", dim=128, num_heads=4,
+                        num_squeeze_blocks=1, num_conform_blocks=1,
+                        frame_len=32, dropout=0.2, top_dropout=0.2,
+                        dtype=dtype)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cpu")
+    batch = SyntheticASLFR(num_sequences=8, seed=3).batch(
+        range(8), CTCTokenizer(), max_frames=64)
+    tx, _ = make_optimizer(TrainConfig())
+    step = make_fused_ctc_train_step(GroupStats.identity(), 32, aug_prob=0.2,
+                                     with_grads=True)
+    cpu = TrainState.create(copy.deepcopy(model), tx, device="cpu")
+    card = TrainState.create(copy.deepcopy(model), tx, device="cuda")
+    before = (fk.ffn_residual.launches_bwd, at.flash_mhsa.launches_bwd)
+    _, mc = step(cpu, batch, seed=1)
+    _, mg = step(card, batch, seed=1)
+    # both dtypes run the feed-forward and attention kernels on the card
+    assert (fk.ffn_residual.launches_bwd, at.flash_mhsa.launches_bwd) \
+        == (before[0] + 4, before[1] + 2)
+    assert abs(float(mg["loss"]) - float(mc["loss"])) \
+        <= LOSS_TOL * abs(float(mc["loss"]))
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
+        <= NORM_TOL * float(mc["grad_norm"])
+    largest = max(float(g.abs().max()) for g in mc["grads"].values())
+    for name, want in mc["grads"].items():
+        err = float((mg["grads"][name].cpu() - want).abs().max())
+        scale = max(float(want.abs().max()), 1e-3 * largest)
+        assert err <= GRAD_TOL * scale, (name, err, scale)

@@ -41,6 +41,7 @@ from ishara_tpu_torch.bridge import (
     squeeze_block_args,
     transformer_block_args,
 )
+from ishara_tpu_torch.models import fused
 from ishara_tpu_torch.ops import fused_block as tfb
 
 from torch_port_helpers import jax_model, perturb, port_model, small_config
@@ -142,7 +143,7 @@ def test_fused_encoder_forward_matches_pallas_interpret(variant, dt):
     want = jfb.fused_encoder_forward(cfg, variables, jnp.asarray(x),
                                      interpret=True, compute_dtype=jdt)
     sd = port_model(cfg, variables).state_dict()
-    got = tfb.fused_encoder_forward(_tcfg(cfg), sd, torch.from_numpy(x),
+    got = fused.fused_encoder_forward(_tcfg(cfg), sd, torch.from_numpy(x),
                                     compute_dtype=tdt, device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
                                atol=tol)
@@ -160,7 +161,7 @@ def test_fused_encoder_dma_matches_pallas_interpret(variant):
                                      interpret=True,
                                      compute_dtype=jnp.float32, dma=True)
     sd = port_model(cfg, variables).state_dict()
-    got, same = (tfb.fused_encoder_forward(
+    got, same = (fused.fused_encoder_forward(
         _tcfg(cfg), sd, torch.from_numpy(x), compute_dtype=torch.float32,
         dma=dma, device="cpu") for dma in (True, False))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-5,
@@ -305,7 +306,7 @@ def test_fused_encoder_int8_matches_pallas_interpret(variant):
                                      interpret=True, compute_dtype="int8")
     port = port_model(cfg, variables)
     qsd = tfb.quantize_serving_weights(port.state_dict())
-    got = tfb.fused_encoder_forward(_tcfg(cfg), qsd, torch.from_numpy(x),
+    got = fused.fused_encoder_forward(_tcfg(cfg), qsd, torch.from_numpy(x),
                                     compute_dtype="int8", device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
                                atol=1e-3)
@@ -318,7 +319,7 @@ def test_fused_encoder_int8_matches_pallas_interpret(variant):
                                atol=5e-2)
     # a float storage dtype dequantizes int8 entries on load, as the
     # reference's _mat_fn does
-    f32 = tfb.fused_encoder_forward(_tcfg(cfg), qsd, torch.from_numpy(x),
+    f32 = fused.fused_encoder_forward(_tcfg(cfg), qsd, torch.from_numpy(x),
                                     compute_dtype=torch.float32, device="cpu")
     np.testing.assert_allclose(f32.numpy(), unfused.numpy(), rtol=1e-4,
                                atol=1e-4)
@@ -329,11 +330,11 @@ def test_int8_mode_requires_quantized_weights():
     _, variables = jax_model(cfg)
     sd = port_model(cfg, variables).state_dict()
     with pytest.raises(ValueError, match="quantize_serving_weights"):
-        tfb.FusedEncoder(_tcfg(cfg), sd, compute_dtype="int8", device="cpu")
+        fused.FusedEncoder(_tcfg(cfg), sd, compute_dtype="int8", device="cpu")
     with pytest.raises(ValueError, match="quantize_serving_weights"):
         squeeze_block_args(sd, "squeezeformer.0.", "int8")
     with pytest.raises(ValueError, match="compute_dtype"):
-        tfb.FusedEncoder(_tcfg(cfg), sd, compute_dtype=torch.float16,
+        fused.FusedEncoder(_tcfg(cfg), sd, compute_dtype=torch.float16,
                          device="cpu")
     # a pair where the storage is bf16, and a tensor where it is int8
     x = torch.zeros((T, DIM))

@@ -14,10 +14,23 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax_and_no_reference_package():
+    """Every module of the port (``train/``, ``evaluation/``, the ``ops/``,
+    ``data/`` and ``preprocess/`` modules, ... -- found by walking the
+    package) and ``chip_smoke.py``."""
     code = (
-        "import json, sys\n"
-        "import ishara_tpu_torch, ishara_tpu_torch.ops, ishara_tpu_torch.serve\n"
-        "import ishara_tpu_torch.bridge, ishara_tpu_torch.ops._build\n"
+        "import importlib, json, pkgutil, sys\n"
+        "import ishara_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    ishara_tpu_torch.__path__, 'ishara_tpu_torch.')]\n"
+        "for want in ('train.state', 'train.optim', 'evaluation.metrics',\n"
+        "             'ops.ctc', 'ops.ctc_kernel', 'ops.dropout',\n"
+        "             'ops.attention', 'ops.ffn_kernel', 'ops.selection',\n"
+        "             'ops.fused_block', 'ops._build', 'models.fused',\n"
+        "             'data.synthetic',\n"
+        "             'preprocess.augment', 'serve.engine', 'bridge'):\n"
+        "    assert 'ishara_tpu_torch.' + want in names, want\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax'\n"
         "    or m.startswith(('jax.', 'jaxlib', 'flax', 'ishara_tpu.'))\n"
@@ -34,8 +47,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     import ishara_tpu_torch.config as tcfg
     from ishara_tpu_torch import resolve_device
     from ishara_tpu_torch.models.encoder import build_model
-    from ishara_tpu_torch.ops.fused_block import fused_encoder_forward
+    from ishara_tpu_torch.models.fused import fused_encoder_forward
     from ishara_tpu_torch.serve.engine import BatchedEngine, InferenceEngine
+    from ishara_tpu_torch.train import TrainState, make_optimizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tcfg.EncoderConfig(variant="squeezeformer", dim=32,
@@ -48,6 +62,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: BatchedEngine(model),
         lambda: fused_encoder_forward(cfg, model.state_dict(),
                                       torch.zeros(16, cfg.input_dim)),
+        lambda: TrainState.create(
+            model, make_optimizer(tcfg.TrainConfig())[0]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
