@@ -51,7 +51,18 @@ Phases, each of which raises on failure (the exit code is then not 0):
    the end, and 20 more at an epoch a step, which walk the whole warm-up; the
    non-finite guard; ``ctc_train_step`` and both eval steps; ms a step, and
    the device's busy share under ``torch.profiler``.
-6. One JSON line listing every ported kernel, then the card's name and
+6. Translation serving: the encoder-decoder model at the reference width
+   (dim 208, 8 heads of 26, 2 + 2 layers, 62 classes, T 176, max_out 64,
+   beam 4) with seeded weights. K9 -- the whole decode loop in one launch,
+   greedy at max_out 64 and 18 and beam at width 4 -- against its plain
+   version on the card (tokens exactly, beam scores), timed beside the
+   plain version, the port's unfused KV-cached loop and the bound; nine
+   requests through ``TranslationEngine`` with ``fused`` False / True /
+   "auto", ``kv_cache`` False, ``early_exit`` False, ``decode="beam"``
+   unfused and fused (the same tokens everywhere, one K9 launch a fused
+   request), the eos probe, ``BatchedTranslationEngine`` at batch 32
+   (sequences/s), p50/p99 latencies and ``torch.profiler`` breakdowns.
+7. One JSON line listing every ported kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with a non-zero code, printing no result, when no CUDA device is
@@ -444,10 +455,10 @@ PORT_KERNEL = re.compile(
     r"stack_persistent_kernel)\b")
 
 
-def profile_phase(label, engine, reqs, n: int = 20):
+def profile_phase(label, engine, reqs, n: int = 20, kernels=PORT_KERNEL):
     """Device time by kernel over ``n`` requests (torch.profiler with
-    CUPTI), the port's kernel launches per request, and the device's busy
-    share of the wall time."""
+    CUPTI), the port's kernel launches per request (the kernels whose names
+    ``kernels`` matches), and the device's busy share of the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -465,7 +476,7 @@ def profile_phase(label, engine, reqs, n: int = 20):
     busy = sum(t for _, _, t in rows)
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
-    port = [(c, t) for k, c, t in rows if PORT_KERNEL.search(k)]
+    port = [(c, t) for k, c, t in rows if kernels.search(k)]
     log(f"profile: {label}, {n} requests: wall {wall_us / n:.1f} us/request "
         f"with the profiler on, device busy {busy / n:.1f} us/request "
         f"({100 * busy / wall_us:.1f}% of wall); the port's kernels: "
@@ -473,7 +484,7 @@ def profile_phase(label, engine, reqs, n: int = 20):
         f"{sum(t for _, t in port) / n:.1f} us/request; all device kernels "
         f"and copies: {sum(c for _, c, _ in rows) / n:.1f} /request")
     for key, count, t in sorted(rows, key=lambda r: -r[2])[:14]:
-        m = PORT_KERNEL.search(key)
+        m = kernels.search(key)
         name = m.group(1) if m else key[:60]
         if m and "bfloat16" in key:
             name += "<bf16>"
@@ -1454,6 +1465,250 @@ def train_phase(smi, steps: int = 20):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Translation serving: the encoder-decoder model and K9
+# ---------------------------------------------------------------------------
+
+DEC_REF = "ishara_tpu/ops/decoder_kernel.py"
+# K9 against its plain version: tokens exactly; the beams' raw scores (sums
+# of up to 63 log-probabilities) within |err| <= 1e-5 + 1e-6 |score|, the
+# same f32 arithmetic in another summation order.
+SCORE_TOL = (1e-5, 1e-6)
+# The translation reference geometry (bench.py's ASLTranslationModel): dim
+# 208, 8 heads of 26, 2 + 2 layers, 62 classes, T 176, max_out 64, beam 4.
+TR = dict(T=176, S=64, W=4, C=62, EOS=2)
+DECODE_KERNEL = re.compile(r"(decode_kernel)\b")
+
+
+def decode_work(d, L, C, T, W, steps):
+    """(bytes, operations) of one decode: the packed decoder weights, the
+    cross-attention K / V and the mask read once, the tokens written once;
+    multiply-adds (2 operations each) of the products, the self-attention
+    over the steps so far and the cross-attention, for ``W`` rows and the
+    ``steps`` steps this run took."""
+    weights = L * (14 * d * d + 17 * d) + 2 * d + 2 * C * d + C
+    nbytes = 4 * (weights + 2 * L * T * d + T + W * (steps + 1) + W)
+    macs = 0
+    for i in range(steps):
+        macs += W * (L * (14 * d * d + 2 * (i + 1) * d + 2 * T * d) + C * d)
+    return nbytes, 2 * macs
+
+
+def translation_phase(smi):
+    """K9 against its plain version and the translation engines, at the
+    reference width. Returns (kernel rows, {wrapper: launches over the
+    nine-request run of its fused engine})."""
+    import torch
+
+    from ishara_tpu_torch.data.tokenizer import Seq2SeqTokenizer
+    from ishara_tpu_torch.decode import autoregressive as ar
+    from ishara_tpu_torch.models.seq2seq import build_translation_model
+    from ishara_tpu_torch.ops import decoder_kernel as dk
+    from ishara_tpu_torch.ops import selection
+    from ishara_tpu_torch.preprocess.pipeline import (
+        GroupStats,
+        frame_mask,
+        preprocess,
+    )
+    from ishara_tpu_torch.serve import (
+        BatchedTranslationEngine,
+        TranslationEngine,
+    )
+
+    T, S, W, C, EOS = TR["T"], TR["S"], TR["W"], TR["C"], TR["EOS"]
+    model = build_translation_model(device=DEVICE)
+    randomize(model, seed=7)
+    d, H, L = model.feature_dim, model.num_heads, model.num_decoder_layers
+    reqs = requests(seed=1)
+    tok = Seq2SeqTokenizer()
+    log(f"translation: ASLTranslationModel(num_classes={C}, feature_dim={d}, "
+        f"num_layers={model.num_layers}, num_decoder_layers={L}, "
+        f"num_heads={H}), {sum(p.numel() for p in model.parameters())} "
+        f"parameters, T={T}, max_out={S}, beam {W}; decoder pack "
+        f"{4 * dk.pack_decoder(model).numel()} bytes")
+
+    # the main path's memory for one request (len150), through the
+    # engine's own preprocess and the encoder
+    raw = torch.zeros((384, 276), device=DEVICE)
+    raw[:150] = torch.from_numpy(reqs[1][1][:150]).to(DEVICE)
+    flat = preprocess(raw, torch.tensor(150, device=DEVICE),
+                      GroupStats.identity(), T)
+    mask = frame_mask(flat)[None]
+    x = flat.reshape(1, T, 92, 3)
+    with torch.no_grad():
+        memory, _ = model.encode(x, mask)
+    pack = dk.pack_decoder(model)
+    # the timed decodes run every step: the eos logit is held down
+    no_eos = pack.clone()
+    no_eos[pack.numel() - C * d - C + EOS] -= 1e4
+    cross = dk.cross_pack(model, memory)
+    madd = dk.memory_add(mask, T, DEVICE)
+    rows = []
+    for name, W_, S_, beam, wrapper, line in (
+            ("fused_greedy_decode", 1, S, False, dk.fused_greedy_decode, 298),
+            ("fused_greedy_decode[max_out=18]", 1, 18, False,
+             dk.fused_greedy_decode, 298),
+            ("fused_beam_decode", W, S, True, dk.fused_beam_decode, 580)):
+        errs = []
+        for p_, what in ((pack, "the model's weights"),
+                         (no_eos, "the eos logit held down")):
+            args = (p_, cross, madd, d, H, L, C, S_, W_, beam, 1, EOS, 0,
+                    1e-6)
+            got, gscore, gsteps, cluster = dk._launch(*args)
+            torch.cuda.synchronize()
+            want, wscore, steps = dk.decode_plain(
+                p_, cross, madd, d=d, H=H, L=L, C=C, max_len=S_,
+                beam_width=W_, beam=beam)
+            err = float((gscore - wscore).abs().max())
+            errs.append(err)
+            ok = (torch.equal(got, want) and int(gsteps) == steps
+                  and bool(((gscore - wscore).abs() <= SCORE_TOL[0]
+                            + SCORE_TOL[1] * wscore.abs()).all()))
+            log(f"kernel {name} ({what}): {steps} steps, cluster of "
+                f"{cluster} blocks; tokens equal the "
+                f"plain version's: {torch.equal(got, want)}; beam score "
+                f"max_abs_err {err:.3e} {'PASS' if ok else 'FAIL'}; first "
+                f"row {got[0, :12].tolist()}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version ({what})")
+        # times with every step run (the eos logit held down)
+        ms = time_ms(lambda: dk._launch(*args), runs=30)
+        plain_ms = time_ms(lambda: dk.decode_plain(
+            no_eos, cross, madd, d=d, H=H, L=L, C=C, max_len=S_,
+            beam_width=W_, beam=beam), runs=3, warmup=1, head_start=False)
+        # the yardstick: the port's unfused KV-cached loop on the same
+        # model, memory and settings (every step run), minus nothing: it
+        # takes x, so its encoder is timed apart and taken off
+        slow = copy.deepcopy(model)
+        with torch.no_grad():
+            slow.classifier.bias[EOS] -= 1e4
+            if beam:
+                loop = lambda: ar.beam_translate_cached(  # noqa: E731
+                    slow, x, mask, max_len=S_, beam_width=W_)
+            else:
+                loop = lambda: ar.greedy_translate_cached(  # noqa: E731
+                    slow, x, mask, max_len=S_)
+            enc_ms = time_ms(lambda: slow.encode(x, mask), runs=20,
+                             head_start=False)
+            loop_ms = time_ms(loop, runs=5, warmup=1, head_start=False)
+        del slow
+        nbytes, ops = decode_work(d, L, C, T, W_, S_ - 1)
+        bound_ms, bound_by = bound_of(nbytes, ops, "f32")
+        step_bytes = nbytes - 4 * (W_ * (S_ + 1))
+        reread_ms = (S_ - 1) * step_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"kernel {name}: kernel {ms:.4f} ms ({1e3 * ms / (S_ - 1):.2f} "
+            f"us a step over {S_ - 1} steps), plain {plain_ms:.4f} ms, the "
+            f"unfused KV-cached loop {loop_ms - enc_ms:.4f} ms ({loop_ms:.4f}"
+            f" ms with its encoder, {enc_ms:.4f} ms); bound {bound_ms:.5f} "
+            f"ms ({nbytes} bytes, {ops} operations, by {bound_by}); the "
+            f"same bytes re-read every step {reread_ms:.4f} ms; on {smi}")
+        rows.append(dict(
+            name=name, route="cuda", source=CSRC + "decoder.cu",
+            replaces=f"{DEC_REF}:{line}", launches=None,
+            max_abs_err=max(errs),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, unfused_loop_ms=loop_ms - enc_ms,
+            steps=S_ - 1, counter=wrapper))
+
+    # the engines: nine requests each; K9's launches counted around the
+    # fused engines' runs
+    plan = [("fused=False kv_cache=False", dict(kv_cache=False)),
+            ("fused=False", dict()),
+            ("fused=False early_exit=False", dict(early_exit=False)),
+            ("fused=True", dict(fused=True)),
+            ('fused="auto"', dict(fused="auto")),
+            ('decode="beam" fused=False', dict(decode="beam", beam_width=W)),
+            ('decode="beam" fused=True', dict(decode="beam", beam_width=W,
+                                              fused=True))]
+    engines, results, launches = {}, {}, {}
+    for label, kw in plan:
+        eng = TranslationEngine(model, frame_len=T, max_out=S, device=DEVICE,
+                                **kw)
+        eng(reqs[0][1])
+        torch.cuda.synchronize()
+        dk.fused_greedy_decode.launches = 0
+        dk.fused_beam_decode.launches = 0
+        res = [eng(r) for _, r in reqs]
+        torch.cuda.synchronize()
+        counts = {"fused_greedy_decode": dk.fused_greedy_decode.launches,
+                  "fused_beam_decode": dk.fused_beam_decode.launches}
+        engines[label], results[label] = eng, res
+        fused = kw.get("fused", False)
+        if fused == "auto":
+            fused = (selection.translation_decode_fused(d, T)
+                     and dk.fused_decode_fits(model, T, S, 1))
+        want = {"fused_greedy_decode": 0, "fused_beam_decode": 0}
+        if fused:
+            want["fused_beam_decode" if kw.get("decode") == "beam"
+                 else "fused_greedy_decode"] = len(reqs)
+            launches = {**launches, **{k: v for k, v in counts.items() if v}}
+        log(f"engine TranslationEngine({label}): {len(reqs)} requests, K9 "
+            f"launches {counts}")
+        if counts != want:
+            raise AssertionError(f"TranslationEngine({label}) launched K9 "
+                                 f"{counts}, not {want} (one a fused "
+                                 f"request)")
+        for (rl, _), (toks, conf) in zip(reqs, res):
+            if toks.shape != (S,) or toks[0] != 1 or not math.isfinite(conf):
+                raise AssertionError(f"{label} {rl}: bad output")
+    log(f"selection.translation_decode_fused({d}, {T}) = "
+        f"{selection.translation_decode_fused(d, T)}")
+    greedy = results["fused=False"]
+    for label, res in results.items():
+        ref = results['decode="beam" fused=False'] if "beam" in label \
+            else greedy
+        for (rl, _), (toks, conf), (rt, rc) in zip(reqs, res, ref):
+            if not np.array_equal(toks, rt) or abs(conf - rc) > 1e-4:
+                raise AssertionError(f"TranslationEngine({label}) {rl}: "
+                                     f"tokens differ from the unfused "
+                                     f"engine's")
+    for (rl, raw), (toks, conf), (bt, _) in zip(
+            reqs, greedy, results['decode="beam" fused=True']):
+        log(f"  {rl:14s} T={raw.shape[0]:4d} confidence {conf:+.4f} greedy "
+            f"{toks[:14].tolist()} beam {bt[:14].tolist()}")
+    log("tokens equal across every greedy mode, and fused beam equals "
+        "unfused beam, on all nine requests PASS")
+
+    # eos probe: the classifier biased to eos gives [sos, eos, pad ...]
+    with torch.no_grad():
+        saved = float(model.classifier.bias[EOS])
+        model.classifier.bias[EOS] = 1000.0
+        for kw in (dict(fused=True), dict(fused=False),
+                   dict(decode="beam", beam_width=W, fused=True)):
+            probe = TranslationEngine(model, frame_len=T, max_out=S,
+                                      device=DEVICE, **kw)
+            toks, _ = probe(reqs[2][1])
+            if toks.tolist() != [1, EOS] + [0] * (S - 2) \
+                    or probe.predict_text(reqs[2][1], tok)[0] != "":
+                raise AssertionError(f"eos probe {kw} gave {toks[:6]}")
+        model.classifier.bias[EOS] = saved
+    log("eos probe (classifier bias at eos): [sos, eos, pad ...] from the "
+        "fused greedy, unfused greedy and fused beam engines PASS")
+
+    batched = BatchedTranslationEngine(model, batch_size=32, frame_len=T,
+                                       max_out=S, device=DEVICE)
+    batch = [reqs[i % len(reqs)][1] for i in range(32)]
+    btoks, _ = batched(batch)
+    for i in range(32):
+        if not np.array_equal(btoks[i], greedy[i % len(reqs)][0]):
+            raise AssertionError(f"BatchedTranslationEngine row {i} differs "
+                                 f"from TranslationEngine")
+    b_ms = [host_ms(lambda: batched(batch), runs=1) for _ in range(5)]
+    b_ms = statistics.median(b_ms)
+    log(f"BatchedTranslationEngine(batch_size=32): tokens equal "
+        f"TranslationEngine's PASS; {b_ms:.3f} ms a batch, "
+        f"{32e3 / b_ms:.1f} sequences/s (median of 5) on {smi}")
+
+    timed = {f"TranslationEngine({label})": (eng, "fused=True" in label)
+             for label, eng in engines.items()}
+    latencies(timed, reqs, smi, rounds=100, unfused=20)
+    for label in ("fused=True", 'decode="beam" fused=True', "fused=False"):
+        profile_phase(f"TranslationEngine({label})", engines[label], reqs,
+                      n=9, kernels=DECODE_KERNEL)
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -1538,6 +1793,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rows = train_kernel_phase(smi)
     train_launches = train_phase(smi)
+    torch.cuda.empty_cache()
+    tr_rows, tr_launches = translation_phase(smi)
 
     # every ported kernel form that an engine path runs, with the launches
     # of that path's nine-request run
@@ -1563,6 +1820,16 @@ def main() -> int:
             raise AssertionError(f"{row['name']} was not launched by the "
                                  f"training run")
         row["config"] = "preset4 training step, batch 256"
+        line.append(row)
+    # K9, with the launches of its fused engine's nine-request run
+    for row in tr_rows:
+        wrapper = row.pop("counter").__name__
+        row["launches"] = tr_launches.get(wrapper, 0)
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched by its "
+                                 f"engine")
+        row["config"] = ("translation reference (dim 208, 2 + 2 layers, "
+                         "T 176), batch 1")
         line.append(row)
     log(json.dumps({"kernels": line}))
     log(smi)

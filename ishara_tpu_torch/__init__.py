@@ -11,7 +11,11 @@ collapse -> constant-phrase fallback) of the squeezeformer, conformer,
 hybrid, conv_hybrid and conv_transformer families, with the fused encoder
 blocks -- at bf16, f32 or int8 weight storage, launch by launch or as one
 persistent kernel per stack -- as hand-written CUDA kernels
-(:mod:`ishara_tpu_torch.ops.fused_block`). See ``ROADMAP.md`` for the rest.
+(:mod:`ishara_tpu_torch.ops.fused_block`); the CTC training step with its
+kernels; and batch-1 translation serving of the encoder-decoder model
+(greedy or beam, the whole decode loop as one kernel launch,
+:mod:`ishara_tpu_torch.ops.decoder_kernel`). See ``ROADMAP.md`` for the
+rest.
 
 Entry points take a ``device``; without one they run on ``cuda`` and raise
 when no card is visible (:func:`resolve_device`) -- they never fall back to
@@ -20,7 +24,7 @@ the CPU on their own.
 
 from .config import EncoderConfig, IsharaConfig, baseline_config
 from .data.landmarks import FRAME_LEN, MAX_PHRASE_LENGTH, N_COLS
-from .data.tokenizer import CTCTokenizer
+from .data.tokenizer import CTCTokenizer, Seq2SeqTokenizer
 from .data.vocab import NUM_CLASSES, PAD_TOKEN, PAD_TOKEN_IDX
 from .device import resolve_device
 
@@ -36,6 +40,7 @@ __all__ = [
     "NUM_CLASSES",
     "PAD_TOKEN",
     "PAD_TOKEN_IDX",
+    "Seq2SeqTokenizer",
     "baseline_config",
     "resolve_device",
 ]

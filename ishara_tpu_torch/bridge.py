@@ -15,7 +15,12 @@ returns them or ``params.msgpack`` holds them -- into the port's
   ``squeezeformer.{i}`` / ``conformer.{i}`` / ``transformer.{i}``
   (``nn.ModuleList`` entries), and the conv families' ``conv_squeeze{i}_{j}``
   / ``conv_conform{i}_{j}`` / ``conv_t{i}_{j}`` become ``conv_squeeze.{i}.{j}``
-  / ``conv_conform.{i}.{j}`` / ``conv_t.{i}.{j}``.
+  / ``conv_conform.{i}.{j}`` / ``conv_t.{i}.{j}``;
+* the translation model's ``squeezeformer_layers_{i}`` / ``decoder_layers_{i}``
+  become ``squeezeformer_layers.{i}`` / ``decoder_layers.{i}``; a flax
+  ``Embed``'s ``embedding`` ``[num, dim]`` keeps its name and layout, and a
+  module's own ``scale`` leaf (the RoPE blocks' shared residual scale, which
+  sits beside sub-modules, unlike a norm's) keeps its name.
 
 It works on any subtree, so a single block's variables bridge to that
 block's ``state_dict``, and on any tree shaped like ``params`` -- gradients,
@@ -47,7 +52,8 @@ _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 
 
 def _module_name(key: str) -> str:
-    m = re.fullmatch(r"(squeezeformer|conformer|transformer)_(\d+)", key)
+    m = re.fullmatch(r"(squeezeformer|conformer|transformer|"
+                     r"squeezeformer_layers|decoder_layers)_(\d+)", key)
     if m:
         return f"{m.group(1)}.{m.group(2)}"
     m = re.fullmatch(r"conv_(squeeze|conform|t)(\d+)_(\d+)", key)
@@ -72,6 +78,11 @@ def _walk(tree, prefix, out, bn_modules):
         a = np.asarray(val, dtype=np.float32)
         if key == "kernel":
             name, a = "weight", _convert_kernel(a)
+        elif key == "embedding":           # flax Embed [num, dim], as it is
+            name = "embedding"
+        elif key == "scale" and any(isinstance(v, dict)
+                                    for v in tree.values()):
+            name = "scale"     # a module's own parameter, not a norm's
         elif key in _LEAF:
             name = _LEAF[key]
             if key in ("mean", "var"):
@@ -92,16 +103,19 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-_LEAF_BACK = {v: k for k, v in _LEAF.items()}
+_LEAF_BACK = {v: k for k, v in _LEAF.items()} | {"scale": "scale",
+                                                  "embedding": "embedding"}
 
 
 def _flax_module_name(parts: list[str]) -> list[str]:
     """Port module path -> flax path: ``squeezeformer.{i}`` ->
-    ``squeezeformer_{i}``, ``conv_squeeze.{i}.{j}`` -> ``conv_squeeze{i}_{j}``."""
+    ``squeezeformer_{i}`` (and so ``decoder_layers.{i}``),
+    ``conv_squeeze.{i}.{j}`` -> ``conv_squeeze{i}_{j}``."""
     out, i = [], 0
     while i < len(parts):
         p = parts[i]
-        if p in ("squeezeformer", "conformer", "transformer") \
+        if p in ("squeezeformer", "conformer", "transformer",
+                 "squeezeformer_layers", "decoder_layers") \
                 and i + 1 < len(parts) and parts[i + 1].isdigit():
             out.append(f"{p}_{parts[i + 1]}")
             i += 2

@@ -1,4 +1,4 @@
 from . import landmarks, vocab
-from .tokenizer import CTCTokenizer
+from .tokenizer import CTCTokenizer, Seq2SeqTokenizer
 
-__all__ = ["landmarks", "vocab", "CTCTokenizer"]
+__all__ = ["landmarks", "vocab", "CTCTokenizer", "Seq2SeqTokenizer"]

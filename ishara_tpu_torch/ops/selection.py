@@ -19,6 +19,13 @@ times are in ``PERF.md``), the flagship training recipe
 With one anchor every geometry resolves to it. Re-deciding each row from
 H100 measurements of kernel against composition is open work (ROADMAP.md
 Queue 1 item 15).
+
+``translation_decode_fused(dim, T)`` has its own table, one anchor, the
+translation model's reference geometry ``(dim 208, T 176)``: whether the
+batch-1 decode loop runs as one launch of the decode kernel
+(``ops/decoder_kernel.py``) or as the unfused KV-cached loop. The kernel's
+hard limit is shared memory, checked apart by
+``ops.decoder_kernel.fused_decode_fits``.
 """
 
 from __future__ import annotations
@@ -72,3 +79,24 @@ def ffn_fused_when_dropout(dim: int, T: int,
 def conv_module_fused(dim: int, T: int, batch: int | None = None) -> bool:
     """Whether the Squeezeformer conv-module branch runs as one kernel."""
     return _nearest(dim, T, batch)["conv_module_fused"]
+
+
+# Measured on the H100 by chip_smoke.py's translation phase (the numbers
+# are in PERF.md): at (208, 176), 63 greedy steps, the decode kernel takes
+# about 4 ms against about 140 ms for the unfused KV-cached loop (decode
+# only), and at beam width 4 about 8 ms against about 190 ms: True.
+_DECODE_ANCHORS: dict[tuple[int, int], dict] = {
+    (208, 176): {"decode_fused": True},
+}
+
+
+def translation_decode_fused(dim: int, T: int) -> bool:
+    """Whether the batch-1 translation decode runs as one kernel launch at
+    this geometry (nearest anchor). Callers also check
+    ``ops.decoder_kernel.fused_decode_fits``."""
+    best, bestd = None, math.inf
+    for (ad, at), row in _DECODE_ANCHORS.items():
+        d = (math.log(dim / ad)) ** 2 + (math.log(T / at)) ** 2
+        if d < bestd:
+            best, bestd = row, d
+    return best["decode_fused"]

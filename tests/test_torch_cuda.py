@@ -400,3 +400,108 @@ def test_training_step_on_the_card_matches_the_cpu(dtype):
         err = float((mg["grads"][name].cpu() - want).abs().max())
         scale = max(float(want.abs().max()), 1e-3 * largest)
         assert err <= GRAD_TOL * scale, (name, err, scale)
+
+
+# ---------------------------------------------------------------------------
+# K9, the translation decode loop in one launch (ops/csrc/decoder.cu), at
+# the reference width: dim 208, 8 heads of 26, 2 decoder layers, 62
+# classes, T = 176 with a padded tail, max_out 64 (and 18). Tokens exactly;
+# beam scores (sums of up to 63 log-probabilities, ~-150) within 1e-6 of
+# their size: the same f32 arithmetic in another summation order. The eos
+# bias makes the loop stop inside the kernel (greedy) and finishes one beam
+# early while the others go on.
+# ---------------------------------------------------------------------------
+
+def _translation_model():
+    from ishara_tpu_torch.models.seq2seq import build_translation_model
+
+    _card()
+    m = build_translation_model(device="cuda")
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, t in m.state_dict().items():
+            n = torch.randn(t.shape, generator=g)
+            if name.endswith("running_var"):
+                n = 0.5 + torch.rand(t.shape, generator=g)
+            elif t.dim() >= 2:
+                n = n / math.sqrt(t.shape[-1])
+            elif name.endswith("weight"):
+                n = 1.0 + 0.1 * n
+            else:
+                n = 0.1 * n
+            t.copy_(n)
+    memory = torch.randn((1, 176, 208), generator=g).cuda()
+    mask = (torch.arange(176) < 150)[None].cuda()
+    return m, memory, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_len,width,eos_bias", [
+    (64, 1, 0.0), (18, 1, 0.0), (64, 1, 6.0), (64, 4, 0.0), (64, 3, 0.0),
+    (64, 4, 3.0), (64, 1, None)])
+def test_decode_kernel_matches_plain(max_len, width, eos_bias):
+    """Greedy (width 1) and beam decodes: the kernel's tokens and scores
+    against its plain version on the card, one launch a decode; the last
+    case is the beam form at width 1, against greedy."""
+    from ishara_tpu_torch.ops import decoder_kernel as dk
+
+    m, memory, mask = _translation_model()
+    pack = dk.pack_decoder(m)
+    if eos_bias:
+        off = pack.numel() - 62 * 208 - 62 + 2        # the eos logit's bias
+        pack[off] += eos_bias
+    beam = eos_bias is None or width > 1
+    fn = dk.fused_beam_decode if beam else dk.fused_greedy_decode
+    before = fn.launches
+    if beam:
+        got, scores = fn(m, memory, mask, max_len=max_len, beam_width=width,
+                         pack=pack)
+    else:
+        got = fn(m, memory, mask, max_len=max_len, pack=pack)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want, wscores, steps = dk.decode_plain(
+        pack, dk.cross_pack(m, memory), dk.memory_add(mask, 176, "cuda"),
+        d=208, H=8, L=2, C=62, max_len=max_len, beam_width=width, beam=beam)
+    assert torch.equal(got, want), (got, want)
+    if beam:
+        assert torch.allclose(scores[:, 0], wscores, rtol=1e-6, atol=1e-5)
+    if eos_bias is None:
+        assert torch.equal(got, dk.fused_greedy_decode(m, memory, mask,
+                                                       pack=pack))
+    if eos_bias and not beam:
+        assert steps < max_len - 1 and int((got == 2).sum()) == 1
+
+
+@pytest.mark.cuda
+def test_decode_kernel_all_masked_memory():
+    """An all-padding memory: uniform cross-attention weights, no NaN."""
+    from ishara_tpu_torch.ops import decoder_kernel as dk
+
+    m, memory, mask = _translation_model()
+    mask = torch.zeros_like(mask)
+    got, scores = dk.fused_beam_decode(m, memory, mask, beam_width=4)
+    want, wscores, _ = dk.decode_plain(
+        dk.pack_decoder(m), dk.cross_pack(m, memory),
+        dk.memory_add(mask, 176, "cuda"), d=208, H=8, L=2, C=62,
+        max_len=64, beam_width=4, beam=True)
+    assert torch.equal(got, want)
+    assert bool(scores.isfinite().all())
+    assert torch.allclose(scores[:, 0], wscores, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_vector_bytes_match_the_guard():
+    """The shared memory the C side carves equals the Python guard's
+    formula (``fused_decode_smem_bytes``)."""
+    import ctypes
+
+    from ishara_tpu_torch.ops import _build
+    from ishara_tpu_torch.ops import decoder_kernel as dk
+
+    _card()
+    fn = _build.function("decoder", "ishara_decoder_vector_bytes",
+                         [ctypes.c_int] * 7)
+    for geo in [(208, 8, 2, 62, 176, 64, 1), (208, 8, 2, 62, 176, 64, 4),
+                (32, 4, 1, 30, 12, 16, 3), (64, 2, 3, 10, 40, 8, 8)]:
+        assert fn(*geo) == dk.fused_decode_smem_bytes(*geo), geo

@@ -15,8 +15,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_port_imports_no_jax_and_no_reference_package():
     """Every module of the port (``train/``, ``evaluation/``, the ``ops/``,
-    ``data/`` and ``preprocess/`` modules, ... -- found by walking the
-    package) and ``chip_smoke.py``."""
+    ``data/`` and ``preprocess/`` modules, the translation model, its
+    decodes, kernel and engines, ... -- found by walking the package) and
+    ``chip_smoke.py``."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import ishara_tpu_torch\n"
@@ -26,7 +27,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "             'ops.ctc', 'ops.ctc_kernel', 'ops.dropout',\n"
         "             'ops.attention', 'ops.ffn_kernel', 'ops.selection',\n"
         "             'ops.fused_block', 'ops._build', 'models.fused',\n"
-        "             'data.synthetic',\n"
+        "             'data.synthetic', 'models.seq2seq',\n"
+        "             'decode.autoregressive', 'ops.decoder_kernel',\n"
+        "             'serve.translation_engine',\n"
         "             'preprocess.augment', 'serve.engine', 'bridge'):\n"
         "    assert 'ishara_tpu_torch.' + want in names, want\n"
         "for name in names:\n"
@@ -48,13 +51,22 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from ishara_tpu_torch import resolve_device
     from ishara_tpu_torch.models.encoder import build_model
     from ishara_tpu_torch.models.fused import fused_encoder_forward
+    from ishara_tpu_torch.models.seq2seq import (
+        ASLTranslationModel,
+        build_translation_model,
+    )
     from ishara_tpu_torch.serve.engine import BatchedEngine, InferenceEngine
+    from ishara_tpu_torch.serve.translation_engine import (
+        BatchedTranslationEngine,
+        TranslationEngine,
+    )
     from ishara_tpu_torch.train import TrainState, make_optimizer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tcfg.EncoderConfig(variant="squeezeformer", dim=32,
                              num_squeeze_blocks=1, num_heads=4, frame_len=16)
     model = build_model(cfg, device="cpu")
+    translation = ASLTranslationModel(feature_dim=32, num_heads=4)
     calls = [
         lambda: resolve_device(),
         lambda: build_model(cfg),
@@ -64,11 +76,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                       torch.zeros(16, cfg.input_dim)),
         lambda: TrainState.create(
             model, make_optimizer(tcfg.TrainConfig())[0]),
+        lambda: build_translation_model(feature_dim=32, num_heads=4),
+        lambda: TranslationEngine(translation),
+        lambda: TranslationEngine(translation, fused=True),
+        lambda: BatchedTranslationEngine(translation),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert next(model.parameters()).device.type == "cpu"
+    assert next(translation.parameters()).device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -86,3 +86,46 @@ def raw_sequence(rng, T: int, nan_hands: bool = False,
     if nan_hands:
         x[:, np.concatenate([r, l_])] = np.nan
     return x
+
+
+def translation_models(encoder_type: str = "squeezeformer", dim: int = 32,
+                       heads: int = 4, classes: int = 30, T: int = 12,
+                       S: int = 7, seed: int = 0):
+    """(flax ASLTranslationModel, perturbed numpy variables, the port's
+    model with the bridged weights, x [2, T, 92, 3], mask [2, T] -- row 0
+    with a padded tail, row 1 all padding --, tgt [2, S]) at 2 + 2
+    layers."""
+    from ishara_tpu.models import seq2seq as jsq
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, T, 92, 3)).astype(np.float32)
+    mask = np.ones((2, T), bool)
+    mask[0, T - 3:] = False
+    mask[1, :] = False
+    tgt = rng.integers(0, classes, (2, S)).astype(np.int32)
+    kw = dict(num_classes=classes, feature_dim=dim, num_layers=2,
+              num_decoder_layers=2, num_heads=heads,
+              encoder_type=encoder_type)
+    jm = jsq.ASLTranslationModel(dropout=0.0, **kw)
+    v = perturb(jm.init(jax.random.key(seed), jnp.asarray(x),
+                        jnp.asarray(mask), jnp.asarray(tgt)))
+    return jm, v, port_translation_model(v, **kw), x, mask, tgt
+
+
+def port_translation_model(variables, **kw):
+    """The port's ASLTranslationModel on the CPU with bridged weights."""
+    from ishara_tpu_torch.models import seq2seq as tsq
+
+    pm = tsq.ASLTranslationModel(**kw).eval()
+    pm.load_state_dict(flax_to_state_dict(variables))
+    return pm
+
+
+def with_eos_bias(variables, bias: float, eos: int = 2):
+    """A copy of ``variables`` with ``bias`` added to the classifier's eos
+    logit."""
+    v = jax.tree_util.tree_map(lambda a: a, variables)
+    b = np.array(v["params"]["classifier"]["bias"])
+    b[eos] += bias
+    v["params"]["classifier"]["bias"] = b
+    return v
