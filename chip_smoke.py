@@ -51,7 +51,23 @@ Phases, each of which raises on failure (the exit code is then not 0):
    the end, and 20 more at an epoch a step, which walk the whole warm-up; the
    non-finite guard; ``ctc_train_step`` and both eval steps; ms a step, and
    the device's busy share under ``torch.profiler``.
-6. Translation serving: the encoder-decoder model at the reference width
+6. The long-sequence training step: K8 (the tiled attention,
+   ``flash_mhsa_blocked``) at its q, k, v ``[256, 8, 512, 32]`` in bf16 and
+   f32, with 4 heads of 64 and 2 of 128 at T 512, and at T 200 (padded to
+   256) with a sequence whose keys are all masked; K7 (the conv-module
+   branch, ``conv_module_residual``) at x ``[256, 512, 256]`` in bf16 and
+   f32 and at the flagship's ``[256, 176, 256]``; each forward and every
+   gradient against its plain version, timed beside it, the bound and
+   ``F.scaled_dot_product_attention`` with the einsum composition (K8) or
+   the port's composition (K7). Then ``baseline_config(4)`` at
+   ``frame_len=512`` and ``dropout=0.0`` (batch 256, bf16,
+   ``TrainConfig()``) on raw sequences mostly longer than 384 frames: one
+   step on the kernels against the plain versions, the same (seed, step)
+   bit for bit, 10 steps with the launch counts (K7 4 + 4, K8 8 + 8, K1
+   1 + 1, the top dropout 1 + 1, none of K3, K4 and the dropout-add), a
+   finite falling loss, ms a step, sequences/s, the peak of allocated
+   memory and the device's busy share and time by kernel.
+7. Translation serving: the encoder-decoder model at the reference width
    (dim 208, 8 heads of 26, 2 + 2 layers, 62 classes, T 176, max_out 64,
    beam 4) with seeded weights. K9 -- the whole decode loop in one launch,
    greedy at max_out 64 and 18 and beam at width 4 -- against its plain
@@ -62,7 +78,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
    unfused and fused (the same tokens everywhere, one K9 launch a fused
    request), the eos probe, ``BatchedTranslationEngine`` at batch 32
    (sequences/s), p50/p99 latencies and ``torch.profiler`` breakdowns.
-7. One JSON line listing every ported kernel, then the card's name and
+8. One JSON line listing every ported kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with a non-zero code, printing no result, when no CUDA device is
@@ -1192,6 +1208,8 @@ def plain_versions():
     the yardstick for one whole training step. (The package itself has no
     such switch: on a CUDA tensor a wrapper launches or raises.)"""
     from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import attention_blocked as ab
+    from ishara_tpu_torch.ops import conv_kernel as cm
     from ishara_tpu_torch.ops import ctc_kernel as ck
     from ishara_tpu_torch.ops import dropout as dr
     from ishara_tpu_torch.ops import ffn_kernel as fk
@@ -1207,6 +1225,15 @@ def plain_versions():
             ck.ctc_forward_plain(logits, labels, blank_id)),
         (ck, "_launch_beta", lambda logits, labels, alpha, nll, dy, blank_id:
             ck.ctc_backward_plain(logits, labels, alpha, nll, dy, blank_id)),
+        (ab, "_launch_fwd", lambda q, k, v, bias, scale, Tp:
+            ab.blocked_attention_forward_plain(q, k, v, bias, scale)),
+        (ab, "_launch_bwd", lambda q, k, v, bias, o, lse, d_o, scale, Tp:
+            ab.blocked_attention_backward_plain(q, k, v, bias, o, lse, d_o,
+                                                scale)),
+        (cm, "_launch_fwd", lambda x, args:
+            cm.conv_module_forward_plain(x, *args)),
+        (cm, "_launch_bwd", lambda x, dy, args:
+            cm.conv_module_backward_plain(x, args[0], dy, *args[1:])),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -1220,6 +1247,8 @@ def plain_versions():
 
 def train_counters():
     from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import attention_blocked as ab
+    from ishara_tpu_torch.ops import conv_kernel as cm
     from ishara_tpu_torch.ops import ctc_kernel as ck
     from ishara_tpu_torch.ops import dropout as dr
     from ishara_tpu_torch.ops import ffn_kernel as fk
@@ -1227,7 +1256,9 @@ def train_counters():
     return {"ctc_loss_kernel": ck.ctc_loss_kernel,
             "fast_dropout": dr.fast_dropout,
             "fast_dropout_add": dr.fast_dropout_add,
-            "flash_mhsa": at.flash_mhsa, "ffn_residual": fk.ffn_residual}
+            "flash_mhsa": at.flash_mhsa, "ffn_residual": fk.ffn_residual,
+            "flash_mhsa_blocked": ab.flash_mhsa_blocked,
+            "conv_module_residual": cm.conv_module_residual}
 
 
 # Launches a training step of baseline_config(4), forward and backward
@@ -1239,12 +1270,100 @@ STEP_LAUNCHES = {"ffn_residual": 16, "flash_mhsa": 8, "fast_dropout_add": 4,
                  "fast_dropout": 1, "ctc_loss_kernel": 1}
 
 
+def step_against_plain(label, step, state0, batch):
+    """One step on the kernels against the same step with every kernel
+    replaced by its plain version, from the same state and seeds (loss,
+    gradient norm, parameters, both moments, batch statistics), and the
+    same (seed, step) twice, bit for bit."""
+    import torch
+
+    sk, sp = state0.clone(), state0.clone()
+    sk, mk = step(sk, batch, seed=0)
+    with plain_versions():
+        sp, mp = step(sp, batch, seed=0)
+    torch.cuda.synchronize()
+    d_loss = abs(float(mk["loss"]) - float(mp["loss"])) \
+        / abs(float(mp["loss"]))
+    d_norm = abs(float(mk["grad_norm"]) - float(mp["grad_norm"])) \
+        / float(mp["grad_norm"])
+    moved = float((sk.params - state0.params).abs().max())
+    d_par = float((sk.params - sp.params).abs().max()) / moved
+    d_mom = {n: float((sk.opt_state[n] - sp.opt_state[n]).abs().max()
+                      / sp.opt_state[n].abs().max()) for n in ("mu", "nu")}
+    d_bn = max(float((a - b).abs().max()) for a, b in
+               zip(sk.batch_stats.values(), sp.batch_stats.values()))
+    ok = (d_loss <= STEP_TOL["loss"] and d_norm <= STEP_TOL["grad_norm"]
+          and moved > 0.0 and d_par <= STEP_TOL["param"]
+          and all(d_mom[n] <= STEP_TOL[n] for n in d_mom))
+    log(f"{label}: one step, kernels vs plain versions from the same state "
+        f"and seeds: loss {float(mk['loss']):.5f} vs {float(mp['loss']):.5f} "
+        f"(rel {d_loss:.2e}, tol {STEP_TOL['loss']}), grad norm "
+        f"{float(mk['grad_norm']):.5f} vs {float(mp['grad_norm']):.5f} (rel "
+        f"{d_norm:.2e}, tol {STEP_TOL['grad_norm']}), largest parameter "
+        f"difference {d_par:.3e} of the largest movement {moved:.3e} (tol "
+        f"{STEP_TOL['param']}), first moment {d_mom['mu']:.3e} and second "
+        f"moment {d_mom['nu']:.3e} of their largest entries (tol "
+        f"{STEP_TOL['mu']}, {STEP_TOL['nu']}), batch statistics {d_bn:.3e} "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: a step on the kernels disagrees with "
+                             f"the same step on the plain versions")
+    sk2, mk2 = step(state0.clone(), batch, seed=0)
+    if float(mk2["loss"]) != float(mk["loss"]) \
+            or not torch.equal(sk2.params, sk.params):
+        raise AssertionError(f"{label}: the same (seed, step) gave another "
+                             f"step")
+    log(f"{label}: the same (seed, step) gives the same loss and parameters "
+        f"bit for bit PASS")
+    del sk, sp, sk2
+    torch.cuda.empty_cache()
+
+
+def time_steps(label, step, state, batch, smi, top=16):
+    """ms a step (host clock around a step that ends in a synchronize,
+    median of 10), sequences/s, and the device's busy share and time by
+    kernel under torch.profiler over 3 steps. Returns the state."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, m = step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(t for _, _, t in rows)
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    log(f"{label}: {step_ms:.2f} ms a step (median of 10, host clock, each "
+        f"ending in a synchronize; min {min(times):.2f} max "
+        f"{max(times):.2f}), {TB / step_ms * 1e3:.0f} sequences/s; under the "
+        f"profiler over 3 steps: wall {wall_us / 3e3:.2f} ms a step, device "
+        f"busy {busy / 3e3:.2f} ms a step ({100 * busy / wall_us:.1f}% of "
+        f"wall), {sum(c for _, c, _ in rows) / 3:.0f} device kernels and "
+        f"copies a step, on {smi}")
+    for key, count, t in sorted(rows, key=lambda r: -r[2])[:top]:
+        log(f"  {t / 3e3:9.3f} ms/step {100 * t / busy:5.1f}% "
+            f"{count / 3:7.1f} calls/step  {key[:90]}")
+    return state
+
+
 def train_phase(smi, steps: int = 20):
     """The training slice on the card. Returns {(wrapper name, direction):
     launches over the ``steps``-step run}."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ishara_tpu_torch.config import TrainConfig, baseline_config
     from ishara_tpu_torch.data.landmarks import MAX_PHRASE_LENGTH
@@ -1283,45 +1402,7 @@ def train_phase(smi, steps: int = 20):
         f"{state0.params.numel()} parameters, {tcfg.optimizer}, lr "
         f"{float(schedule(0)):.3e}")
 
-    # one step on the kernels against the same step on the plain versions
-    sk, sp = state0.clone(), state0.clone()
-    sk, mk = step(sk, batch, seed=0)
-    with plain_versions():
-        sp, mp = step(sp, batch, seed=0)
-    torch.cuda.synchronize()
-    d_loss = abs(float(mk["loss"]) - float(mp["loss"])) / abs(float(mp["loss"]))
-    d_norm = abs(float(mk["grad_norm"]) - float(mp["grad_norm"])) \
-        / float(mp["grad_norm"])
-    moved = float((sk.params - state0.params).abs().max())
-    d_par = float((sk.params - sp.params).abs().max()) / moved
-    d_mom = {n: float((sk.opt_state[n] - sp.opt_state[n]).abs().max()
-                      / sp.opt_state[n].abs().max()) for n in ("mu", "nu")}
-    d_bn = max(float((a - b).abs().max()) for a, b in
-               zip(sk.batch_stats.values(), sp.batch_stats.values()))
-    ok = (d_loss <= STEP_TOL["loss"] and d_norm <= STEP_TOL["grad_norm"]
-          and moved > 0.0 and d_par <= STEP_TOL["param"]
-          and all(d_mom[n] <= STEP_TOL[n] for n in d_mom))
-    log(f"train: one step, kernels vs plain versions from the same state and "
-        f"seeds: loss {float(mk['loss']):.5f} vs {float(mp['loss']):.5f} "
-        f"(rel {d_loss:.2e}, tol {STEP_TOL['loss']}), grad norm "
-        f"{float(mk['grad_norm']):.5f} vs {float(mp['grad_norm']):.5f} (rel "
-        f"{d_norm:.2e}, tol {STEP_TOL['grad_norm']}), largest parameter "
-        f"difference {d_par:.3e} of the largest movement {moved:.3e} (tol "
-        f"{STEP_TOL['param']}), first moment {d_mom['mu']:.3e} and second "
-        f"moment {d_mom['nu']:.3e} of their largest entries (tol "
-        f"{STEP_TOL['mu']}, {STEP_TOL['nu']}), batch statistics {d_bn:.3e} "
-        f"{'PASS' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("a training step on the kernels disagrees with "
-                             "the same step on the plain versions")
-    # the same (seed, step) gives the same step again
-    sk2, mk2 = step(state0.clone(), batch, seed=0)
-    if float(mk2["loss"]) != float(mk["loss"]) \
-            or not torch.equal(sk2.params, sk.params):
-        raise AssertionError("the same (seed, step) gave another step")
-    log("train: the same (seed, step) gives the same loss and parameters "
-        "bit for bit PASS")
-    del sk, sp, sk2
+    step_against_plain("train", step, state0, batch)
 
     # the main path, with the launch counts read around it
     state = state0.clone()
@@ -1339,10 +1420,10 @@ def train_phase(smi, steps: int = 20):
         + " ".join(f"{v:.3f}" for v in losses))
     log(f"train: kernel launches over the run {launches}")
     for (name, direction), n in launches.items():
-        if n != steps * STEP_LAUNCHES[name]:
+        if n != steps * STEP_LAUNCHES.get(name, 0):
             raise AssertionError(
                 f"{name}.{direction} = {n} over {steps} steps, expected "
-                f"{STEP_LAUNCHES[name]} a step")
+                f"{STEP_LAUNCHES.get(name, 0)} a step")
     # each step draws other masks and augmentations, so "lower at the end
     # than at the start" compares the means of the first and the last three
     first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
@@ -1378,37 +1459,7 @@ def train_phase(smi, steps: int = 20):
         f"{last:.3f} PASS")
     del probe
 
-    # ms a step: host clock around a step that ends in a synchronize
-    times = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch, seed=0)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(times)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            state, m = step(state, batch, seed=0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, e.count, e.self_device_time_total)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(t for _, _, t in rows)
-    if busy <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    log(f"train: {step_ms:.2f} ms a step (median of 10, host clock, each "
-        f"ending in a synchronize; min {min(times):.2f} max {max(times):.2f})"
-        f", {TB / step_ms * 1e3:.0f} sequences/s; under the profiler over 3 "
-        f"steps: wall {wall_us / 3e3:.2f} ms a step, device busy "
-        f"{busy / 3e3:.2f} ms a step ({100 * busy / wall_us:.1f}% of wall), "
-        f"{sum(c for _, c, _ in rows) / 3:.0f} device kernels and copies a "
-        f"step, on {smi}")
-    for key, count, t in sorted(rows, key=lambda r: -r[2])[:16]:
-        log(f"  {t / 3e3:9.3f} ms/step {100 * t / busy:5.1f}% "
-            f"{count / 3:7.1f} calls/step  {key[:90]}")
+    state = time_steps("train", step, state, batch, smi)
 
     # the non-finite guard: an infinite coordinate makes the loss non-finite
     probe = state.clone()
@@ -1462,6 +1513,352 @@ def train_phase(smi, steps: int = 20):
     if not ok:
         raise AssertionError("an eval step or ctc_train_step gave a bad "
                              "result")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The long-sequence training step: K7 and K8
+# ---------------------------------------------------------------------------
+
+LT = 512                    # the long step's frames
+CONV_REF = "ishara_tpu/ops/conv_kernel.py"
+BLOCKED_REF = "ishara_tpu/ops/attention_blocked.py"
+
+
+def blocked_attention_kernel_rows(smi, runs):
+    """K8: forward, lse and dq / dk / dv against the plain version, bf16
+    and f32, at the long step's shape (8 heads of 32, T 512), with 4 heads
+    of 64 and 2 of 128 at T 512, and at T 200 (padded to 256) with masked
+    keys and one sequence with every key masked; timed beside the
+    plain version, F.scaled_dot_product_attention (the additive mask and
+    the scale) and the layer's einsum composition."""
+    import torch
+    import torch.nn.functional as F
+
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import attention_blocked as ab
+
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    scale = TD ** -0.5
+    rows, errs = [], {}
+
+    def bias_of(T, all_masked):
+        lengths = torch.randint(T // 3, T + 1, (TB,), generator=g,
+                                device=DEVICE)
+        lengths[1] = T
+        if all_masked:
+            lengths[0] = 0
+        return at.mask_to_bias(torch.arange(T, device=DEVICE)[None, :]
+                               < lengths[:, None])
+
+    def check(tag, dt, H, T, all_masked):
+        Dh = TD // H
+        bias = bias_of(T, all_masked)
+        qkv = torch.randn((TB, T, H, 3 * Dh), generator=g,
+                          device=DEVICE).to(dt).requires_grad_()
+        d_o = torch.randn((TB, H, T, Dh), generator=g, device=DEVICE).to(dt)
+        q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+        o = ab.flash_mhsa_blocked(q, k, v, bias, scale)
+        grads = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            ro, lse = ab.blocked_attention_forward_plain(q, k, v, bias, scale)
+            rgrads = ab.blocked_attention_backward_plain(q, k, v, bias, ro,
+                                                         lse, d_o, scale)
+            _, klse = ab._launch_fwd(q, k, v, bias, scale,
+                                     ab.padded_length(T))
+        tol = TRAIN_TOL[tag]
+        what = f"blocked attention [{tag}] H {H} Dh {Dh} T {T}"
+        e_o = close(f"{what} o", o, ro, tol)
+        close(f"{what} lse", klse, lse, TRAIN_TOL["f32"])
+        e_g = max(close(f"{what} d{n}", a, b, tol)
+                  for n, a, b in zip("qkv", grads, rgrads))
+        if all_masked:
+            # every key masked: V averaged over the padded length, exactly
+            # the plain version's rule, and the row's lse at -1e30
+            if not bool((klse[0] == lse[0]).all()):
+                raise AssertionError(f"{what}: the all-masked lse differs")
+        log(f"kernel flash_mhsa_blocked [{tag}] q, k, v [{TB}, {H}, {T}, "
+            f"{Dh}]{' with sequence 0 all masked' if all_masked else ''}: "
+            f"o max_abs_err {e_o:.3e}, d(q|k|v) {e_g:.3e} (tol {tol}) PASS")
+        del ro, lse, rgrads, klse, grads
+        return (q, k, v), d_o, bias, o, (e_o, e_g)
+
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        qkv, d_o, bias, o, errs[tag] = check(tag, dt, TH, LT, False)
+        del qkv, d_o, bias, o
+        torch.cuda.empty_cache()
+    for H, T, masked in ((TH // 2, LT, False), (TH // 4, LT, False),
+                         (TH, 200, True)):
+        (q, k, v), d_o, bias, o, _ = check("bf16", torch.bfloat16, H, T,
+                                           masked)
+        f_ms = time_ms(lambda: ab.flash_mhsa_blocked(q, k, v, bias, scale),
+                       runs=5)
+        b_ms = time_ms(lambda: torch.autograd.grad(
+            o, (q, k, v), d_o, retain_graph=True), runs=5)
+        log(f"  forward {f_ms:.4f} ms backward {b_ms:.4f} ms on {smi}")
+        del d_o, bias, o, q, k, v
+        check("f32", torch.float32, H, T, masked)
+        torch.cuda.empty_cache()
+
+    # the long step's shape at bf16, timed
+    Dh, dt = TD // TH, torch.bfloat16
+    bias = bias_of(LT, False)
+    qkv = torch.randn((TB, LT, TH, 3 * Dh), generator=g,
+                      device=DEVICE).to(dt).requires_grad_()
+    d_o = torch.randn((TB, TH, LT, Dh), generator=g, device=DEVICE).to(dt)
+    q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    o = ab.flash_mhsa_blocked(q, k, v, bias, scale)
+    f_ms = time_ms(lambda: ab.flash_mhsa_blocked(q, k, v, bias, scale),
+                   runs=runs)
+    b_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), d_o,
+                                               retain_graph=True), runs=runs)
+    mask = bias[:, None, None, :].to(dt)
+    lq = qkv.detach().clone().requires_grad_()
+
+    def lib_fwd():
+        a, b, c = lq.transpose(1, 2).split(Dh, dim=-1)
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                              scale=scale)
+
+    lo = lib_fwd()
+    lf_ms = time_ms(lib_fwd, runs=runs)
+    lb_ms = time_ms(lambda: torch.autograd.grad(lo, lq, d_o,
+                                                retain_graph=True), runs=runs)
+    keep = bias == 0.0
+
+    def einsum_fwd():
+        a, b, c = lq.transpose(1, 2).split(Dh, dim=-1)
+        s = torch.einsum("bhqd,bhkd->bhqk", a, b) * scale
+        s = s.masked_fill(~keep[:, None, None, :], torch.finfo(s.dtype).min)
+        return torch.einsum("bhqk,bhkd->bhqd", s.softmax(dim=-1), c)
+
+    eo = einsum_fwd()
+    ef_ms = time_ms(einsum_fwd, runs=runs)
+    eb_ms = time_ms(lambda: torch.autograd.grad(eo, lq, d_o,
+                                                retain_graph=True), runs=runs)
+    with torch.no_grad():
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        ro, lse = ab.blocked_attention_forward_plain(qd, kd, vd, bias, scale)
+        p_f = time_ms(lambda: ab.blocked_attention_forward_plain(
+            qd, kd, vd, bias, scale), runs=3, warmup=1, head_start=False)
+        p_b = time_ms(lambda: ab.blocked_attention_backward_plain(
+            qd, kd, vd, bias, ro, lse, d_o, scale), runs=3, warmup=1,
+            head_start=False)
+    log(f"kernel flash_mhsa_blocked [bf16] q, k, v [{TB}, {TH}, {LT}, {Dh}]: "
+        f"forward {f_ms:.4f} ms backward {b_ms:.4f} ms; plain {p_f:.4f} / "
+        f"{p_b:.4f} ms; F.scaled_dot_product_attention {lf_ms:.4f} / "
+        f"{lb_ms:.4f} ms ({f_ms / lf_ms:.2f}x / {b_ms / lb_ms:.2f}x); "
+        f"einsum composition {ef_ms:.4f} / {eb_ms:.4f} ms on {smi}")
+    size = TB * TH * LT * Dh * 2
+    small = bias.numel() * 4 + TB * TH * LT * 4       # bias and lse
+    product = 2 * TB * TH * LT * LT * Dh              # one [T, T] product
+    rows.append(train_row(
+        "flash_mhsa_blocked", ab.flash_mhsa_blocked, "launches",
+        "attention_blocked.cu", f"{BLOCKED_REF}:145", errs["bf16"][0], f_ms,
+        p_f, 4 * size + small, 2 * product, "bf16", lf_ms, smi))
+    # q, k, v, o, dO read, dq, dk, dv written, lse and delta read; the
+    # function needs 5 products (S recomputed, dP, dV, dQ, dK) -- the kernel
+    # does 7, as its dK/dV pass recomputes S and dP a second time
+    rows.append(train_row(
+        "flash_mhsa_blocked[bwd]", ab.flash_mhsa_blocked, "launches_bwd",
+        "attention_blocked.cu", f"{BLOCKED_REF}:208", errs["bf16"][1], b_ms,
+        p_b, 8 * size + 2 * small, 5 * product, "bf16", lb_ms, smi))
+    return rows
+
+
+def conv_module_kernel_rows(smi, runs):
+    """K7: forward and all twelve gradients against the plain version at
+    the long step's shape [256, 512, 256] (E 512, K 15, r 32) and at the
+    flagship's [256, 176, 256], bf16 and f32; timed beside the
+    plain version and the port's composition (no one PyTorch call computes
+    the branch)."""
+    import torch
+
+    from ishara_tpu_torch.models.layers import SqueezeformerConvModule
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    K, r = 15, TD // 8
+    rows = []
+    for T, tag in ((LT, "bf16"), (LT, "f32"), (TT, "bf16"), (TT, "f32")):
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
+        torch.manual_seed(T)
+        module = SqueezeformerConvModule(TD, K, 2, dtype=dt).to(DEVICE)
+        randomize(module, seed=T)
+        g = torch.Generator(device=DEVICE).manual_seed(T)
+        x = torch.randn((TB, T, TD), generator=g, device=DEVICE).to(
+            dt).requires_grad_()
+        dy = torch.randn((TB, T, TD), generator=g, device=DEVICE).to(dt)
+        lengths = torch.randint(T // 3, T + 1, (TB,), generator=g,
+                                device=DEVICE)
+        lengths[0] = 0                                 # an empty sequence
+        mask = torch.arange(T, device=DEVICE)[None, :] < lengths[:, None]
+        args = module.kernel_args(x, mask)
+        params = list(module.parameters())
+        out = ck.conv_module_residual(x, *args)
+        grads = torch.autograd.grad(out, [x] + params, dy, retain_graph=True)
+        again = torch.autograd.grad(out, [x] + params, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            pa = ck._prep(x, *args)
+            ref = ck.conv_module_forward_plain(x, *pa)
+            rg = ck.conv_module_backward_plain(x, pa[0], dy, *pa[1:])
+        tol = TRAIN_TOL[tag]
+        what = f"conv module [{tag}] x [{TB}, {T}, {TD}]"
+        e_o = close(f"{what} out", out, ref, tol)
+        # the kernel's gradients in its own order: dx, then the eleven
+        names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dwdw", "dw2", "db2",
+                 "dwf1", "dbf1", "dwf2", "dbf2")
+        kg = torch.autograd.grad(out, [x] + list(args[1:]), dy,
+                                 retain_graph=True)
+        e_g = {n: close(f"{what} {n}", a, b, tol)
+               for n, a, b in zip(names, kg, rg)}
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"{what}: gradients differ from run to run")
+        log(f"kernel conv_module_residual [{tag}] x [{TB}, {T}, {TD}] E "
+            f"{2 * TD} K {K} r {r}, sequence 0 empty: out max_abs_err "
+            f"{e_o:.3e}; gradients " + ", ".join(
+                f"{n} {e:.2e}" for n, e in e_g.items())
+            + f" (tol {tol}); the same bits on a second backward PASS")
+        del kg, again, ref, rg, pa
+        f_ms = time_ms(lambda: ck.conv_module_residual(x, *args), runs=runs)
+        b_ms = time_ms(lambda: torch.autograd.grad(
+            out, [x] + params, dy, retain_graph=True), runs=runs)
+        module.fused = False
+        co = module(x, mask, training=True)
+        c_f = time_ms(lambda: module(x, mask, training=True), runs=runs)
+        c_b = time_ms(lambda: torch.autograd.grad(
+            co, [x] + params, dy, retain_graph=True), runs=runs)
+        with torch.no_grad():
+            pa = ck._prep(x, *args)
+            p_f = time_ms(lambda: ck.conv_module_forward_plain(x, *pa),
+                          runs=3, warmup=1, head_start=False)
+            p_b = time_ms(lambda: ck.conv_module_backward_plain(
+                x, pa[0], dy, *pa[1:]), runs=3, warmup=1, head_start=False)
+        log(f"  forward {f_ms:.4f} ms backward {b_ms:.4f} ms; plain "
+            f"{p_f:.4f} / {p_b:.4f} ms; the composition (F.conv1d, "
+            f"layer_norm, silu, SE) {c_f:.4f} / {c_b:.4f} ms on {smi}")
+        if (T, tag) == (LT, "bf16"):
+            N, E, es = TB * T, 2 * TD, x.element_size()
+            weights = 2 * TD * E * es + (K * E + 2 * TD * r + 5 * TD
+                                         + E + r) * 4
+            product = 2 * N * TD * E
+            dw = 2 * N * E * K
+            rows.append(train_row(
+                "conv_module_residual", ck.conv_module_residual, "launches",
+                "conv_module.cu", f"{CONV_REF}:297", e_o, f_ms, p_f,
+                2 * N * TD * es + N * 4 + weights, 2 * product + dw, tag,
+                None, smi))
+            # x, dy and the mask read, dx written, the weights read and
+            # their f32 gradients written; the recomputed forward's two
+            # products and conv, and four more products and two convs
+            rows.append(train_row(
+                "conv_module_residual[bwd]", ck.conv_module_residual,
+                "launches_bwd", "conv_module.cu", f"{CONV_REF}:331",
+                max(e_g.values()), b_ms, p_b,
+                3 * N * TD * es + N * 4 + 2 * weights, 6 * product + 3 * dw,
+                tag, None, smi))
+        del module, x, dy, out, grads, co, pa, args, params
+        torch.cuda.empty_cache()
+    return rows
+
+
+def long_kernel_phase(smi, runs: int = 20):
+    import torch
+
+    rows = blocked_attention_kernel_rows(smi, runs)
+    torch.cuda.empty_cache()
+    rows += conv_module_kernel_rows(smi, runs)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# Launches a step of the long-sequence step, forward and backward alike:
+# the tiled attention at each of the 8 blocks' attention, the conv-module
+# kernel at each Squeezeformer block's conv module, the top dropout, one CTC
+# loss; with the attention dropout off, no single-block attention, no
+# feed-forward kernel (its sites drop nothing) and no dropout-add.
+LONG_STEP_LAUNCHES = {"conv_module_residual": 4, "flash_mhsa_blocked": 8,
+                      "ctc_loss_kernel": 1, "fast_dropout": 1,
+                      "flash_mhsa": 0, "ffn_residual": 0,
+                      "fast_dropout_add": 0}
+
+
+def long_train_phase(smi, steps: int = 10):
+    """The long-sequence training step on the card: ``baseline_config(4)``
+    at ``frame_len=512`` and ``dropout=0.0`` (``top_dropout`` 0.4), batch
+    256, bf16, ``TrainConfig()``. Returns {(wrapper name, direction):
+    launches over the ``steps``-step run}."""
+    import torch
+
+    from ishara_tpu_torch.config import TrainConfig, baseline_config
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = dataclasses.replace(baseline_config(4).model, frame_len=LT,
+                              dropout=0.0)
+    tcfg = TrainConfig()
+    torch.manual_seed(5)
+    model = build_model(cfg, device=DEVICE)
+    # phrases of 3-10 characters at ~80 frames each: 240-800 raw frames,
+    # three in four above the single-block kernel's 384
+    ds = SyntheticASLFR(num_sequences=TB, frames_per_char=80, seed=3)
+    host = ds.batch(range(TB), CTCTokenizer(), max_frames=768)
+    batch = {k: torch.from_numpy(host[k]).to(DEVICE)
+             for k in ("raw", "lengths", "labels")}
+    above = float((batch["lengths"] > 384).float().mean())
+    tx, schedule = make_optimizer(tcfg)
+    state0 = TrainState.create(model, tx, device=DEVICE)
+    step = make_fused_ctc_train_step(GroupStats.identity(), cfg.frame_len,
+                                     aug_prob=tcfg.aug_prob,
+                                     blank_id=cfg.blank_id)
+    counters = train_counters()
+    log(f"long train: baseline_config(4) at frame_len {cfg.frame_len}, "
+        f"dropout {cfg.dropout} (top {cfg.top_dropout}), {cfg.dtype}, batch "
+        f"{TB}, raw {tuple(batch['raw'].shape)} ({100 * above:.0f}% of the "
+        f"sequences above 384 frames), labels "
+        f"{tuple(batch['labels'].shape)}, {state0.params.numel()} "
+        f"parameters, lr {float(schedule(0)):.3e}")
+
+    step_against_plain("long train", step, state0, batch)
+
+    state = state0.clone()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counters.values():
+        w.launches = w.launches_bwd = 0
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, seed=0)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {(n, d): getattr(w, d) for n, w in counters.items()
+                for d in ("launches", "launches_bwd")}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    log(f"long train: {steps} steps, loss "
+        + " ".join(f"{v:.3f}" for v in losses))
+    log(f"long train: kernel launches over the run {launches}")
+    for (name, direction), n in launches.items():
+        if n != steps * LONG_STEP_LAUNCHES[name]:
+            raise AssertionError(
+                f"{name}.{direction} = {n} over {steps} steps, expected "
+                f"{LONG_STEP_LAUNCHES[name]} a step")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        raise AssertionError(f"long training loss did not fall: {losses}")
+    log(f"long train: loss finite at every step, mean of the first three "
+        f"{first:.3f} -> of the last three {last:.3f}; launches a step: "
+        + ", ".join(f"{n} {c} + {c}" for n, c in LONG_STEP_LAUNCHES.items())
+        + f" PASS; max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+
+    time_steps("long train", step, state, batch, smi, top=20)
     return launches
 
 
@@ -1794,6 +2191,9 @@ def main() -> int:
     train_rows = train_kernel_phase(smi)
     train_launches = train_phase(smi)
     torch.cuda.empty_cache()
+    long_rows = long_kernel_phase(smi)
+    long_launches = long_train_phase(smi)
+    torch.cuda.empty_cache()
     tr_rows, tr_launches = translation_phase(smi)
 
     # every ported kernel form that an engine path runs, with the launches
@@ -1820,6 +2220,16 @@ def main() -> int:
             raise AssertionError(f"{row['name']} was not launched by the "
                                  f"training run")
         row["config"] = "preset4 training step, batch 256"
+        line.append(row)
+    # K7 and K8, with the launches of the long step's 10-step run
+    for row in long_rows:
+        wrapper, direction = row.pop("counter")
+        row["launches"] = long_launches[(wrapper.__name__, direction)]
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched by the "
+                                 f"long training run")
+        row["config"] = ("preset4 long-sequence training step (T 512, "
+                         "dropout 0), batch 256")
         line.append(row)
     # K9, with the launches of its fused engine's nine-request run
     for row in tr_rows:

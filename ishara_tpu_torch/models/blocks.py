@@ -82,7 +82,7 @@ class SqueezeformerBlock(nn.Module):
         x = self.ffn1(x, self.norm1(x), training, seed)
         h = self.mha(self.norm2(x), mask, training, seed)
         x = self.mha_drop(x, h, training, seed)
-        x = self.conv(x, mask)
+        x = self.conv(x, mask, training)
         return self.ffn2(x, self.norm3(x), training, seed)
 
 

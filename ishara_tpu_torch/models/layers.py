@@ -35,7 +35,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..config import BN_EPS, LN_EPS, LN_EPS_DEFAULT
-from ..ops import attention, selection
+from ..ops import attention, attention_blocked, conv_kernel, selection
 from ..ops.dropout import fast_dropout, fast_dropout_add, keep_mask, site_seeds
 from ..ops.ffn_kernel import ffn_residual
 
@@ -44,6 +44,13 @@ BN_MOMENTUM = 0.95
 BN_MOMENTUM_DEFAULT = 0.99
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether the training kernels' paths apply to ``x``: it lies on a CUDA
+    device. Every layer below asks here, so a test can take the kernel
+    paths on the CPU, where each wrapper runs its plain version."""
+    return x.is_cuda
 
 
 def compute_dtype(name) -> torch.dtype:
@@ -293,16 +300,21 @@ class MultiHeadSelfAttention(nn.Module):
     of ``Dh`` -- not ``[Q|K|V]`` over the whole width. Scores are scaled by
     ``dim**-0.5``.
 
-    Two paths, as in the reference. The einsum path fills masked keys with
-    ``finfo.min`` and, in training, puts ``fast_dropout`` on the
+    Three paths, as in the reference. The einsum path fills masked keys
+    with ``finfo.min`` and, in training, puts ``fast_dropout`` on the
     probabilities. The kernel path is
     :func:`ishara_tpu_torch.ops.attention.flash_mhsa` with the dropout inside
     it. Both key the mask by the same site seed and index it by the flat
     position in ``[B, H, T, T]``, so the path taken does not change which
-    weights are dropped. The kernel path is taken in training when the tensor is on a CUDA device,
-    ``T <= 384`` and ``selection.train_attention`` says "flash" for the
-    geometry, and whenever ``use_flash`` forces it. The choice is the
-    table's alone: a geometry the kernel cannot take raises there."""
+    weights are dropped. The kernel path is taken in training on a CUDA
+    device when ``T <= 384`` and ``selection.train_attention`` says "flash"
+    for the geometry, and whenever ``use_flash`` forces it. The tiled path
+    is :func:`ishara_tpu_torch.ops.attention_blocked.flash_mhsa_blocked`
+    (any ``T``, no dropout inside, the mask as an additive ``-1e30`` key
+    bias): taken in training on a CUDA device when the attention dropout is
+    exactly 0 and the table says "flash_blocked". The choice is the table's
+    alone: a geometry a kernel cannot take raises there. Eval always takes
+    the einsum path (every row's ``serve_attn``)."""
 
     def __init__(self, dim: int = 256, num_heads: int = 4,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
@@ -323,15 +335,16 @@ class MultiHeadSelfAttention(nn.Module):
         scale = self.dim ** -0.5
         rate = self.dropout if training else 0.0
         s = site_seeds(_need_seed(seed), 1, self.site) if rate > 0.0 else None
-        flash = self.use_flash or (
-            training and x.is_cuda and T <= attention.MAX_T
-            and selection.train_attention(self.dim, T, rate > 0.0, B)
-            == "flash")
-        if flash:
-            bias = attention.mask_to_bias(mask) if mask is not None else \
-                torch.zeros((B, T), dtype=torch.float32, device=x.device)
-            out = attention.flash_mhsa(q, k, v, bias, s, scale=scale,
-                                       dropout_rate=rate)
+        path = selection.train_attention(self.dim, T, rate > 0.0, B) \
+            if training and on_card(x) else "einsum"
+        flash = self.use_flash or (path == "flash" and T <= attention.MAX_T)
+        if path == "flash_blocked" and rate == 0.0:
+            out = attention_blocked.flash_mhsa_blocked(
+                q, k, v, self._bias(mask, B, T, x.device), scale)
+        elif flash:
+            out = attention.flash_mhsa(q, k, v,
+                                       self._bias(mask, B, T, x.device), s,
+                                       scale=scale, dropout_rate=rate)
         else:
             attn = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
             if mask is not None:
@@ -340,6 +353,12 @@ class MultiHeadSelfAttention(nn.Module):
             attn = fast_dropout(attn.softmax(dim=-1), s, rate)
             out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         return self.proj(out.transpose(1, 2).reshape(B, T, self.dim))
+
+    @staticmethod
+    def _bias(mask, B, T, device):
+        if mask is None:
+            return torch.zeros((B, T), dtype=torch.float32, device=device)
+        return attention.mask_to_bias(mask)
 
 
 class FusedFFN(nn.Module):
@@ -372,7 +391,7 @@ class FusedFFN(nn.Module):
         if not dropping:
             return res + self.fc2(F.silu(self.fc1(x)))
         seeds = site_seeds(_need_seed(seed), 2, self.site)
-        if x.is_cuda and selection.ffn_fused_when_dropout(
+        if on_card(x) and selection.ffn_fused_when_dropout(
                 self.dim, x.shape[1], x.shape[0]):
             return ffn_residual(x, res, self.fc1.weight.t(), self.fc1.bias,
                                 self.fc2.weight.t(), self.fc2.bias, seeds,
@@ -383,19 +402,49 @@ class FusedFFN(nn.Module):
 
 class SqueezeformerConvModule(nn.Module):
     """LN -> pw(dim*exp) swish -> causal DW conv swish -> pw(dim) -> SE
-    -> +residual."""
+    -> +residual.
+
+    In training on a CUDA device, where ``fused`` is on (``None`` reads
+    ``selection.conv_module_fused`` for the geometry), the whole branch with
+    its residual is one kernel,
+    :func:`ishara_tpu_torch.ops.conv_kernel.conv_module_residual`, whose
+    backward recomputes the branch from ``x``; it reads the module's own
+    parameters in the reference's layouts (:meth:`kernel_args`). Otherwise,
+    and always in eval, it is the composition."""
 
     def __init__(self, dim: int, kernel_size: int, expansion_factor: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused: bool | None = None):
         super().__init__()
         e = dim * expansion_factor
+        self.dim, self.fused = dim, fused
         self.norm = LayerNorm(dim, eps=LN_EPS, dtype=dtype)
         self.pw1 = Conv(dim, e, 1, dtype=dtype)
         self.dw = CausalDWConv1D(e, kernel_size, dtype=dtype)
         self.pw2 = Conv(e, dim, 1, dtype=dtype)
         self.se = SqueezeExcite(dim, dtype=dtype)
 
-    def forward(self, x, mask=None):
+    def kernel_args(self, x, mask=None) -> tuple:
+        """The kernel's arguments after ``x``: the mask as float (all ones
+        when absent), then LN scale and bias, ``w1 [D, E]``, ``b1``,
+        ``wdw [K, E]``, ``w2 [E, D]``, ``b2``, ``wf1 [D, r]``, ``bf1``,
+        ``wf2 [r, D]``, ``bf2`` -- views of the parameters, so gradients
+        reach them. (The depthwise conv has no bias.)"""
+        m = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device) \
+            if mask is None else mask.to(torch.float32)
+        return (m, self.norm.weight, self.norm.bias,
+                self.pw1.weight[:, :, 0].t(), self.pw1.bias,
+                self.dw.dwconv.weight[:, 0, :].t(),
+                self.pw2.weight[:, :, 0].t(), self.pw2.bias,
+                self.se.fc1.weight.t(), self.se.fc1.bias,
+                self.se.fc2.weight.t(), self.se.fc2.bias)
+
+    def forward(self, x, mask=None, training: bool = False):
+        if training and on_card(x) and (
+                selection.conv_module_fused(self.dim, x.shape[1], x.shape[0])
+                if self.fused is None else self.fused):
+            return conv_kernel.conv_module_residual(
+                x, *self.kernel_args(x, mask))
         h = F.silu(self.pw1(self.norm(x)))
         h = F.silu(self.dw(h))
         h = self.pw2(h)

@@ -1,11 +1,22 @@
 """The port's kernels, each beside its plain PyTorch version: the training
 kernels (:mod:`.ctc_kernel`, :mod:`.dropout`, :mod:`.attention`,
-:mod:`.ffn_kernel`), the serving block stacks (:mod:`.fused_block`) and the
+:mod:`.ffn_kernel`, and for long sequences :mod:`.attention_blocked` and
+:mod:`.conv_kernel`), the serving block stacks (:mod:`.fused_block`) and the
 translation model's whole-loop decode (:mod:`.decoder_kernel`). The model
 package builds on this one; nothing here imports it."""
 
 from . import selection
 from .attention import flash_mhsa, mask_to_bias, reference_mhsa
+from .attention_blocked import (
+    blocked_attention_backward_plain,
+    blocked_attention_forward_plain,
+    flash_mhsa_blocked,
+)
+from .conv_kernel import (
+    conv_module_backward_plain,
+    conv_module_forward_plain,
+    conv_module_residual,
+)
 from .ctc import ctc_loss
 from .ctc_kernel import ctc_loss_kernel
 from .decoder_kernel import (
@@ -29,6 +40,11 @@ from .fused_block import (
 
 __all__ = [
     "DecoderFitError",
+    "blocked_attention_backward_plain",
+    "blocked_attention_forward_plain",
+    "conv_module_backward_plain",
+    "conv_module_forward_plain",
+    "conv_module_residual",
     "ctc_loss",
     "ctc_loss_kernel",
     "debug_masks",
@@ -38,6 +54,7 @@ __all__ = [
     "fused_beam_decode",
     "fused_beam_translate",
     "flash_mhsa",
+    "flash_mhsa_blocked",
     "fused_conformer_block",
     "fused_conformer_stack",
     "fused_conv_group_stack",

@@ -1,0 +1,287 @@
+"""The Squeezeformer conv-module branch with its residual as one training
+kernel, forward and backward (port of ``ishara_tpu/ops/conv_kernel.py``).
+
+:func:`conv_module_residual` replaces the Pallas ``conv_module_residual``:
+``x + SE(pw2(swish(causal_dw(swish(pw1(LN(x)))))))`` with the masked SE
+pool, no dropout inside the branch, and a backward that recomputes the
+branch from ``x`` instead of saving it. Precision as the reference: the two
+pointwise products take operands of ``x``'s dtype and accumulate in f32;
+LN (eps 1e-6), the swishes, the causal depthwise conv and the SE run in f32,
+and so do the depthwise taps, the SE weights and the biases;
+``msum = max(sum mask, 1)``, so an all-masked sequence pools to 0. dx comes
+back in ``x``'s dtype, every weight gradient is summed in f32 and cast to
+its parameter's dtype, and the mask gets none.
+
+On a CUDA tensor the wrapper launches ``csrc/conv_module.cu`` -- 6 kernels
+forward, 20 backward, all behind one C call each way (the file says why the
+TPU kernel's whole-sequence slab becomes a chain of row-tiled kernels) --
+or raises; on a CPU tensor it runs the plain versions beside it
+(:func:`conv_module_forward_plain`, :func:`conv_module_backward_plain`),
+which repeat the reference's arithmetic and rounding points. The weight
+gradients are partial sums added in a fixed order (no atomics), so they are
+the same from run to run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+LN_EPS = 1e-6
+MAX_KERNEL = 32          # depthwise taps the kernel takes
+_SPLIT_BLOCKS = 512      # blocks the weight-gradient products aim for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _prep(x, mask, gamma, beta, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2):
+    """The operands as the kernels take them: products' weights in ``x``'s
+    dtype, everything else f32, all contiguous."""
+    cd, f = x.dtype, torch.float32
+    return tuple(t.contiguous() for t in (
+        mask.to(f), gamma.to(f), beta.to(f), w1.to(cd), b1.to(f), wdw.to(f),
+        w2.to(cd), b2.to(f), wf1.to(f), bf1.to(f), wf2.to(f), bf2.to(f)))
+
+
+def _dot(a, b):
+    """``a @ b`` with f32 accumulation of operands in their own dtype (bf16
+    values and their products are exact in f32)."""
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def _causal_dw(a, wdw):
+    """``c[t] = sum_k wdw[k] * a[t - (K - 1) + k]``, zero before t = 0."""
+    K, T = wdw.shape[0], a.shape[1]
+    pad = torch.nn.functional.pad(a, (0, 0, K - 1, 0))
+    return sum(pad[:, k:k + T] * wdw[k] for k in range(K))
+
+
+def _anticausal_dw(dc, wdw):
+    """The gradient of :func:`_causal_dw` with respect to ``a``."""
+    K, T = wdw.shape[0], dc.shape[1]
+    pad = torch.nn.functional.pad(dc, (0, 0, 0, K - 1))
+    return sum(pad[:, K - 1 - k:K - 1 - k + T] * wdw[k] for k in range(K))
+
+
+def _ln(xf, gamma, beta):
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + LN_EPS)
+    xh = (xf - mu) * rstd
+    return xh, rstd, xh * gamma + beta
+
+
+def _dswish(h, sig):
+    return sig + h * sig * (1.0 - sig)
+
+
+def _branch(xn, m, cd, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2):
+    """The forward recompute shared by both plain versions; every
+    intermediate the backward needs."""
+    u = _dot(xn.to(cd), w1) + b1
+    sig_u = torch.sigmoid(u)
+    a = u * sig_u
+    c = _causal_dw(a, wdw)
+    sig_c = torch.sigmoid(c)
+    s = c * sig_c
+    p = _dot(s.to(cd), w2) + b2
+    msum = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)        # [B, 1]
+    pool = (p * m[..., None]).sum(dim=1) / msum                      # [B, D]
+    z1 = pool @ wf1 + bf1
+    sig_z1 = torch.sigmoid(z1)
+    g1 = z1 * sig_z1
+    g = torch.sigmoid(g1 @ wf2 + bf2)
+    return dict(u=u, sig_u=sig_u, a=a, c=c, sig_c=sig_c, s=s, p=p, msum=msum,
+                pool=pool, z1=z1, sig_z1=sig_z1, g1=g1, g=g)
+
+
+def conv_module_forward_plain(x, mask, gamma, beta, w1, b1, wdw, w2, b2, wf1,
+                              bf1, wf2, bf2):
+    """Plain version of the forward kernels: ``[B, T, D]`` in ``x``'s
+    dtype. Operands as :func:`_prep` gives them."""
+    xf = x.to(torch.float32)
+    _, _, xn = _ln(xf, gamma, beta)
+    r = _branch(xn, mask, x.dtype, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2)
+    return (r["p"] * r["g"][:, None, :] + xf).to(x.dtype)
+
+
+def conv_module_backward_plain(x, mask, dy, gamma, beta, w1, b1, wdw, w2, b2,
+                               wf1, bf1, wf2, bf2):
+    """Plain version of the backward kernels: (dx in ``x``'s dtype, then
+    dgamma, dbeta, dw1, db1, dwdw, dw2, db2, dwf1, dbf1, dwf2, dbf2 in f32),
+    recomputing the branch from ``x`` as the reference does."""
+    cd = x.dtype
+    xf = x.to(torch.float32)
+    xh, rstd, xn = _ln(xf, gamma, beta)
+    r = _branch(xn, mask, cd, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2)
+    B, T, D = x.shape
+    E = w1.shape[1]
+    do = dy.to(torch.float32)
+    m = mask[..., None]
+    # out = p * g + x: the gate's backward, per sequence
+    dp = do * r["g"][:, None, :]
+    dgate = (do * r["p"]).sum(dim=1)
+    dz2 = dgate * r["g"] * (1.0 - r["g"])
+    dwf2 = r["g1"].t() @ dz2
+    dbf2 = dz2.sum(dim=0)
+    dz1 = (dz2 @ wf2.t()) * _dswish(r["z1"], r["sig_z1"])
+    dwf1 = r["pool"].t() @ dz1
+    dbf1 = dz1.sum(dim=0)
+    dpool = dz1 @ wf1.t()
+    dp = dp + dpool[:, None, :] * (m / r["msum"][:, None, :])
+    # pw2
+    dp2 = dp.reshape(B * T, D)
+    dw2 = _dot(r["s"].reshape(B * T, E).to(cd).t(), dp2.to(cd))
+    db2 = dp2.sum(dim=0)
+    ds = _dot(dp2.to(cd), w2.t()).reshape(B, T, E)
+    # depthwise conv
+    dc = ds * _dswish(r["c"], r["sig_c"])
+    da = _anticausal_dw(dc, wdw)
+    K = wdw.shape[0]
+    apad = torch.nn.functional.pad(r["a"], (0, 0, K - 1, 0))
+    dwdw = torch.stack([(apad[:, k:k + T] * dc).sum(dim=(0, 1))
+                        for k in range(K)])
+    # pw1
+    du = (da * _dswish(r["u"], r["sig_u"])).reshape(B * T, E)
+    dw1 = _dot(xn.reshape(B * T, D).to(cd).t(), du.to(cd))
+    db1 = du.sum(dim=0)
+    dxn = _dot(du.to(cd), w1.t()).reshape(B, T, D)
+    # LayerNorm
+    dgam = (dxn * xh).reshape(B * T, D).sum(dim=0)
+    dbet = dxn.reshape(B * T, D).sum(dim=0)
+    dxh = dxn * gamma
+    dx_ln = (dxh - dxh.mean(dim=-1, keepdim=True)
+             - xh * (dxh * xh).mean(dim=-1, keepdim=True)) * rstd
+    return ((do + dx_ln).to(cd), dgam, dbet, dw1, db1, dwdw, dw2, db2, dwf1,
+            dbf1, dwf2, dbf2)
+
+
+def _check_cuda(x, args):
+    B, T, D = x.shape
+    mask, gamma, beta, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2 = args
+    E, K, r = w1.shape[1], wdw.shape[0], wf1.shape[1]
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the conv-module kernel takes f32 or bf16, got "
+                         f"{x.dtype}")
+    if K > MAX_KERNEL or B > 65535:
+        raise ValueError(f"the conv-module kernel takes up to {MAX_KERNEL} "
+                         f"depthwise taps and 65535 sequences, got K={K}, "
+                         f"B={B}")
+    shapes = {"mask": (mask, (B, T)), "gamma": (gamma, (D,)),
+              "beta": (beta, (D,)), "w1": (w1, (D, E)), "b1": (b1, (E,)),
+              "wdw": (wdw, (K, E)), "w2": (w2, (E, D)), "b2": (b2, (D,)),
+              "wf1": (wf1, (D, r)), "bf1": (bf1, (r,)), "wf2": (wf2, (r, D)),
+              "bf2": (bf2, (D,))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"{name} must be {list(shape)} on x's device, "
+                             f"got {list(t.shape)} on {t.device}")
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _workspace(x, E, K, r, backward, splits):
+    B, T, D = x.shape
+    fn = _build.function("conv_module", "ishara_conv_workspace", [_I] * 9)
+    units = fn(B, T, D, E, K, r, _DTYPE_CODE[x.dtype], int(backward), splits)
+    return torch.empty(units * 256, dtype=torch.uint8, device=x.device)
+
+
+def _launch_fwd(x, args):
+    _check_cuda(x, args)
+    x = x.contiguous()
+    B, T, D = x.shape
+    E, K, r = args[3].shape[1], args[5].shape[0], args[8].shape[1]
+    out = torch.empty_like(x)
+    work = _workspace(x, E, K, r, False, 1)
+    fn = _build.function("conv_module", "ishara_conv_fwd",
+                         [_I, _I] + [_P] * 15 + [_I] * 6 + [_P])
+    rc = fn(_build.device_index(x), _DTYPE_CODE[x.dtype], x.data_ptr(),
+            *(t.data_ptr() for t in args), out.data_ptr(), work.data_ptr(),
+            B, T, D, E, K, r, _build.stream_of(x))
+    _build.check("conv_module", rc, "conv-module forward kernels")
+    return out
+
+
+def _launch_bwd(x, dy, args):
+    x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
+    B, T, D = x.shape
+    E, K, r = args[3].shape[1], args[5].shape[0], args[8].shape[1]
+    tiles = -(-D // 64) * -(-E // 128)     # wgrad.cuh's 64 x 128 tiles
+    splits = max(1, min(-(-B * T // 16), _SPLIT_BLOCKS // tiles))
+    dx = torch.empty_like(x)
+    sizes = (D, D, D * E, E, K * E, E * D, D, D * r, r, r * D, D)
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    work = _workspace(x, E, K, r, True, splits)
+    mask, *params = args
+    fn = _build.function("conv_module", "ishara_conv_bwd",
+                         [_I, _I] + [_P] * 17 + [_I] * 7 + [_P])
+    rc = fn(_build.device_index(x), _DTYPE_CODE[x.dtype], x.data_ptr(),
+            mask.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in params),
+            dx.data_ptr(), grads.data_ptr(), work.data_ptr(), B, T, D, E, K,
+            r, splits, _build.stream_of(x))
+    _build.check("conv_module", rc, "conv-module backward kernels")
+    shapes = ((D,), (D,), (D, E), (E,), (K, E), (E, D), (D,), (D, r), (r,),
+              (r, D), (D,))
+    return (dx, *(g.reshape(s) for g, s in
+                  zip(grads.split(sizes), shapes)))
+
+
+class _ConvModuleResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, *params):
+        args = _prep(x, *params)
+        if x.device.type == "cpu":
+            out = conv_module_forward_plain(x, *args)
+        else:
+            out = _launch_fwd(x, args)
+            conv_module_residual.launches += 1
+        ctx.save_for_backward(x, *args)
+        ctx.dtypes = tuple(p.dtype for p in params[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *args = ctx.saved_tensors
+        if x.device.type == "cpu":
+            grads = conv_module_backward_plain(x, args[0], dy, *args[1:])
+        else:
+            grads = _launch_bwd(x, dy, args)
+            conv_module_residual.launches_bwd += 1
+        dx, *dparams = grads
+        return (dx, None,
+                *(g.to(t) for g, t in zip(dparams, ctx.dtypes)))
+
+
+def conv_module_residual(x: torch.Tensor, mask: torch.Tensor,
+                         gamma: torch.Tensor, beta: torch.Tensor,
+                         w1: torch.Tensor, b1: torch.Tensor,
+                         wdw: torch.Tensor, w2: torch.Tensor,
+                         b2: torch.Tensor, wf1: torch.Tensor,
+                         bf1: torch.Tensor, wf2: torch.Tensor,
+                         bf2: torch.Tensor):
+    """``x + SE(pw2(swish(dwconv(swish(pw1(LN(x)))))))`` as one kernel.
+
+    ``x`` ``[B, T, D]`` (f32 or bf16); ``mask`` ``[B, T]`` (float or bool,
+    1 = valid frame) feeds the SE pool only; ``gamma``/``beta`` ``[D]``;
+    ``w1`` ``[D, E]``, ``b1`` ``[E]``; ``wdw`` ``[K, E]`` the causal
+    depthwise taps; ``w2`` ``[E, D]``, ``b2`` ``[D]``; ``wf1`` ``[D, r]``,
+    ``bf1`` ``[r]``, ``wf2`` ``[r, D]``, ``bf2`` ``[D]`` the SqueezeExcite
+    Denses. Gradients flow to ``x`` and every parameter. Replaces
+    ``ishara_tpu.ops.conv_kernel.conv_module_residual``."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the conv-module kernel runs on CUDA or CPU "
+                         f"tensors, not {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
+    return _ConvModuleResidual.apply(x, mask, gamma, beta, w1, b1, wdw, w2,
+                                     b2, wf1, bf1, wf2, bf2)
+
+
+# launches of the forward kernels and of the backward kernels (one count for
+# each C call, whatever number of kernels it runs)
+conv_module_residual.launches = 0
+conv_module_residual.launches_bwd = 0

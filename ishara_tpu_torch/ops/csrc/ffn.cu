@@ -21,7 +21,8 @@
 // Two sets of kernels. bf16 at widths that are multiples of 128 -- every
 // preset's training geometry -- takes the tensor cores (wmma 16x16x16); f32,
 // and bf16 at any other width, takes the general kernels further down, the
-// same three steps with their products as f32 FMAs on the CUDA cores.
+// same three steps with the row products as f32 FMAs on the CUDA cores (the
+// weight products take wgrad.cuh's kernels by its own rule).
 //
 // Design of the tensor-core set. A block of 8 warps owns 32 rows. Forward:
 // the x tile and then the 32 x M hidden stay in shared memory between the two
@@ -32,11 +33,11 @@
 // its mask. Backward, three steps: (1) a row kernel recomputes h and computes
 // g . w2^T tile by tile in the same pass, so neither is ever held at f32 for
 // the whole tile; it writes dx, and leaves bf16 d = a * keep1', dh and g in
-// global scratch with the per-block column sums for db1 and db2; (2) a
-// weight kernel forms dw2 = d^T . g and dw1 = x^T . dh as split sums over row
-// ranges, each block keeping its accumulators in registers for its whole
-// range; (3) the partial sums are added in a fixed order. No atomics: every
-// gradient is the same from run to run.
+// global scratch with the per-block column sums for db1 and db2; (2) the
+// weight products of wgrad.cuh form dw2 = d^T . g and dw1 = x^T . dh as split
+// sums over row ranges, each block keeping its accumulators in registers for
+// its whole range; (3) the partial sums are added in a fixed order. No
+// atomics: every gradient is the same from run to run.
 //
 // Bound: operations on paper (12 N K M for forward and backward together,
 // 71 GFLOP at N 45056, K 256, M 512, against 115 MB of x, res, dy, out, dx),
@@ -51,6 +52,7 @@
 #include <mma.h>
 
 #include "philox.cuh"
+#include "wgrad.cuh"
 
 namespace {
 
@@ -331,50 +333,6 @@ ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   }
 }
 
-// Backward, step 2: part[s] = A[rows of split s]^T . Bm[rows of split s] for
-// A [N, P] and Bm [N, Q] row-major bf16; part is [S][P][Q] f32. A block owns a
-// 64 x 128 tile of the result and one row range; warp w owns columns
-// w * 16 .. of it.
-__global__ void __launch_bounds__(THREADS)
-ffn_bwd_weights_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
-                       float* __restrict__ part, int N, int P, int Q,
-                       int steps_per_split) {
-  const int warp = threadIdx.x >> 5;
-  const int p0 = blockIdx.x * 64, q0 = blockIdx.y * 128 + warp * 16;
-  const int steps = N / 16;
-  const int s0 = blockIdx.z * steps_per_split;
-  const int s1 = min(steps, s0 + steps_per_split);
-  FragC acc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.f);
-  for (int s = s0; s < s1; ++s) {
-    const size_t r0 = (size_t)s * 16;
-    FragB b;
-    wmma::load_matrix_sync(b, Bm + r0 * Q + q0, Q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      FragAt a;  // A^T tile: element (p, row) sits at row * P + p
-      wmma::load_matrix_sync(a, A + r0 * P + p0 + i * 16, P);
-      wmma::mma_sync(acc[i], a, b, acc[i]);
-    }
-  }
-  float* dst = part + (size_t)blockIdx.z * P * Q;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    wmma::store_matrix_sync(dst + (size_t)(p0 + i * 16) * Q + q0, acc[i], Q,
-                            wmma::mem_row_major);
-}
-
-// Backward, step 3: out[i] = part[0][i] + part[1][i] + ... in that order.
-__global__ void ffn_reduce_kernel(const float* __restrict__ part,
-                                  float* __restrict__ out, int count, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < count; ++p) s += part[(size_t)p * n + i];
-  out[i] = s;
-}
-
 // k1 [n, m] and k2 [n, k]: 1 where the kernels keep an element, else 0.
 __global__ void ffn_masks_kernel(const int* __restrict__ seeds,
                                  float* __restrict__ k1, float* __restrict__ k2,
@@ -403,18 +361,8 @@ __global__ void ffn_masks_kernel(const int* __restrict__ seeds,
 
 constexpr int GR = 8;
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ bf16 narrow<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+using wgrad::narrow;
+using wgrad::widen;
 
 // keep' of the element at flat index idx.
 __device__ __forceinline__ float keep1(uint32_t seed, uint64_t idx,
@@ -588,58 +536,6 @@ ffn_bwd_rows_general_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// Backward, step 2: part[s] = A[rows of split s]^T . Bm[rows of split s] for
-// A [N, P] and Bm [N, Q] row-major; part is [S][P][Q] f32. A block of 16 x 16
-// threads owns a 64 x 64 tile of the result and one row range; a thread owns
-// a 4 x 4 patch of it and walks the rows 16 at a time through shared memory.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ffn_bwd_weights_general_kernel(const T* __restrict__ A,
-                               const T* __restrict__ Bm,
-                               float* __restrict__ part, int N, int P, int Q,
-                               int steps_per_split) {
-  __shared__ __align__(16) float As[16][64], Bs[16][64];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int p0 = blockIdx.x * 64, q0 = blockIdx.y * 64;
-  const int steps = N / 16;
-  const int s0 = blockIdx.z * steps_per_split;
-  const int s1 = min(steps, s0 + steps_per_split);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int s = s0; s < s1; ++s) {
-    const size_t r0 = (size_t)s * 16;
-    for (int e = threadIdx.x; e < 16 * 64; e += THREADS) {
-      const int n = e >> 6, c = e & 63;
-      As[n][c] = p0 + c < P ? widen(A[(r0 + n) * P + p0 + c]) : 0.f;
-      Bs[n][c] = q0 + c < Q ? widen(Bm[(r0 + n) * Q + q0 + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[n][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[n][tx * 4]);
-      const float a[4] = {av.x, av.y, av.z, av.w};
-      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* dst = part + (size_t)blockIdx.z * P * Q;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = p0 + ty * 4 + i, q = q0 + tx * 4 + j;
-      if (p < P && q < Q) dst[(size_t)p * Q + q] = acc[i][j];
-    }
-}
-
 size_t fwd_smem(int K, int M) {
   return (size_t)R * (K + PAD) * 2 + (size_t)R * (M + PAD) * 2 +
          (size_t)WARPS * 256 * 4;
@@ -673,12 +569,6 @@ bool tensor_cores(int dtype, int K, int M) {
          bwd_smem(K, M) <= SMEM_LIMIT;
 }
 
-cudaError_t reduce(const float* part, float* out, int count, int n,
-                   cudaStream_t s) {
-  ffn_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, out, count, n);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t fwd_general(const void* x, const void* res, const void* w1,
                         const void* b1, const void* w2, const void* b2,
@@ -696,14 +586,13 @@ cudaError_t fwd_general(const void* x, const void* res, const void* w1,
   return cudaGetLastError();
 }
 
-// Steps 1 and 2 of the backward on the general kernels; wt is scratch for
-// the two transposed weights, 2 * K * M elements.
+// Step 1 of the backward on the general kernels; wt is scratch for the two
+// transposed weights, 2 * K * M elements.
 template <typename T>
 cudaError_t bwd_general(const void* x, const void* dy, const void* w1,
                         const void* b1, const void* w2, const void* seeds,
                         void* dx, void* d_g, void* dh_g, void* g_g, void* wt,
-                        float* db1_part, float* db2_part, float* dw1_part,
-                        float* dw2_part, int N, int K, int M, int S,
+                        float* db1_part, float* db2_part, int N, int K, int M,
                         uint32_t thr1, float sc1, uint32_t thr2, float sc2,
                         cudaStream_t s) {
   const size_t smem = bwd_general_smem(K, M);
@@ -719,17 +608,20 @@ cudaError_t bwd_general(const void* x, const void* dy, const void* w1,
       (const T*)x, (const T*)dy, (const T*)w1, (const float*)b1, w2t, w1t,
       (const int*)seeds, (T*)dx, (T*)d_g, (T*)dh_g, (T*)g_g, db1_part,
       db2_part, K, M, thr1, sc1, thr2, sc2);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int per_split = (N / 16 + S - 1) / S;
-  // dw2 [M, K] = d^T . g ; dw1 [K, M] = x^T . dh
-  ffn_bwd_weights_general_kernel<T>
-      <<<dim3((M + 63) / 64, (K + 63) / 64, S), THREADS, 0, s>>>(
-          (const T*)d_g, (const T*)g_g, dw2_part, N, M, K, per_split);
-  ffn_bwd_weights_general_kernel<T>
-      <<<dim3((K + 63) / 64, (M + 63) / 64, S), THREADS, 0, s>>>(
-          (const T*)x, (const T*)dh_g, dw1_part, N, K, M, per_split);
   return cudaGetLastError();
+}
+
+// Step 2 of the backward: dw2 [M, K] = d^T . g and dw1 [K, M] = x^T . dh as
+// the partials of S row splits (wgrad.cuh).
+template <typename T>
+cudaError_t bwd_weights(const void* x, const void* d_g, const void* dh_g,
+                        const void* g_g, float* dw1_part, float* dw2_part,
+                        int N, int K, int M, int S, cudaStream_t s) {
+  const cudaError_t e = wgrad::product<T>((const T*)d_g, (const T*)g_g,
+                                          dw2_part, N, M, K, S, s);
+  if (e != cudaSuccess) return e;
+  return wgrad::product<T>((const T*)x, (const T*)dh_g, dw1_part, N, K, M, S,
+                           s);
 }
 
 }  // namespace
@@ -796,15 +688,12 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
   if (rows == GR) {
     if (dtype == 0)
       e = bwd_general<float>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
-                             (float*)db1_part, (float*)db2_part,
-                             (float*)dw1_part, (float*)dw2_part, N, K, M, S,
-                             thr1, sc1, thr2, sc2, s);
+                             (float*)db1_part, (float*)db2_part, N, K, M, thr1,
+                             sc1, thr2, sc2, s);
     else
       e = bwd_general<bf16>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
-                            (float*)db1_part, (float*)db2_part,
-                            (float*)dw1_part, (float*)dw2_part, N, K, M, S,
-                            thr1, sc1, thr2, sc2, s);
-    if (e != cudaSuccess) return (int)e;
+                            (float*)db1_part, (float*)db2_part, N, K, M, thr1,
+                            sc1, thr2, sc2, s);
   } else {
     const size_t smem = bwd_smem(K, M);
     e = allow_smem(ffn_bwd_rows_kernel, smem);
@@ -815,27 +704,22 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
         (bf16*)dh_g, (bf16*)g_g, (float*)db1_part, (float*)db2_part, K, M,
         thr1, sc1, thr2, sc2);
     e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    const int per_split = (N / 16 + S - 1) / S;
-    // dw2 [M, K] = d^T . g ; dw1 [K, M] = x^T . dh
-    ffn_bwd_weights_kernel<<<dim3(M / 64, K / 128, S), THREADS, 0, s>>>(
-        (const bf16*)d_g, (const bf16*)g_g, (float*)dw2_part, N, M, K,
-        per_split);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    ffn_bwd_weights_kernel<<<dim3(K / 64, M / 128, S), THREADS, 0, s>>>(
-        (const bf16*)x, (const bf16*)dh_g, (float*)dw1_part, N, K, M,
-        per_split);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
   }
-  e = reduce((const float*)dw1_part, (float*)dw1, S, K * M, s);
   if (e != cudaSuccess) return (int)e;
-  e = reduce((const float*)dw2_part, (float*)dw2, S, K * M, s);
+  e = dtype == 0 ? bwd_weights<float>(x, d_g, dh_g, g_g, (float*)dw1_part,
+                                      (float*)dw2_part, N, K, M, S, s)
+                 : bwd_weights<bf16>(x, d_g, dh_g, g_g, (float*)dw1_part,
+                                     (float*)dw2_part, N, K, M, S, s);
   if (e != cudaSuccess) return (int)e;
-  e = reduce((const float*)db1_part, (float*)db1, N / rows, M, s);
+  const long long KM = (long long)K * M;
+  e = wgrad::sum_parts((const float*)dw1_part, (float*)dw1, S, KM, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)reduce((const float*)db2_part, (float*)db2, N / rows, K, s);
+  e = wgrad::sum_parts((const float*)dw2_part, (float*)dw2, S, KM, s);
+  if (e != cudaSuccess) return (int)e;
+  e = wgrad::sum_parts((const float*)db1_part, (float*)db1, N / rows, M, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)wgrad::sum_parts((const float*)db2_part, (float*)db2, N / rows,
+                               K, s);
 }
 
 // The keep masks the kernels draw for an [n, k] input with hidden width m:

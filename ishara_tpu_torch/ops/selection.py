@@ -4,20 +4,33 @@
 Every kernel-or-composition choice in the model layers reads this table, and
 lookup picks the nearest anchor in log-space over (dim, T, batch), as in the
 reference. None of the reference's rows is carried over: they were measured
-on another device and say nothing about this one. The table holds the one
-geometry the port measures on the H100 (``chip_smoke.py``'s train phase; the
-times are in ``PERF.md``), the flagship training recipe
-``(dim 256, T 176, batch 256)``:
+on another device and say nothing about this one. The table holds the two
+geometries the port drives on the H100 (``chip_smoke.py``'s train phases;
+the times are in ``PERF.md``):
 
-* ``train_attn = "flash"`` and ``ffn_dropout_kernel = True``: the training
-  step runs the attention and the feed-forward kernels there;
-* ``serve_attn = "einsum"``: the serving paths use the composition (their
-  fused form is the block-stack kernel, chosen by the engine, not here);
-* ``conv_module_fused = False``: the fused conv-module branch kernel
-  (``ishara_tpu/ops/conv_kernel.py``) is not ported yet.
+* the flagship training recipe ``(dim 256, T 176, batch 256)``:
+  ``train_attn = "flash"`` (and without dropout too) and
+  ``ffn_dropout_kernel = True``, so the step runs the attention and the
+  feed-forward kernels; ``conv_module_fused = False``: the conv-module
+  branch stays the composition there;
+* the long-sequence step ``(dim 256, T 512, batch 256)``:
+  ``train_attn_nodrop = "flash_blocked"`` (the tiled attention kernel,
+  :mod:`.attention_blocked`, the only training kernel beyond ``T = 384``)
+  and ``conv_module_fused = True`` (the conv-module branch as one kernel,
+  :mod:`.conv_kernel`). Its dropout-on attention rows equal the
+  flagship's; beyond ``T = 384`` the layer sends ``"flash"`` to the
+  composition, as the reference does, so the attention of training with
+  dropout changes at no geometry. The conv-module branch has no dropout,
+  so it switches to its kernel wherever this row is the nearest (``T``
+  above ~300 at batch 256), with attention dropout on or off.
 
-With one anchor every geometry resolves to it. Re-deciding each row from
-H100 measurements of kernel against composition is open work (ROADMAP.md
+In both rows ``serve_attn = "einsum"``: the serving paths use the
+composition (their fused form is the block-stack kernel, chosen by the
+engine, not here). With two anchors at batch 256 the long row captures the
+geometries whose ``T`` lies above ``sqrt(176 * 512) ~ 300`` (at equal dim
+and batch); the flagship step ``(256, 176, 256)`` and batch-1 serving at
+``T = 176`` resolve to the flagship row. Re-deciding each row from H100
+measurements of kernel against composition is open work (ROADMAP.md
 Queue 1 item 15).
 
 ``translation_decode_fused(dim, T)`` has its own table, one anchor, the
@@ -40,6 +53,13 @@ _ANCHORS: dict[tuple[int, int, int], dict] = {
         "ffn_dropout_kernel": True,
         "conv_module_fused": False,
     },
+    (256, 512, 256): {
+        "train_attn": "flash",
+        "train_attn_nodrop": "flash_blocked",
+        "serve_attn": "einsum",
+        "ffn_dropout_kernel": True,
+        "conv_module_fused": True,
+    },
 }
 
 _DEFAULT_BATCH = 256  # the reference training recipe's batch
@@ -58,10 +78,15 @@ def _nearest(dim: int, T: int, batch: int | None = None) -> dict:
 
 def train_attention(dim: int, T: int, dropout_active: bool = True,
                     batch: int | None = None) -> str:
-    """"flash" or "einsum" for the training-mode MHSA forward + backward at
-    this geometry."""
+    """"flash", "flash_blocked" or "einsum" for the training-mode MHSA
+    forward + backward at this geometry. The tiled kernel has no dropout
+    inside, so with dropout active a "flash_blocked" row gives way to the
+    row's dropout choice, as in the reference."""
     row = _nearest(dim, T, batch)
-    return row["train_attn" if dropout_active else "train_attn_nodrop"]
+    path = row["train_attn" if dropout_active else "train_attn_nodrop"]
+    if dropout_active and path == "flash_blocked":
+        path = "flash" if row["train_attn"] == "flash" else "einsum"
+    return path
 
 
 def serve_attention(dim: int, T: int) -> str:

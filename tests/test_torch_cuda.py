@@ -341,6 +341,204 @@ def test_ffn_kernel_refuses_what_it_cannot_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,Dh,blocks", [(512, 32, (128, 128)),
+                                         (200, 32, (128, 128)),
+                                         (200, 64, (64, 128)),
+                                         (130, 128, (64, 64)),
+                                         (23, 8, (128, 128))])
+def test_blocked_attention_kernels_match_plain(T, Dh, blocks, dtype, tol):
+    """K8: padding to the blocks' multiple, heads of 8 to 128, a fully
+    masked sequence (every one of the Tp keys weighted alike, as in the
+    reference); forward, lse and dq, dk, dv."""
+    _card()
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import attention_blocked as ab
+
+    B, H = 2, 3
+    g = torch.Generator(device="cuda").manual_seed(T + Dh)
+    qkv = torch.randn((B, T, H, 3 * Dh), generator=g, device="cuda").to(
+        dtype).requires_grad_()
+    d_o = torch.randn((B, H, T, Dh), generator=g, device="cuda").to(dtype)
+    mask = torch.rand((B, T), generator=g, device="cuda") > 0.2
+    mask[1] = False
+    bias = at.mask_to_bias(mask)
+    scale = (H * Dh) ** -0.5
+    q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    before = (ab.flash_mhsa_blocked.launches,
+              ab.flash_mhsa_blocked.launches_bwd)
+    o = ab.flash_mhsa_blocked(q, k, v, bias, scale, *blocks)
+    grads = torch.autograd.grad(o, (q, k, v), d_o)
+    torch.cuda.synchronize()
+    assert (ab.flash_mhsa_blocked.launches,
+            ab.flash_mhsa_blocked.launches_bwd) \
+        == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        ro, lse = ab.blocked_attention_forward_plain(q, k, v, bias, scale,
+                                                     *blocks)
+        rgrads = ab.blocked_attention_backward_plain(q, k, v, bias, ro, lse,
+                                                     d_o, scale)
+        _, klse = ab._launch_fwd(q, k, v, bias, scale,
+                                 ab.padded_length(T, *blocks))
+    _close(o, ro, tol)
+    _close(klse[0], lse[0], 1e-5)
+    assert torch.equal(klse[1], lse[1])      # all masked: -1e30 exactly
+    for a, b in zip(grads, rgrads):
+        _close(a, b, tol)
+
+
+@pytest.mark.cuda
+def test_blocked_attention_kernel_refuses_what_it_cannot_take():
+    _card()
+    from ishara_tpu_torch.ops import attention_blocked as ab
+
+    bias = torch.zeros((1, 16), device="cuda")
+    for Dh in (136, 12):
+        q = torch.zeros((1, 1, 16, Dh), device="cuda")
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ab.flash_mhsa_blocked(q, q, q, bias, 1.0)
+    q = torch.zeros((1, 1, 16, 8), device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        ab.flash_mhsa_blocked(q, q, q, bias, 1.0)
+    q = torch.zeros((1, 1, 16, 8), device="cuda")
+    with pytest.raises(ValueError, match="bias"):
+        ab.flash_mhsa_blocked(q, q, q, bias[:, :8], 1.0)
+
+
+def _conv_case(B, T, D, E, K, r, dtype, g):
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    x = rand(B, T, D).to(dtype).requires_grad_()
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+    lengths[0] = 0                                   # an empty sequence
+    mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
+    params = [1 + rand(D, scale=0.1), rand(D, scale=0.1),
+              rand(D, E, scale=D ** -0.5), rand(E, scale=0.1),
+              rand(K, E, scale=K ** -0.5), rand(E, D, scale=E ** -0.5),
+              rand(D, scale=0.1), rand(D, r, scale=D ** -0.5),
+              rand(r, scale=0.1), rand(r, D, scale=r ** -0.5),
+              rand(D, scale=0.1)]
+    return x, mask, [p.requires_grad_() for p in params]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,D,E,K,r", [(3, 40, 64, 128, 15, 8),
+                                         (2, 77, 48, 96, 3, 6),
+                                         (4, 130, 32, 64, 31, 4)])
+def test_conv_module_kernels_match_plain(B, T, D, E, K, r, dtype, tol):
+    """K7: ragged and empty masks, time not a multiple of the 64-row chunks,
+    widths off the 64-wide product tiles, 3 to 31 taps; forward, dx and the
+    eleven parameter gradients, and the same gradients on a second run."""
+    _card()
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    g = torch.Generator(device="cuda").manual_seed(T)
+    x, mask, params = _conv_case(B, T, D, E, K, r, dtype, g)
+    dy = torch.randn((B, T, D), generator=g, device="cuda").to(dtype)
+    before = (ck.conv_module_residual.launches,
+              ck.conv_module_residual.launches_bwd)
+    out = ck.conv_module_residual(x, mask, *params)
+    grads = torch.autograd.grad(out, [x] + params, dy)
+    again = torch.autograd.grad(ck.conv_module_residual(x, mask, *params),
+                                [x] + params, dy)
+    torch.cuda.synchronize()
+    assert (ck.conv_module_residual.launches,
+            ck.conv_module_residual.launches_bwd) \
+        == (before[0] + 2, before[1] + 2)
+    with torch.no_grad():
+        args = ck._prep(x, mask, *params)
+        want = ck.conv_module_forward_plain(x, *args)
+        rgrads = ck.conv_module_backward_plain(x, args[0], dy, *args[1:])
+    _close(out, want, tol)
+    assert len(grads) == len(rgrads) == 12
+    for a, b, c in zip(grads, rgrads, again):
+        _close(a, b, tol)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_conv_module_kernel_refuses_what_it_cannot_take():
+    _card()
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, mask, params = _conv_case(2, 8, 16, 32, 3, 2, torch.float32, g)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        ck.conv_module_residual(x.detach().half(), mask, *params)
+    bad = list(params)
+    bad[4] = torch.zeros((33, 32), device="cuda")       # 33 taps
+    with pytest.raises(ValueError, match="taps"):
+        ck.conv_module_residual(x, mask, *bad)
+    bad = list(params)
+    bad[2] = torch.zeros((16, 30), device="cuda")       # w1 against b1
+    with pytest.raises(ValueError, match="b1"):
+        ck.conv_module_residual(x, mask, *bad)
+
+
+@pytest.mark.cuda
+def test_long_sequence_step_on_the_card_matches_the_cpu():
+    """One fused training step of a narrow long-sequence hybrid (T 400,
+    attention dropout 0: the table's long row, so the card runs the tiled
+    attention and the conv-module kernels) on the card and on the CPU
+    (compositions), from the same weights and seeds, at f32: loss, gradient
+    norm and every gradient."""
+    _card()
+    import copy
+
+    from ishara_tpu_torch.config import TrainConfig
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.ops import attention_blocked as ab
+    from ishara_tpu_torch.ops import conv_kernel as ck
+    from ishara_tpu_torch.preprocess import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    # 400 frames a sequence give f32 sums over 12x the rows of the step
+    # above, run in another order on each side. Measured on an H100: 8e-8
+    # on the loss, 2.1e-5 on the norm and 3.4e-4 of a leaf's largest entry
+    # -- and 8e-8, 6.9e-5, 3.4e-4 with every kernel swapped for its plain
+    # version on the card: the compositions around the kernels set it
+    LOSS_TOL, NORM_TOL, GRAD_TOL = 1e-6, 1e-4, 1e-3
+    cfg = EncoderConfig(variant="hybrid", dim=64, num_heads=4,
+                        num_squeeze_blocks=1, num_conform_blocks=1,
+                        frame_len=400, dropout=0.0, top_dropout=0.2)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cpu")
+    batch = SyntheticASLFR(num_sequences=4, frames_per_char=16,
+                           seed=3).batch(range(4), CTCTokenizer(),
+                                         max_frames=600)
+    tx, _ = make_optimizer(TrainConfig())
+    step = make_fused_ctc_train_step(GroupStats.identity(), 400,
+                                     aug_prob=0.2, with_grads=True)
+    cpu = TrainState.create(copy.deepcopy(model), tx, device="cpu")
+    card = TrainState.create(copy.deepcopy(model), tx, device="cuda")
+    before = (ck.conv_module_residual.launches_bwd,
+              ab.flash_mhsa_blocked.launches_bwd)
+    _, mc = step(cpu, batch, seed=1)
+    _, mg = step(card, batch, seed=1)
+    assert (ck.conv_module_residual.launches_bwd,
+            ab.flash_mhsa_blocked.launches_bwd) \
+        == (before[0] + 1, before[1] + 2)
+    assert abs(float(mg["loss"]) - float(mc["loss"])) \
+        <= LOSS_TOL * abs(float(mc["loss"]))
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
+        <= NORM_TOL * float(mc["grad_norm"])
+    largest = max(float(g.abs().max()) for g in mc["grads"].values())
+    for name, want in mc["grads"].items():
+        err = float((mg["grads"][name].cpu() - want).abs().max())
+        scale = max(float(want.abs().max()), 1e-3 * largest)
+        assert err <= GRAD_TOL * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_training_step_on_the_card_matches_the_cpu(dtype):
     """One fused training step of a small hybrid model with dropout and

@@ -29,7 +29,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "             'ops.fused_block', 'ops._build', 'models.fused',\n"
         "             'data.synthetic', 'models.seq2seq',\n"
         "             'decode.autoregressive', 'ops.decoder_kernel',\n"
-        "             'serve.translation_engine',\n"
+        "             'serve.translation_engine', 'ops.attention_blocked',\n"
+        "             'ops.conv_kernel',\n"
         "             'preprocess.augment', 'serve.engine', 'bridge'):\n"
         "    assert 'ishara_tpu_torch.' + want in names, want\n"
         "for name in names:\n"

@@ -65,14 +65,15 @@ ZERO_GRADIENT = "conv.dw.bias"
 ADAM_STEP_ATOL = 2e-4
 
 
-def setup(variant="hybrid", **cfg_kw):
+def setup(variant="hybrid", frame_len=FRAME_LEN, max_raw=MAX_RAW,
+          frames_per_char=5, **cfg_kw):
     """(JAX state, port state, raw batch, preprocessed x) from one set of
     perturbed weights."""
-    cfg = small_config(variant, frame_len=FRAME_LEN, num_squeeze_blocks=1,
+    cfg = small_config(variant, frame_len=frame_len, num_squeeze_blocks=1,
                        num_conform_blocks=1, **cfg_kw)
     model, variables = jax_model(cfg)
     jtx, _ = j_make_optimizer(JTrainConfig(**TCFG))
-    sample = jnp.zeros((1, FRAME_LEN, cfg.input_dim), jnp.float32)
+    sample = jnp.zeros((1, frame_len, cfg.input_dim), jnp.float32)
     jstate = JTrainState.create(model, jtx, sample)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     jstate = jstate.replace(
@@ -82,13 +83,13 @@ def setup(variant="hybrid", **cfg_kw):
         opt_state=jtx.init(params))
     ttx, _ = make_optimizer(tconfig.TrainConfig(**TCFG))
     tstate = TrainState.create(port_model(cfg, variables), ttx, device="cpu")
-    ds = SyntheticASLFR(num_sequences=BATCH, frames_per_char=5, min_phrase=2,
-                        max_phrase=4, seed=3)
-    batch = ds.batch(range(BATCH), CTCTokenizer(), max_frames=MAX_RAW,
+    ds = SyntheticASLFR(num_sequences=BATCH, frames_per_char=frames_per_char,
+                        min_phrase=2, max_phrase=4, seed=3)
+    batch = ds.batch(range(BATCH), CTCTokenizer(), max_frames=max_raw,
                      max_phrase=12)
     x = np.asarray(preprocess_batch(
         jnp.asarray(batch["raw"]), jnp.asarray(batch["lengths"]),
-        JGroupStats.identity(), frame_len=FRAME_LEN))
+        JGroupStats.identity(), frame_len=frame_len))
     return jstate, tstate, batch, x
 
 
@@ -182,6 +183,45 @@ def fused_steps(n):
 
 def test_one_fused_train_step_matches_jax():
     jstate, tstate = fused_steps(1)
+    assert_states_match(tstate, jstate)
+
+
+def test_long_sequence_fused_step_on_the_kernels_matches_jax(monkeypatch):
+    """The long-sequence slice at a narrow width: hybrid 1 + 1, dim 64, 4
+    heads, T 400, dropout 0, batch 4 -- the table's long row, so with the
+    kernel paths taken (as on a CUDA tensor) every attention runs the tiled
+    kernel's wrapper and the Squeezeformer conv module the conv-module
+    kernel's (their plain versions, here), and one fused step matches JAX's
+    compositions leaf by leaf."""
+    from ishara_tpu_torch.models import layers as tlayers
+
+    calls = {"conv": 0, "attention": 0}
+    conv, blocked = (tlayers.conv_kernel.conv_module_residual,
+                     tlayers.attention_blocked.flash_mhsa_blocked)
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tlayers, "on_card", lambda x: True)
+    monkeypatch.setattr(tlayers.conv_kernel, "conv_module_residual",
+                        count("conv", conv))
+    monkeypatch.setattr(tlayers.attention_blocked, "flash_mhsa_blocked",
+                        count("attention", blocked))
+    jstate, tstate, batch, _ = setup(frame_len=400, max_raw=600,
+                                     frames_per_char=120)
+    assert int(batch["lengths"].max()) > 384
+    jstep = jax.jit(j_make_fused(JGroupStats.identity(), 400, aug_prob=0.0,
+                                 blank_id=59))
+    tstep = make_fused_ctc_train_step(GroupStats.identity(), 400,
+                                      aug_prob=0.0, blank_id=59)
+    jb = {k: jnp.asarray(batch[k]) for k in ("raw", "lengths", "labels")}
+    jstate, jm = jstep(jstate, jb, jax.random.key(0))
+    tstate, tm = tstep(tstate, batch, seed=0)
+    assert calls == {"conv": 1, "attention": 2}
+    assert_metrics_match(tm, jm)
     assert_states_match(tstate, jstate)
 
 
