@@ -34,8 +34,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
    feed-forward branch, each forward and every gradient against its plain
    PyTorch version on the card, with dropout at 0.4 and at 0, at bf16 and
    f32 (the feed-forward branch's f32 form is its general kernels), and
-   attention also with 4 heads of 64, whose backward splits the keys into
-   tiles; the feed-forward kernel's masks against
+   attention also with 4 heads of 64 and 2 of 128, a second backward bit
+   for bit; the CTC kernels also at T 1024 and 2048; the feed-forward
+   kernel's masks against
    the plain PyTorch Philox bit for bit; CUDA-event times of forward and
    backward beside the plain version's, the bound and one PyTorch library
    call (``F.ctc_loss``, ``F.dropout``, ``F.scaled_dot_product_attention``;
@@ -53,8 +54,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
    the device's busy share under ``torch.profiler``.
 6. The long-sequence training step: K8 (the tiled attention,
    ``flash_mhsa_blocked``) at its q, k, v ``[256, 8, 512, 32]`` in bf16 and
-   f32, with 4 heads of 64 and 2 of 128 at T 512, and at T 200 (padded to
-   256) with a sequence whose keys are all masked; K7 (the conv-module
+   f32, with 4 heads of 64, 2 of 128, 1 of 256 and 8 of 12 at T 512, and
+   at T 200 (blocks of 128, 64 and 16) with a sequence whose keys are all
+   masked, a second backward bit for bit; K7 (the conv-module
    branch, ``conv_module_residual``) at x ``[256, 512, 256]`` in bf16 and
    f32 and at the flagship's ``[256, 176, 256]``; each forward and every
    gradient against its plain version, timed beside it, the bound and
@@ -130,7 +132,11 @@ CSRC = "ishara_tpu_torch/ops/csrc/"
 # round at the same points, but a last-bit difference before a rounding moves
 # a value by one bf16 ulp (2^-8 relative), and a gradient sums many such
 # values. Dropout itself is exact (one multiply, one rounding).
-TRAIN_TOL = {"f32": 2e-4, "bf16": 2e-2, "ctc": 2e-5, "dropout": 0.0}
+# The CTC gradient of a row beyond a few hundred frames: the occupancy
+# exp(alpha + beta - logP) with |logP| in the thousands, where one f32 ulp
+# (~2.4e-4) of gamma moves an occupancy by as much ("ctc_long").
+TRAIN_TOL = {"f32": 2e-4, "bf16": 2e-2, "ctc": 2e-5, "ctc_long": 2e-3,
+             "dropout": 0.0}
 # One training step on the kernels against the same step on the plain
 # versions (bf16 model, dropout 0.4, identical masks): relative tolerance of
 # the loss and of the gradient norm; the largest difference of a parameter
@@ -455,11 +461,15 @@ def kernel_phase(models, reqs):
                                  f"plain version")
         ms = time_ms(lambda: stack_fn(x_in, mask, leaves,
                                       num_heads=model.cfg.num_heads))
+        p_ms = time_ms(lambda: fb.group_stack_plain(
+            x_in, mask, ((), leaves), kind, model.cfg.num_heads), runs=5,
+            warmup=1, head_start=False)
         nbytes, ops = stack_work(fb, kind, x_in, mask, (), leaves)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["bf16"])
         log(f"kernel {block_fn.__name__} [bf16 weights, N=1] max_abs_err "
-            f"{float(err.max()):.3e} PASS; kernel {ms:.4f} ms, bound "
-            f"{bound * 1e3:.5f} ms ({nbytes} bytes, {ops} operations)")
+            f"{float(err.max()):.3e} PASS; kernel {ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {bound * 1e3:.5f} ms ({nbytes} bytes, "
+            f"{ops} operations)")
     return rows
 
 
@@ -750,7 +760,8 @@ def train_row(name, wrapper, direction, source, replaces, err, ms, plain_ms,
 
 def ctc_kernel_rows(smi, runs):
     """K1: alpha (forward) and beta (backward) against the plain recursions
-    and beside F.ctc_loss, at B 256, T 176, U 64, C 60."""
+    and beside F.ctc_loss, at B 256, T 176, U 64, C 60; and at T 1024 and
+    2048 (8 rows) against the plain recursions."""
     import torch
     import torch.nn.functional as F
 
@@ -809,6 +820,24 @@ def ctc_kernel_rows(smi, runs):
         p_b = time_ms(lambda: ck.ctc_backward_plain(x, labels_t, alpha,
                                                     ref_nll, dy),
                       runs=3, warmup=1, head_start=False)
+    # long rows, beyond what a [T, C] slab in shared memory allowed (T ~ 950)
+    for T in (1024, 2048):
+        xl = 2.0 * torch.randn((8, T, TC), generator=g, device=DEVICE)
+        lab = labels_t[:8]
+        xr = xl.clone().requires_grad_()
+        nll_l = ck.ctc_loss_kernel(xr, lab, reduction="none")
+        (grad_l,) = torch.autograd.grad(nll_l, xr, dy[:8])
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            rn, ra = ck.ctc_forward_plain(xl, lab)
+            rgl = ck.ctc_backward_plain(xl, lab, ra, rn, dy[:8])
+        el = (close(f"ctc alpha kernel nll T {T}", nll_l, rn,
+                    TRAIN_TOL["ctc"]),
+              close(f"ctc beta kernel gradient T {T}", grad_l, rgl,
+                    TRAIN_TOL["ctc_long"]))
+        log(f"kernel ctc_loss_kernel [8, {T}, {TC}] U {TU}: nll, gradient "
+            f"max_abs_err {el[0]:.3e}, {el[1]:.3e} PASS")
+        del xl, xr, nll_l, grad_l, rn, ra, rgl
     S = 2 * TU + 1
     b_f = logits.numel() * 4 + labels.size * 4 + TB * 4
     b_b = 2 * logits.numel() * 4 + labels.size * 4 + 2 * TB * 4
@@ -909,7 +938,8 @@ def dropout_kernel_rows(smi, runs):
 
 def attention_kernel_rows(smi, runs):
     """K3: forward and dq / dk / dv against the plain version with the same
-    Philox mask, dropout 0.4 and 0, bf16 and f32, a fully masked row; beside
+    Philox mask, dropout 0.4 and 0, bf16 and f32, a fully masked row, heads
+    of 32, 64 and 128, the same bits on a second backward; beside
     F.scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
@@ -998,35 +1028,44 @@ def attention_kernel_rows(smi, runs):
             f"{errs[0.0]}, row 0 fully masked and finite PASS; forward "
             f"{f_ms:.4f} ms backward {b_ms:.4f} ms; plain {p_f:.4f} / "
             f"{p_b:.4f} ms; F.scaled_dot_product_attention {lf_ms:.4f} / "
-            f"{lb_ms:.4f} ms on {smi}")
+            f"{lb_ms:.4f} ms ({f_ms / lf_ms:.2f}x / {b_ms / lb_ms:.2f}x) on "
+            f"{smi}")
         if tag != "bf16":
             continue
-        # heads of 64 (4 heads at dim 256, presets 1 and 2): the backward
-        # splits the keys into two tiles of 128
-        H4, D64 = TH // 2, 2 * Dh
-        q4 = torch.randn((TB, TT, H4, 3 * D64), generator=g,
-                         device=DEVICE).to(dt).requires_grad_()
-        d4 = torch.randn((TB, H4, TT, D64), generator=g, device=DEVICE).to(dt)
-        qa, ka, va = q4.transpose(1, 2).split(D64, dim=-1)
-        o4 = at.flash_mhsa(qa, ka, va, bias, seed, scale, 0.4)
-        g4 = torch.autograd.grad(o4, (qa, ka, va), d4, retain_graph=True)
-        torch.cuda.synchronize()
-        with torch.no_grad():
-            qd, kd, vd = q4.detach().transpose(1, 2).split(D64, dim=-1)
-            ro, lse = at.mhsa_forward_plain(qd, kd, vd, bias, seed, scale, 0.4)
-            rg = at.mhsa_backward_plain(qd, kd, vd, bias, seed, ro, lse, d4,
-                                        scale, 0.4)
-        e4 = (close("attention Dh 64 o", o4, ro, tol),
-              max(close(f"attention Dh 64 d{n}", a, b, tol)
-                  for n, a, b in zip("qkv", g4, rg)))
-        f4 = time_ms(lambda: at.flash_mhsa(qa, ka, va, bias, seed, scale,
-                                           0.4), runs=5)
-        b4 = time_ms(lambda: torch.autograd.grad(
-            o4, (qa, ka, va), d4, retain_graph=True), runs=5)
-        log(f"kernel flash_mhsa [{tag}] q, k, v [{TB}, {H4}, {TT}, {D64}] "
-            f"rate 0.4 (o, d(q|k|v)) max_abs_err {e4}, backward in two key "
-            f"tiles PASS; forward {f4:.4f} ms backward {b4:.4f} ms on {smi}")
-        del q4, d4, o4, g4, ro, lse, rg
+        again = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+        first = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"attention {tag}: a second backward gave "
+                                 f"other bits")
+        log(f"  attention {tag}: the same bits on a second backward PASS")
+        # heads of 64 (4 heads at dim 256, presets 1 and 2) and of 128 (2
+        # heads at dim 256), zero-padded to the core's 64- and 128-wide tiles
+        for Hx, Dx in ((TH // 2, 2 * Dh), (2, 128)):
+            q4 = torch.randn((TB, TT, Hx, 3 * Dx), generator=g,
+                             device=DEVICE).to(dt).requires_grad_()
+            d4 = torch.randn((TB, Hx, TT, Dx), generator=g,
+                             device=DEVICE).to(dt)
+            qa, ka, va = q4.transpose(1, 2).split(Dx, dim=-1)
+            o4 = at.flash_mhsa(qa, ka, va, bias, seed, scale, 0.4)
+            g4 = torch.autograd.grad(o4, (qa, ka, va), d4, retain_graph=True)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                qd, kd, vd = q4.detach().transpose(1, 2).split(Dx, dim=-1)
+                ro, lse = at.mhsa_forward_plain(qd, kd, vd, bias, seed, scale,
+                                                0.4)
+                rg = at.mhsa_backward_plain(qd, kd, vd, bias, seed, ro, lse,
+                                            d4, scale, 0.4)
+            e4 = (close(f"attention Dh {Dx} o", o4, ro, tol),
+                  max(close(f"attention Dh {Dx} d{n}", a, b, tol)
+                      for n, a, b in zip("qkv", g4, rg)))
+            f4 = time_ms(lambda: at.flash_mhsa(qa, ka, va, bias, seed, scale,
+                                               0.4), runs=5)
+            b4 = time_ms(lambda: torch.autograd.grad(
+                o4, (qa, ka, va), d4, retain_graph=True), runs=5)
+            log(f"kernel flash_mhsa [{tag}] q, k, v [{TB}, {Hx}, {TT}, {Dx}] "
+                f"rate 0.4 (o, d(q|k|v)) max_abs_err {e4} PASS; forward "
+                f"{f4:.4f} ms backward {b4:.4f} ms on {smi}")
+            del q4, d4, o4, g4, ro, lse, rg
         ref = "ishara_tpu/ops/attention.py"
         ops_f = 4 * TB * TH * TT * TT * Dh          # q.k and p.v
         rows.append(train_row(
@@ -1227,7 +1266,7 @@ def plain_versions():
             ck.ctc_backward_plain(logits, labels, alpha, nll, dy, blank_id)),
         (ab, "_launch_fwd", lambda q, k, v, bias, scale, Tp:
             ab.blocked_attention_forward_plain(q, k, v, bias, scale)),
-        (ab, "_launch_bwd", lambda q, k, v, bias, o, lse, d_o, scale, Tp:
+        (ab, "_launch_bwd", lambda q, k, v, bias, o, lse, d_o, scale:
             ab.blocked_attention_backward_plain(q, k, v, bias, o, lse, d_o,
                                                 scale)),
         (cm, "_launch_fwd", lambda x, args:
@@ -1528,10 +1567,11 @@ BLOCKED_REF = "ishara_tpu/ops/attention_blocked.py"
 def blocked_attention_kernel_rows(smi, runs):
     """K8: forward, lse and dq / dk / dv against the plain version, bf16
     and f32, at the long step's shape (8 heads of 32, T 512), with 4 heads
-    of 64 and 2 of 128 at T 512, and at T 200 (padded to 256) with masked
-    keys and one sequence with every key masked; timed beside the
-    plain version, F.scaled_dot_product_attention (the additive mask and
-    the scale) and the layer's einsum composition."""
+    of 64, 2 of 128, 1 of 256 and 8 of 12 at T 512, and at T 200 (padded
+    to 256 or 208) with masked keys and one sequence with every key masked
+    at blocks of 128, 64 and 16; the same bits on a second backward; timed
+    beside the plain version, F.scaled_dot_product_attention (the additive
+    mask and the scale) and the layer's einsum composition."""
     import torch
     import torch.nn.functional as F
 
@@ -1551,22 +1591,27 @@ def blocked_attention_kernel_rows(smi, runs):
         return at.mask_to_bias(torch.arange(T, device=DEVICE)[None, :]
                                < lengths[:, None])
 
-    def check(tag, dt, H, T, all_masked):
-        Dh = TD // H
+    def check(tag, dt, H, T, all_masked, Dh=None, blocks=(128, 128)):
+        Dh = Dh or TD // H
         bias = bias_of(T, all_masked)
         qkv = torch.randn((TB, T, H, 3 * Dh), generator=g,
                           device=DEVICE).to(dt).requires_grad_()
         d_o = torch.randn((TB, H, T, Dh), generator=g, device=DEVICE).to(dt)
         q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
-        o = ab.flash_mhsa_blocked(q, k, v, bias, scale)
+        o = ab.flash_mhsa_blocked(q, k, v, bias, scale, *blocks)
         grads = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+        again = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"blocked attention [{tag}] H {H} Dh {Dh} "
+                                 f"T {T}: a second backward gave other bits")
         with torch.no_grad():
-            ro, lse = ab.blocked_attention_forward_plain(q, k, v, bias, scale)
+            ro, lse = ab.blocked_attention_forward_plain(q, k, v, bias, scale,
+                                                         *blocks)
             rgrads = ab.blocked_attention_backward_plain(q, k, v, bias, ro,
                                                          lse, d_o, scale)
             _, klse = ab._launch_fwd(q, k, v, bias, scale,
-                                     ab.padded_length(T))
+                                     ab.padded_length(T, *blocks))
         tol = TRAIN_TOL[tag]
         what = f"blocked attention [{tag}] H {H} Dh {Dh} T {T}"
         e_o = close(f"{what} o", o, ro, tol)
@@ -1579,26 +1624,37 @@ def blocked_attention_kernel_rows(smi, runs):
             if not bool((klse[0] == lse[0]).all()):
                 raise AssertionError(f"{what}: the all-masked lse differs")
         log(f"kernel flash_mhsa_blocked [{tag}] q, k, v [{TB}, {H}, {T}, "
-            f"{Dh}]{' with sequence 0 all masked' if all_masked else ''}: "
-            f"o max_abs_err {e_o:.3e}, d(q|k|v) {e_g:.3e} (tol {tol}) PASS")
-        del ro, lse, rgrads, klse, grads
+            f"{Dh}] blocks {blocks}"
+            f"{' with sequence 0 all masked' if all_masked else ''}: "
+            f"o max_abs_err {e_o:.3e}, d(q|k|v) {e_g:.3e} (tol {tol}); the "
+            f"same bits on a second backward PASS")
+        del ro, lse, rgrads, klse, grads, again
         return (q, k, v), d_o, bias, o, (e_o, e_g)
 
     for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         qkv, d_o, bias, o, errs[tag] = check(tag, dt, TH, LT, False)
         del qkv, d_o, bias, o
         torch.cuda.empty_cache()
-    for H, T, masked in ((TH // 2, LT, False), (TH // 4, LT, False),
-                         (TH, 200, True)):
+    # heads of 64, 128, 256 and 12 (not a multiple of 8: the narrow copy
+    # path) at T 512; T 200 with an all-masked sequence at blocks of 128,
+    # 64 and 16 (Tp 256, 256, 208: the core's 64-key tile need not divide)
+    for H, T, masked, Dh, blocks in (
+            (TH // 2, LT, False, None, (128, 128)),
+            (TH // 4, LT, False, None, (128, 128)),
+            (1, LT, False, None, (128, 128)),
+            (TH, LT, False, 12, (128, 128)),
+            (TH, 200, True, None, (128, 128)),
+            (TH, 200, True, None, (64, 64)),
+            (TH, 200, True, None, (16, 16))):
         (q, k, v), d_o, bias, o, _ = check("bf16", torch.bfloat16, H, T,
-                                           masked)
-        f_ms = time_ms(lambda: ab.flash_mhsa_blocked(q, k, v, bias, scale),
-                       runs=5)
+                                           masked, Dh, blocks)
+        f_ms = time_ms(lambda: ab.flash_mhsa_blocked(q, k, v, bias, scale,
+                                                     *blocks), runs=5)
         b_ms = time_ms(lambda: torch.autograd.grad(
             o, (q, k, v), d_o, retain_graph=True), runs=5)
         log(f"  forward {f_ms:.4f} ms backward {b_ms:.4f} ms on {smi}")
         del d_o, bias, o, q, k, v
-        check("f32", torch.float32, H, T, masked)
+        check("f32", torch.float32, H, T, masked, Dh, blocks)
         torch.cuda.empty_cache()
 
     # the long step's shape at bf16, timed
@@ -1763,10 +1819,70 @@ def conv_module_kernel_rows(smi, runs):
     return rows
 
 
+def attention_selection_times(smi, runs):
+    """The selection table's attention rows: forward + backward ms of each
+    candidate at batch 256, 8 heads of 32, bf16 -- the single-block kernel
+    (K3), the tiled kernel (K8, no dropout) and the layer's einsum
+    composition (softmax, then the dropout kernel on the weights) -- at T
+    176 (the flagship row), 384 (the largest T that the long row decides
+    with dropout on) and 512 (the long row), dropout 0.4 and 0."""
+    import torch
+
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import attention_blocked as ab
+    from ishara_tpu_torch.ops.dropout import fast_dropout
+
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    seed = torch.tensor([5], dtype=torch.int32, device=DEVICE)
+    scale, Dh = TD ** -0.5, TD // TH
+    for T, rates in ((TT, (0.4, 0.0)), (384, (0.4,)), (LT, (0.4, 0.0))):
+        lengths = torch.randint(T // 3, T + 1, (TB,), generator=g,
+                                device=DEVICE)
+        keep = torch.arange(T, device=DEVICE)[None, :] < lengths[:, None]
+        bias = at.mask_to_bias(keep)
+        qkv = torch.randn((TB, T, TH, 3 * Dh), generator=g, device=DEVICE
+                          ).to(torch.bfloat16).requires_grad_()
+        d_o = torch.randn((TB, TH, T, Dh), generator=g,
+                          device=DEVICE).to(torch.bfloat16)
+
+        def einsum(q, k, v, rate):
+            s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+            s = s.masked_fill(~keep[:, None, None, :],
+                              torch.finfo(s.dtype).min)
+            return torch.einsum("bhqk,bhkd->bhqd",
+                                fast_dropout(s.softmax(dim=-1), seed, rate),
+                                v)
+
+        cands = {"einsum": einsum,
+                 "flash": lambda q, k, v, rate: at.flash_mhsa(
+                     q, k, v, bias, seed, scale, rate),
+                 "flash_blocked": lambda q, k, v, rate: ab.flash_mhsa_blocked(
+                     q, k, v, bias, scale)}
+        for rate in rates:
+            times = {}
+            for name, fn in cands.items():
+                if (name == "flash" and T > at.MAX_T) or \
+                        (name == "flash_blocked" and rate > 0.0):
+                    continue
+
+                def step(fn=fn, rate=rate):
+                    q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+                    torch.autograd.grad(fn(q, k, v, rate), qkv, d_o)
+
+                times[name] = time_ms(step, runs=runs)
+            log(f"selection: attention T {T} rate {rate}, forward + backward "
+                f"ms: " + ", ".join(f"{n} {t:.4f}" for n, t in times.items())
+                + f" -> {min(times, key=times.get)} on {smi}")
+        del qkv, d_o
+        torch.cuda.empty_cache()
+
+
 def long_kernel_phase(smi, runs: int = 20):
     import torch
 
     rows = blocked_attention_kernel_rows(smi, runs)
+    torch.cuda.empty_cache()
+    attention_selection_times(smi, runs)
     torch.cuda.empty_cache()
     rows += conv_module_kernel_rows(smi, runs)
     torch.cuda.empty_cache()

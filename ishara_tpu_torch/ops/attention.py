@@ -1,16 +1,17 @@
 """Multi-head self-attention for training as one kernel per direction (port
 of ``ishara_tpu/ops/attention.py``).
 
-:func:`flash_mhsa` replaces the Pallas ``flash_mhsa``: one ``[T, T]`` score
-block per (batch, head), ``T <= 384``; padding is an additive ``[B, T]`` key
-bias (0 valid / -1e30 masked); dropout acts on the normalised weights with
-the row sum taken from the undropped ones; the forward saves the row
-logsumexp and the backward recomputes the probabilities from it
-(``dS = P * (keep' * dP - delta)``) instead of storing them. On a CUDA tensor
-it launches ``csrc/attention.cu`` or raises; on a CPU tensor it runs the
-plain version beside it (:func:`mhsa_forward_plain`,
-:func:`mhsa_backward_plain`): the same arithmetic, f32 on values widened from
-``q``'s dtype, one rounding on the way out.
+:func:`flash_mhsa` replaces the Pallas ``flash_mhsa``: attention over
+``T <= 384`` keys, heads of 1 to 256 dimensions; padding is an additive
+``[B, T]`` key bias (0 valid / -1e30 masked); dropout acts on the
+normalised weights with the row sum taken from the undropped ones; the
+forward saves the row logsumexp and the backward recomputes the
+probabilities from it (``dS = P * (keep' * dP - delta)``) instead of
+storing them. On a CUDA tensor it launches ``csrc/attention.cu`` (on the
+tensor-core core of ``csrc/attention_tc.cuh``) or raises; on a CPU tensor
+it runs the plain version beside it (:func:`mhsa_forward_plain`,
+:func:`mhsa_backward_plain`): the same arithmetic, f32 on values widened
+from ``q``'s dtype, one rounding on the way out.
 
 The dropout mask is the Philox function of :mod:`.dropout` under the site's
 ``seed``, with the flat index into ``[B, H, T, T]`` as the counter: every
@@ -30,7 +31,8 @@ from . import _build
 from .dropout import keep_mask, threshold_of
 
 NEG = -1e30
-MAX_T = 384          # one [T, T] block per (batch, head)
+MAX_T = 384          # the reference's routing to this kernel
+MAX_HEAD_DIM = 256   # the head dimension is zero-padded to 32/64/128/256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -103,34 +105,12 @@ def _strides3(t):
     return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
 
 
-_SMEM_LIMIT = 227 * 1024     # bytes of shared memory a block may have
-
-
-def _bwd_key_tile(T: int, Dh: int) -> int:
-    """Keys a block of the backward kernel owns: the largest multiple of 128
-    (at most ``T`` rounded up to one) at which K, V, dK, dV of the tile and
-    8 warps' row buffers fit a block's shared memory (``bwd_smem`` of
-    ``csrc/attention.cu``); 0 when not even 128 keys fit."""
-    TP = -(-T // 128) * 128
-    for kt in range(TP, 0, -128):
-        words = 2 * Dh * kt + kt + 2 * min(kt, T) * Dh + 16 * kt + 16 * Dh
-        if 4 * words <= _SMEM_LIMIT:
-            return kt
-    return 0
-
-
 def kernel_takes(dtype: torch.dtype, T: int, Dh: int) -> bool:
     """Whether ``csrc/attention.cu`` takes this geometry, forward and
-    backward: f32 or bf16, ``T <= 384``, a head dimension <= 128 divisible
-    by 4, K and V of one (batch, head) with the warps' row buffers within a
-    block's shared memory in the forward (``fwd_smem`` there), and a key
-    tile of the backward that fits. Heads up to 64 wide pass at every
-    ``T <= 384``."""
-    if dtype not in _DTYPE_CODE or T > MAX_T or Dh > 128 or Dh % 4:
-        return False
-    TP = -(-T // 128) * 128
-    fwd = Dh * TP + T * Dh + TP + 8 * TP + 8 * Dh
-    return 4 * fwd <= _SMEM_LIMIT and _bwd_key_tile(T, Dh) > 0
+    backward: f32 or bf16, ``T <= 384`` and a head dimension of 1 to
+    256."""
+    return (dtype in _DTYPE_CODE and 1 <= T <= MAX_T
+            and 1 <= Dh <= MAX_HEAD_DIM)
 
 
 def _check_cuda(q, k, v, bias, seed):
@@ -140,9 +120,11 @@ def _check_cuda(q, k, v, bias, seed):
                          f"{q.dtype}")
     if not kernel_takes(q.dtype, T, Dh):
         raise ValueError(f"the attention kernel takes T <= {MAX_T} and a "
-                         f"head dimension divisible by 4 whose K and V fit a "
-                         f"block's shared memory (64 at any such T), got "
-                         f"T={T}, Dh={Dh}")
+                         f"head dimension up to {MAX_HEAD_DIM}, got T={T}, "
+                         f"Dh={Dh}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"the attention kernel takes B and H up to 65535, "
+                         f"got B={B}, H={H}")
     for t in (k, v):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("q, k, v must agree in shape, dtype and device")
@@ -184,22 +166,18 @@ def _launch_bwd(q, k, v, bias, seed, o, lse, d_o, scale, rate):
     d_o = d_o.to(q.dtype)
     dq, dk, dv = (torch.empty((B, H, T, Dh), dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    key_tile = _bwd_key_tile(T, Dh)
-    tiles = -(-T // key_tile)
-    dq_part = None if tiles == 1 else torch.empty(
-        (tiles, B, H, T, Dh), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     S3 = ctypes.POINTER(ctypes.c_longlong)
     fn = _build.function("attention", "ishara_attention_bwd", [
-        I, P, P, P, P, S3, S3, S3, S3, P, P, P, P, P, P, P, P, I, I, I, I, I,
-        F, U, F, I, P])
+        I, P, P, P, P, S3, S3, S3, S3, P, P, P, P, P, P, P, P, I, I, I, I, F,
+        U, F, I, P])
     rc = fn(_build.device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             d_o.data_ptr(), _strides3(q), _strides3(k), _strides3(v),
             _strides3(d_o), bias.data_ptr(), seed.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if dq_part is None else dq_part.data_ptr(), key_tile,
-            B, H, T, Dh, scale, threshold_of(rate), 1.0 / (1.0 - rate),
-            _DTYPE_CODE[q.dtype], _build.stream_of(q))
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, T, Dh, scale, threshold_of(rate),
+            1.0 / (1.0 - rate), _DTYPE_CODE[q.dtype], _build.stream_of(q))
     _build.check("attention", rc, "attention backward kernel")
     return dq, dk, dv
 

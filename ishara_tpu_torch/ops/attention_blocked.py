@@ -4,13 +4,13 @@
 :func:`flash_mhsa_blocked` replaces the Pallas ``flash_mhsa_blocked``: the
 single-block kernel of :mod:`.attention` holds a ``[T, T]`` score block and
 stops at ``T = 384``; this one streams the keys in tiles with the
-online-softmax recurrence, so it takes any ``T`` and heads up to 128 wide.
+online-softmax recurrence, so it takes any ``T`` and heads up to 256 wide.
 There is no dropout inside: the layer takes it only with the attention
 dropout off. ``bias`` is the additive ``[B, T]`` key bias of
 :func:`.attention.mask_to_bias` (0 valid / -1e30 masked). The forward saves
 the row logsumexp; the backward is a dQ pass and a dK/dV pass that both
 recompute the probabilities from it, with ``delta = rowsum(dO * O)`` taken
-here in PyTorch, as the reference takes it outside its kernels.
+in the dQ pass's prologue (the reference takes it outside its kernels).
 
 **Padding**, as the reference: ``T`` is padded to a multiple of
 ``lcm(block_q, block_k)`` (128 by default), and padded keys get the bias
@@ -36,9 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import NEG
-
-MAX_HEAD_DIM = 128
+from .attention import MAX_HEAD_DIM, NEG
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -106,10 +104,10 @@ def _check_cuda(q, k, v, bias):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the blocked attention kernel takes f32 or bf16, "
                          f"got {q.dtype}")
-    if Dh > MAX_HEAD_DIM or Dh % 8 or T < 1:
+    if Dh > MAX_HEAD_DIM or T < 1:
         raise ValueError(f"the blocked attention kernel takes a head "
-                         f"dimension that is a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}, got Dh={Dh} (T={T})")
+                         f"dimension up to {MAX_HEAD_DIM}, got Dh={Dh} "
+                         f"(T={T})")
     if B > 65535 or H > 65535:
         raise ValueError(f"the blocked attention kernel takes B and H up to "
                          f"65535, got B={B}, H={H}")
@@ -144,23 +142,23 @@ def _launch_fwd(q, k, v, bias, scale, Tp):
     return o, lse
 
 
-def _launch_bwd(q, k, v, bias, o, lse, d_o, scale, Tp):
+def _launch_bwd(q, k, v, bias, o, lse, d_o, scale):
     B, H, T, Dh = q.shape
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
     d_o = _unit_last(d_o.to(q.dtype))
-    delta = (d_o.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((B, H, T, Dh), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     fn = _build.function(
         "attention_blocked", "ishara_blocked_attention_bwd",
-        [_I, _P, _P, _P, _P, _S3, _S3, _S3, _S3, _P, _P, _P, _P, _P, _P, _I,
+        [_I, _P, _P, _P, _P, _S3, _S3, _S3, _S3, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _F, _I, _P])
     rc = fn(_build.device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             d_o.data_ptr(), _strides3(q), _strides3(k), _strides3(v),
             _strides3(d_o), bias.contiguous().data_ptr(),
-            lse.contiguous().data_ptr(), delta.contiguous().data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, Tp, Dh,
-            scale, _DTYPE_CODE[q.dtype], _build.stream_of(q))
+            o.contiguous().data_ptr(), lse.contiguous().data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+            H, T, Dh, scale, _DTYPE_CODE[q.dtype], _build.stream_of(q))
     _build.check("attention_blocked", rc, "blocked attention backward kernels")
     return dq, dk, dv
 
@@ -176,7 +174,7 @@ class _FlashMhsaBlocked(torch.autograd.Function):
                                  padded_length(q.shape[2], block_q, block_k))
             flash_mhsa_blocked.launches += 1
         ctx.save_for_backward(q, k, v, bias, o, lse)
-        ctx.scale, ctx.Tp = scale, padded_length(q.shape[2], block_q, block_k)
+        ctx.scale = scale
         return o
 
     @staticmethod
@@ -186,7 +184,7 @@ class _FlashMhsaBlocked(torch.autograd.Function):
             grads = blocked_attention_backward_plain(q, k, v, bias, o, lse,
                                                      d_o, ctx.scale)
         else:
-            grads = _launch_bwd(q, k, v, bias, o, lse, d_o, ctx.scale, ctx.Tp)
+            grads = _launch_bwd(q, k, v, bias, o, lse, d_o, ctx.scale)
             flash_mhsa_blocked.launches_bwd += 1
         return (*grads, None, None, None, None)
 
@@ -194,11 +192,11 @@ class _FlashMhsaBlocked(torch.autograd.Function):
 def flash_mhsa_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias: torch.Tensor, scale: float, block_q: int = 128,
                        block_k: int = 128):
-    """``q``, ``k``, ``v``: ``[B, H, T, Dh]`` (f32 or bf16, ``Dh`` a
-    multiple of 8 up to 128 on the card); ``bias``: ``[B, T]`` additive f32
-    key bias. ``T`` is padded to a multiple of ``lcm(block_q, block_k)``
-    (padded keys masked). Returns ``[B, H, T, Dh]`` in ``q``'s dtype;
-    gradients flow to q, k and v. Replaces
+    """``q``, ``k``, ``v``: ``[B, H, T, Dh]`` (f32 or bf16, ``Dh`` up to
+    256 on the card); ``bias``: ``[B, T]`` additive f32 key bias. ``T`` is
+    padded to a multiple of ``lcm(block_q, block_k)`` (padded keys
+    masked). Returns ``[B, H, T, Dh]`` in ``q``'s dtype; gradients flow to
+    q, k and v. Replaces
     ``ishara_tpu.ops.attention_blocked.flash_mhsa_blocked``."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the blocked attention kernel runs on CUDA or CPU "

@@ -126,9 +126,12 @@ def _launch_alpha(logits, labels, blank_id, want_alpha):
     B, T, C = logits.shape
     U = labels.shape[1]
     S = 2 * U + 1
-    if S > 1024 or C > 960:
-        raise ValueError(f"the CTC kernels take at most 511 labels and 960 "
-                         f"classes, got U={U}, C={C}")
+    fits = _build.function("ctc", "ishara_ctc_fits", [ctypes.c_int] * 3)
+    if not fits(T, C, U):
+        raise ValueError(f"the CTC kernels keep T + 6 (2U + 1) + C words of "
+                         f"a row in shared memory (T up to ~50,000 frames) "
+                         f"and take up to 16383 labels, got T={T}, U={U}, "
+                         f"C={C}")
     nll = logits.new_empty((B,))
     alpha = logits.new_empty((B, T, S)) if want_alpha else None
     P, I = ctypes.c_void_p, ctypes.c_int

@@ -29,9 +29,23 @@ composition (their fused form is the block-stack kernel, chosen by the
 engine, not here). With two anchors at batch 256 the long row captures the
 geometries whose ``T`` lies above ``sqrt(176 * 512) ~ 300`` (at equal dim
 and batch); the flagship step ``(256, 176, 256)`` and batch-1 serving at
-``T = 176`` resolve to the flagship row. Re-deciding each row from H100
-measurements of kernel against composition is open work (ROADMAP.md
-Queue 1 item 15).
+``T = 176`` resolve to the flagship row.
+
+The attention rows were decided from ``chip_smoke.py``'s selection timings
+on an NVIDIA H100 80GB HBM3 at 700 W (batch 256, 8 heads of 32, bf16,
+forward + backward ms; the composition is the layer's einsum path with the
+dropout kernel on the weights):
+
+* ``(256, 176, 256)``: dropout 0.4: ``"flash"`` 0.9882 against the
+  composition's 2.1569; no dropout: ``"flash"`` 0.5267, ``"flash_blocked"``
+  0.5480, the composition 1.9718;
+* ``(256, 512, 256)``: no dropout: ``"flash_blocked"`` 2.7298 against
+  12.7260; with dropout the row decides only ``T <= 384`` (beyond it the
+  layer takes the composition): at T 384 ``"flash"`` 3.4453 against
+  8.3464.
+
+The conv-module rows are still to be decided from measurements (ROADMAP.md
+Queue 2, the "selection table" paragraph).
 
 ``translation_decode_fused(dim, T)`` has its own table, one anchor, the
 translation model's reference geometry ``(dim 208, T 176)``: whether the

@@ -64,6 +64,34 @@ def test_forward_and_grads_match_pallas_interpret(dtype):
                                    rtol=g_tol, atol=g_tol, err_msg=name)
 
 
+def test_heads_of_128_match_pallas_interpret():
+    """Two heads of 128 (dim 256), the width the card kernel zero-pads to
+    its 128-wide tile: the plain version against the Pallas kernel in
+    interpret mode at rate 0, f32 (the module's f32 tolerances above)."""
+    r = np.random.default_rng(5)
+    q, k, v, d_o = (r.standard_normal((2, 2, 32, 128)).astype(np.float32)
+                    for _ in range(4))
+    mask = r.random((2, 32)) > 0.25
+    scale = 256 ** -0.5
+    bias = j_mask_to_bias(jnp.asarray(mask))
+    want, vjp = jax.vjp(
+        lambda a, b, c: j_flash_mhsa(a, b, c, bias, scale=scale,
+                                     interpret=True),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want_g = vjp(jnp.asarray(d_o))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got = at.flash_mhsa(tq, tk, tv, at.mask_to_bias(torch.from_numpy(mask)),
+                        scale=scale)
+    got_g = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(d_o))
+    assert at.kernel_takes(torch.bfloat16, 32, 128)
+    f_tol, g_tol = TOL["float32"]
+    np.testing.assert_allclose(as_np(got), np.asarray(want), rtol=f_tol,
+                               atol=f_tol)
+    for a, b, name in zip(got_g, want_g, "qkv"):
+        np.testing.assert_allclose(as_np(a), np.asarray(b), rtol=g_tol,
+                                   atol=g_tol, err_msg=name)
+
+
 def test_matches_reference_mhsa_of_both_packages():
     q, k, v, mask, _ = case(1)
     bias = j_mask_to_bias(jnp.asarray(mask))

@@ -145,6 +145,67 @@ def test_mhsa_training_matches_flax(use_flash):
                                rtol=1e-4, atol=1e-4)
 
 
+def test_mhsa_with_heads_of_128_and_dropout_takes_the_kernel(monkeypatch):
+    """Dim 256 in 2 heads of 128, training, attention dropout 0.4, with the
+    kernel paths taken on the CPU: the layer goes through the attention
+    kernel's wrapper (whose card kernel once refused heads of 128) and its
+    output and input gradient match flax's einsum composition on the same
+    weights with the port's Philox mask of the site in place of flax's
+    dropout draw, at f32 (1e-4, the tolerance of the other MHSA paths)."""
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops.dropout import keep_mask, site_seed_table
+    from ishara_tpu_torch.ops.dropout import site_seeds
+
+    B, T, D, H, rate = 2, 24, 256, 2, 0.4
+    Dh = D // H
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    mask = rng.random((B, T)) > 0.2
+    dy = rng.standard_normal((B, T, D)).astype(np.float32)
+    jm = jlayers.MultiHeadSelfAttention(D, H, dropout=rate)
+    variables = perturb(jm.init(jax.random.key(0), jnp.asarray(x),
+                                jnp.asarray(mask)))
+    table = site_seed_table(torch.tensor([91], dtype=torch.int32), 2)
+    keep = keep_mask(site_seeds(table, 1, 1), (B, H, T, T), rate).numpy()
+    params = variables["params"]
+
+    def flax_composition(a):
+        qkv = (a @ params["qkv"]["kernel"]).reshape(B, T, H, 3 * Dh)
+        q, k, v = jnp.split(qkv.transpose(0, 2, 1, 3), 3, axis=-1)
+        s = jnp.einsum("bhqd,bhkd->bhqk", q, k) * D ** -0.5
+        s = jnp.where(jnp.asarray(mask)[:, None, None, :], s,
+                      jnp.finfo(s.dtype).min)
+        p = nn.softmax(s, axis=-1) * jnp.asarray(keep) / (1.0 - rate)
+        o = jnp.einsum("bhqk,bhkd->bhqd", p, v)
+        return o.transpose(0, 2, 1, 3).reshape(B, T, D) \
+            @ params["proj"]["kernel"]
+
+    want, vjp = jax.vjp(flax_composition, jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(dy))
+
+    calls = []
+    wrapper = at.flash_mhsa
+
+    def spy(q, *a, **kw):
+        calls.append(tuple(q.shape))
+        return wrapper(q, *a, **kw)
+
+    monkeypatch.setattr(tlayers, "on_card", lambda t: True)
+    monkeypatch.setattr(at, "flash_mhsa", spy)
+    tm = tlayers.MultiHeadSelfAttention(D, H, dropout=rate)
+    tm.load_state_dict(flax_to_state_dict(variables))
+    tm.site = 1
+    tx = torch.from_numpy(x).requires_grad_()
+    got = tm(tx, torch.from_numpy(mask), training=True, seed=table)
+    (got_dx,) = torch.autograd.grad(got, tx, torch.from_numpy(dy))
+    assert calls == [(B, H, T, Dh)]
+    assert at.kernel_takes(torch.bfloat16, T, Dh)
+    np.testing.assert_allclose(f32(got), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_dropout_masks_do_not_depend_on_the_path_taken():
     """With dropout on, a layer's kernel path (its plain version here) and
     its composition drop the same elements, because both key their masks by
