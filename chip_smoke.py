@@ -253,6 +253,26 @@ def host_ms(fn, runs: int = 50) -> float:
     return statistics.median(times)
 
 
+def device_kernels(fn) -> dict:
+    """{kernel: launches} of the port's libraries (their names carry the
+    anonymous namespace of csrc/*.cu) in one call of ``fn``, by
+    torch.profiler: the second of two profiled calls (a cold profiler can
+    miss a call's first launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = {re.search(r"\w+_kernel", e.key).group(0): e.count
+                for e in prof.key_averages()
+                if "anonymous namespace" in e.key
+                and re.search(r"\w+_kernel", e.key)}
+    return seen
+
+
 def _tensors(w):
     return w if isinstance(w, tuple) else (w,)
 
@@ -1156,28 +1176,33 @@ def ffn_kernel_rows(smi, runs):
     # the same width: what an f32 model's training step runs
     xf, rf = (t.detach().float().requires_grad_() for t in (x, res))
     dyf = dy.float()
-    out = fk.ffn_residual(xf, rf, w1, b1, w2, b2, seeds, 0.4, 0.4)
-    grads = torch.autograd.grad(out, [xf, rf] + params, dyf,
-                                retain_graph=True)
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        x2, dy2 = xf.reshape(N, TD), dyf.reshape(N, TD)
-        ref = fk.ffn_forward_plain(x2, rf.reshape(N, TD), w1, b1, w2, b2,
-                                   seeds, 0.4, 0.4)
-        refs = fk.ffn_backward_plain(x2, dy2, w1, b1, w2, seeds, 0.4, 0.4)
     tol = TRAIN_TOL["f32"]
-    e_out = close("ffn f32 out", out.reshape(N, TD), ref, tol)
-    refs = (refs[0], dy2) + tuple(refs[1:])
-    e_g = max(close(f"ffn f32 {n}", a.reshape(b.shape), b, tol)
-              for n, a, b in zip(names, grads, refs))
-    f_ms = time_ms(lambda: fk.ffn_residual(xf, rf, w1, b1, w2, b2, seeds,
-                                           0.4, 0.4), runs=5)
-    b_ms = time_ms(lambda: torch.autograd.grad(
-        out, [xf, rf] + params, dyf, retain_graph=True), runs=5)
-    log(f"kernel ffn_residual [f32] x [{N}, {TD}] hidden {TM} rates 0.4/0.4: "
-        f"out max_abs_err {e_out:.3e}, gradients {e_g:.3e} (tol {tol} * "
-        f"(max|plain| + |plain|)) PASS; forward {f_ms:.4f} ms backward "
-        f"{b_ms:.4f} ms on {smi}")
+    for r1, r2 in ((0.4, 0.4), (0.4, 0.0), (0.0, 0.0)):
+        out = fk.ffn_residual(xf, rf, w1, b1, w2, b2, seeds, r1, r2)
+        grads = torch.autograd.grad(out, [xf, rf] + params, dyf,
+                                    retain_graph=True)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            x2, dy2 = xf.reshape(N, TD), dyf.reshape(N, TD)
+            ref = fk.ffn_forward_plain(x2, rf.reshape(N, TD), w1, b1, w2, b2,
+                                       seeds, r1, r2)
+            refs = fk.ffn_backward_plain(x2, dy2, w1, b1, w2, seeds, r1, r2)
+        e_out = close(f"ffn f32 rates {r1}/{r2} out", out.reshape(N, TD),
+                      ref, tol)
+        refs = (refs[0], dy2) + tuple(refs[1:])
+        e_g = max(close(f"ffn f32 rates {r1}/{r2} {n}", a.reshape(b.shape),
+                        b, tol)
+                  for n, a, b in zip(names, grads, refs))
+        times = ""
+        if (r1, r2) == (0.4, 0.4):
+            f_ms = time_ms(lambda: fk.ffn_residual(
+                xf, rf, w1, b1, w2, b2, seeds, 0.4, 0.4), runs=5)
+            b_ms = time_ms(lambda: torch.autograd.grad(
+                out, [xf, rf] + params, dyf, retain_graph=True), runs=5)
+            times = f"; forward {f_ms:.4f} ms backward {b_ms:.4f} ms on {smi}"
+        log(f"kernel ffn_residual [f32] x [{N}, {TD}] hidden {TM} rates "
+            f"{r1}/{r2}: out max_abs_err {e_out:.3e}, gradients {e_g:.3e} "
+            f"(tol {tol} * (max|plain| + |plain|)) PASS{times}")
     del xf, rf, dyf, out, grads, ref, refs
 
     out = fk.ffn_residual(x, res, w1, b1, w2, b2, seeds, 0.4, 0.4)
@@ -1304,9 +1329,12 @@ def train_counters():
 # alike, as the model implies them: 4 Squeezeformer + 4 Conformer blocks
 # with two feed-forward sites and one attention each; a dropout-add on each
 # Squeezeformer block's attention branch (the Conformer's is a plain add);
-# the top dropout; one CTC loss.
+# the conv-module kernel at each Squeezeformer block's conv module (the
+# flagship row selects it since it beat the composition there); the top
+# dropout; one CTC loss.
 STEP_LAUNCHES = {"ffn_residual": 16, "flash_mhsa": 8, "fast_dropout_add": 4,
-                 "fast_dropout": 1, "ctc_loss_kernel": 1}
+                 "conv_module_residual": 4, "fast_dropout": 1,
+                 "ctc_loss_kernel": 1}
 
 
 def step_against_plain(label, step, state0, batch):
@@ -1794,6 +1822,17 @@ def conv_module_kernel_rows(smi, runs):
         log(f"  forward {f_ms:.4f} ms backward {b_ms:.4f} ms; plain "
             f"{p_f:.4f} / {p_b:.4f} ms; the composition (F.conv1d, "
             f"layer_norm, silu, SE) {c_f:.4f} / {c_b:.4f} ms on {smi}")
+        if tag == "bf16":
+            log(f"  selection conv_module_fused ({TD}, {T}, {TB}): the kernel "
+                f"{f_ms + b_ms:.4f} ms forward + backward against the "
+                f"composition's {c_f + c_b:.4f} ms")
+        if T == LT:
+            n_f = device_kernels(lambda: ck.conv_module_residual(x, *args))
+            n_b = device_kernels(lambda: torch.autograd.grad(
+                out, [x] + params, dy, retain_graph=True))
+            log(f"  one call on the card (torch.profiler): "
+                f"{sum(n_f.values())} kernels forward {n_f}, "
+                f"{sum(n_b.values())} backward {n_b}")
         if (T, tag) == (LT, "bf16"):
             N, E, es = TB * T, 2 * TD, x.element_size()
             weights = 2 * TD * E * es + (K * E + 2 * TD * r + 5 * TD
@@ -1877,6 +1916,110 @@ def attention_selection_times(smi, runs):
         torch.cuda.empty_cache()
 
 
+def wide_head_attention_checks(smi):
+    """K3 (T 176, dropout 0.4) and K8 (T 512) at single heads of 320 and
+    512 -- wider than one 256-wide tile, so they run in column chunks --
+    against their plain versions at batch 32, bf16 and f32, timed."""
+    import torch
+
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import attention_blocked as ab
+
+    B = 32
+    seed = torch.tensor([99], dtype=torch.int32, device=DEVICE)
+    for kernel, T in (("flash_mhsa", TT), ("flash_mhsa_blocked", LT)):
+        for Dh in (320, 512):
+            for tag in ("bf16", "f32"):
+                dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
+                g = torch.Generator(device=DEVICE).manual_seed(Dh + T)
+                q, k, v, d_o = (torch.randn((B, 1, T, Dh), generator=g,
+                                            device=DEVICE).to(dt)
+                                for _ in range(4))
+                for t in (q, k, v):
+                    t.requires_grad_()
+                mask = torch.rand((B, T), generator=g, device=DEVICE) > 0.2
+                mask[0] = False
+                bias = at.mask_to_bias(mask)
+                scale = Dh ** -0.5
+
+                def fwd():
+                    if kernel == "flash_mhsa":
+                        return at.flash_mhsa(q, k, v, bias, seed, scale, 0.4)
+                    return ab.flash_mhsa_blocked(q, k, v, bias, scale)
+
+                o = fwd()
+                grads = torch.autograd.grad(o, (q, k, v), d_o,
+                                            retain_graph=True)
+                torch.cuda.synchronize()
+                with torch.no_grad():
+                    if kernel == "flash_mhsa":
+                        ro, lse = at.mhsa_forward_plain(q, k, v, bias, seed,
+                                                        scale, 0.4)
+                        rg = at.mhsa_backward_plain(q, k, v, bias, seed, ro,
+                                                    lse, d_o, scale, 0.4)
+                    else:
+                        ro, lse = ab.blocked_attention_forward_plain(
+                            q, k, v, bias, scale)
+                        rg = ab.blocked_attention_backward_plain(
+                            q, k, v, bias, ro, lse, d_o, scale)
+                tol = TRAIN_TOL[tag]
+                what = f"{kernel} [{tag}] head {Dh} T {T}"
+                e_o = close(f"{what} o", o, ro, tol)
+                e_g = max(close(f"{what} d{n}", a, b, tol)
+                          for n, a, b in zip("qkv", grads, rg))
+                f_ms = time_ms(fwd, runs=5)
+                b_ms = time_ms(lambda: torch.autograd.grad(
+                    o, (q, k, v), d_o, retain_graph=True), runs=5)
+                log(f"kernel {kernel} [{tag}] q/k/v [{B}, 1, {T}, {Dh}] (two "
+                    f"256-wide column chunks): o max_abs_err {e_o:.3e}, "
+                    f"dq/dk/dv {e_g:.3e} (tol {tol}) PASS; forward "
+                    f"{f_ms:.4f} ms backward {b_ms:.4f} ms on {smi}")
+                del q, k, v, d_o, o, grads, ro, rg
+    torch.cuda.empty_cache()
+
+
+def ffn_selection_times(smi, runs):
+    """The selection table's ffn_dropout_kernel rows: forward + backward ms
+    of the FFN kernel (K4) and of the F.linear / silu / dropout composition
+    at batch 256, dim 256, hidden 512, rates 0.4 / 0.4, bf16, at T 176 and
+    512."""
+    import torch
+    import torch.nn.functional as F
+
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    seeds = torch.tensor([7, 8], dtype=torch.int32, device=DEVICE)
+    for T in (TT, LT):
+        g = torch.Generator(device=DEVICE).manual_seed(T)
+        x, res, dy = (torch.randn((TB, T, TD), generator=g, device=DEVICE)
+                      .to(torch.bfloat16) for _ in range(3))
+        x.requires_grad_()
+        res.requires_grad_()
+        ws = [torch.randn(s, generator=g, device=DEVICE).mul(0.05)
+              .to(torch.bfloat16).requires_grad_()
+              for s in ((TD, TM), (TM,), (TM, TD), (TD,))]
+        out = fk.ffn_residual(x, res, *ws, seeds, 0.4, 0.4)
+        k_f = time_ms(lambda: fk.ffn_residual(x, res, *ws, seeds, 0.4, 0.4),
+                      runs=runs)
+        k_b = time_ms(lambda: torch.autograd.grad(
+            out, [x, res] + ws, dy, retain_graph=True), runs=runs)
+
+        def comp():
+            h = F.dropout(F.silu(F.linear(x, ws[0].t(), ws[1])), 0.4, True)
+            return res + F.dropout(F.linear(h, ws[2].t(), ws[3]), 0.4, True)
+
+        co = comp()
+        c_f = time_ms(comp, runs=runs)
+        c_b = time_ms(lambda: torch.autograd.grad(
+            co, [x, res] + ws, dy, retain_graph=True), runs=runs)
+        log(f"selection ffn_dropout_kernel ({TD}, {T}, {TB}): the kernel "
+            f"{k_f:.4f} + {k_b:.4f} = {k_f + k_b:.4f} ms forward + backward "
+            f"against the composition's {c_f:.4f} + {c_b:.4f} = "
+            f"{c_f + c_b:.4f} ms on {smi}")
+        del x, res, dy, ws, out, co
+        torch.cuda.empty_cache()
+
+
 def long_kernel_phase(smi, runs: int = 20):
     import torch
 
@@ -1884,6 +2027,8 @@ def long_kernel_phase(smi, runs: int = 20):
     torch.cuda.empty_cache()
     attention_selection_times(smi, runs)
     torch.cuda.empty_cache()
+    wide_head_attention_checks(smi)
+    ffn_selection_times(smi, runs)
     rows += conv_module_kernel_rows(smi, runs)
     torch.cuda.empty_cache()
     return rows

@@ -2,7 +2,9 @@
 of ``ishara_tpu/ops/attention.py``).
 
 :func:`flash_mhsa` replaces the Pallas ``flash_mhsa``: attention over
-``T <= 384`` keys, heads of 1 to 256 dimensions; padding is an additive
+``T <= 384`` keys, heads of any width (up to 256 zero-padded to 32, 64, 128
+or 256; wider ones in 256-wide column chunks, as ``csrc/attention_tc.cuh``
+says); padding is an additive
 ``[B, T]`` key bias (0 valid / -1e30 masked); dropout acts on the
 normalised weights with the row sum taken from the undropped ones; the
 forward saves the row logsumexp and the backward recomputes the
@@ -32,7 +34,7 @@ from .dropout import keep_mask, threshold_of
 
 NEG = -1e30
 MAX_T = 384          # the reference's routing to this kernel
-MAX_HEAD_DIM = 256   # the head dimension is zero-padded to 32/64/128/256
+HEAD_CHUNK = 256     # heads wider than this run in chunks of this width
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -107,10 +109,8 @@ def _strides3(t):
 
 def kernel_takes(dtype: torch.dtype, T: int, Dh: int) -> bool:
     """Whether ``csrc/attention.cu`` takes this geometry, forward and
-    backward: f32 or bf16, ``T <= 384`` and a head dimension of 1 to
-    256."""
-    return (dtype in _DTYPE_CODE and 1 <= T <= MAX_T
-            and 1 <= Dh <= MAX_HEAD_DIM)
+    backward: f32 or bf16, ``T <= 384`` and any head dimension ``>= 1``."""
+    return dtype in _DTYPE_CODE and 1 <= T <= MAX_T and Dh >= 1
 
 
 def _check_cuda(q, k, v, bias, seed):
@@ -120,8 +120,7 @@ def _check_cuda(q, k, v, bias, seed):
                          f"{q.dtype}")
     if not kernel_takes(q.dtype, T, Dh):
         raise ValueError(f"the attention kernel takes T <= {MAX_T} and a "
-                         f"head dimension up to {MAX_HEAD_DIM}, got T={T}, "
-                         f"Dh={Dh}")
+                         f"head dimension >= 1, got T={T}, Dh={Dh}")
     if B > 65535 or H > 65535:
         raise ValueError(f"the attention kernel takes B and H up to 65535, "
                          f"got B={B}, H={H}")

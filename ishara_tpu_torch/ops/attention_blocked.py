@@ -4,7 +4,7 @@
 :func:`flash_mhsa_blocked` replaces the Pallas ``flash_mhsa_blocked``: the
 single-block kernel of :mod:`.attention` holds a ``[T, T]`` score block and
 stops at ``T = 384``; this one streams the keys in tiles with the
-online-softmax recurrence, so it takes any ``T`` and heads up to 256 wide.
+online-softmax recurrence, so it takes any ``T`` and any head width.
 There is no dropout inside: the layer takes it only with the attention
 dropout off. ``bias`` is the additive ``[B, T]`` key bias of
 :func:`.attention.mask_to_bias` (0 valid / -1e30 masked). The forward saves
@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import MAX_HEAD_DIM, NEG
+from .attention import NEG
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -104,10 +104,9 @@ def _check_cuda(q, k, v, bias):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the blocked attention kernel takes f32 or bf16, "
                          f"got {q.dtype}")
-    if Dh > MAX_HEAD_DIM or T < 1:
-        raise ValueError(f"the blocked attention kernel takes a head "
-                         f"dimension up to {MAX_HEAD_DIM}, got Dh={Dh} "
-                         f"(T={T})")
+    if Dh < 1 or T < 1:
+        raise ValueError(f"the blocked attention kernel takes T >= 1 and a "
+                         f"head dimension >= 1, got T={T}, Dh={Dh}")
     if B > 65535 or H > 65535:
         raise ValueError(f"the blocked attention kernel takes B and H up to "
                          f"65535, got B={B}, H={H}")

@@ -12,10 +12,11 @@ and so do the depthwise taps, the SE weights and the biases;
 back in ``x``'s dtype, every weight gradient is summed in f32 and cast to
 its parameter's dtype, and the mask gets none.
 
-On a CUDA tensor the wrapper launches ``csrc/conv_module.cu`` -- 6 kernels
-forward, 20 backward, all behind one C call each way (the file says why the
-TPU kernel's whole-sequence slab becomes a chain of row-tiled kernels) --
-or raises; on a CPU tensor it runs the plain versions beside it
+On a CUDA tensor the wrapper launches ``csrc/conv_module.cu`` -- time tiles
+with a halo, 3 kernels forward and 11 backward, behind one C call each way
+(the file says how the TPU kernel's whole-sequence slab becomes tiles of
+16 to 64 rows; :func:`tile_plan` picks the tile) -- or raises; on a CPU
+tensor it runs the plain versions beside it
 (:func:`conv_module_forward_plain`, :func:`conv_module_backward_plain`),
 which repeat the reference's arithmetic and rounding points. The weight
 gradients are partial sums added in a fixed order (no atomics), so they are
@@ -29,11 +30,81 @@ import ctypes
 import torch
 
 from . import _build
+from .ffn_kernel import wgrad_splits
 
 LN_EPS = 1e-6
 MAX_KERNEL = 32          # depthwise taps the kernel takes
-_SPLIT_BLOCKS = 512      # blocks the weight-gradient products aim for
+SMEM_LIMIT = 232448      # bytes of shared memory a block may take (H100)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The tile kernels' plans in csrc/conv_module.cu (its Cfg table), by index,
+# in order of preference for (dtype, backward): m-tiles of 16 rows in a
+# time tile, n8-tiles a warp of the [rows, D] accumulator (so D <= 64 times
+# that), channels a chunk.
+_TILE_CONFIGS = {
+    (torch.float32, False): ((4, 4, 32), (1, 8, 16)),
+    (torch.float32, True): ((2, 4, 16), (1, 8, 16)),
+    (torch.bfloat16, False): ((4, 4, 64), (1, 8, 32)),
+    (torch.bfloat16, True): ((4, 4, 32), (1, 8, 32)),
+}
+
+
+def _rup(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def tile_smem(dtype: torch.dtype, backward: bool, mtp: int, ec: int,
+              D: int, K: int) -> int:
+    """Bytes of shared memory a tile kernel of ``csrc/conv_module.cu``
+    takes (its ``tile_smem``): rows of ``D`` rounded up to 16 and of the
+    chunk padded by 16 bytes for the products, f32 rows of the chunk padded
+    by one float; the halo is ``K`` rounded up to 16."""
+    sz = 2 if dtype == torch.bfloat16 else 4
+    tt, pad = 16 * mtp, 16 // sz
+    dk, halo = -(-D // 16) * 16, -(-K // 16) * 16
+    ldd, ecl, ecf = dk + pad, ec + pad, ec + 1
+    chunk = _rup(MAX_KERNEL * ec * 4) + _rup(ec * 4)    # taps, b1
+    if not backward:
+        r = tt + halo
+        return (_rup(r * ldd * sz) + _rup(r * ecf * 4) + _rup(tt * ecl * sz)
+                + _rup(dk * ecl * sz) + _rup(ec * ldd * sz) + chunk)
+    ru, rc = tt + 2 * halo, tt + halo
+    return (_rup(ru * ldd * sz) + _rup(rc * ldd * sz) + _rup(ru * ecf * 4)
+            + _rup(tt * ecf * 4) + _rup(rc * ecf * 4) + _rup(tt * ecl * sz)
+            + 2 * _rup(dk * ecl * sz) + _rup(ec * ldd * sz) + _rup(8 * tt)
+            + chunk)
+
+
+def tile_plan(T: int, D: int, K: int, dtype: torch.dtype,
+              backward: bool) -> dict | None:
+    """The plan of the forward (or backward) tile kernel: the first
+    configuration whose accumulator covers ``D`` and whose working set fits
+    in shared memory -- ``config`` (the index the C call takes),
+    ``tile_rows``, ``halo`` (rows before the tile, and after it in the
+    backward), ``chunk`` (channels), ``tiles`` (of a sequence), ``smem``
+    (bytes). None when no configuration fits: the call takes the general
+    path (the chain of row kernels)."""
+    dk, halo = -(-D // 16) * 16, -(-K // 16) * 16
+    for i, (mtp, ntp, ec) in enumerate(_TILE_CONFIGS[(dtype, backward)]):
+        smem = tile_smem(dtype, backward, mtp, ec, D, K)
+        if dk <= 64 * ntp and smem <= SMEM_LIMIT:
+            rows = 16 * mtp
+            return {"config": i, "tile_rows": rows, "halo": halo,
+                    "chunk": ec, "tiles": -(-T // rows), "smem": smem}
+    return None
+
+
+def _configs(x, K, backward):
+    """The C calls' (cfg_f, cfg_b): the plans' indices, -1 for the
+    general path (both, in the backward, unless both plans exist)."""
+    B, T, D = x.shape
+    f = tile_plan(T, D, K, x.dtype, False)
+    if not backward:
+        return (-1 if f is None else f["config"]), -1
+    b = tile_plan(T, D, K, x.dtype, True)
+    if f is None or b is None:
+        return -1, -1
+    return f["config"], b["config"]
 
 
 def _prep(x, mask, gamma, beta, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2):
@@ -183,10 +254,11 @@ def _check_cuda(x, args):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _workspace(x, E, K, r, backward, splits):
+def _workspace(x, E, K, r, backward, splits, cfgs):
     B, T, D = x.shape
-    fn = _build.function("conv_module", "ishara_conv_workspace", [_I] * 9)
-    units = fn(B, T, D, E, K, r, _DTYPE_CODE[x.dtype], int(backward), splits)
+    fn = _build.function("conv_module", "ishara_conv_workspace", [_I] * 11)
+    units = fn(B, T, D, E, K, r, _DTYPE_CODE[x.dtype], int(backward), splits,
+               *cfgs)
     return torch.empty(units * 256, dtype=torch.uint8, device=x.device)
 
 
@@ -196,12 +268,13 @@ def _launch_fwd(x, args):
     B, T, D = x.shape
     E, K, r = args[3].shape[1], args[5].shape[0], args[8].shape[1]
     out = torch.empty_like(x)
-    work = _workspace(x, E, K, r, False, 1)
+    cfgs = _configs(x, K, False)
+    work = _workspace(x, E, K, r, False, 1, cfgs)
     fn = _build.function("conv_module", "ishara_conv_fwd",
-                         [_I, _I] + [_P] * 15 + [_I] * 6 + [_P])
+                         [_I, _I] + [_P] * 15 + [_I] * 7 + [_P])
     rc = fn(_build.device_index(x), _DTYPE_CODE[x.dtype], x.data_ptr(),
             *(t.data_ptr() for t in args), out.data_ptr(), work.data_ptr(),
-            B, T, D, E, K, r, _build.stream_of(x))
+            B, T, D, E, K, r, cfgs[0], _build.stream_of(x))
     _build.check("conv_module", rc, "conv-module forward kernels")
     return out
 
@@ -210,19 +283,19 @@ def _launch_bwd(x, dy, args):
     x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
     B, T, D = x.shape
     E, K, r = args[3].shape[1], args[5].shape[0], args[8].shape[1]
-    tiles = -(-D // 64) * -(-E // 128)     # wgrad.cuh's 64 x 128 tiles
-    splits = max(1, min(-(-B * T // 16), _SPLIT_BLOCKS // tiles))
+    splits = wgrad_splits(B * T, D, E)
     dx = torch.empty_like(x)
     sizes = (D, D, D * E, E, K * E, E * D, D, D * r, r, r * D, D)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    work = _workspace(x, E, K, r, True, splits)
+    cfgs = _configs(x, K, True)
+    work = _workspace(x, E, K, r, True, splits, cfgs)
     mask, *params = args
     fn = _build.function("conv_module", "ishara_conv_bwd",
-                         [_I, _I] + [_P] * 17 + [_I] * 7 + [_P])
+                         [_I, _I] + [_P] * 17 + [_I] * 9 + [_P])
     rc = fn(_build.device_index(x), _DTYPE_CODE[x.dtype], x.data_ptr(),
             mask.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in params),
             dx.data_ptr(), grads.data_ptr(), work.data_ptr(), B, T, D, E, K,
-            r, splits, _build.stream_of(x))
+            r, splits, *cfgs, _build.stream_of(x))
     _build.check("conv_module", rc, "conv-module backward kernels")
     shapes = ((D,), (D,), (D, E), (E,), (K, E), (E, D), (D,), (D, r), (r,),
               (r, D), (D,))

@@ -34,7 +34,7 @@ extern "C" {
 // o [B, H, T, Dh] (contiguous, q's type) and lse [B, H, T] f32 from q, k, v
 // (element strides over b, h, t in qs, ks, vs; unit stride over Dh) and
 // bias [B, T] f32. Tp >= T is the padded length whose padded keys enter the
-// softmax with the bias -1e30. dtype 0 = f32, 1 = bf16; Dh <= 256.
+// softmax with the bias -1e30. dtype 0 = f32, 1 = bf16; any Dh >= 1.
 int ishara_blocked_attention_fwd(int device, const void* q, const void* k,
                                  const void* v, const long long* qs,
                                  const long long* ks, const long long* vs,

@@ -31,7 +31,9 @@
 //   (for TF32, with the keys of each 8-key step permuted the same way on
 //   both operands), so P never touches shared memory; O is rounded once;
 // - the head dimension is zero-padded to DP (32, 64, 128 or 256) in shared
-//   memory, so every Dh from 1 to 256 runs: zeros add nothing to a dot;
+//   memory, so every Dh from 1 to 256 runs: zeros add nothing to a dot; a
+//   wider head is cut into 256-wide chunks, one output chunk a block (the
+//   "wide" kernels below), so any Dh >= 1 runs;
 // - the backward is two passes with no atomics (the same bits every run):
 //   the dQ pass (S, dP, dQ: 3 products, and delta = rowsum(dO * O) in its
 //   prologue) and the dK / dV pass (S^T, dP^T, dV, dK: 4 products). The
@@ -53,6 +55,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace tc {
@@ -107,94 +110,6 @@ __host__ __device__ constexpr int ld() {
 }
 
 // ---------------------------------------------------------------------------
-// PTX wrappers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = big + small, both TF32
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
-}
-// An f32 A fragment as TF32 big and small parts.
-struct SplitA {
-  uint32_t big[4], small[4];
-  __device__ __forceinline__ explicit SplitA(const float a[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(a[i], big[i], small[i]);
-  }
-};
-// c += a . b in 3xTF32 (small products first)
-__device__ __forceinline__ void mma_3xtf32(float c[4], const SplitA& a,
-                                           float b0, float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  split(b0, bb0, bs0);
-  split(b1, bb1, bs1);
-  mma_tf32(c, a.big, bs0, bs1);
-  mma_tf32(c, a.small, bb0, bb1);
-  mma_tf32(c, a.big, bb0, bb1);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---------------------------------------------------------------------------
 // Tiles
 // ---------------------------------------------------------------------------
 
@@ -223,15 +138,18 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long st,
   }
 }
 
-// s[n][.] = X[16 rows of the warp] . Y[BN rows]^T over DP (fresh).
+// s[n][.] = X[16 rows of the warp] . Y[BN rows]^T over DP (fresh, or added
+// to s when !fresh).
 template <int DP, int BN>
 __device__ __forceinline__ void rows_x_tile(const __nv_bfloat16* X,
                                             const __nv_bfloat16* Y,
-                                            float s[BN / 8][4]) {
+                                            float s[BN / 8][4],
+                                            bool fresh = true) {
   constexpr int LD = ld<__nv_bfloat16, DP>();
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  for (int n = 0; n < BN / 8; ++n)
+    if (fresh) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
   for (int k0 = 0; k0 < DP; k0 += 16) {
     uint32_t a[4];
@@ -250,11 +168,13 @@ __device__ __forceinline__ void rows_x_tile(const __nv_bfloat16* X,
 
 template <int DP, int BN>
 __device__ __forceinline__ void rows_x_tile(const float* X, const float* Y,
-                                            float s[BN / 8][4]) {
+                                            float s[BN / 8][4],
+                                            bool fresh = true) {
   constexpr int LD = ld<float, DP>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  for (int n = 0; n < BN / 8; ++n)
+    if (fresh) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll 4
   for (int k0 = 0; k0 < DP; k0 += 8) {
     const float af[4] = {X[g * LD + k0 + t], X[(g + 8) * LD + k0 + t],
@@ -425,9 +345,11 @@ __device__ __forceinline__ float key_bias(const Params& P, int b, int j) {
                                                              : -INFINITY;
 }
 
-// Stores rows row0 + g (+8) of acc * mul into dst [T][Dh] (contiguous).
+// Stores rows row0 + g (+8) of acc * mul into the first `width` columns of
+// dst (row stride ld).
 template <typename T, int DP>
-__device__ __forceinline__ void store_rows(T* dst, int row0, int Tn, int Dh,
+__device__ __forceinline__ void store_rows(T* dst, int row0, int Tn, int ld,
+                                           int width,
                                            const float acc[DP / 8][4],
                                            float mul0, float mul8) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -436,12 +358,12 @@ __device__ __forceinline__ void store_rows(T* dst, int row0, int Tn, int Dh,
     const int row = row0 + g + 8 * h;
     if (row >= Tn) continue;
     const float mul = h ? mul8 : mul0;
-    T* out = dst + (long long)row * Dh;
+    T* out = dst + (long long)row * ld;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int c = n * 8 + 2 * t;
-      if (c < Dh) out[c] = Op<T>::from_f(acc[n][2 * h] * mul);
-      if (c + 1 < Dh) out[c + 1] = Op<T>::from_f(acc[n][2 * h + 1] * mul);
+      if (c < width) out[c] = Op<T>::from_f(acc[n][2 * h] * mul);
+      if (c + 1 < width) out[c + 1] = Op<T>::from_f(acc[n][2 * h + 1] * mul);
     }
   }
 }
@@ -560,7 +482,7 @@ __global__ void __launch_bounds__(THREADS, DP <= 64 ? 4 : 1)
   l0 = quad_sum(l0);
   l8 = quad_sum(l8);
   const int row0 = q0 + warp * 16;
-  store_rows<T, DP>((T*)P.o + bh * P.T * P.Dh, row0, P.T, P.Dh, acc,
+  store_rows<T, DP>((T*)P.o + bh * P.T * P.Dh, row0, P.T, P.Dh, P.Dh, acc,
                     1.f / l0, 1.f / l8);
   if (t == 0) {
     if (row0 + g < P.T) P.lse[bh * P.T + row0 + g] = m0 + logf(l0);
@@ -670,7 +592,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params P) {
     acc_x_tile<DP, BN>(s, ksh + st * BN * LD, acc);
     __syncthreads();
   }
-  store_rows<T, DP>((T*)P.dq + bh * P.T * P.Dh, row0, P.T, P.Dh, acc,
+  store_rows<T, DP>((T*)P.dq + bh * P.T * P.Dh, row0, P.T, P.Dh, P.Dh, acc,
                     P.scale, P.scale);
 }
 
@@ -760,10 +682,307 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(const Params P) {
     acc_x_tile<DP, BN>(dp, qsh + st * BN * LD, dk);
     __syncthreads();
   }
-  store_rows<T, DP>((T*)P.dk + bh * P.T * P.Dh, key0, P.T, P.Dh, dk,
+  store_rows<T, DP>((T*)P.dk + bh * P.T * P.Dh, key0, P.T, P.Dh, P.Dh, dk,
                     P.scale, P.scale);
-  store_rows<T, DP>((T*)P.dv + bh * P.T * P.Dh, key0, P.T, P.Dh, dv, 1.f,
+  store_rows<T, DP>((T*)P.dv + bh * P.T * P.Dh, key0, P.T, P.Dh, P.Dh, dv, 1.f,
                     1.f);
+}
+
+// ---------------------------------------------------------------------------
+// Heads wider than 256: the head is cut into WC-wide column chunks and the
+// grid's x dimension runs over (row tile, output chunk). A block owns one
+// chunk of the output rows: it accumulates S (and dP) over every chunk of
+// the head, staging each chunk's rows through shared memory, then adds its
+// own chunk of P.V (dS.K, P^T.dO, dS^T.Q). S is recomputed once per output
+// chunk. The dropout mask, the lse and delta (over the whole head) are those
+// of the kernels above; chunk 0's block writes lse and delta.
+// ---------------------------------------------------------------------------
+
+constexpr int WC = 256;
+
+__host__ __device__ inline int chunks(int Dh) { return (Dh + WC - 1) / WC; }
+__device__ __forceinline__ int chunk_width(int Dh, int c) {
+  return min(WC, Dh - c * WC);
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(THREADS) fwd_wide_kernel(const Params P) {
+  extern __shared__ uint4 smem_raw[];
+  constexpr int DP = WC, LD = ld<T, DP>();
+  T* qsh = reinterpret_cast<T*>(smem_raw);               // [ROWS][LD]
+  T* ksh = qsh + ROWS * LD;                              // [BN][LD]
+  T* vsh = ksh + BN * LD;                                // [BN][LD]
+  float* bsh = reinterpret_cast<float*>(vsh + BN * LD);  // [BN]
+  const int NC = chunks(P.Dh), oc = blockIdx.x % NC;
+  const int q0 = (blockIdx.x / NC) * ROWS, b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long bh = (long long)b * P.H + h;
+  const T* qg = (const T*)P.q + b * P.qs[0] + h * P.qs[1];
+  const T* kg = (const T*)P.k + b * P.ks[0] + h * P.ks[1];
+  const T* vg = (const T*)P.v + b * P.vs[0] + h * P.vs[1];
+  const uint32_t seed = P.threshold ? (uint32_t)P.seed[0] : 0u;
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] =
+      acc[n][3] = 0.f;
+  float m0 = -INFINITY, m8 = -INFINITY, l0 = 0.f, l8 = 0.f;
+  const int tiles = (P.Tc + BN - 1) / BN;
+  const T* xq = qsh + warp * 16 * LD;
+  for (int j = 0; j < tiles; ++j) {
+    const int k0 = j * BN;
+    float s[BN / 8][4];
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();
+      const int w = chunk_width(P.Dh, c);
+      load_rows<T, DP, ROWS>(qsh, qg + c * WC, P.qs[2], q0, P.T, w, P.vec);
+      load_rows<T, DP, BN>(ksh, kg + c * WC, P.ks[2], k0, P.T, w, P.vec);
+      if (c == 0) {
+        load_rows<T, DP, BN>(vsh, vg + oc * WC, P.vs[2], k0, P.T,
+                             chunk_width(P.Dh, oc), P.vec);
+        for (int i = threadIdx.x; i < BN; i += THREADS)
+          bsh[i] = key_bias(P, b, k0 + i);
+      }
+      cp_async_commit();
+      cp_async_wait0();
+      __syncthreads();
+      rows_x_tile<DP, BN>(xq, ksh, s, c == 0);
+    }
+    float x0 = -INFINITY, x8 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const float b0 = bsh[n * 8 + 2 * t], b1 = bsh[n * 8 + 2 * t + 1];
+      s[n][0] = s[n][0] * P.scale + b0;
+      s[n][1] = s[n][1] * P.scale + b1;
+      s[n][2] = s[n][2] * P.scale + b0;
+      s[n][3] = s[n][3] * P.scale + b1;
+      x0 = fmaxf(x0, fmaxf(s[n][0], s[n][1]));
+      x8 = fmaxf(x8, fmaxf(s[n][2], s[n][3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(x0)), n8 = fmaxf(m8, quad_max(x8));
+    const float c0 = __expf(m0 - n0), c8 = __expf(m8 - n8);
+    m0 = n0, m8 = n8;
+    float r0 = 0.f, r8 = 0.f;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      s[n][0] = __expf(s[n][0] - n0);
+      s[n][1] = __expf(s[n][1] - n0);
+      s[n][2] = __expf(s[n][2] - n8);
+      s[n][3] = __expf(s[n][3] - n8);
+      r0 += s[n][0] + s[n][1];
+      r8 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * c0 + r0;
+    l8 = l8 * c8 + r8;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      acc[n][0] *= c0, acc[n][1] *= c0, acc[n][2] *= c8, acc[n][3] *= c8;
+    }
+    if (P.threshold) {
+      float kp[BN / 8][4];
+      keep_rowmajor<BN / 8>(P, seed, bh, q0 + warp * 16, k0, kp);
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= kp[n][e];
+    }
+    acc_x_tile<DP, BN>(s, vsh, acc);
+  }
+  l0 = quad_sum(l0);
+  l8 = quad_sum(l8);
+  const int row0 = q0 + warp * 16;
+  store_rows<T, DP>((T*)P.o + bh * P.T * P.Dh + oc * WC, row0, P.T, P.Dh,
+                    chunk_width(P.Dh, oc), acc, 1.f / l0, 1.f / l8);
+  if (oc == 0 && t == 0) {
+    if (row0 + g < P.T) P.lse[bh * P.T + row0 + g] = m0 + logf(l0);
+    if (row0 + g + 8 < P.T) P.lse[bh * P.T + row0 + g + 8] = m8 + logf(l8);
+  }
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(THREADS) dq_wide_kernel(const Params P) {
+  extern __shared__ uint4 smem_raw[];
+  constexpr int DP = WC, LD = ld<T, DP>();
+  T* qsh = reinterpret_cast<T*>(smem_raw);  // [ROWS][LD]
+  T* dosh = qsh + ROWS * LD;                // [ROWS][LD]
+  T* ksh = dosh + ROWS * LD;                // [BN][LD], chunk c
+  T* vsh = ksh + BN * LD;                   // [BN][LD], chunk c
+  T* kosh = vsh + BN * LD;                  // [BN][LD], the block's chunk
+  float* bsh = reinterpret_cast<float*>(kosh + BN * LD);  // [BN]
+  float* dlt = bsh + BN;                                  // [ROWS]
+  const int NC = chunks(P.Dh), oc = blockIdx.x % NC;
+  const int q0 = (blockIdx.x / NC) * ROWS, b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long bh = (long long)b * P.H + h;
+  const T* qg = (const T*)P.q + b * P.qs[0] + h * P.qs[1];
+  const T* kg = (const T*)P.k + b * P.ks[0] + h * P.ks[1];
+  const T* vg = (const T*)P.v + b * P.vs[0] + h * P.vs[1];
+  const T* dog = (const T*)P.d_o + b * P.dos[0] + h * P.dos[1];
+  const T* og = (const T*)P.o + bh * P.T * P.Dh;
+  const uint32_t seed = P.threshold ? (uint32_t)P.seed[0] : 0u;
+
+  // delta = rowsum(dO * O) over the whole head: two threads a row
+  {
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+    float part = 0.f;
+    if (q0 + r < P.T) {
+      const T* orow = og + (long long)(q0 + r) * P.Dh;
+      const T* dorow = dog + (long long)(q0 + r) * P.dos[2];
+      for (int d = half; d < P.Dh; d += 2)
+        part += Op<T>::to_f(dorow[d]) * Op<T>::to_f(orow[d]);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (!half) {
+      dlt[r] = part;
+      if (oc == 0 && q0 + r < P.T) P.delta[bh * P.T + q0 + r] = part;
+    }
+  }
+  __syncthreads();
+  const int row0 = q0 + warp * 16;
+  const float d0 = dlt[warp * 16 + g], d8 = dlt[warp * 16 + g + 8];
+  const float lse0 = row0 + g < P.T ? P.lse[bh * P.T + row0 + g] : 0.f;
+  const float lse8 = row0 + g + 8 < P.T ? P.lse[bh * P.T + row0 + g + 8]
+                                        : 0.f;
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] =
+      acc[n][3] = 0.f;
+  const int tiles = (P.T + BN - 1) / BN;
+  const T* xq = qsh + warp * 16 * LD;
+  const T* xdo = dosh + warp * 16 * LD;
+  for (int j = 0; j < tiles; ++j) {
+    const int k0 = j * BN;
+    float s[BN / 8][4], dp[BN / 8][4];
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();
+      const int w = chunk_width(P.Dh, c);
+      load_rows<T, DP, ROWS>(qsh, qg + c * WC, P.qs[2], q0, P.T, w, P.vec);
+      load_rows<T, DP, ROWS>(dosh, dog + c * WC, P.dos[2], q0, P.T, w, P.vec);
+      load_rows<T, DP, BN>(ksh, kg + c * WC, P.ks[2], k0, P.T, w, P.vec);
+      load_rows<T, DP, BN>(vsh, vg + c * WC, P.vs[2], k0, P.T, w, P.vec);
+      if (c == 0) {
+        load_rows<T, DP, BN>(kosh, kg + oc * WC, P.ks[2], k0, P.T,
+                             chunk_width(P.Dh, oc), P.vec);
+        for (int i = threadIdx.x; i < BN; i += THREADS)
+          bsh[i] = k0 + i < P.T ? P.bias[(long long)b * P.T + k0 + i]
+                                : -INFINITY;
+      }
+      cp_async_commit();
+      cp_async_wait0();
+      __syncthreads();
+      rows_x_tile<DP, BN>(xq, ksh, s, c == 0);
+      rows_x_tile<DP, BN>(xdo, vsh, dp, c == 0);
+    }
+    float kp[BN / 8][4];
+    if (P.threshold) keep_rowmajor<BN / 8>(P, seed, bh, row0, k0, kp);
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const float b0 = bsh[n * 8 + 2 * t], b1 = bsh[n * 8 + 2 * t + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(s[n][e] * P.scale + ((e & 1) ? b1 : b0) -
+                             ((e & 2) ? lse8 : lse0));
+        const float dpe = P.threshold ? dp[n][e] * kp[n][e] : dp[n][e];
+        s[n][e] = p * (dpe - ((e & 2) ? d8 : d0));
+      }
+    }
+    acc_x_tile<DP, BN>(s, kosh, acc);
+  }
+  store_rows<T, DP>((T*)P.dq + bh * P.T * P.Dh + oc * WC, row0, P.T, P.Dh,
+                    chunk_width(P.Dh, oc), acc, P.scale, P.scale);
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(THREADS) dkv_wide_kernel(const Params P) {
+  extern __shared__ uint4 smem_raw[];
+  constexpr int DP = WC, LD = ld<T, DP>();
+  T* ksh = reinterpret_cast<T*>(smem_raw);  // [ROWS][LD], chunk c
+  T* vsh = ksh + ROWS * LD;                 // [ROWS][LD], chunk c
+  T* qsh = vsh + ROWS * LD;                 // [BN][LD], chunk c
+  T* dosh = qsh + BN * LD;                  // [BN][LD], chunk c
+  T* qosh = dosh + BN * LD;                 // [BN][LD], the block's chunk
+  T* doosh = qosh + BN * LD;                // [BN][LD], the block's chunk
+  float* lsh = reinterpret_cast<float*>(doosh + BN * LD);  // [BN]
+  float* dsh = lsh + BN;                                   // [BN]
+  const int NC = chunks(P.Dh), oc = blockIdx.x % NC;
+  const int k0 = (blockIdx.x / NC) * ROWS, b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long bh = (long long)b * P.H + h;
+  const T* qg = (const T*)P.q + b * P.qs[0] + h * P.qs[1];
+  const T* kg = (const T*)P.k + b * P.ks[0] + h * P.ks[1];
+  const T* vg = (const T*)P.v + b * P.vs[0] + h * P.vs[1];
+  const T* dog = (const T*)P.d_o + b * P.dos[0] + h * P.dos[1];
+  const uint32_t seed = P.threshold ? (uint32_t)P.seed[0] : 0u;
+  const int key0 = k0 + warp * 16;
+  const float bias0 = key0 + g < P.T
+                          ? P.bias[(long long)b * P.T + key0 + g] : 0.f;
+  const float bias8 = key0 + g + 8 < P.T
+                          ? P.bias[(long long)b * P.T + key0 + g + 8] : 0.f;
+
+  float dk[DP / 8][4], dv[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  }
+  const int tiles = (P.T + BN - 1) / BN;
+  const T* xk = ksh + warp * 16 * LD;
+  const T* xv = vsh + warp * 16 * LD;
+  for (int i = 0; i < tiles; ++i) {
+    const int r0 = i * BN;
+    float p[BN / 8][4], dp[BN / 8][4];
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();
+      const int w = chunk_width(P.Dh, c);
+      load_rows<T, DP, ROWS>(ksh, kg + c * WC, P.ks[2], k0, P.T, w, P.vec);
+      load_rows<T, DP, ROWS>(vsh, vg + c * WC, P.vs[2], k0, P.T, w, P.vec);
+      load_rows<T, DP, BN>(qsh, qg + c * WC, P.qs[2], r0, P.T, w, P.vec);
+      load_rows<T, DP, BN>(dosh, dog + c * WC, P.dos[2], r0, P.T, w, P.vec);
+      if (c == 0) {
+        const int wo = chunk_width(P.Dh, oc);
+        load_rows<T, DP, BN>(qosh, qg + oc * WC, P.qs[2], r0, P.T, wo,
+                             P.vec);
+        load_rows<T, DP, BN>(doosh, dog + oc * WC, P.dos[2], r0, P.T, wo,
+                             P.vec);
+        for (int cc = threadIdx.x; cc < BN; cc += THREADS) {
+          const bool in = r0 + cc < P.T;
+          lsh[cc] = in ? P.lse[bh * P.T + r0 + cc] : INFINITY;
+          dsh[cc] = in ? P.delta[bh * P.T + r0 + cc] : 0.f;
+        }
+      }
+      cp_async_commit();
+      cp_async_wait0();
+      __syncthreads();
+      rows_x_tile<DP, BN>(xk, qsh, p, c == 0);
+      rows_x_tile<DP, BN>(xv, dosh, dp, c == 0);
+    }
+    float kp[BN / 8][4];
+    if (P.threshold) keep_colmajor<BN / 8>(P, seed, bh, key0, r0, kp);
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n) {
+      const float lc0 = lsh[n * 8 + 2 * t], lc1 = lsh[n * 8 + 2 * t + 1];
+      const float dc0 = dsh[n * 8 + 2 * t], dc1 = dsh[n * 8 + 2 * t + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = __expf(p[n][e] * P.scale + ((e & 2) ? bias8 : bias0) -
+                              ((e & 1) ? lc1 : lc0));
+        const float kpe = P.threshold ? kp[n][e] : 1.f;
+        p[n][e] = pe * kpe;
+        dp[n][e] = pe * (dp[n][e] * kpe - ((e & 1) ? dc1 : dc0));
+      }
+    }
+    acc_x_tile<DP, BN>(p, doosh, dv);
+    acc_x_tile<DP, BN>(dp, qosh, dk);
+  }
+  const int wo = chunk_width(P.Dh, oc);
+  store_rows<T, DP>((T*)P.dk + bh * P.T * P.Dh + oc * WC, key0, P.T, P.Dh,
+                    wo, dk, P.scale, P.scale);
+  store_rows<T, DP>((T*)P.dv + bh * P.T * P.Dh + oc * WC, key0, P.T, P.Dh,
+                    wo, dv, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -805,8 +1024,37 @@ cudaError_t launch(const Params& P, bool backward, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// Heads wider than WC: 32 streamed rows (16 for f32, for shared memory).
+template <typename T>
+cudaError_t launch_wide(const Params& P, bool backward, cudaStream_t s) {
+  constexpr int BN = sizeof(T) == 4 ? 16 : 32;
+  constexpr size_t row = (size_t)ld<T, WC>() * sizeof(T);
+  const dim3 grid((P.T + ROWS - 1) / ROWS * chunks(P.Dh), P.H, P.B);
+  cudaError_t e;
+  if (!backward) {
+    constexpr size_t smem = (ROWS + 2 * BN) * row + BN * 4;
+    e = allow_smem(fwd_wide_kernel<T, BN>, smem);
+    if (e != cudaSuccess) return e;
+    fwd_wide_kernel<T, BN><<<grid, THREADS, smem, s>>>(P);
+    return cudaGetLastError();
+  }
+  constexpr size_t dq_smem = (2 * ROWS + 3 * BN) * row + (BN + ROWS) * 4;
+  constexpr size_t dkv_smem = (2 * ROWS + 4 * BN) * row + 2 * BN * 4;
+  static_assert(dkv_smem <= SMEM_LIMIT && dq_smem <= SMEM_LIMIT, "smem");
+  e = allow_smem(dq_wide_kernel<T, BN>, dq_smem);
+  if (e != cudaSuccess) return e;
+  e = allow_smem(dkv_wide_kernel<T, BN>, dkv_smem);
+  if (e != cudaSuccess) return e;
+  dq_wide_kernel<T, BN><<<grid, THREADS, dq_smem, s>>>(P);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dkv_wide_kernel<T, BN><<<grid, THREADS, dkv_smem, s>>>(P);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t run(const Params& P, bool backward, cudaStream_t s) {
+  if (P.Dh > WC) return launch_wide<T>(P, backward, s);
   if (P.Dh <= 32) return launch<T, 32>(P, backward, s);
   if (P.Dh <= 64) return launch<T, 64>(P, backward, s);
   if (P.Dh <= 128) return launch<T, 128>(P, backward, s);
@@ -815,7 +1063,8 @@ cudaError_t run(const Params& P, bool backward, cudaStream_t s) {
 
 inline bool shape_ok(const Params& P) {
   return P.B > 0 && P.B <= 65535 && P.H > 0 && P.H <= 65535 && P.T > 0 &&
-         P.Tc >= P.T && P.Dh > 0 && P.Dh <= 256;
+         P.Tc >= P.T && P.Dh > 0 &&
+         (long long)(P.T + ROWS - 1) / ROWS * chunks(P.Dh) < (1LL << 31);
 }
 
 // Whether every row of q, k, v (and dO) starts on 16 bytes, so that the

@@ -20,40 +20,54 @@
 // swish'(u) (f32, summed into db1) is rounded for dw1 = xn^T du and dxn =
 // du w1^T; LN's backward and dx = dy + dx_ln are f32, rounded once.
 //
-// The TPU kernel holds a whole [T, E] slab of a sequence in VMEM. An SM
-// cannot (1 MB at T 512, E 512 in f32), and two things couple time across
-// a sequence: the SE pool and the causal conv. So the branch runs here as a
-// chain of simple kernels that pass sequence-sized intermediates through
-// device memory (and L2), each of them tiled over rows:
-//   forward, 6 launches: LN rows -> xn; pw1 product with bias and swish in
-//   its epilogue -> a; causal conv and swish -> s; pw2 product with bias ->
-//   p; the SE gate, one block a sequence (masked pool, two tiny products);
-//   out = p * g + x.
-//   backward, 20 launches: the forward recomputed from x up to p (u kept
-//   beside a); the SE backward, one block a sequence (dgate = sum_t dy * p,
-//   then back through the gate's two products to dpool); dp and its column
-//   sums; ds = dp w2^T; dc = ds * swish'(c); da by the anticausal conv, with
-//   du, and per-chunk sums of db1 and of dwdw[k] = sum_t a[t - K + 1 + k] dc
-//   [t]; dxn = du w1^T; LN's backward with dx and per-block sums of the LN
-//   gradients; dw1 = xn^T du and dw2 = s^T dp as row-split products
-//   (wgrad.cuh, shared with ffn.cu); the SE weight gradients summed over
-//   sequences; the six partial sums added in a fixed order (wgrad.cuh). No
-//   atomics: every gradient is the same from run to run.
-// The four row products (pw1, pw2, and their transposes in the backward)
-// are one tiled kernel (64 x 64 outputs a block, 32 deep a step, operands
-// through shared memory): wmma 16x16x16 tiles with f32 accumulation at
-// bf16, f32 FMAs at f32.
+// Design: time tiles with a halo. The TPU kernel holds a whole [T, E] slab
+// of a sequence in VMEM; an SM cannot (1 MB at T 512, E 512 in f32). Only
+// the SE pool and the causal conv couple time across a sequence, and the
+// depthwise conv is independent per channel, so a block owns a tile of TT
+// rows of one sequence plus the conv's halo of H = K rounded up to 16 rows
+// (zero rows before t = 0; the taps are front-padded with zeros to H), and
+// keeps every per-channel intermediate in
+// shared memory:
+//   forward, 3 launches: (1) the tile kernel: LN of its TT + H rows (xn
+//   rounded, in shared memory); then for each chunk of EC channels: u = xn
+//   w1[:, chunk] + b1 on the tensor cores, a = swish(u) (f32, shared), c =
+//   the causal conv over the tile's rows, s = swish(c) rounded, and p += s
+//   w2[chunk, :] accumulated in registers across the chunks; epilogue p + b2,
+//   written once (f32), with its masked pool partials for each (tile,
+//   channel); (2) the SE gate, one block a sequence, from the partials
+//   summed in tile order; (3) out = p * g + x.
+//   backward, 3 launches before the weight products: (1) the tile kernel
+//   again, p not written, with the partials of sum m * p and sum dy * p;
+//   (2) the SE backward per sequence (dgate, dpool, what the SE weight
+//   gradients need); (3) the backward tile kernel, a halo on both sides: LN
+//   of [t0 - H, t0 + TT + H), dp of [t0, t0 + TT + H) (needs no recomputed
+//   p); for each chunk: u and a over all its rows, ds = dp w2^T, dc = ds
+//   swish'(c), s of its own rows, da by the anticausal conv, du = da
+//   swish'(u), and dxn += du w1^T in registers; then LN's backward with dx =
+//   dy + dx_ln written once, and per-tile partials of db1, db2, dwdw, dgamma
+//   and dbeta. It writes xn, dp, s and du in the compute type for the weight
+//   products. Then (4) dw1 = xn^T du and dw2 = s^T dp (wgrad.cuh), the SE
+//   weight gradients, and five fixed-order sums of the partials: 11
+//   launches in all. No atomics: every gradient is the same from run to run.
+// The weight chunks stream by cp.async into shared memory while the other
+// operand's products run (w1's chunks double-buffered in the backward); the
+// products are mma.sync m16n8k16 bf16, or 3xTF32 m16n8k8 at f32
+// (mma.cuh). Widths off the tensor-core grid are zero-padded (D to 16,
+// the last channel chunk); the tile height TT (16 to 64 rows), the chunk
+// width EC and the accumulator layout come from the caller's plan
+// (conv_kernel.py), which takes the largest tile whose working set fits in
+// shared memory. A width that fits in none (D beyond ~500 at f32, ~600 at
+// bf16) takes the general path at the end of this file: the same function
+// as a chain of row-tiled kernels passing sequence-sized f32 intermediates
+// through device memory (6 launches forward, 20 backward).
 //
-// Bound: operations (at B 256, T 512, D 256, E 512 in bf16 the forward's
-// products are 69 GFLOP, 0.07 ms on the tensor cores, against 67 MB of x and
-// out; the backward's 4 products and the recomputation 206 GFLOP). This
-// first version is bound by its memory passes -- ~15 sequence-sized f32
-// intermediates written and read once each -- and by feeding the tensor
-// cores through shared memory without asynchronous copies. The design that
-// removes those passes tiles time instead: a block recomputes the conv's
-// (K - 1)-row halo of swish(pw1(LN(x))) beside its tile, writes p once with
-// its masked pool partials, and the backward's second pass recomputes the
-// branch with a halo on both sides.
+// Bound: operations. At B 256, T 512, D 256, E 512, K 15 in bf16 the
+// products are 69 GFLOP forward (77 with the halo recomputed) and 206
+// backward. Bytes at that shape: ~0.5 GB forward (x, p written and read
+// once in f32, out); ~1.6 GB backward (x and dy read again for the halos
+// and LN's backward, dx, the four compute-type operands of the weight
+// products written and read once, the dwdw partials), against ~2.5 GB of
+// f32 intermediates in the chain.
 
 #include <cmath>
 #include <cstdint>
@@ -62,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "mma.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -78,8 +93,11 @@ constexpr int ROWS = 64;  // rows a block of the row kernels sums over
 using wgrad::narrow;
 using wgrad::widen;
 
+// The fast exponential and division (within a few ulp of f32): the swishes
+// of every element cost as much as the products with the IEEE forms. A huge
+// -v gives exp = inf and 1 / inf = 0, as the exact form does.
 __device__ __forceinline__ float sigmoid(float v) {
-  return 1.f / (1.f + expf(-v));
+  return __fdividef(1.f, 1.f + __expf(-v));
 }
 // d/dh [h * sigmoid(h)] given sig = sigmoid(h)
 __device__ __forceinline__ float dswish(float h, float sig) {
@@ -90,6 +108,686 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// Time tiles with a halo (the design at the top of this file)
+// ---------------------------------------------------------------------------
+
+constexpr int MAXK = 32;  // depthwise taps the kernels take
+
+// Everything a tile kernel reads and writes; pointers that a launch does not
+// use are null.
+struct TileArgs {
+  const void *x, *dy, *w1, *w2;  // compute type
+  const float *mask, *gamma, *beta, *b1, *wdw, *b2;
+  float* p;                      // forward: p = pw2(...) + b2 [B, T, D]
+  float *part_mp, *part_dyp;     // [B, tiles, D]: sum m * p, sum dy * p
+  const float *gate, *dpool, *msum;  // [B, D], [B, D], [B]
+  void *dx, *xn_g, *dp_g, *s_g, *du_g;  // compute type
+  float *part_ln, *part_e, *part_db2;   // [B, tiles] x [2D], [E + KE], [D]
+  int B, T, D, E, K, Dk, H, tiles, vec;
+};
+
+// Shared-memory regions start on 128 bytes.
+__host__ __device__ constexpr size_t rup(size_t b) { return (b + 127) / 128 * 128; }
+
+// The tile kernels' shared memory: forward (xn, a, s, w1 chunk, w2 chunk)
+// or backward (xn, dp, a, own u, ds/dc, du, two w1 chunks, w2 chunk, LN row
+// statistics), and the chunk's depthwise taps and b1. Row strides: Dk + 16 bytes, EC + 16 bytes for operands of
+// the products, EC + 1 floats for the f32 per-channel buffers.
+template <typename T, int MTP, int EC>
+__host__ __device__ size_t tile_smem(bool backward, int Dk, int H) {
+  constexpr int TT = 16 * MTP, PADT = 16 / (int)sizeof(T);
+  const size_t sz = sizeof(T), LDD = Dk + PADT, ECL = EC + PADT, ECF = EC + 1;
+  const size_t chunk = rup(MAXK * EC * 4) + rup(EC * 4);  // taps, b1
+  if (!backward) {
+    const size_t R = TT + H;
+    return rup(R * LDD * sz) + rup(R * ECF * 4) + rup(TT * ECL * sz) +
+           rup(Dk * ECL * sz) + rup(EC * LDD * sz) + chunk;
+  }
+  const size_t RU = TT + 2 * H, RC = TT + H;
+  return rup(RU * LDD * sz) + rup(RC * LDD * sz) + rup(RU * ECF * 4) +
+         rup(TT * ECF * 4) + rup(RC * ECF * 4) + rup(TT * ECL * sz) +
+         2 * rup(Dk * ECL * sz) + rup(EC * LDD * sz) + rup(2 * TT * 4) + chunk;
+}
+
+struct Carve2 {
+  unsigned char* p;
+  template <typename X>
+  __device__ X* take(size_t count) {
+    X* out = reinterpret_cast<X*>(p);
+    p += rup(count * sizeof(X));
+    return out;
+  }
+};
+
+// LN of rows [tbase, tbase + R) of sequence b into xn [R][LDD] in the
+// compute type, one warp a row; rows before 0 or past T, and columns past D,
+// are zeros. Rows [own0, own0 + TT) also leave their mean and rstd in stats
+// [2][TT] (when given).
+template <typename T>
+__device__ void ln_rows(const TileArgs& P, int b, int tbase, int R, T* xn,
+                        int LDD, float* stats, int own0, int TT) {
+  constexpr int NV = 16, W = THREADS / 32;  // rows up to 512 in registers
+  constexpr int RW = 4;                      // rows a warp has in flight
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* x = (const T*)P.x;
+  float gm[NV], bt[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int d = lane + 32 * i;
+    gm[i] = d < P.D ? P.gamma[d] : 0.f;
+    bt[i] = d < P.D ? P.beta[d] : 0.f;
+  }
+  for (int r0 = warp; r0 < R; r0 += RW * W) {
+    float v[RW][NV];
+#pragma unroll
+    for (int h = 0; h < RW; ++h) {
+      const int tg = tbase + r0 + h * W;
+      const bool in = r0 + h * W < R && tg >= 0 && tg < P.T;
+      const T* xr = x + ((long long)b * P.T + tg) * P.D;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int d = lane + 32 * i;
+        v[h][i] = in && d < P.D ? widen(xr[d]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < RW; ++h) {
+      const int r = r0 + h * W, tg = tbase + r;
+      if (r >= R) break;
+      T* row = xn + r * LDD;
+      if (tg < 0 || tg >= P.T) {
+        for (int d = lane; d < P.Dk; d += 32) row[d] = narrow<T>(0.f);
+        continue;
+      }
+      const T* xr = x + ((long long)b * P.T + tg) * P.D;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) s += v[h][i];
+      for (int d = lane + 32 * NV; d < P.D; d += 32) s += widen(xr[d]);
+      const float mu = warp_sum(s) / P.D;
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float c = lane + 32 * i < P.D ? v[h][i] - mu : 0.f;
+        q += c * c;
+      }
+      for (int d = lane + 32 * NV; d < P.D; d += 32) {
+        const float c = widen(xr[d]) - mu;
+        q += c * c;
+      }
+      const float rstd = rsqrtf(warp_sum(q) / P.D + LN_EPS);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int d = lane + 32 * i;
+        if (d < P.D) row[d] = narrow<T>((v[h][i] - mu) * rstd * gm[i] + bt[i]);
+      }
+      for (int d = lane + 32 * NV; d < P.D; d += 32)
+        row[d] = narrow<T>((widen(xr[d]) - mu) * rstd * P.gamma[d] +
+                           P.beta[d]);
+      for (int d = P.D + lane; d < P.Dk; d += 32) row[d] = narrow<T>(0.f);
+      if (stats && lane == 0 && r >= own0 && r < own0 + TT) {
+        stats[r - own0] = mu;
+        stats[TT + r - own0] = rstd;
+      }
+    }
+  }
+}
+
+// Channel chunk c of w1 [D, E] as [Dk][EC + PADT] and of w2 [E, D] as
+// [EC][Dk + PADT], zero past D and E.
+template <typename T, int EC>
+__device__ __forceinline__ void load_w1(const TileArgs& P, int c, T* dst) {
+  constexpr int ECL = EC + 16 / (int)sizeof(T);
+  tc::load_tile<T>(dst, ECL, (const T*)P.w1 + c * EC, P.E, P.Dk, EC, P.D,
+                   P.E - c * EC, P.vec, threadIdx.x, THREADS);
+}
+template <typename T, int EC>
+__device__ __forceinline__ void load_w2(const TileArgs& P, int c, T* dst) {
+  const int LDD = P.Dk + 16 / (int)sizeof(T);
+  tc::load_tile<T>(dst, LDD, (const T*)P.w2 + (size_t)c * EC * P.D, P.D, EC,
+                   P.Dk, P.E - c * EC, P.D, P.vec, threadIdx.x, THREADS);
+}
+
+// The chunk's depthwise taps and b1 [EC] into shared memory, plain loads
+// (the caller synchronises). The taps are front-padded to H = K rounded up
+// to 16: taps[j][e] = wdw[j - (H - K)][e] for j >= H - K, zero before (and
+// past E), so every window is H taps long and its loops need no bound.
+template <int EC>
+__device__ __forceinline__ void load_chunk(const TileArgs& P, int c,
+                                           float* taps, float* b1c) {
+  for (int i = threadIdx.x; i < MAXK * EC; i += THREADS) {
+    const int k = i / EC - (P.H - P.K), ec = c * EC + i % EC;
+    taps[i] = (k >= 0 && k < P.K && ec < P.E) ? P.wdw[k * P.E + ec] : 0.f;
+  }
+  for (int i = threadIdx.x; i < EC; i += THREADS)
+    b1c[i] = c * EC + i < P.E ? P.b1[c * EC + i] : 0.f;
+}
+
+// Forward: s = swish(c) of the TT own rows, rounded into sch, where c[t] =
+// sum_j taps[j] a[t - (KP - 1) + j] and a's row t0 + tt sits at row tt + KP
+// of ach (KP = H). A thread keeps one channel.
+template <typename T, int KP, int EC, int TT>
+__device__ __forceinline__ void conv_swish(const float* ach,
+                                           const float* taps, T* sch) {
+  constexpr int ECF = EC + 1, ECL = EC + 16 / (int)sizeof(T);
+  const int e = threadIdx.x % EC;
+  float w[KP];
+#pragma unroll
+  for (int j = 0; j < KP; ++j) w[j] = taps[j * EC + e];
+  for (int tt = threadIdx.x / EC; tt < TT; tt += THREADS / EC) {
+    const float* a = ach + (tt + 1) * ECF + e;
+    float cv = 0.f;
+#pragma unroll
+    for (int j = 0; j < KP; ++j) cv += w[j] * a[j * ECF];
+    sch[tt * ECL + e] = narrow<T>(cv * sigmoid(cv));
+  }
+}
+
+// Backward, first per-channel pass over the RC rows t0 .. of dcs: c by the
+// causal conv, dc = ds swish'(c) in place, s of the own rows to s_g.
+template <typename T, int KP, int EC>
+__device__ __forceinline__ void conv_dc(const TileArgs& P, const float* ach,
+                                        const float* taps, float* dcs, int RC,
+                                        int TT, int t0, int c,
+                                        long long seq) {
+  constexpr int ECF = EC + 1;
+  const int e = threadIdx.x % EC, ec = c * EC + e;
+  float w[KP];
+#pragma unroll
+  for (int j = 0; j < KP; ++j) w[j] = taps[j * EC + e];
+  for (int q = threadIdx.x / EC; q < RC; q += THREADS / EC) {
+    const float* a = ach + (q + 1) * ECF + e;
+    float cv = 0.f;
+#pragma unroll
+    for (int j = 0; j < KP; ++j) cv += w[j] * a[j * ECF];
+    const float sg = sigmoid(cv);
+    dcs[q * ECF + e] *= dswish(cv, sg);
+    if (q < TT && t0 + q < P.T && ec < P.E)
+      ((T*)P.s_g)[(seq + t0 + q) * P.E + ec] = narrow<T>(cv * sg);
+  }
+}
+
+// Backward, second per-channel pass over the own rows: da by the anticausal
+// conv, du = da swish'(u) rounded into dus, and the tile's sums of du (db1)
+// and of a[t - K + 1 + k] dc[t] (dwdw[k]) into part_e. Warp w owns channels
+// w, w + 8, ..; lane l the rows l, l + 32; the sums over rows are a fixed
+// butterfly across the lanes.
+template <typename T, int KP, int EC, int TT>
+__device__ __forceinline__ void conv_du(const TileArgs& P, const float* ach,
+                                        const float* uown, const float* dcs,
+                                        const float* taps, T* dus, int t0,
+                                        int c, long long part) {
+  constexpr int ECF = EC + 1, ECL = EC + 16 / (int)sizeof(T);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int e = warp; e < EC; e += THREADS / 32) {
+    const int ec = c * EC + e;
+    float w[KP], dw[KP];
+#pragma unroll
+    for (int j = 0; j < KP; ++j) {
+      w[j] = taps[j * EC + e];
+      dw[j] = 0.f;
+    }
+    float db = 0.f;
+    for (int tt = lane; tt < TT; tt += 32) {
+      const float* dc = dcs + (tt + KP - 1) * ECF + e;
+      float dav = 0.f;
+#pragma unroll
+      for (int j = 0; j < KP; ++j) dav += w[j] * dc[-j * ECF];
+      const float u = uown[tt * ECF + e];
+      const float du = dav * dswish(u, sigmoid(u));
+      dus[tt * ECL + e] = narrow<T>(du);
+      if (t0 + tt < P.T) {
+        db += du;
+        const float dct = dcs[tt * ECF + e];
+        const float* a = ach + (tt + 1) * ECF + e;
+#pragma unroll
+        for (int j = 0; j < KP; ++j) dw[j] += a[j * ECF] * dct;
+      }
+    }
+    db = warp_sum(db);
+#pragma unroll
+    for (int j = 0; j < KP; ++j) dw[j] = warp_sum(dw[j]);
+    if (lane == 0 && ec < P.E) {
+      float* pe = P.part_e + part * (P.E + (long long)P.K * P.E);
+      pe[ec] = db;
+#pragma unroll
+      for (int j = 0; j < KP; ++j) {
+        const int k = j - (KP - P.K);
+        if (k >= 0) pe[P.E + (long long)k * P.E + ec] = dw[j];
+      }
+    }
+  }
+}
+
+// Forward tile kernel, grid (tiles, B). A tile of TT = 16 MTP rows; warp w
+// accumulates p's columns [w * 8 NTP, (w + 1) * 8 NTP) for all TT rows, so
+// Dk <= 64 NTP. The u product: warp (mg, ng) owns 16 channels ng * 16 .. of
+// the chunk and the m-tiles mg, mg + MG, ... of the R = TT + H rows.
+// With dy (the backward's first pass) p is not written and the partials of
+// sum dy * p come beside those of sum m * p.
+template <typename T, int MTP, int NTP, int EC>
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_tile_kernel(const TileArgs P) {
+  constexpr int TT = 16 * MTP, PADT = 16 / (int)sizeof(T);
+  constexpr int ECL = EC + PADT, ECF = EC + 1;
+  constexpr int NG = EC / 16, MG = (THREADS / 32) / NG;
+  constexpr int MU = (MTP + 2 + MG - 1) / MG;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int Dk = P.Dk, H = P.H, R = TT + H, LDD = Dk + PADT;
+  Carve2 cv{smem};
+  T* xn = cv.take<T>((size_t)R * LDD);
+  float* ach = cv.take<float>((size_t)R * ECF);
+  T* sch = cv.take<T>((size_t)TT * ECL);
+  T* w1c = cv.take<T>((size_t)Dk * ECL);
+  T* w2c = cv.take<T>((size_t)EC * LDD);
+  float* taps = cv.take<float>(MAXK * EC);
+  float* b1c = cv.take<float>(EC);
+  const int tile = blockIdx.x, b = blockIdx.y, t0 = tile * TT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nch = (P.E + EC - 1) / EC;
+  const int mg = warp / NG, ng = warp % NG;
+  const int mcount = (R / 16 - mg + MG - 1) / MG;
+  const int pcount = min(NTP, max(0, (Dk - warp * NTP * 8) / 8));
+
+  load_w1<T, EC>(P, 0, w1c);
+  tc::cp_async_commit();
+  load_w2<T, EC>(P, 0, w2c);
+  tc::cp_async_commit();
+  ln_rows<T>(P, b, t0 - H, R, xn, LDD, nullptr, 0, TT);
+
+  float acc[MTP][NTP][4];
+  tc::zero_acc(acc);
+  for (int c = 0; c < nch; ++c) {
+    load_chunk<EC>(P, c, taps, b1c);  // the last chunk's readers are done
+    tc::cp_async_wait<1>();  // this chunk's w1 (its w2 may be in flight)
+    __syncthreads();
+    {  // a = swish(xn w1 + b1) over all R rows, 0 before t = 0
+      float ua[MU][2][4];
+      tc::zero_acc(ua);
+      tc::warp_mma<MU, 2, false, true>(ua, xn + mg * 16 * LDD, LDD, MG * 16,
+                                       w1c + ng * 16, ECL, Dk, mcount);
+#pragma unroll
+      for (int i = 0; i < MU; ++i) {
+        if (i >= mcount) break;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = (mg + i * MG) * 16 + g + (e >> 1) * 8;
+            const int col = ng * 16 + j * 8 + 2 * t + (e & 1);
+            const float u = ua[i][j][e] + b1c[col];
+            ach[row * ECF + col] = t0 - H + row >= 0 ? u * sigmoid(u) : 0.f;
+          }
+      }
+    }
+    __syncthreads();  // a is complete; w1's buffer is free
+    if (c + 1 < nch) load_w1<T, EC>(P, c + 1, w1c);
+    tc::cp_async_commit();
+    if (H == 16)  // s = swish(causal conv of a), rounded
+      conv_swish<T, 16, EC, TT>(ach, taps, sch);
+    else
+      conv_swish<T, 32, EC, TT>(ach, taps, sch);
+    tc::cp_async_wait<1>();  // this chunk's w2
+    __syncthreads();
+    if (pcount > 0)
+      tc::warp_mma<MTP, NTP, false, true>(acc, sch, ECL, 16,
+                                          w2c + warp * NTP * 8, LDD, EC, MTP,
+                                          pcount);
+    __syncthreads();  // w2's buffer is free
+    if (c + 1 < nch) load_w2<T, EC>(P, c + 1, w2c);
+    tc::cp_async_commit();
+  }
+
+  // p = acc + b2: written (forward), and the tile's partial sums over its
+  // rows, each lane's rows in order, then across g by a fixed butterfly
+  const T* dy = (const T*)P.dy;
+  const float* m = P.mask + (long long)b * P.T;
+  const long long part = ((long long)b * P.tiles + tile) * P.D;
+#pragma unroll
+  for (int j = 0; j < NTP; ++j) {
+    const int col = warp * NTP * 8 + j * 8 + 2 * t;
+    float smp[2] = {0.f, 0.f}, sdp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < MTP; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tg = t0 + i * 16 + g + 8 * h;
+        if (tg >= P.T) continue;
+        const long long at = ((long long)b * P.T + tg) * P.D;
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int d = col + e2;
+          if (d >= P.D) continue;
+          const float pv = acc[i][j][2 * h + e2] + P.b2[d];
+          if (P.p) P.p[at + d] = pv;
+          smp[e2] += m[tg] * pv;
+          if (dy) sdp[e2] += widen(dy[at + d]) * pv;
+        }
+      }
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        smp[e2] += __shfl_xor_sync(0xffffffffu, smp[e2], o);
+        sdp[e2] += __shfl_xor_sync(0xffffffffu, sdp[e2], o);
+      }
+      if (g == 0 && col + e2 < P.D) {
+        P.part_mp[part + col + e2] = smp[e2];
+        if (dy) P.part_dyp[part + col + e2] = sdp[e2];
+      }
+    }
+  }
+}
+
+// Backward tile kernel, grid (tiles, B): a tile of TT own rows with a halo
+// of H rows on both sides. Shared rows: u / a / xn over RU = TT + 2H rows
+// (t0 - H ..), dp / ds / dc over RC = TT + H rows (t0 ..). Warps as in the
+// forward: dxn's columns [w * 8 NTP, ..) for the TT own rows; (mg, ng) for
+// the chunk products; for the per-channel sums, warp w owns channels w,
+// w + 8, .. of the chunk and lane l the rows l, l + 32.
+template <typename T, int MTP, int NTP, int EC>
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_tile_kernel(const TileArgs P) {
+  constexpr int TT = 16 * MTP, PADT = 16 / (int)sizeof(T);
+  constexpr int ECL = EC + PADT, ECF = EC + 1;
+  constexpr int NG = EC / 16, MG = (THREADS / 32) / NG;
+  constexpr int MUU = (MTP + 4 + MG - 1) / MG, MUC = (MTP + 2 + MG - 1) / MG;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int Dk = P.Dk, H = P.H, RU = TT + 2 * H, RC = TT + H,
+            LDD = Dk + PADT;
+  Carve2 cv{smem};
+  T* xn = cv.take<T>((size_t)RU * LDD);
+  T* dps = cv.take<T>((size_t)RC * LDD);
+  float* ach = cv.take<float>((size_t)RU * ECF);
+  float* uown = cv.take<float>((size_t)TT * ECF);
+  float* dcs = cv.take<float>((size_t)RC * ECF);
+  T* dus = cv.take<T>((size_t)TT * ECL);
+  T* w1c = cv.take<T>((size_t)Dk * ECL);
+  cv.take<T>((size_t)Dk * ECL);  // the second w1 buffer, right after
+  T* w2c = cv.take<T>((size_t)EC * LDD);
+  float* stats = cv.take<float>(2 * TT);
+  float* taps = cv.take<float>(MAXK * EC);
+  float* b1c = cv.take<float>(EC);
+  const size_t w1_stride = rup((size_t)Dk * ECL * sizeof(T)) / sizeof(T);
+  const int tile = blockIdx.x, b = blockIdx.y, t0 = tile * TT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nch = (P.E + EC - 1) / EC;
+  const int mg = warp / NG, ng = warp % NG;
+  const int mcu = (RU / 16 - mg + MG - 1) / MG;
+  const int mcc = (RC / 16 - mg + MG - 1) / MG;
+  const int pcount = min(NTP, max(0, (Dk - warp * NTP * 8) / 8));
+  const long long seq = (long long)b * P.T;
+  const long long part = (long long)b * P.tiles + tile;
+  const T* dy = (const T*)P.dy;
+
+  load_w1<T, EC>(P, 0, w1c);
+  load_w2<T, EC>(P, 0, w2c);
+  tc::cp_async_commit();
+  ln_rows<T>(P, b, t0 - H, RU, xn, LDD, stats, H, TT);
+  {  // dp rows t0 .. t0 + RC (zero past T), the own rows' column sums (db2)
+    const float ms = P.msum[b];
+    for (int d = tid; d < Dk; d += THREADS) {
+      const bool in = d < P.D;
+      const float gd = in ? P.gate[(long long)b * P.D + d] : 0.f;
+      const float pd = in ? P.dpool[(long long)b * P.D + d] : 0.f;
+      float sum = 0.f;
+#pragma unroll 16
+      for (int q = 0; q < RC; ++q) {
+        const int tg = t0 + q;
+        float v = 0.f;
+        if (tg < P.T && in)
+          v = widen(dy[(seq + tg) * P.D + d]) * gd +
+              pd * (P.mask[seq + tg] / ms);
+        const T vr = narrow<T>(v);
+        dps[q * LDD + d] = vr;
+        if (q < TT && tg < P.T && in) {
+          ((T*)P.dp_g)[(seq + tg) * P.D + d] = vr;
+          sum += v;
+        }
+      }
+      if (in) P.part_db2[part * P.D + d] = sum;
+    }
+  }
+  __syncthreads();  // xn complete
+  for (int q = tid; q < TT * P.D; q += THREADS) {  // xn of the own rows
+    const int tt = q / P.D, d = q - tt * P.D;
+    if (t0 + tt < P.T)
+      ((T*)P.xn_g)[(seq + t0 + tt) * P.D + d] = xn[(H + tt) * LDD + d];
+  }
+
+  float dxa[MTP][NTP][4];
+  tc::zero_acc(dxa);
+  for (int c = 0; c < nch; ++c) {
+    load_chunk<EC>(P, c, taps, b1c);  // the last chunk's readers are done
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    const T* W1 = w1c + (c & 1) * w1_stride;
+    if (c + 1 < nch) load_w1<T, EC>(P, c + 1, w1c + ((c + 1) & 1) * w1_stride);
+    tc::cp_async_commit();
+    {  // u and a = swish(u) over the RU rows (a = 0 before t = 0)
+      float ua[MUU][2][4];
+      tc::zero_acc(ua);
+      tc::warp_mma<MUU, 2, false, true>(ua, xn + mg * 16 * LDD, LDD, MG * 16,
+                                        W1 + ng * 16, ECL, Dk, mcu);
+#pragma unroll
+      for (int i = 0; i < MUU; ++i) {
+        if (i >= mcu) break;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = (mg + i * MG) * 16 + g + (e >> 1) * 8;
+            const int col = ng * 16 + j * 8 + 2 * t + (e & 1);
+            const float u = ua[i][j][e] + b1c[col];
+            ach[row * ECF + col] = t0 - H + row >= 0 ? u * sigmoid(u) : 0.f;
+            if (row >= H && row < H + TT) uown[(row - H) * ECF + col] = u;
+          }
+      }
+    }
+    {  // ds = dp w2^T over the RC rows
+      float da[MUC][2][4];
+      tc::zero_acc(da);
+      tc::warp_mma<MUC, 2, false, false>(da, dps + mg * 16 * LDD, LDD,
+                                         MG * 16, w2c + ng * 16 * LDD, LDD,
+                                         Dk, mcc);
+#pragma unroll
+      for (int i = 0; i < MUC; ++i) {
+        if (i >= mcc) break;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = (mg + i * MG) * 16 + g + (e >> 1) * 8;
+            const int col = ng * 16 + j * 8 + 2 * t + (e & 1);
+            dcs[row * ECF + col] = da[i][j][e];
+          }
+      }
+    }
+    __syncthreads();  // a, u, ds complete; w2's buffer is free
+    if (c + 1 < nch) load_w2<T, EC>(P, c + 1, w2c);
+    tc::cp_async_commit();
+    if (H == 16)  // c, dc = ds swish'(c) in place, s of the own rows
+      conv_dc<T, 16, EC>(P, ach, taps, dcs, RC, TT, t0, c, seq);
+    else
+      conv_dc<T, 32, EC>(P, ach, taps, dcs, RC, TT, t0, c, seq);
+    __syncthreads();
+    if (H == 16)  // da, du, and the tile's sums for db1 and dwdw
+      conv_du<T, 16, EC, TT>(P, ach, uown, dcs, taps, dus, t0, c, part);
+    else
+      conv_du<T, 32, EC, TT>(P, ach, uown, dcs, taps, dus, t0, c, part);
+    __syncthreads();  // du complete
+    for (int q = tid; q < TT * EC; q += THREADS) {  // du of the own rows
+      const int tt = q / EC, e = q - tt * EC, ec = c * EC + e;
+      if (t0 + tt < P.T && ec < P.E)
+        ((T*)P.du_g)[(seq + t0 + tt) * P.E + ec] = dus[tt * ECL + e];
+    }
+    if (pcount > 0)  // dxn += du w1^T
+      tc::warp_mma<MTP, NTP, false, false>(dxa, dus, ECL, 16,
+                                           W1 + warp * NTP * 8 * ECL, ECL, EC,
+                                           MTP, pcount);
+  }
+
+  // LN's backward: dxn staged as f32 [TT][Dk + 1] over xn and dp
+  __syncthreads();
+  float* dxs = reinterpret_cast<float*>(xn);
+  const int LDX = Dk + 1;
+#pragma unroll
+  for (int i = 0; i < MTP; ++i)
+#pragma unroll
+    for (int j = 0; j < NTP; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = warp * NTP * 8 + j * 8 + 2 * t + (e & 1);
+        if (col < Dk) dxs[(i * 16 + g + (e >> 1) * 8) * LDX + col] = dxa[i][j][e];
+      }
+  __syncthreads();
+  const T* x = (const T*)P.x;
+  constexpr int NV = 16;  // x values a lane keeps: rows up to 512 wide
+  for (int tt = warp; tt < TT; tt += THREADS / 32) {
+    const int tg = t0 + tt;
+    if (tg >= P.T) continue;
+    const float mu = stats[tt], rstd = stats[TT + tt];
+    const T* xr = x + (seq + tg) * P.D;
+    const float* gr = dxs + tt * LDX;
+    float xh[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int d = lane + 32 * i;
+      xh[i] = d < P.D ? (widen(xr[d]) - mu) * rstd : 0.f;
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int d = lane + 32 * i;
+      if (d < P.D) {
+        const float dxh = gr[d] * P.gamma[d];
+        s1 += dxh;
+        s2 += dxh * xh[i];
+      }
+    }
+    for (int d = lane + 32 * NV; d < P.D; d += 32) {
+      const float dxh = gr[d] * P.gamma[d];
+      s1 += dxh;
+      s2 += dxh * ((widen(xr[d]) - mu) * rstd);
+    }
+    const float m1 = warp_sum(s1) / P.D, m2 = warp_sum(s2) / P.D;
+    T* dxr = (T*)P.dx + (seq + tg) * P.D;
+    const T* dyr = dy + (seq + tg) * P.D;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int d = lane + 32 * i;
+      if (d < P.D)
+        dxr[d] = narrow<T>(widen(dyr[d]) +
+                           (gr[d] * P.gamma[d] - m1 - xh[i] * m2) * rstd);
+    }
+    for (int d = lane + 32 * NV; d < P.D; d += 32) {
+      const float h = (widen(xr[d]) - mu) * rstd;
+      dxr[d] = narrow<T>(widen(dyr[d]) + (gr[d] * P.gamma[d] - m1 - h * m2) *
+                                             rstd);
+    }
+  }
+  for (int d = tid; d < P.D; d += THREADS) {  // dgamma, dbeta of the tile
+    float sg = 0.f, sb = 0.f;
+#pragma unroll 8
+    for (int tt = 0; tt < TT && t0 + tt < P.T; ++tt) {
+      const float xh = (widen(x[(seq + t0 + tt) * P.D + d]) - stats[tt]) *
+                       stats[TT + tt];
+      sg += dxs[tt * LDX + d] * xh;
+      sb += dxs[tt * LDX + d];
+    }
+    P.part_ln[part * 2 * P.D + d] = sg;
+    P.part_ln[part * 2 * P.D + P.D + d] = sb;
+  }
+}
+
+// The SE gate of sequence b (one block) from the tile partials: msum =
+// max(sum mask, 1); pool = (sum over tiles of the partials of m p) / msum;
+// z1 = pool wf1 + bf1; g1 = swish(z1); g = sigmoid(g1 wf2 + bf2) -> gate.
+// Backward (part_dyp given): dgate = sum over tiles of the partials of dy
+// p; dz2 = dgate g (1 - g); dz1 = (dz2 wf2^T) swish'(z1); dpool = dz1
+// wf1^T -> dpool, msum, and pool, g1, dz1, dz2 for the SE weight gradients.
+// Shared memory: pool [D], dz2 [D], z1, g1, dz1 [r], msum.
+__global__ void __launch_bounds__(THREADS)
+    se_tiles_kernel(const float* __restrict__ part_mp,
+                    const float* __restrict__ part_dyp,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ wf1,
+                    const float* __restrict__ bf1,
+                    const float* __restrict__ wf2,
+                    const float* __restrict__ bf2, float* __restrict__ gate,
+                    float* __restrict__ dpool, float* __restrict__ msum_out,
+                    float* __restrict__ pool_out, float* __restrict__ g1_out,
+                    float* __restrict__ dz1_out, float* __restrict__ dz2_out,
+                    int tiles, int Tn, int D, int r) {
+  extern __shared__ float sm[];
+  float* pool = sm;
+  float* dz2 = pool + D;
+  float* z1 = dz2 + D;
+  float* g1 = z1 + r;
+  float* dz1 = g1 + r;
+  float* msum_s = dz1 + r;
+  const int b = blockIdx.x;
+  const float* mb = mask + (long long)b * Tn;
+  if (threadIdx.x < 32) {
+    float s = 0.f;
+    for (int t = threadIdx.x; t < Tn; t += 32) s += mb[t];
+    s = warp_sum(s);
+    if (threadIdx.x == 0) *msum_s = fmaxf(s, 1.f);
+  }
+  __syncthreads();
+  const float msum = *msum_s;
+  const long long pb = (long long)b * tiles * D;
+  for (int d = threadIdx.x; d < D; d += THREADS) {
+    float s = 0.f;
+    for (int i = 0; i < tiles; ++i) s += part_mp[pb + (long long)i * D + d];
+    pool[d] = s / msum;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < r; j += THREADS) {
+    float z = bf1[j];
+    for (int d = 0; d < D; ++d) z += pool[d] * wf1[d * r + j];
+    z1[j] = z;
+    g1[j] = z * sigmoid(z);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += THREADS) {
+    float z = bf2[d];
+    for (int j = 0; j < r; ++j) z += g1[j] * wf2[j * D + d];
+    const float g = sigmoid(z);
+    gate[(long long)b * D + d] = g;
+    if (part_dyp) {
+      float dg = 0.f;
+      for (int i = 0; i < tiles; ++i)
+        dg += part_dyp[pb + (long long)i * D + d];
+      dz2[d] = dg * g * (1.f - g);
+    }
+  }
+  if (!part_dyp) return;
+  __syncthreads();
+  for (int j = threadIdx.x; j < r; j += THREADS) {
+    float s = 0.f;
+    for (int d = 0; d < D; ++d) s += dz2[d] * wf2[j * D + d];
+    dz1[j] = s * dswish(z1[j], sigmoid(z1[j]));
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += THREADS) {
+    float s = 0.f;
+    for (int j = 0; j < r; ++j) s += dz1[j] * wf1[d * r + j];
+    const long long o = (long long)b * D + d;
+    dpool[o] = s;
+    pool_out[o] = pool[d];
+    dz2_out[o] = dz2[d];
+  }
+  for (int j = threadIdx.x; j < r; j += THREADS) {
+    g1_out[(long long)b * r + j] = g1[j];
+    dz1_out[(long long)b * r + j] = dz1[j];
+  }
+  if (threadIdx.x == 0) msum_out[b] = msum;
 }
 
 // ---------------------------------------------------------------------------
@@ -415,7 +1113,6 @@ __global__ void dc_kernel(float* __restrict__ ds, const float* __restrict__ c,
 // the sequence's end), du = da * swish'(u) in the compute type; the chunk's
 // sums of du (db1) and of a[t - (K - 1) + k] * dc[t] (dwdw[k]) into
 // db1_part / dwdw_part[chunk index]. K <= MAXK.
-constexpr int MAXK = 32;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -679,9 +1376,10 @@ bool shape_ok(const Shape& S) {
          time_chunks(S) <= 65535;
 }
 
+// The general path (see the top of this file): the chain of row kernels.
 template <typename T>
-cudaError_t forward(const Args& A, void* out, void* work, const Shape& S,
-                    cudaStream_t s) {
+cudaError_t chain_forward(const Args& A, void* out, void* work,
+                          const Shape& S, cudaStream_t s) {
   Carve c{(char*)work};
   const Work<T> w = carve<T>(S, 1, false, c);
   TRY(branch<T>(A, S, w, nullptr, s));
@@ -692,8 +1390,9 @@ cudaError_t forward(const Args& A, void* out, void* work, const Shape& S,
 }
 
 template <typename T>
-cudaError_t backward(const Args& A, const void* dy, void* dx, float* grads,
-                     void* work, const Shape& S, int splits, cudaStream_t s) {
+cudaError_t chain_backward(const Args& A, const void* dy, void* dx,
+                           float* grads, void* work, const Shape& S,
+                           int splits, cudaStream_t s) {
   Carve c{(char*)work};
   const Work<T> w = carve<T>(S, splits, true, c);
   const long long NE = (long long)S.N * S.E;
@@ -764,65 +1463,304 @@ cudaError_t backward(const Args& A, const void* dy, void* dx, float* grads,
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// Host side of the tiled kernels
+// ---------------------------------------------------------------------------
+
+// The plans conv_kernel.py chooses from, by index: m-tiles of the tile
+// (TT = 16 MTP rows), n8-tiles a warp of the TT x D accumulator (D <= 64
+// NTP), channels a chunk. Keep in step with conv_kernel._TILE_CONFIGS.
+struct Cfg {
+  int mtp, ntp, ec;
+};
+constexpr int NCFG = 2;
+inline Cfg cfg_of(bool bf16_, bool backward, int cfg) {
+  static const Cfg table[2][2][NCFG] = {
+      {{{4, 4, 32}, {1, 8, 16}}, {{2, 4, 16}, {1, 8, 16}}},   // f32
+      {{{4, 4, 64}, {1, 8, 32}}, {{4, 4, 32}, {1, 8, 32}}}};  // bf16
+  return table[bf16_][backward][cfg];
+}
+inline int tiles_of(const Shape& S, bool bf16_, bool backward, int cfg) {
+  const int TT = 16 * cfg_of(bf16_, backward, cfg).mtp;
+  return (S.Tn + TT - 1) / TT;
+}
+
+template <typename Kern>
+cudaError_t launch_tile(Kern kernel, size_t smem, const TileArgs& P,
+                        cudaStream_t s) {
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem));
+  kernel<<<dim3(P.tiles, P.B), THREADS, smem, s>>>(P);
+  return cudaGetLastError();
+}
+
+template <typename T, int MTP, int NTP, int EC>
+cudaError_t run_tile(const TileArgs& P, bool backward, cudaStream_t s) {
+  if (P.Dk > 64 * NTP || P.H > 32) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem<T, MTP, EC>(backward, P.Dk, P.H);
+  if (backward)
+    return launch_tile(bwd_tile_kernel<T, MTP, NTP, EC>, smem, P, s);
+  return launch_tile(fwd_tile_kernel<T, MTP, NTP, EC>, smem, P, s);
+}
+
+// The instantiation of each entry of cfg_of's table.
+template <typename T>
+cudaError_t tile_kernel(const TileArgs& P, bool backward, int cfg,
+                        cudaStream_t s) {
+  const int key = (int)backward * NCFG + cfg;
+  if constexpr (sizeof(T) == 2) {
+    switch (key) {
+      case 0: return run_tile<T, 4, 4, 64>(P, false, s);
+      case 1: return run_tile<T, 1, 8, 32>(P, false, s);
+      case NCFG + 0: return run_tile<T, 4, 4, 32>(P, true, s);
+      case NCFG + 1: return run_tile<T, 1, 8, 32>(P, true, s);
+    }
+  } else {
+    switch (key) {
+      case 0: return run_tile<T, 4, 4, 32>(P, false, s);
+      case 1: return run_tile<T, 1, 8, 16>(P, false, s);
+      case NCFG + 0: return run_tile<T, 2, 4, 16>(P, true, s);
+      case NCFG + 1: return run_tile<T, 1, 8, 16>(P, true, s);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+struct TiledWork {
+  float *p, *part_mp, *part_dyp, *gate, *dpool, *msum, *pool, *g1, *dz1,
+      *dz2;
+  T *xn, *dp, *s, *du;
+  float *part_ln, *part_e, *part_db2, *dw1_part, *dw2_part;
+};
+
+// tf, tb: the tiles of a sequence in the forward tile kernel and in the
+// backward one.
+template <typename T>
+TiledWork<T> carve_tiled(const Shape& S, int tf, int tb, int splits,
+                         bool backward, Carve& c) {
+  TiledWork<T> w{};
+  const long long ND = (long long)S.N * S.D, NE = (long long)S.N * S.E;
+  const long long BD = (long long)S.B * S.D;
+  w.part_mp = c.take<float>(BD * tf);
+  w.gate = c.take<float>(BD);
+  if (!backward) {
+    w.p = c.take<float>(ND);
+    return w;
+  }
+  w.part_dyp = c.take<float>(BD * tf);
+  w.dpool = c.take<float>(BD);
+  w.msum = c.take<float>(S.B);
+  w.pool = c.take<float>(BD);
+  w.g1 = c.take<float>((long long)S.B * S.r);
+  w.dz1 = c.take<float>((long long)S.B * S.r);
+  w.dz2 = c.take<float>(BD);
+  w.xn = c.take<T>(ND);
+  w.dp = c.take<T>(ND);
+  w.s = c.take<T>(NE);
+  w.du = c.take<T>(NE);
+  const long long parts = (long long)S.B * tb;
+  w.part_ln = c.take<float>(parts * 2 * S.D);
+  w.part_e = c.take<float>(parts * (S.E + (long long)S.K * S.E));
+  w.part_db2 = c.take<float>(parts * S.D);
+  w.dw1_part = c.take<float>((long long)splits * S.D * S.E);
+  w.dw2_part = c.take<float>((long long)splits * S.E * S.D);
+  return w;
+}
+
+template <typename T>
+TileArgs tile_args(const Args& A, const Shape& S, int tiles) {
+  constexpr int EPC = 16 / (int)sizeof(T);
+  TileArgs P{};
+  P.x = A.x, P.w1 = A.w1, P.w2 = A.w2;
+  P.mask = (const float*)A.mask, P.gamma = (const float*)A.gamma;
+  P.beta = (const float*)A.beta, P.b1 = (const float*)A.b1;
+  P.wdw = (const float*)A.wdw, P.b2 = (const float*)A.b2;
+  P.B = S.B, P.T = S.Tn, P.D = S.D, P.E = S.E, P.K = S.K;
+  P.Dk = (S.D + 15) / 16 * 16;
+  P.H = (S.K + 15) / 16 * 16;
+  P.tiles = tiles;
+  P.vec = S.D % EPC == 0 && S.E % EPC == 0 &&
+          reinterpret_cast<uintptr_t>(A.w1) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(A.w2) % 16 == 0;
+  return P;
+}
+
+size_t se_smem(const Shape& S) {
+  return (2 * (size_t)S.D + 3 * (size_t)S.r + 1) * 4;
+}
+
+template <typename T>
+cudaError_t tiled_forward(const Args& A, void* out, void* work,
+                          const Shape& S, int cfg, cudaStream_t s) {
+  const int tiles = tiles_of(S, sizeof(T) == 2, false, cfg);
+  Carve c{(char*)work};
+  const TiledWork<T> w = carve_tiled<T>(S, tiles, 0, 1, false, c);
+  TileArgs P = tile_args<T>(A, S, tiles);
+  P.p = w.p, P.part_mp = w.part_mp;
+  TRY(tile_kernel<T>(P, false, cfg, s));
+  TRY(allow_smem(se_tiles_kernel, se_smem(S)));
+  se_tiles_kernel<<<S.B, THREADS, se_smem(S), s>>>(
+      w.part_mp, nullptr, (const float*)A.mask, (const float*)A.wf1,
+      (const float*)A.bf1, (const float*)A.wf2, (const float*)A.bf2, w.gate,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, tiles, S.Tn, S.D,
+      S.r);
+  TRY(cudaGetLastError());
+  const long long ND = (long long)S.N * S.D;
+  apply_kernel<T><<<blocks_of(ND), THREADS, 0, s>>>(
+      w.p, w.gate, (const T*)A.x, (T*)out, ND, (long long)S.Tn * S.D, S.D);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t tiled_backward(const Args& A, const void* dy, void* dx,
+                           float* grads, void* work, const Shape& S,
+                           int splits, int cfg_f, int cfg_b, cudaStream_t s) {
+  const bool bf = sizeof(T) == 2;
+  const int tf = tiles_of(S, bf, false, cfg_f), tb = tiles_of(S, bf, true, cfg_b);
+  Carve c{(char*)work};
+  const TiledWork<T> w = carve_tiled<T>(S, tf, tb, splits, true, c);
+  // (1) p recomputed: the partials of sum m p and sum dy p
+  TileArgs P1 = tile_args<T>(A, S, tf);
+  P1.dy = dy, P1.part_mp = w.part_mp, P1.part_dyp = w.part_dyp;
+  TRY(tile_kernel<T>(P1, false, cfg_f, s));
+  // (2) the SE backward per sequence
+  TRY(allow_smem(se_tiles_kernel, se_smem(S)));
+  se_tiles_kernel<<<S.B, THREADS, se_smem(S), s>>>(
+      w.part_mp, w.part_dyp, (const float*)A.mask, (const float*)A.wf1,
+      (const float*)A.bf1, (const float*)A.wf2, (const float*)A.bf2, w.gate,
+      w.dpool, w.msum, w.pool, w.g1, w.dz1, w.dz2, tf, S.Tn, S.D, S.r);
+  TRY(cudaGetLastError());
+  // (3) the backward tile kernel
+  TileArgs P2 = tile_args<T>(A, S, tb);
+  P2.dy = dy, P2.gate = w.gate, P2.dpool = w.dpool, P2.msum = w.msum;
+  P2.dx = dx, P2.xn_g = w.xn, P2.dp_g = w.dp, P2.s_g = w.s, P2.du_g = w.du;
+  P2.part_ln = w.part_ln, P2.part_e = w.part_e, P2.part_db2 = w.part_db2;
+  TRY(tile_kernel<T>(P2, true, cfg_b, s));
+  // (4) the weight products, the SE weight gradients, the fixed-order sums;
+  // gradient layout: dgamma, dbeta [D], dw1 [D, E], db1 [E], dwdw [K, E],
+  // dw2 [E, D], db2 [D], dwf1 [D, r], dbf1 [r], dwf2 [r, D], dbf2 [D]
+  float* dln = grads;
+  float* dw1 = dln + 2 * S.D;
+  float* db1 = dw1 + (long long)S.D * S.E;  // dwdw follows db1
+  float* dw2 = db1 + S.E + (long long)S.K * S.E;
+  float* db2 = dw2 + (long long)S.E * S.D;
+  float* dwf1 = db2 + S.D;
+  float* dbf1 = dwf1 + (long long)S.D * S.r;
+  float* dwf2 = dbf1 + S.r;
+  float* dbf2 = dwf2 + (long long)S.r * S.D;
+  TRY(wgrad::product<T>(w.xn, w.du, w.dw1_part, S.N, S.D, S.E, splits, s));
+  TRY(wgrad::product<T>(w.s, w.dp, w.dw2_part, S.N, S.E, S.D, splits, s));
+  const int n_se = S.D * S.r * 2 + S.r + S.D;
+  se_wgrad_kernel<<<blocks_of(n_se), THREADS, 0, s>>>(
+      w.pool, w.g1, w.dz1, w.dz2, dwf1, dbf1, dwf2, dbf2, S.B, S.D, S.r);
+  TRY(cudaGetLastError());
+  const int parts = S.B * tb;
+  const struct {
+    const float* part;
+    float* out;
+    int parts;
+    long long n;
+  } sums[] = {
+      {w.part_ln, dln, parts, 2LL * S.D},
+      {w.dw1_part, dw1, splits, (long long)S.D * S.E},
+      {w.part_e, db1, parts, S.E + (long long)S.K * S.E},
+      {w.dw2_part, dw2, splits, (long long)S.E * S.D},
+      {w.part_db2, db2, parts, S.D},
+  };
+  for (const auto& r : sums)
+    TRY(wgrad::sum_parts(r.part, r.out, r.parts, r.n, s));
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of workspace the forward (backward = 0) or backward (1) needs, in
 // units of 256 bytes. dtype 0 = f32, 1 = bf16; splits: the row splits of
-// the backward's weight products.
+// the backward's weight products; cfg_f, cfg_b: the tile plans of the
+// forward and backward tile kernels (conv_kernel.tile_plan), -1 for the
+// general path.
 int ishara_conv_workspace(int B, int T, int D, int E, int K, int r,
-                          int dtype, int backward, int splits) {
+                          int dtype, int backward, int splits, int cfg_f,
+                          int cfg_b) {
   const Shape S{B, T, D, E, K, r, B * T};
   Carve c{nullptr};
-  if (dtype == 0)
+  const bool tiled = backward ? cfg_f >= 0 && cfg_b >= 0 : cfg_f >= 0;
+  if (tiled) {
+    const int tf = tiles_of(S, dtype == 1, false, cfg_f);
+    const int tb = backward ? tiles_of(S, dtype == 1, true, cfg_b) : 0;
+    if (dtype == 0)
+      carve_tiled<float>(S, tf, tb, splits, backward != 0, c);
+    else
+      carve_tiled<bf16>(S, tf, tb, splits, backward != 0, c);
+  } else if (dtype == 0) {
     carve<float>(S, splits, backward != 0, c);
-  else
+  } else {
     carve<bf16>(S, splits, backward != 0, c);
+  }
   return (int)(c.used / 256);
 }
 
+bool cfg_ok(int cfg) { return cfg >= -1 && cfg < NCFG; }
+
 // out [B, T, D] = x + SE(pw2(swish(dw(swish(pw1(LN(x))))))) in x's type.
 // Operand types as at the top of this file; workspace of
-// ishara_conv_workspace(.., 0, 1) * 256 bytes.
+// ishara_conv_workspace(.., 0, 1, cfg, -1) * 256 bytes; cfg -1 takes the
+// general path.
 int ishara_conv_fwd(int device, int dtype, const void* x, const void* mask,
                     const void* gamma, const void* beta, const void* w1,
                     const void* b1, const void* wdw, const void* w2,
                     const void* b2, const void* wf1, const void* bf1,
                     const void* wf2, const void* bf2, void* out, void* work,
-                    int B, int T, int D, int E, int K, int r, void* stream) {
+                    int B, int T, int D, int E, int K, int r, int cfg,
+                    void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Shape S{B, T, D, E, K, r, B * T};
-  if (!shape_ok(S) || dtype < 0 || dtype > 1)
+  if (!shape_ok(S) || dtype < 0 || dtype > 1 || !cfg_ok(cfg))
     return (int)cudaErrorInvalidValue;
   const Args A{x, mask, gamma, beta, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)forward<float>(A, out, work, S, s);
-  return (int)forward<bf16>(A, out, work, S, s);
+  if (cfg >= 0)
+    return dtype == 0 ? (int)tiled_forward<float>(A, out, work, S, cfg, s)
+                      : (int)tiled_forward<bf16>(A, out, work, S, cfg, s);
+  if (dtype == 0) return (int)chain_forward<float>(A, out, work, S, s);
+  return (int)chain_forward<bf16>(A, out, work, S, s);
 }
 
 // dx [B, T, D] in x's type and the eleven parameter gradients, f32, one
 // after the other in grads: dgamma, dbeta [D], dw1 [D, E], db1 [E],
 // dwdw [K, E], dw2 [E, D], db2 [D], dwf1 [D, r], dbf1 [r], dwf2 [r, D],
-// dbf2 [D]. Workspace of ishara_conv_workspace(.., 1, splits) * 256 bytes.
+// dbf2 [D]. Workspace of ishara_conv_workspace(.., 1, splits, cfg_f, cfg_b)
+// * 256 bytes; cfg_f = cfg_b = -1 takes the general path.
 int ishara_conv_bwd(int device, int dtype, const void* x, const void* mask,
                     const void* dy, const void* gamma, const void* beta,
                     const void* w1, const void* b1, const void* wdw,
                     const void* w2, const void* b2, const void* wf1,
                     const void* bf1, const void* wf2, const void* bf2,
                     void* dx, void* grads, void* work, int B, int T, int D,
-                    int E, int K, int r, int splits, void* stream) {
+                    int E, int K, int r, int splits, int cfg_f, int cfg_b,
+                    void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Shape S{B, T, D, E, K, r, B * T};
-  if (!shape_ok(S) || splits < 1 || dtype < 0 || dtype > 1)
+  if (!shape_ok(S) || splits < 1 || dtype < 0 || dtype > 1 ||
+      !cfg_ok(cfg_f) || !cfg_ok(cfg_b) || (cfg_f < 0) != (cfg_b < 0))
     return (int)cudaErrorInvalidValue;
   const Args A{x, mask, gamma, beta, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* g = (float*)grads;
+  if (cfg_f >= 0)
+    return dtype == 0 ? (int)tiled_backward<float>(A, dy, dx, g, work, S,
+                                                   splits, cfg_f, cfg_b, s)
+                      : (int)tiled_backward<bf16>(A, dy, dx, g, work, S,
+                                                  splits, cfg_f, cfg_b, s);
   if (dtype == 0)
-    return (int)backward<float>(A, dy, dx, (float*)grads, work, S, splits, s);
-  return (int)backward<bf16>(A, dy, dx, (float*)grads, work, S, splits, s);
+    return (int)chain_backward<float>(A, dy, dx, g, work, S, splits, s);
+  return (int)chain_backward<bf16>(A, dy, dx, g, work, S, splits, s);
 }
 
 const char* ishara_error_string(int code) {

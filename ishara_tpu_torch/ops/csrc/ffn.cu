@@ -19,136 +19,104 @@
 // row * K + column.
 //
 // Two sets of kernels. bf16 at widths that are multiples of 128 -- every
-// preset's training geometry -- takes the tensor cores (wmma 16x16x16); f32,
-// and bf16 at any other width, takes the general kernels further down, the
-// same three steps with the row products as f32 FMAs on the CUDA cores (the
-// weight products take wgrad.cuh's kernels by its own rule).
+// preset's training geometry -- takes the tensor cores (mma.sync m16n8k16);
+// f32, and bf16 at any other width or where shared memory is short, takes
+// the general kernels further down, the same three steps with the row
+// products as f32 FMAs on the CUDA cores (the weight products take
+// wgrad.cuh's kernels by its own rule).
 //
-// Design of the tensor-core set. A block of 8 warps owns 32 rows. Forward:
-// the x tile and then the 32 x M hidden stay in shared memory between the two
-// products; the weights
-// (K * M bf16 each, resident in L2) are read as wmma fragments straight from
-// global memory; every accumulator tile passes through a per-warp f32 staging
-// tile so that the epilogue knows each value's (row, column) for its bias and
-// its mask. Backward, three steps: (1) a row kernel recomputes h and computes
-// g . w2^T tile by tile in the same pass, so neither is ever held at f32 for
-// the whole tile; it writes dx, and leaves bf16 d = a * keep1', dh and g in
-// global scratch with the per-block column sums for db1 and db2; (2) the
-// weight products of wgrad.cuh form dw2 = d^T . g and dw1 = x^T . dh as split
-// sums over row ranges, each block keeping its accumulators in registers for
-// its whole range; (3) the partial sums are added in a fixed order. No
-// atomics: every gradient is the same from run to run.
+// Design of the tensor-core set. A block of 8 warps owns 64 rows (a warp a
+// 32 x 32 patch of each 64 x 128 product tile). Forward: the x tile and
+// then the 64 x M hidden stay in shared memory between the two products;
+// the weights stream as [64][128] k-tiles through a 3-stage cp.async ring,
+// one pipeline over the W1 tiles of every hidden chunk and then the W2 tiles
+// of every output chunk, so each weight byte read from L2 serves 64 rows;
+// the epilogues work on the accumulator registers: bias, swish, the Philox
+// keep words (one block of 4 words a (row, 4 columns), computed by one lane
+// of a pair and traded by a shuffle, as attention_tc.cuh does for K3) and
+// the residual. Backward, three steps: (1) a row kernel of the same
+// structure recomputes h = x . w1 and dd = g . w2^T chunk by chunk in one
+// pipeline (a double-buffered stage holds a W1 k-tile and a W2^T tile), so
+// neither is held at f32 for the whole row tile; it writes dx = dh . w1^T, and leaves bf16
+// d = a * keep1', dh and g in global scratch with fixed-order column sums
+// for db1 and db2, one partial row for each 32 rows; (2) the weight products
+// of wgrad.cuh form dw2 = d^T . g and dw1 = x^T . dh as split sums over row
+// ranges; (3) the partial sums are added in a fixed order. No atomics: every
+// gradient is the same from run to run. Launches: 1 forward; 1 + 2 + 4
+// backward.
 //
-// Bound: operations on paper (12 N K M for forward and backward together,
-// 71 GFLOP at N 45056, K 256, M 512, against 115 MB of x, res, dy, out, dx),
-// but this first version is bound by how it feeds the tensor cores: fragments
-// loaded from L2 and shared memory with no asynchronous copies, and the
-// backward's hidden-sized scratch (3 bf16 tensors written and read once).
+// Bound: operations (12 N K M for forward and backward together, 71 GFLOP
+// at N 45056, K 256, M 512, against 115 MB of x, res, dy, out, dx); the
+// backward's scratch (d, dh and g in bf16, ~115 MB written and read once)
+// is what the split into a row kernel and weight products costs.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
+#include "mma.cuh"
 #include "philox.cuh"
 #include "wgrad.cuh"
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-constexpr int R = 32;      // rows a block owns
+constexpr int R = 64;      // rows a block owns
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int PAD = 8;     // bf16 elements of padding per shared-memory row
+constexpr int NCH = 128;   // columns of a product tile
+constexpr int KT = 64;     // depth of a streamed weight tile
+constexpr int KN_LD = NCH + PAD;   // a [KT][NCH] tile's row stride
+constexpr int NK_LD = KT + PAD;    // a [NCH][KT] tile's row stride
+constexpr int KN_TILE = KT * KN_LD, NK_TILE = NCH * NK_LD;
+// Pipeline stages (64-deep tiles with a stage fewer ran 10-15% faster than
+// 32-deep ones on the H100).
+constexpr int FWD_STAGES = 3, BWD_STAGES = 2;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc[rt][ct] += A[rt * 16 .., :] . Bm[:, col0 + ct * 16 ..] over kdim, for
-// the two row tiles of a block's 32 rows. A is row-major in shared memory.
-// Bm is in global memory: row-major [kdim, ldb] when !B_T, or given as its
-// transpose, row-major [columns, ldb], when B_T.
-template <int CT, bool B_T>
-__device__ __forceinline__ void warp_product(FragC (&acc)[2][CT], const bf16* A,
-                                             int lda, const bf16* Bm, int ldb,
-                                             int col0, int kdim) {
-  for (int k0 = 0; k0 < kdim; k0 += 16) {
-    FragA a0, a1;
-    wmma::load_matrix_sync(a0, A + k0, lda);
-    wmma::load_matrix_sync(a1, A + 16 * lda + k0, lda);
-#pragma unroll
-    for (int ct = 0; ct < CT; ++ct) {
-      if constexpr (B_T) {
-        FragBt b;
-        wmma::load_matrix_sync(b, Bm + (size_t)(col0 + ct * 16) * ldb + k0,
-                               ldb);
-        wmma::mma_sync(acc[0][ct], a0, b, acc[0][ct]);
-        wmma::mma_sync(acc[1][ct], a1, b, acc[1][ct]);
-      } else {
-        FragB b;
-        wmma::load_matrix_sync(b, Bm + (size_t)k0 * ldb + col0 + ct * 16, ldb);
-        wmma::mma_sync(acc[0][ct], a0, b, acc[0][ct]);
-        wmma::mma_sync(acc[1][ct], a1, b, acc[1][ct]);
-      }
-    }
-  }
-}
-
-template <int CT>
-__device__ __forceinline__ void zero(FragC (&acc)[2][CT]) {
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int ct = 0; ct < CT; ++ct) wmma::fill_fragment(acc[rt][ct], 0.f);
-}
-
-// keep'[0..7] for the 8 consecutive elements from flat index idx (a multiple
-// of 4); all 1 when threshold is 0 (no dropout).
-__device__ __forceinline__ void keep8(uint32_t seed, uint64_t idx,
-                                      uint32_t threshold, float scale,
-                                      float* keep) {
+// keep' for the accumulator elements of rows r and r + 8, columns c, c + 1
+// (c = ... + 2t, so c and c + 1 share a Philox block): flat index row * ld
+// + column, ld % 4 == 0. Lane t & 1 == 0 computes the block of row r, its
+// partner that of row r + 8; each sends the two words the other needs.
+// All 1 when threshold is 0 (no dropout).
+__device__ __forceinline__ void keep_pair(uint32_t seed, uint64_t r, int c,
+                                          uint64_t ld, uint32_t threshold,
+                                          float scale, float kp[4]) {
   if (threshold == 0u) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) keep[j] = 1.f;
+    kp[0] = kp[1] = kp[2] = kp[3] = 1.f;
     return;
   }
-  philox::keep4(seed, idx, threshold, scale, keep);
-  philox::keep4(seed, idx + 4, threshold, scale, keep + 4);
-}
-
-__device__ __forceinline__ void store8(bf16* dst, const float* v) {
-  __align__(16) bf16 o[8];
+  const int odd = threadIdx.x & 1;  // t & 1, t = lane % 4
+  const uint64_t idx = (r + (odd ? 8 : 0)) * ld + (uint64_t)(c & ~3);
+  const uint4 w = philox::block(seed, idx >> 2);
+  const uint32_t s0 = odd ? w.x : w.z, s1 = odd ? w.y : w.w;
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+  const uint32_t k[4] = {odd ? r0 : w.x, odd ? r1 : w.y, odd ? w.z : r0,
+                         odd ? w.w : r1};
 #pragma unroll
-  for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16_rn(v[j]);
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+  for (int e = 0; e < 4; ++e) kp[e] = k[e] >= threshold ? scale : 0.f;
 }
 
-__device__ __forceinline__ void load8(const bf16* src, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const bf16* p = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(p[j]);
+// The fast exponential and division (within a few ulp of f32), as in
+// conv_module.cu: with the IEEE forms the epilogue's swish costs about as
+// much as the products.
+__device__ __forceinline__ float sigmoid(float h) {
+  return __fdividef(1.f, 1.f + __expf(-h));
 }
 
-// rows [row0, row0 + R) of src [.., K] -> dst [R][K + PAD], 16 bytes a copy.
+// rows [row0, row0 + R) of src [.., K] -> dst [R][K + PAD], by cp.async.
 __device__ __forceinline__ void load_rows(const bf16* src, bf16* dst, int row0,
                                           int K) {
-  const int per_row = K / 8;
-  for (int c = threadIdx.x; c < R * per_row; c += THREADS) {
-    const int r = c / per_row, k8 = c - r * per_row;
-    *reinterpret_cast<uint4*>(dst + r * (K + PAD) + k8 * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * K + k8 * 8);
-  }
+  tc::load_tile<bf16>(dst, K + PAD, src + (size_t)row0 * K, K, R, K, R, K,
+                      true, threadIdx.x, THREADS);
 }
 
-// Shared memory: xs [R][K + PAD] bf16 | hs [R][M + PAD] bf16 |
-// stage [WARPS][256] f32.
+// Forward. Shared memory: xs [R][K + PAD] | hs [R][M + PAD] | ring
+// [STAGES][KT][KN_LD], all bf16. Pipeline step i < n1 = (M / NCH) (K / KT):
+// W1 tile (k-tile i % (K / KT), hidden chunk i / (K / KT)); then step n1 + i
+// is W2 tile (k-tile i % (M / KT), output chunk i / (M / KT)).
 __global__ void __launch_bounds__(THREADS)
 ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
                const bf16* __restrict__ w1, const float* __restrict__ b1,
@@ -158,72 +126,96 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int ldx = K + PAD, ldh = M + PAD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;  // rows 32 wm.., columns 32 wn..
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);
   bf16* hs = xs + R * ldx;
-  float* stage = reinterpret_cast<float*>(hs + R * ldh) + warp * 256;
+  bf16* ring = hs + R * ldh;
   const int row0 = blockIdx.x * R;
   const uint32_t seed1 = (uint32_t)seeds[0], seed2 = (uint32_t)seeds[1];
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
+  const int kt1 = K / KT, kt2 = M / KT;
+  const int n1 = (M / NCH) * kt1, n = n1 + (K / NCH) * kt2;
 
+  auto issue = [&](int i) {
+    bf16* dst = ring + (i % FWD_STAGES) * KN_TILE;
+    if (i < n1)
+      tc::load_tile<bf16>(dst, KN_LD, w1 + (size_t)(i % kt1) * KT * M +
+                          (i / kt1) * NCH, M, KT, NCH, KT, NCH, true,
+                          threadIdx.x, THREADS);
+    else
+      tc::load_tile<bf16>(dst, KN_LD, w2 + (size_t)((i - n1) % kt2) * KT * K
+                          + ((i - n1) / kt2) * NCH, K, KT, NCH, KT, NCH,
+                          true, threadIdx.x, THREADS);
+  };
   load_rows(x, xs, row0, K);
-  __syncthreads();
-
-  // hidden = swish(x . w1 + b1) * keep1', rounded to bf16
-  for (int ct0 = warp * 4; ct0 < M / 16; ct0 += WARPS * 4) {
-    FragC acc[2][4];
-    zero(acc);
-    warp_product<4, false>(acc, xs, ldx, w1, M, ct0 * 16, K);
 #pragma unroll
-    for (int rt = 0; rt < 2; ++rt) {
-#pragma unroll
-      for (int ct = 0; ct < 4; ++ct) {
-        wmma::store_matrix_sync(stage, acc[rt][ct], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int lr = rt * 16 + r, gc = (ct0 + ct) * 16 + c8;
-        float keep[8], a[8];
-        keep8(seed1, (uint64_t)(row0 + lr) * M + gc, thr1, sc1, keep);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float h = stage[r * 16 + c8 + j] + b1[gc + j];
-          const float sig = 1.f / (1.f + expf(-h));
-          a[j] = __fmul_rn(__fmul_rn(h, sig), keep[j]);
-        }
-        store8(hs + lr * ldh + gc, a);
-        __syncwarp();
-      }
-    }
+  for (int i = 0; i < FWD_STAGES - 1; ++i) {
+    if (i < n) issue(i);
+    tc::cp_async_commit();
   }
-  __syncthreads();
-
-  // out = res + (hidden . w2 + b2) * keep2'
-  for (int ct0 = warp * 2; ct0 < K / 16; ct0 += WARPS * 2) {
-    FragC acc[2][2];
-    zero(acc);
-    warp_product<2, false>(acc, hs, ldh, w2, K, ct0 * 16, M);
+  float acc[2][4][4];
+  tc::zero_acc(acc);
+  for (int i = 0; i < n; ++i) {
+    tc::cp_async_wait<FWD_STAGES - 2>();
+    __syncthreads();
+    if (i + FWD_STAGES - 1 < n) issue(i + FWD_STAGES - 1);
+    tc::cp_async_commit();
+    const bf16* Bt = ring + (i % FWD_STAGES) * KN_TILE + wn * 32;
+    const bool first = i < n1;
+    const int kt = first ? i % kt1 : (i - n1) % kt2;
+    const bf16* A = (first ? xs + wm * 32 * ldx : hs + wm * 32 * ldh) +
+                    kt * KT;
+    tc::warp_mma<2, 4, false, true>(acc, A, first ? ldx : ldh, 16, Bt, KN_LD,
+                                    KT);
+    if (kt + 1 < (first ? kt1 : kt2)) continue;
+    // the chunk is done: epilogue on the accumulators
+    const int col0 = (first ? i / kt1 : (i - n1) / kt2) * NCH + wn * 32;
 #pragma unroll
-    for (int rt = 0; rt < 2; ++rt) {
+    for (int a = 0; a < 2; ++a) {
+      const int r = wm * 32 + a * 16 + g;
 #pragma unroll
-      for (int ct = 0; ct < 2; ++ct) {
-        wmma::store_matrix_sync(stage, acc[rt][ct], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int gr = row0 + rt * 16 + r, gc = (ct0 + ct) * 16 + c8;
-        float keep[8], rv[8], o[8];
-        keep8(seed2, (uint64_t)gr * K + gc, thr2, sc2, keep);
-        load8(res + (size_t)gr * K + gc, rv);
+      for (int j = 0; j < 4; ++j) {
+        const int c = col0 + j * 8 + 2 * t;
+        float kp[4];
+        if (first) {
+          keep_pair(seed1, (uint64_t)(row0 + r), c, M, thr1, sc1, kp);
+          float v[4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float y = stage[r * 16 + c8 + j] + b2[gc + j];
-          o[j] = __fadd_rn(rv[j], __fmul_rn(y, keep[j]));
+          for (int e = 0; e < 4; ++e) {
+            const float h = acc[a][j][e] + b1[c + (e & 1)];
+            v[e] = __fmul_rn(__fmul_rn(h, sigmoid(h)), kp[e]);
+          }
+          *reinterpret_cast<uint32_t*>(hs + r * ldh + c) =
+              tc::pack_bf16(v[0], v[1]);
+          *reinterpret_cast<uint32_t*>(hs + (r + 8) * ldh + c) =
+              tc::pack_bf16(v[2], v[3]);
+        } else {
+          keep_pair(seed2, (uint64_t)(row0 + r), c, K, thr2, sc2, kp);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const size_t at = (size_t)(row0 + r + 8 * h) * K + c;
+            const __nv_bfloat162 rv =
+                *reinterpret_cast<const __nv_bfloat162*>(res + at);
+            const float y0 = acc[a][j][2 * h] + b2[c];
+            const float y1 = acc[a][j][2 * h + 1] + b2[c + 1];
+            *reinterpret_cast<uint32_t*>(out + at) = tc::pack_bf16(
+                __fadd_rn(__low2float(rv), __fmul_rn(y0, kp[2 * h])),
+                __fadd_rn(__high2float(rv), __fmul_rn(y1, kp[2 * h + 1])));
+          }
         }
-        store8(out + (size_t)gr * K + gc, o);
-        __syncwarp();
       }
     }
+    tc::zero_acc(acc);
   }
 }
 
-// Backward, step 1. Shared memory: xs [R][K + PAD] | gs [R][K + PAD] |
-// dhs [R][M + PAD] (bf16) | stage [WARPS][2][256] f32.
+// Backward, step 1. Shared memory: xs [R][K + PAD] | gs [R][K + PAD] | dhs
+// [R][M + PAD] | ring [STAGES][KN_TILE + NK_TILE], all bf16. Pipeline step
+// i < n1 = (M / NCH) (K / KT): the W1 tile [KT][NCH] (k-tile i % (K / KT),
+// hidden chunk i / (K / KT)) and the W2^T tile [NCH][KT] (W2's rows of that
+// chunk, columns of that k-tile); then step n1 + i is the W1^T tile
+// [NCH][KT] (W1's rows of output chunk i / (M / KT), columns of k-tile
+// i % (M / KT)).
 __global__ void __launch_bounds__(THREADS)
 ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                     const bf16* __restrict__ w1, const float* __restrict__ b1,
@@ -236,100 +228,162 @@ ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int ldx = K + PAD, ldh = M + PAD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);
   bf16* gs = xs + R * ldx;
   bf16* dhs = gs + R * ldx;
-  float* stage_h = reinterpret_cast<float*>(dhs + R * ldh) + warp * 512;
-  float* stage_d = stage_h + 256;
+  bf16* ring = dhs + R * ldh;
+  float* red = reinterpret_cast<float*>(ring);  // [4][K], the prologue only
   const int row0 = blockIdx.x * R;
   const uint32_t seed1 = (uint32_t)seeds[0], seed2 = (uint32_t)seeds[1];
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
+  const int kt1 = K / KT, kt2 = M / KT;
+  const int n1 = (M / NCH) * kt1, n = n1 + (K / NCH) * kt2;
+  constexpr int STAGE = KN_TILE + NK_TILE;
 
-  load_rows(x, xs, row0, K);
-  // g = dy * keep2': a thread owns a column, so its sum over the rows (this
-  // block's share of db2) has a fixed order
-  for (int c = threadIdx.x; c < K; c += THREADS) {
-    float sum = 0.f;
-    for (int lr = 0; lr < R; ++lr) {
+  // g = dy * keep2' (f32, rounded to gs and g_g): a thread owns 4 columns
+  // of 16 rows; the column sums over each 32 rows (db2) in a fixed order
+  for (int q = threadIdx.x; q < (K / 4) * 4; q += THREADS) {
+    const int c = (q % (K / 4)) * 4, rg = q / (K / 4);
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int lr = rg * 16; lr < rg * 16 + 16; ++lr) {
       const size_t at = (size_t)(row0 + lr) * K + c;
-      float g = __bfloat162float(dy[at]);
-      if (thr2 != 0u)
-        g = __fmul_rn(g, philox::bits(seed2, (uint64_t)at) >= thr2 ? sc2 : 0.f);
-      sum += g;
-      const bf16 gb = __float2bfloat16_rn(g);
-      gs[lr * ldx + c] = gb;
-      g_g[at] = gb;
+      float kp[4] = {1.f, 1.f, 1.f, 1.f};
+      if (thr2) philox::keep4(seed2, (uint64_t)at, thr2, sc2, kp);
+      const uint2 raw = *reinterpret_cast<const uint2*>(dy + at);
+      const bf16* dv = reinterpret_cast<const bf16*>(&raw);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = __fmul_rn(__bfloat162float(dv[e]), kp[e]);
+        sum[e] += v[e];
+      }
+      const uint2 packed = make_uint2(tc::pack_bf16(v[0], v[1]),
+                                      tc::pack_bf16(v[2], v[3]));
+      *reinterpret_cast<uint2*>(gs + lr * ldx + c) = packed;
+      *reinterpret_cast<uint2*>(g_g + at) = packed;
     }
-    db2_part[(size_t)blockIdx.x * K + c] = sum;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[rg * K + c + e] = sum[e];
   }
+  load_rows(x, xs, row0, K);
   __syncthreads();
+  for (int c = threadIdx.x; c < K; c += THREADS) {
+    db2_part[(size_t)(2 * blockIdx.x) * K + c] = red[c] + red[K + c];
+    db2_part[(size_t)(2 * blockIdx.x + 1) * K + c] =
+        red[2 * K + c] + red[3 * K + c];
+  }
+  __syncthreads();  // red lives in the ring
 
-  // h = x . w1 + b1 and dd = g . w2^T, tile by tile in one pass
-  for (int ct0 = warp * 2; ct0 < M / 16; ct0 += WARPS * 2) {
-    FragC acc_h[2][2], acc_d[2][2];
-    zero(acc_h);
-    zero(acc_d);
-    warp_product<2, false>(acc_h, xs, ldx, w1, M, ct0 * 16, K);
-    warp_product<2, true>(acc_d, gs, ldx, w2, K, ct0 * 16, K);
+  auto issue = [&](int i) {
+    bf16* dst = ring + (i % BWD_STAGES) * STAGE;
+    if (i < n1) {
+      const int kt = i % kt1, ch = i / kt1;
+      tc::load_tile<bf16>(dst, KN_LD, w1 + (size_t)kt * KT * M + ch * NCH, M,
+                          KT, NCH, KT, NCH, true, threadIdx.x, THREADS);
+      tc::load_tile<bf16>(dst + KN_TILE, NK_LD,
+                          w2 + (size_t)ch * NCH * K + kt * KT, K, NCH, KT,
+                          NCH, KT, true, threadIdx.x, THREADS);
+    } else {
+      const int kt = (i - n1) % kt2, ch = (i - n1) / kt2;
+      tc::load_tile<bf16>(dst, NK_LD, w1 + (size_t)ch * NCH * M + kt * KT, M,
+                          NCH, KT, NCH, KT, true, threadIdx.x, THREADS);
+    }
+  };
 #pragma unroll
-    for (int ct = 0; ct < 2; ++ct) {
-      const int gc = (ct0 + ct) * 16 + c8;
-      float colsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int i = 0; i < BWD_STAGES - 1; ++i) {
+    if (i < n) issue(i);
+    tc::cp_async_commit();
+  }
+  float acc_h[2][4][4], acc_d[2][4][4];
+  tc::zero_acc(acc_h);
+  tc::zero_acc(acc_d);
+  for (int i = 0; i < n; ++i) {
+    tc::cp_async_wait<BWD_STAGES - 2>();
+    __syncthreads();
+    if (i + BWD_STAGES - 1 < n) issue(i + BWD_STAGES - 1);
+    tc::cp_async_commit();
+    const bf16* st = ring + (i % BWD_STAGES) * STAGE;
+    if (i >= n1) {
+      // dx = dh . w1^T
+      const int kt = (i - n1) % kt2;
+      tc::warp_mma<2, 4, false, false>(acc_h, dhs + wm * 32 * ldh + kt * KT,
+                                       ldh, 16, st + wn * 32 * NK_LD, NK_LD,
+                                       KT);
+      if (kt + 1 < kt2) continue;
+      const int col0 = ((i - n1) / kt2) * NCH + wn * 32;
 #pragma unroll
-      for (int rt = 0; rt < 2; ++rt) {
-        wmma::store_matrix_sync(stage_h, acc_h[rt][ct], 16,
-                                wmma::mem_row_major);
-        wmma::store_matrix_sync(stage_d, acc_d[rt][ct], 16,
-                                wmma::mem_row_major);
-        __syncwarp();
-        const int lr = rt * 16 + r;
-        const size_t at = (size_t)(row0 + lr) * M + gc;
-        float keep[8], d[8], dh[8];
-        keep8(seed1, (uint64_t)at, thr1, sc1, keep);
+      for (int a = 0; a < 2; ++a)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float h = stage_h[r * 16 + c8 + j] + b1[gc + j];
-          const float sig = 1.f / (1.f + expf(-h));
-          const float hs = __fmul_rn(h, sig);
-          d[j] = __fmul_rn(hs, keep[j]);
-          const float da = __fmul_rn(stage_d[r * 16 + c8 + j], keep[j]);
-          dh[j] = da * (sig + hs * (1.f - sig));
-          colsum[j] += dh[j];
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const size_t at =
+                (size_t)(row0 + wm * 32 + a * 16 + g + 8 * h) * K + col0 +
+                j * 8 + 2 * t;
+            *reinterpret_cast<uint32_t*>(dx + at) = tc::pack_bf16(
+                acc_h[a][j][2 * h], acc_h[a][j][2 * h + 1]);
+          }
+      tc::zero_acc(acc_h);
+      continue;
+    }
+    // h = x . w1 and dd = g . w2^T for one hidden chunk
+    const int kt = i % kt1;
+    tc::warp_mma<2, 4, false, true>(acc_h, xs + wm * 32 * ldx + kt * KT, ldx,
+                                    16, st + wn * 32, KN_LD, KT);
+    tc::warp_mma<2, 4, false, false>(acc_d, gs + wm * 32 * ldx + kt * KT,
+                                     ldx, 16, st + KN_TILE + wn * 32 * NK_LD,
+                                     NK_LD, KT);
+    if (kt + 1 < kt1) continue;
+    const int col0 = (i / kt1) * NCH + wn * 32;
+    float colsum[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) colsum[j][0] = colsum[j][1] = 0.f;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = wm * 32 + a * 16 + g;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = col0 + j * 8 + 2 * t;
+        float kp[4], d[4], dh[4];
+        keep_pair(seed1, (uint64_t)(row0 + r), c, M, thr1, sc1, kp);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float h = acc_h[a][j][e] + b1[c + (e & 1)];
+          const float sig = sigmoid(h);
+          const float hsw = __fmul_rn(h, sig);
+          d[e] = __fmul_rn(hsw, kp[e]);
+          const float da = __fmul_rn(acc_d[a][j][e], kp[e]);
+          dh[e] = da * (sig + hsw * (1.f - sig));
+          colsum[j][e & 1] += dh[e];
         }
-        store8(d_g + at, d);
-        store8(dh_g + at, dh);
-        store8(dhs + lr * ldh + gc, dh);
-        __syncwarp();
-      }
-      // this block's share of db1: the 16 rows a lane pair covers, summed
-      // across the warp in a fixed order
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v = colsum[j];
-#pragma unroll
-        for (int o = 2; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (lane < 2) db1_part[(size_t)blockIdx.x * M + gc + j] = v;
+        for (int h = 0; h < 2; ++h) {
+          const size_t at = (size_t)(row0 + r + 8 * h) * M + c;
+          *reinterpret_cast<uint32_t*>(d_g + at) =
+              tc::pack_bf16(d[2 * h], d[2 * h + 1]);
+          const uint32_t dhp = tc::pack_bf16(dh[2 * h], dh[2 * h + 1]);
+          *reinterpret_cast<uint32_t*>(dh_g + at) = dhp;
+          *reinterpret_cast<uint32_t*>(dhs + (r + 8 * h) * ldh + c) = dhp;
+        }
       }
     }
-  }
-  __syncthreads();
-
-  // dx = dh . w1^T
-  for (int ct0 = warp * 2; ct0 < K / 16; ct0 += WARPS * 2) {
-    FragC acc[2][2];
-    zero(acc);
-    warp_product<2, true>(acc, dhs, ldh, w1, M, ct0 * 16, M);
+    // the warp's 32 rows of db1: lanes of one t summed over g in a fixed
+    // order; one partial row for each (block, wm)
 #pragma unroll
-    for (int rt = 0; rt < 2; ++rt) {
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int ct = 0; ct < 2; ++ct) {
-        wmma::store_matrix_sync(stage_h, acc[rt][ct], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int gr = row0 + rt * 16 + r, gc = (ct0 + ct) * 16 + c8;
-        store8(dx + (size_t)gr * K + gc, stage_h + r * 16 + c8);
-        __syncwarp();
+      for (int e = 0; e < 2; ++e) {
+        float v = colsum[j][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (g == 0)
+          db1_part[(size_t)(2 * blockIdx.x + wm) * M + col0 + j * 8 + 2 * t +
+                   e] = v;
       }
-    }
+    tc::zero_acc(acc_h);
+    tc::zero_acc(acc_d);
   }
 }
 
@@ -538,12 +592,12 @@ ffn_bwd_rows_general_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 
 size_t fwd_smem(int K, int M) {
   return (size_t)R * (K + PAD) * 2 + (size_t)R * (M + PAD) * 2 +
-         (size_t)WARPS * 256 * 4;
+         (size_t)FWD_STAGES * KN_TILE * 2;
 }
 
 size_t bwd_smem(int K, int M) {
   return 2 * (size_t)R * (K + PAD) * 2 + (size_t)R * (M + PAD) * 2 +
-         (size_t)WARPS * 512 * 4;
+         (size_t)BWD_STAGES * (KN_TILE + NK_TILE) * 2;
 }
 
 size_t fwd_general_smem(int K, int M) { return (size_t)GR * (K + M) * 4; }
@@ -629,7 +683,7 @@ cudaError_t bwd_weights(const void* x, const void* d_g, const void* dh_g,
 extern "C" {
 
 // out [N, K] = res + drop2(drop1(swish(x . w1 + b1)) . w2 + b2). dtype 0 =
-// f32, 1 = bf16 (x, res, w1, w2, out). N must be a multiple of 32. seeds
+// f32, 1 = bf16 (x, res, w1, w2, out). N must be a multiple of 64. seeds
 // points at two int32 on the device; thr = uint32(rate * 2^32) (0: no
 // dropout), sc = 1 / (1 - rate).
 int ishara_ffn_fwd(int device, int dtype, const void* x, const void* res,
@@ -659,10 +713,11 @@ int ishara_ffn_fwd(int device, int dtype, const void* x, const void* res,
   return (int)cudaGetLastError();
 }
 
-// Rows a block of the backward's step 1 owns at this type and these widths:
-// the number of rows of db1_part and db2_part is N over this.
+// Rows that one partial row of the backward's step 1 sums over at this type
+// and these widths: the number of rows of db1_part and db2_part is N over
+// this.
 int ishara_ffn_bwd_rows(int dtype, int K, int M) {
-  return tensor_cores(dtype, K, M) ? R : GR;
+  return tensor_cores(dtype, K, M) ? R / 2 : GR;
 }
 
 // dx [N, K] and dw1 [K, M], db1 [M], dw2 [M, K], db2 [K] f32 from x, dy and
@@ -685,7 +740,7 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = ishara_ffn_bwd_rows(dtype, K, M);
-  if (rows == GR) {
+  if (!tensor_cores(dtype, K, M)) {
     if (dtype == 0)
       e = bwd_general<float>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
                              (float*)db1_part, (float*)db2_part, N, K, M, thr1,

@@ -3,12 +3,23 @@
 // conv_module.cu.
 //
 // dW = A^T . Bm summed over the rows of A [N, P] and Bm [N, Q] (row-major,
-// operands bf16 or f32, accumulation f32). The rows are cut into S splits of
-// 16-row steps; split s writes its partial part[s] [P, Q] f32, and
-// sum_parts adds part[0] + part[1] + ... in that order. No atomics, so a
-// gradient is the same from run to run. Two product kernels: wmma 16x16x16
-// tiles where the operands are bf16, P % 64 == 0, Q % 128 == 0 and
-// N % 16 == 0; f32 FMAs on the CUDA cores otherwise (any widths and rows).
+// operands bf16 or f32, accumulation f32). The rows are cut into S splits;
+// split s writes its partial part[s] [P, Q] f32, and sum_parts adds the
+// partials in a fixed order. No atomics, so a gradient is the same from run
+// to run.
+// Two product kernels:
+//
+// - bf16 with P and Q multiples of 8 (16-byte rows): a pipelined
+//   tensor-core product. A block of 8 warps owns a 128 x 128 tile of dW and
+//   one split, and walks its rows 32 at a time: each step's A and Bm rows
+//   ([32][128] each) come through a 4-stage cp.async ring in shared memory,
+//   so three steps are in flight while one is multiplied; both operands are
+//   read with ldmatrix.trans (A^T is the A operand, Bm's rows are k-major),
+//   and mma.sync m16n8k16 accumulates a 64 x 32 patch a warp in registers.
+//   Rows past N, and columns past P or Q, read as zeros. Splits: enough to
+//   give the card's 132 SMs two blocks each (the caller's choice of S).
+// - f32 FMAs on the CUDA cores otherwise (f32, or widths off the 8-grid).
+//
 // sum_parts also adds the per-block column sums of the bias and norm
 // gradients.
 
@@ -16,7 +27,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include "mma.cuh"
 
 // Internal linkage: every source that includes this header gets its own
 // copy, so no two of the port's libraries share a symbol.
@@ -39,39 +50,65 @@ __device__ __forceinline__ bf16 narrow<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// A block of 8 warps owns a 64 x 128 tile of the result and one split; warp
-// w owns its columns w * 16 .. and reads its fragments straight from global
-// memory.
+constexpr int TC_TILE = 128, TC_STEP = 32, TC_STAGES = 4;
+constexpr int TC_LD = TC_TILE + 8;  // row stride of a staged tile (bf16)
+constexpr size_t TC_SMEM = (size_t)TC_STAGES * 2 * TC_STEP * TC_LD * 2;
+
+// Split blockIdx.z of the rows, TC_STEP at a time, into dW[p0.., q0..].
 __global__ void __launch_bounds__(THREADS)
     product_tc_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
                       float* __restrict__ part, int N, int P, int Q,
                       int steps_per_split) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x >> 5;
-  const int p0 = blockIdx.x * 64, q0 = blockIdx.y * 128 + warp * 16;
-  const int steps = N / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [stage][A | B][32][LD]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp & 1, wn = warp >> 1;          // 64 rows, 32 columns
+  const int p0 = blockIdx.x * TC_TILE, q0 = blockIdx.y * TC_TILE;
+  const int steps = (N + TC_STEP - 1) / TC_STEP;
   const int s0 = blockIdx.z * steps_per_split;
-  const int s1 = min(steps, s0 + steps_per_split);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+  const int n_steps = max(0, min(steps, s0 + steps_per_split) - s0);
+  auto stage_a = [&](int st) { return ring + (size_t)st * 2 * TC_STEP * TC_LD; };
+  auto issue = [&](int i) {
+    const int r0 = (s0 + i) * TC_STEP, st = i % TC_STAGES;
+    const int rows = min(TC_STEP, N - r0);
+    tc::load_tile<bf16>(stage_a(st), TC_LD, A + (size_t)r0 * P + p0, P,
+                        TC_STEP, TC_TILE, rows, P - p0, true, threadIdx.x,
+                        THREADS);
+    tc::load_tile<bf16>(stage_a(st) + TC_STEP * TC_LD, TC_LD,
+                        Bm + (size_t)r0 * Q + q0, Q, TC_STEP, TC_TILE, rows,
+                        Q - q0, true, threadIdx.x, THREADS);
+  };
+  float acc[4][4][4];
+  tc::zero_acc(acc);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.f);
-  for (int s = s0; s < s1; ++s) {
-    const size_t r0 = (size_t)s * 16;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-    wmma::load_matrix_sync(b, Bm + r0 * Q + q0, Q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // A^T tile: element (p, row) sits at row * P + p
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, A + r0 * P + p0 + i * 16, P);
-      wmma::mma_sync(acc[i], a, b, acc[i]);
-    }
+  for (int i = 0; i < TC_STAGES - 1; ++i) {
+    if (i < n_steps) issue(i);
+    tc::cp_async_commit();
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    tc::cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();
+    if (i + TC_STAGES - 1 < n_steps) issue(i + TC_STAGES - 1);
+    tc::cp_async_commit();
+    const bf16* As = stage_a(i % TC_STAGES);
+    tc::warp_mma<4, 4, true, true>(acc, As + wm * 64, TC_LD, 0,
+                                   As + TC_STEP * TC_LD + wn * 32, TC_LD,
+                                   TC_STEP);
   }
   float* dst = part + (size_t)blockIdx.z * P * Q;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    wmma::store_matrix_sync(dst + (size_t)(p0 + i * 16) * Q + q0, acc[i], Q,
-                            wmma::mem_row_major);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + wm * 64 + i * 16 + g + 8 * h;
+        const int q = q0 + wn * 32 + j * 8 + 2 * t;
+        if (p >= P || q >= Q) continue;  // Q is even: q + 1 < Q too
+        *reinterpret_cast<float2*>(dst + (size_t)p * Q + q) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
 }
 
 // A block of 16 x 16 threads owns a 64 x 64 tile of the result and one
@@ -125,29 +162,63 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
-// out[i] = part[0][i] + part[1][i] + ... in that order.
-__global__ void sum_parts_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, int count,
-                                 long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// out[i] = the sum over p of part[p][i] in a fixed order: a block owns 32
+// columns; warp g sums the rows g, g + 8, g + 16, .. in that order, and the
+// eight warps' sums are added in the order g = 0 .. 7. Eight row streams in
+// flight a column keep the loads of a tall stack of partials (one for each
+// time tile of each sequence) from queueing one behind the other.
+constexpr int SUM_GROUPS = THREADS / 32;
+
+__global__ void __launch_bounds__(THREADS)
+    sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
+                     int count, long long n) {
+  __shared__ float red[SUM_GROUPS][33];
+  const int c = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const long long i = (long long)blockIdx.x * 32 + c;
   float s = 0.f;
-  for (int p = 0; p < count; ++p) s += part[p * n + i];
-  out[i] = s;
+  if (i < n) {
+#pragma unroll 8
+    for (int p = grp; p < count; p += SUM_GROUPS) s += part[p * n + i];
+  }
+  red[grp][c] = s;
+  __syncthreads();
+  if (grp == 0 && i < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int g = 0; g < SUM_GROUPS; ++g) t += red[g][c];
+    out[i] = t;
+  }
+}
+
+// Whether the tensor-core product takes these operands.
+template <typename T>
+inline bool product_on_tensor_cores(const T* A, const T* Bm, int P, int Q) {
+  return sizeof(T) == 2 && P % 8 == 0 && Q % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(Bm) % 16 == 0;
 }
 
 // part [S][P][Q] = the S row splits' shares of A^T . Bm.
 template <typename T>
 inline cudaError_t product(const T* A, const T* Bm, float* part, int N, int P,
                            int Q, int S, cudaStream_t s) {
-  const int per_split = ((N + 15) / 16 + S - 1) / S;
   if constexpr (sizeof(T) == 2) {
-    if (P % 64 == 0 && Q % 128 == 0 && N % 16 == 0) {
-      product_tc_kernel<<<dim3(P / 64, Q / 128, S), THREADS, 0, s>>>(
-          A, Bm, part, N, P, Q, per_split);
+    if (product_on_tensor_cores(A, Bm, P, Q)) {
+      const int per_split = ((N + TC_STEP - 1) / TC_STEP + S - 1) / S;
+      if (TC_SMEM > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            product_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)TC_SMEM);
+        if (e != cudaSuccess) return e;
+      }
+      product_tc_kernel<<<dim3((P + TC_TILE - 1) / TC_TILE,
+                               (Q + TC_TILE - 1) / TC_TILE, S),
+                          THREADS, TC_SMEM, s>>>(A, Bm, part, N, P, Q,
+                                                 per_split);
       return cudaGetLastError();
     }
   }
+  const int per_split = ((N + 15) / 16 + S - 1) / S;
   product_general_kernel<T>
       <<<dim3((P + 63) / 64, (Q + 63) / 64, S), THREADS, 0, s>>>(
           A, Bm, part, N, P, Q, per_split);
@@ -156,8 +227,8 @@ inline cudaError_t product(const T* A, const T* Bm, float* part, int N, int P,
 
 inline cudaError_t sum_parts(const float* part, float* out, int count,
                              long long n, cudaStream_t s) {
-  sum_parts_kernel<<<(int)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(
-      part, out, count, n);
+  sum_parts_kernel<<<(int)((n + 31) / 32), THREADS, 0, s>>>(part, out, count,
+                                                            n);
   return cudaGetLastError();
 }
 

@@ -31,8 +31,18 @@ import torch
 from . import _build
 from .dropout import keep_mask, threshold_of
 
-_ROWS = 32      # the most rows a block of csrc/ffn.cu owns
-_SPLIT_BLOCKS = 256   # blocks the weight-gradient products aim for
+_ROWS = 64      # the most rows a block of csrc/ffn.cu owns
+_SPLIT_BLOCKS = 264   # blocks the weight-gradient products aim for: 2 an SM
+_WGRAD_TILE, _WGRAD_STEP = 128, 32   # csrc/wgrad.cuh's output tile, row step
+
+
+def wgrad_splits(n: int, p: int, q: int) -> int:
+    """Row splits of ``csrc/wgrad.cuh``'s product ``A^T . B`` over ``n``
+    rows (``A`` ``[n, p]``, ``B`` ``[n, q]``): enough splits that the
+    ``128 x 128`` output tiles make about ``_SPLIT_BLOCKS`` blocks, and no
+    more than one split a 32-row step."""
+    tiles = -(-p // _WGRAD_TILE) * -(-q // _WGRAD_TILE)
+    return max(1, min(-(-n // _WGRAD_STEP), _SPLIT_BLOCKS // tiles))
 
 
 def _scaled_keep(seeds, which, shape, rate, keep, device):
@@ -157,8 +167,7 @@ def _launch_bwd(x2, dy2, w1, b1, w2, seeds, rate1, rate2):
     I = ctypes.c_int
     blocks = n_pad // _build.function("ffn", "ishara_ffn_bwd_rows",
                                       [I, I, I])(code, k, m)
-    tiles = -(-m // 64) * -(-k // 128)
-    splits = max(1, min(n_pad // 16, _SPLIT_BLOCKS // tiles))
+    splits = wgrad_splits(n_pad, k, m)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)

@@ -9,10 +9,9 @@ geometries the port drives on the H100 (``chip_smoke.py``'s train phases;
 the times are in ``PERF.md``):
 
 * the flagship training recipe ``(dim 256, T 176, batch 256)``:
-  ``train_attn = "flash"`` (and without dropout too) and
-  ``ffn_dropout_kernel = True``, so the step runs the attention and the
-  feed-forward kernels; ``conv_module_fused = False``: the conv-module
-  branch stays the composition there;
+  ``train_attn = "flash"`` (and without dropout too),
+  ``ffn_dropout_kernel = True`` and ``conv_module_fused = True``, so the
+  step runs the attention, the feed-forward and the conv-module kernels;
 * the long-sequence step ``(dim 256, T 512, batch 256)``:
   ``train_attn_nodrop = "flash_blocked"`` (the tiled attention kernel,
   :mod:`.attention_blocked`, the only training kernel beyond ``T = 384``)
@@ -21,8 +20,7 @@ the times are in ``PERF.md``):
   flagship's; beyond ``T = 384`` the layer sends ``"flash"`` to the
   composition, as the reference does, so the attention of training with
   dropout changes at no geometry. The conv-module branch has no dropout,
-  so it switches to its kernel wherever this row is the nearest (``T``
-  above ~300 at batch 256), with attention dropout on or off.
+  and both rows take its kernel.
 
 In both rows ``serve_attn = "einsum"``: the serving paths use the
 composition (their fused form is the block-stack kernel, chosen by the
@@ -44,8 +42,17 @@ dropout kernel on the weights):
   layer takes the composition): at T 384 ``"flash"`` 3.4453 against
   8.3464.
 
-The conv-module rows are still to be decided from measurements (ROADMAP.md
-Queue 2, the "selection table" paragraph).
+The conv-module and feed-forward rows were decided from the same script's
+times (``conv_module_kernel_rows``, ``ffn_selection_times``; NVIDIA H100
+80GB HBM3, 700 W, batch 256, dim 256, bf16, forward + backward ms):
+
+* ``conv_module_fused``: the kernel (time tiles with a halo) 3.4413 against
+  the composition's 3.9721 at T 176 -- True, flipped from False; 8.8953
+  against 9.6932 at T 512 -- True;
+* ``ffn_dropout_kernel`` (hidden 512, rates 0.4 / 0.4): the kernel 0.8889
+  against the composition's 0.5671 at T 176 and 2.3298 against 1.3423 at
+  T 512. The kernel still loses; both rows keep it until its re-port is
+  done (ROADMAP.md Queue 2: a row keeps the kernel until then).
 
 ``translation_decode_fused(dim, T)`` has its own table, one anchor, the
 translation model's reference geometry ``(dim 208, T 176)``: whether the
@@ -65,7 +72,7 @@ _ANCHORS: dict[tuple[int, int, int], dict] = {
         "train_attn_nodrop": "flash",
         "serve_attn": "einsum",
         "ffn_dropout_kernel": True,
-        "conv_module_fused": False,
+        "conv_module_fused": True,
     },
     (256, 512, 256): {
         "train_attn": "flash",

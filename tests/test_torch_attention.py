@@ -92,6 +92,84 @@ def test_heads_of_128_match_pallas_interpret():
                                    atol=g_tol, err_msg=name)
 
 
+def test_heads_of_320_match_pallas_interpret():
+    """One head of 320 -- wider than the card kernel's 256-wide tile, so it
+    runs there in 256-wide column chunks: the plain version against the
+    Pallas kernel in interpret mode (which holds the whole head in one
+    block) at rate 0, f32 (the module's f32 tolerances); the kernel takes
+    any head width."""
+    r = np.random.default_rng(6)
+    q, k, v, d_o = (r.standard_normal((2, 1, 32, 320)).astype(np.float32)
+                    for _ in range(4))
+    mask = r.random((2, 32)) > 0.25
+    mask[1] = False
+    scale = 320 ** -0.5
+    bias = j_mask_to_bias(jnp.asarray(mask))
+    want, vjp = jax.vjp(
+        lambda a, b, c: j_flash_mhsa(a, b, c, bias, scale=scale,
+                                     interpret=True),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want_g = vjp(jnp.asarray(d_o))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got = at.flash_mhsa(tq, tk, tv, at.mask_to_bias(torch.from_numpy(mask)),
+                        scale=scale)
+    got_g = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(d_o))
+    for dh in (320, 512, 1000):
+        assert at.kernel_takes(torch.bfloat16, 32, dh)
+        assert at.kernel_takes(torch.float32, 384, dh)
+    assert not at.kernel_takes(torch.float32, 32, 0)
+    f_tol, g_tol = TOL["float32"]
+    np.testing.assert_allclose(as_np(got), np.asarray(want), rtol=f_tol,
+                               atol=f_tol)
+    for a, b, name in zip(got_g, want_g, "qkv"):
+        np.testing.assert_allclose(as_np(a), np.asarray(b), rtol=g_tol,
+                                   atol=g_tol, err_msg=name)
+
+
+def test_mhsa_layer_with_a_head_of_320_takes_the_kernel(monkeypatch):
+    """An MHSA layer of one head of 320 in training, with the kernel paths
+    taken on the CPU: it goes through the attention wrapper (no raise for
+    the wide head) and matches the JAX layer on bridged weights at f32
+    (1e-4, the tolerance of the other MHSA paths)."""
+    from ishara_tpu.models import layers as jlayers
+    from ishara_tpu_torch.bridge import flax_to_state_dict
+    from ishara_tpu_torch.models import layers as tlayers
+    from torch_port_helpers import perturb
+
+    T, dim = 40, 320
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, T, dim)).astype(np.float32)
+    mask = rng.random((2, T)) > 0.2
+    dy = rng.standard_normal((2, T, dim)).astype(np.float32)
+    jm = jlayers.MultiHeadSelfAttention(dim, 1, dropout=0.0)
+    variables = perturb(jm.init(jax.random.key(0), jnp.asarray(x),
+                                jnp.asarray(mask)))
+    want, vjp = jax.vjp(
+        lambda a: jm.apply(variables, a, jnp.asarray(mask),
+                           deterministic=False), jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(dy))
+
+    calls = []
+    wrapper = at.flash_mhsa
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape)
+        return wrapper(*a, **kw)
+
+    monkeypatch.setattr(tlayers, "on_card", lambda x: True)
+    monkeypatch.setattr(tlayers.attention, "flash_mhsa", spy)
+    tm = tlayers.MultiHeadSelfAttention(dim, 1, dropout=0.0)
+    tm.load_state_dict(flax_to_state_dict(variables))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = tm(tx, torch.from_numpy(mask), training=True)
+    (got_dx,) = torch.autograd.grad(got, tx, torch.from_numpy(dy))
+    assert calls == [(2, 1, T, dim)]
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_matches_reference_mhsa_of_both_packages():
     q, k, v, mask, _ = case(1)
     bias = j_mask_to_bias(jnp.asarray(mask))

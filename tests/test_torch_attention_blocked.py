@@ -2,8 +2,8 @@
 whose plain versions run here on the CPU) against the JAX package's
 ``flash_mhsa_blocked(interpret=True)`` on the same numpy inputs: the
 forward's output and row logsumexp, and dq, dk, dv. T divisible by the
-blocks and not (padding), blocks of 64 and 128, heads of 12, 32, 64, 128
-and 256,
+blocks and not (padding), blocks of 16, 64 and 128, heads of 12, 32, 64,
+128, 256 and 320 (two column chunks on the card),
 partly masked keys and one sequence with every key masked (whose output is
 V averaged over all Tp keys, padded zeros included, as in the reference).
 f32: rtol = atol = 1e-5 on the output, 1e-5 of the largest entry on the
@@ -56,8 +56,9 @@ def as_np(t):
     (256, 128, 64, 128, "float32"),
     (200, 128, 128, 32, "bfloat16"),
     (200, 64, 64, 128, "bfloat16"),
-    (64, 64, 64, 256, "float32"),      # the widest head the card takes
+    (64, 64, 64, 256, "float32"),      # the widest head of one chunk
     (100, 64, 64, 12, "float32"),      # not a multiple of 8
+    (48, 16, 16, 320, "float32"),      # two 256-wide chunks on the card
 ])
 def test_forward_and_grads_match_pallas_interpret(T, bq, bk, Dh, dtype):
     q, k, v, mask, d_o = case(T, Dh)

@@ -155,8 +155,8 @@ def test_fused_module_reaches_the_wrapper_and_never_the_composition(
     """With the kernel paths taken (as on a CUDA tensor), ``fused=True``
     in training calls the wrapper once with the module's parameters and
     runs none of the composition's layers; output and input gradient match
-    the JAX module (2e-5 / 2e-4). ``fused=False``, ``fused=None`` at a
-    geometry whose row says False, and eval keep the composition."""
+    the JAX module (2e-5 / 2e-4). ``fused=False``, ``fused=None`` where
+    the table says False, and eval keep the composition."""
     jm, variables, tm, x, mask, dy = _modules(32, 15, seed=1)
     want, vjp = jax.vjp(lambda a: jm.apply(variables, a,
                                            mask=jnp.asarray(mask)),
@@ -187,8 +187,78 @@ def test_fused_module_reaches_the_wrapper_and_never_the_composition(
                                rtol=2e-4, atol=2e-4)
     with pytest.raises(AssertionError, match="composition"):
         tm(tx, torch.from_numpy(mask), training=False)
-    for fused in (False, None):         # (32, 20, 3): the flagship row
+    # every row of the table takes the kernel: None reads a table that says
+    # False here
+    monkeypatch.setattr(tlayers.selection, "conv_module_fused",
+                        lambda *a: False)
+    for fused in (False, None):
         tm.fused = fused
         with pytest.raises(AssertionError, match="composition"):
             tm(tx, torch.from_numpy(mask), training=True)
     assert calls == [(3, 20, 32)]
+
+
+# ---------------------------------------------------------------------------
+# The tile plan of csrc/conv_module.cu (which tile, halo, channel chunk and
+# shared memory each launch takes) and the row splits of the weight products
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T,D,K,dtype,backward,want", [
+    # the long step's geometry: 64-row tiles, a 16-row halo
+    (512, 256, 15, torch.bfloat16, False, (0, 64, 16, 64, 8)),
+    (512, 256, 15, torch.bfloat16, True, (0, 64, 16, 32, 8)),
+    # the flagship's T, a tile that T does not divide, T below the halo
+    (176, 256, 15, torch.bfloat16, True, (0, 64, 16, 32, 3)),
+    (13, 256, 15, torch.bfloat16, False, (0, 64, 16, 64, 1)),
+    (1, 64, 15, torch.bfloat16, True, (0, 64, 16, 32, 1)),
+    # the halo is K rounded up to 16: 31 taps 32 rows, 17 taps 32, 3 taps
+    # and one tap 16
+    (200, 256, 31, torch.bfloat16, True, (0, 64, 32, 32, 4)),
+    (200, 256, 17, torch.bfloat16, False, (0, 64, 32, 64, 4)),
+    (77, 48, 3, torch.bfloat16, False, (0, 64, 16, 64, 2)),
+    (40, 64, 1, torch.float32, False, (0, 64, 16, 32, 1)),
+    # f32 backward: 32-row tiles; with 31 taps shared memory takes 16 rows
+    (512, 256, 15, torch.float32, True, (0, 32, 16, 16, 16)),
+    (512, 256, 31, torch.float32, True, (1, 16, 32, 16, 32)),
+    # D above 256: 16-row tiles, the accumulator 512 wide
+    (512, 512, 15, torch.bfloat16, True, (1, 16, 16, 32, 32)),
+    (512, 144, 15, torch.bfloat16, True, (0, 64, 16, 32, 8)),
+])
+def test_tile_plan(T, D, K, dtype, backward, want):
+    plan = ck.tile_plan(T, D, K, dtype, backward)
+    got = tuple(plan[k] for k in ("config", "tile_rows", "halo", "chunk",
+                                  "tiles"))
+    assert got == want
+    assert plan["smem"] <= ck.SMEM_LIMIT
+    assert plan["tiles"] * plan["tile_rows"] >= T
+
+
+def test_tile_plan_shared_memory_and_the_general_path():
+    # bf16 forward at [*, 512, 256], K 15: xn 80 x 264 bf16, a 80 x 65 f32,
+    # s 64 x 72 bf16, the w1 chunk 256 x 72, the w2 chunk 64 x 264, the
+    # chunk's 32 x 64 f32 taps and 64 biases, each region rounded up to 128
+    # bytes
+    assert ck.tile_smem(torch.bfloat16, False, 4, 64, 256, 15) == \
+        42240 + 20864 + 9216 + 36864 + 33792 + 8192 + 256
+    assert ck.tile_plan(512, 256, 15, torch.bfloat16, True)["smem"] == 192384
+    # widths that no tile holds take the chain of row kernels, both ways in
+    # the backward when either plan is missing
+    assert ck.tile_plan(512, 768, 15, torch.bfloat16, False) is None
+    assert ck.tile_plan(512, 512, 15, torch.float32, True) is None
+    x = torch.zeros((2, 40, 512), dtype=torch.float32)
+    assert ck._configs(x, 15, False) == (1, -1)
+    assert ck._configs(x, 15, True) == (-1, -1)
+    x = torch.zeros((2, 40, 256), dtype=torch.bfloat16)
+    assert ck._configs(x, 15, True) == (0, 0)
+
+
+@pytest.mark.parametrize("n,p,q,want", [
+    (131072, 256, 512, 33),     # K7's dw1 / dw2 at the long step
+    (45056, 256, 512, 33),      # K4's at the flagship step
+    (40, 128, 256, 2),          # one split a 32-row step at most
+    (64, 4096, 4096, 1),        # more tiles than the target: one split
+])
+def test_weight_product_splits(n, p, q, want):
+    from ishara_tpu_torch.ops.ffn_kernel import wgrad_splits
+
+    assert wgrad_splits(n, p, q) == want == wgrad_splits(n, q, p)

@@ -275,10 +275,9 @@ def test_attention_kernel_refuses_what_it_cannot_take():
         at.flash_mhsa(q, q, q, torch.zeros((1, 385), device="cuda"))
     assert at.kernel_takes(torch.bfloat16, 384, 256)
     assert at.kernel_takes(torch.bfloat16, 176, 32)
-    assert not at.kernel_takes(torch.bfloat16, 176, 257)
-    q = torch.zeros((1, 1, 16, 257), device="cuda")
-    with pytest.raises(ValueError, match="up to 256"):
-        at.flash_mhsa(q, q, q, torch.zeros((1, 16), device="cuda"))
+    assert at.kernel_takes(torch.bfloat16, 176, 257)     # any head width
+    assert at.kernel_takes(torch.bfloat16, 176, 512)
+    assert not at.kernel_takes(torch.bfloat16, 176, 0)
     q = torch.zeros((1, 1, 8, 8), device="cuda")
     with pytest.raises(ValueError, match="bias"):
         at.flash_mhsa(q, q, q, torch.zeros((1, 4), device="cuda"))
@@ -294,10 +293,14 @@ def test_attention_kernel_refuses_what_it_cannot_take():
     # the general kernels: f32, and bf16 at widths off the 128 grid
     (torch.float32, 40, 128, 256), (torch.float32, 515, 256, 512),
     (torch.float32, 77, 20, 36), (torch.bfloat16, 96, 64, 128),
-    (torch.bfloat16, 33, 70, 100)])
+    (torch.bfloat16, 33, 70, 100),
+    # row counts off the 64-row tile, widths of 384 and 768 (tensor cores
+    # where shared memory holds the tile, the general kernels past that)
+    (torch.bfloat16, 100, 384, 384), (torch.bfloat16, 70, 256, 768),
+    (torch.bfloat16, 130, 768, 256), (torch.bfloat16, 64, 384, 768)])
 @pytest.mark.parametrize("rates", [(0.0, 0.0), (0.3, 0.2), (0.4, 0.0)])
 def test_ffn_kernels_match_plain(dtype, n, k, m, rates):
-    """Row counts that need padding to the 32-row tile, the narrowest
+    """Row counts that need padding to the 64-row tile, the narrowest
     widths of the tensor-core kernels, f32 and odd widths on the general
     ones; forward, all gradients, and the masks bit for bit."""
     _card()
@@ -337,6 +340,34 @@ def test_ffn_kernels_match_plain(dtype, n, k, m, rates):
     k1, k2 = fk.debug_masks(n, m, k, seeds, 0.3, 0.2)
     assert torch.equal(k1.bool(), keep_mask(seeds[0:1], (n, m), 0.3))
     assert torch.equal(k2.bool(), keep_mask(seeds[1:2], (n, k), 0.2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_backward_gives_the_same_bits_twice(dtype):
+    """No atomics: a second forward and backward of K4 (dropout on both
+    sites) on the same inputs equal the first bit for bit."""
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    n, k, m = 333, 256, 512
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((n, k), generator=g, device="cuda").to(dtype)
+    x.requires_grad_()
+    dy = torch.randn((n, k), generator=g, device="cuda").to(dtype)
+    params = [torch.randn(s, generator=g, device="cuda") * 0.1
+              for s in ((k, m), (m,), (m, k), (k,))]
+    for p in params:
+        p.requires_grad_()
+    seeds = torch.tensor([4, 5], dtype=torch.int32, device="cuda")
+
+    def run():
+        out = fk.ffn_residual(x, x, *params, seeds, 0.4, 0.4)
+        return (out, *torch.autograd.grad(out, [x] + params, dy))
+
+    first, second = run(), run()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -412,15 +443,60 @@ def test_blocked_attention_kernel_refuses_what_it_cannot_take():
     from ishara_tpu_torch.ops import attention_blocked as ab
 
     bias = torch.zeros((1, 16), device="cuda")
-    q = torch.zeros((1, 1, 16, 264), device="cuda")
-    with pytest.raises(ValueError, match="up to 256"):
-        ab.flash_mhsa_blocked(q, q, q, bias, 1.0)
     q = torch.zeros((1, 1, 16, 8), device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         ab.flash_mhsa_blocked(q, q, q, bias, 1.0)
     q = torch.zeros((1, 1, 16, 8), device="cuda")
     with pytest.raises(ValueError, match="bias"):
         ab.flash_mhsa_blocked(q, q, q, bias[:, :8], 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Dh", [257, 320, 512])
+@pytest.mark.parametrize("kernel,rate", [("flash_mhsa", 0.0),
+                                         ("flash_mhsa", 0.25),
+                                         ("flash_mhsa_blocked", 0.0)])
+def test_wide_head_attention_kernels_match_plain(kernel, rate, Dh, dtype,
+                                                 tol):
+    """K3 (with and without dropout) and K8 at heads wider than 256, which
+    run in 256-wide column chunks: forward, lse and dq, dk, dv against the
+    plain versions; a fully masked sequence; T not a multiple of 4."""
+    _card()
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import attention_blocked as ab
+
+    B, H, T = 2, 1, 45
+    g = torch.Generator(device="cuda").manual_seed(Dh)
+    qkv = torch.randn((B, T, H, 3 * Dh), generator=g, device="cuda").to(
+        dtype).requires_grad_()
+    d_o = torch.randn((B, H, T, Dh), generator=g, device="cuda").to(dtype)
+    mask = torch.rand((B, T), generator=g, device="cuda") > 0.2
+    mask[1] = False
+    bias = at.mask_to_bias(mask)
+    seed = torch.tensor([77], dtype=torch.int32, device="cuda")
+    scale = (H * Dh) ** -0.5
+    q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    if kernel == "flash_mhsa":
+        o = at.flash_mhsa(q, k, v, bias, seed, scale, rate)
+    else:
+        o = ab.flash_mhsa_blocked(q, k, v, bias, scale, 16, 16)
+    grads = torch.autograd.grad(o, (q, k, v), d_o)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        if kernel == "flash_mhsa":
+            ro, lse = at.mhsa_forward_plain(q, k, v, bias, seed, scale, rate)
+            rgrads = at.mhsa_backward_plain(q, k, v, bias, seed, ro, lse,
+                                            d_o, scale, rate)
+        else:
+            ro, lse = ab.blocked_attention_forward_plain(q, k, v, bias,
+                                                         scale, 16, 16)
+            rgrads = ab.blocked_attention_backward_plain(q, k, v, bias, ro,
+                                                         lse, d_o, scale)
+    _close(o, ro, tol)
+    for a, b in zip(grads, rgrads):
+        _close(a, b, tol)
 
 
 @pytest.mark.cuda
@@ -476,11 +552,20 @@ def _conv_case(B, T, D, E, K, r, dtype, g):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,T,D,E,K,r", [(3, 40, 64, 128, 15, 8),
                                          (2, 77, 48, 96, 3, 6),
-                                         (4, 130, 32, 64, 31, 4)])
+                                         (4, 130, 32, 64, 31, 4),
+                                         (1, 1, 64, 128, 15, 4),
+                                         (2, 13, 64, 128, 15, 4),
+                                         (2, 200, 256, 512, 15, 8),
+                                         (2, 50, 144, 288, 15, 8),
+                                         (2, 70, 256, 512, 31, 8),
+                                         (2, 40, 512, 256, 15, 8),
+                                         (2, 24, 768, 96, 3, 4)])
 def test_conv_module_kernels_match_plain(B, T, D, E, K, r, dtype, tol):
-    """K7: ragged and empty masks, time not a multiple of the 64-row chunks,
-    widths off the 64-wide product tiles, 3 to 31 taps; forward, dx and the
-    eleven parameter gradients, and the same gradients on a second run."""
+    """K7: ragged masks and an all-masked sequence, one sequence, T of 1
+    and 13 (shorter than the halo) and not a multiple of the time tile,
+    widths off the tensor-core grid (D 144, E 288), 3 to 31 taps, D 512
+    (16-row tiles) and 768 (the general path); forward, dx and the eleven
+    parameter gradients, and the same gradients on a second run."""
     _card()
     from ishara_tpu_torch.ops import conv_kernel as ck
 

@@ -23,7 +23,7 @@ def test_the_flagship_step_and_serving_keep_the_flagship_row():
     assert selection.train_attention(256, 176, True, 256) == "flash"
     assert selection.train_attention(256, 176, False, 256) == "flash"
     assert selection.ffn_fused_when_dropout(256, 176, 256)
-    assert not selection.conv_module_fused(256, 176, 256)
+    assert selection.conv_module_fused(256, 176, 256)
     assert selection.serve_attention(256, 176) == "einsum"
 
 
@@ -32,9 +32,11 @@ def test_the_long_sequence_step_resolves_to_the_long_row():
     assert selection.train_attention(256, 512, False, 256) == "flash_blocked"
     assert selection.conv_module_fused(256, 512, 256)
     assert selection.serve_attention(256, 512) == "einsum"
-    # the boundary at equal dim and batch: sqrt(176 * 512) ~ 300
-    assert not selection.conv_module_fused(256, 299, 256)
-    assert selection.conv_module_fused(256, 301, 256)
+    # the boundary at equal dim and batch: sqrt(176 * 512) ~ 300 (both rows
+    # take the conv-module kernel; the attention without dropout changes)
+    assert selection.train_attention(256, 299, False, 256) == "flash"
+    assert selection.train_attention(256, 301, False, 256) == "flash_blocked"
+    assert selection.conv_module_fused(256, 299, 256)
 
 
 @pytest.mark.parametrize("geometry", [FLAGSHIP, LONG, (64, 400, 4),
