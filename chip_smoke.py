@@ -2152,6 +2152,105 @@ def decode_work(d, L, C, T, W, steps):
     return nbytes, 2 * macs
 
 
+def decode_plan_row(dk, d, H, L, C, T, S, W):
+    """K9's plan at this geometry as the card takes it (the C side's, which
+    must equal ``decode_plan``'s): cluster, the blocks a head's columns are
+    split over, the largest block's resident and streamed weight bytes,
+    where the caches and the cross K / V live, and the exchanges a step
+    the plan expects (those that end a stage, the cluster's
+    synchronisations, and a split head's score exchanges)."""
+    import torch
+
+    got = dk.kernel_plan(torch.cuda.current_device(), d, H, L, C, T, S, W)
+    want = dk.decode_plan(d, H, L, C, T, S, W, cluster=got["cluster"])
+    for key in ("smem_bytes", "scratch_floats", "resident_bytes",
+                "streamed_bytes", "cache_smem", "cross_smem", "slots",
+                "slot_floats", "parts"):
+        if int(want[key]) != got[key]:
+            raise AssertionError(f"decode plan {key}: the kernel's "
+                                 f"{got[key]}, decode_plan's {want[key]}")
+    return dict(cluster=got["cluster"], parts=got["parts"],
+                resident_bytes_per_block=got["resident_bytes"],
+                streamed_bytes_per_block=got["streamed_bytes"],
+                caches_in_smem=bool(got["cache_smem"]),
+                cross_kv_in_smem=bool(got["cross_smem"]),
+                planned_exchanges_per_step=want["barriers_per_step"],
+                planned_score_exchanges_per_step=want[
+                    "score_exchanges_per_step"])
+
+
+def decode_check(dk, args, plan):
+    """One K9 decode (``dk._launch(*args)``) held against its plain version:
+    tokens and steps exactly, raw scores within SCORE_TOL, a second launch
+    bit-equal (tokens, scores, counts), and the kernel's own counts of its
+    exchanges equal to the plan's a step. Returns what was found."""
+    import torch
+
+    pack, cross, madd, d, H, L, C, S, W, beam = args[:10]
+    got, gscore, counts, cluster = dk._launch(*args)
+    again, ascore, acounts, _ = dk._launch(*args)
+    want, wscore, steps = dk.decode_plain(
+        pack, cross, madd, d=d, H=H, L=L, C=C, max_len=S, beam_width=W,
+        beam=beam)
+    err = float((gscore - wscore).abs().max())
+    steps_run, xch, sxch = counts.tolist()
+    tokens = torch.equal(got, want) and steps_run == steps
+    within = bool(((gscore - wscore).abs() <= SCORE_TOL[0]
+                   + SCORE_TOL[1] * wscore.abs()).all())
+    same = (torch.equal(again, got) and torch.equal(acounts, counts)
+            and torch.equal(ascore.view(torch.int32),
+                            gscore.view(torch.int32)))
+    counted = (xch == steps * plan["planned_exchanges_per_step"]
+               and sxch == steps * plan["planned_score_exchanges_per_step"])
+    return dict(ok=tokens and within and same and counted, tokens=tokens,
+                err=err, same=same, steps=steps, cluster=cluster,
+                exchanges_per_step=xch / max(1, steps_run),
+                score_exchanges_per_step=sxch / max(1, steps_run),
+                counted=counted, first_row=got[0, :12].tolist())
+
+
+def wide_decode_checks(smi):
+    """K9 at the geometries the first design refused: beam 8 and 12 at the
+    reference geometry (S 64; their caches in global memory), and heads
+    of 160 (dim 320, 2 heads, T 176; each head's columns over 8 blocks),
+    greedy and beam 4 -- through ``decode_check``; timed."""
+    import torch
+
+    from ishara_tpu_torch.models.seq2seq import ASLTranslationModel
+    from ishara_tpu_torch.ops import decoder_kernel as dk
+
+    T, S, C, EOS = TR["T"], TR["S"], TR["C"], TR["EOS"]
+    for dim, heads, W, beam in ((208, 8, 8, True), (208, 8, 12, True),
+                                (320, 2, 1, False), (320, 2, 4, True)):
+        m = ASLTranslationModel(num_classes=C, feature_dim=dim, num_layers=2,
+                                num_decoder_layers=2, num_heads=heads)
+        m = m.to(DEVICE)
+        randomize(m, seed=11)
+        g = torch.Generator().manual_seed(5)
+        memory = torch.randn((1, T, dim), generator=g).to(DEVICE)
+        mask = (torch.arange(T) < 150)[None].to(DEVICE)
+        pack = dk.pack_decoder(m)
+        pack[pack.numel() - C * dim - C + EOS] -= 1e4   # every step runs
+        args = (pack, dk.cross_pack(m, memory), dk.memory_add(mask, T, DEVICE),
+                dim, heads, 2, C, S, W, beam, 1, EOS, 0, 1e-6)
+        plan = decode_plan_row(dk, dim, heads, 2, C, T, S, W)
+        r = decode_check(dk, args, plan)
+        ms = time_ms(lambda: dk._launch(*args), runs=10)
+        log(f"kernel fused_{'beam' if beam else 'greedy'}_decode at dim "
+            f"{dim}, {heads} heads of {dim // heads}, beam width {W}: "
+            f"{r['steps']} steps, tokens equal the plain version's "
+            f"{r['tokens']}, score max_abs_err {r['err']:.3e}, two launches "
+            f"bit-equal {r['same']}, exchanges a step (counted) "
+            f"{r['exchanges_per_step']:g} + {r['score_exchanges_per_step']:g}"
+            f" as planned {r['counted']} {'PASS' if r['ok'] else 'FAIL'}; "
+            f"{ms:.4f} ms ({1e3 * ms / (S - 1):.2f} us a step); plan {plan}; "
+            f"on {smi}")
+        if not r["ok"]:
+            raise AssertionError(f"K9 at dim {dim}, {heads} heads, beam "
+                                 f"width {W} disagrees with its plain "
+                                 f"version or with itself")
+
+
 def translation_phase(smi):
     """K9 against its plain version and the translation engines, at the
     reference width. Returns (kernel rows, {wrapper: launches over the
@@ -2208,28 +2307,24 @@ def translation_phase(smi):
              dk.fused_greedy_decode, 298),
             ("fused_beam_decode", W, S, True, dk.fused_beam_decode, 580)):
         errs = []
+        plan = decode_plan_row(dk, d, H, L, C, T, S_, W_)
         for p_, what in ((pack, "the model's weights"),
                          (no_eos, "the eos logit held down")):
             args = (p_, cross, madd, d, H, L, C, S_, W_, beam, 1, EOS, 0,
                     1e-6)
-            got, gscore, gsteps, cluster = dk._launch(*args)
-            torch.cuda.synchronize()
-            want, wscore, steps = dk.decode_plain(
-                p_, cross, madd, d=d, H=H, L=L, C=C, max_len=S_,
-                beam_width=W_, beam=beam)
-            err = float((gscore - wscore).abs().max())
-            errs.append(err)
-            ok = (torch.equal(got, want) and int(gsteps) == steps
-                  and bool(((gscore - wscore).abs() <= SCORE_TOL[0]
-                            + SCORE_TOL[1] * wscore.abs()).all()))
-            log(f"kernel {name} ({what}): {steps} steps, cluster of "
-                f"{cluster} blocks; tokens equal the "
-                f"plain version's: {torch.equal(got, want)}; beam score "
-                f"max_abs_err {err:.3e} {'PASS' if ok else 'FAIL'}; first "
-                f"row {got[0, :12].tolist()}")
-            if not ok:
+            r = decode_check(dk, args, plan)
+            errs.append(r["err"])
+            log(f"kernel {name} ({what}): {r['steps']} steps, cluster of "
+                f"{r['cluster']} blocks; tokens equal the plain version's: "
+                f"{r['tokens']}; beam score max_abs_err {r['err']:.3e}; a "
+                f"second launch bit-equal: {r['same']}; exchanges a step "
+                f"(counted) {r['exchanges_per_step']:g} + "
+                f"{r['score_exchanges_per_step']:g} as planned "
+                f"{r['counted']} {'PASS' if r['ok'] else 'FAIL'}; first row "
+                f"{r['first_row']}")
+            if not r["ok"]:
                 raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version ({what})")
+                                     f"version or with itself ({what})")
         # times with every step run (the eos logit held down)
         ms = time_ms(lambda: dk._launch(*args), runs=30)
         plain_ms = time_ms(lambda: dk.decode_plain(
@@ -2260,14 +2355,19 @@ def translation_phase(smi):
             f"unfused KV-cached loop {loop_ms - enc_ms:.4f} ms ({loop_ms:.4f}"
             f" ms with its encoder, {enc_ms:.4f} ms); bound {bound_ms:.5f} "
             f"ms ({nbytes} bytes, {ops} operations, by {bound_by}); the "
-            f"same bytes re-read every step {reread_ms:.4f} ms; on {smi}")
+            f"same bytes re-read every step {reread_ms:.4f} ms; plan {plan}; "
+            f"on {smi}")
         rows.append(dict(
             name=name, route="cuda", source=CSRC + "decoder.cu",
             replaces=f"{DEC_REF}:{line}", launches=None,
             max_abs_err=max(errs),
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, unfused_loop_ms=loop_ms - enc_ms,
-            steps=S_ - 1, counter=wrapper))
+            steps=S_ - 1, us_per_step=1e3 * ms / (S_ - 1),
+            exchanges_per_step=r["exchanges_per_step"],
+            score_exchanges_per_step=r["score_exchanges_per_step"],
+            counter=wrapper))
+    wide_decode_checks(smi)
 
     # the engines: nine requests each; K9's launches counted around the
     # fused engines' runs

@@ -12,16 +12,22 @@ kernel's arithmetic step by step: the additive ``NEG`` masks, head-major
 ``[S, d]`` rows, two-pass LayerNorm, ``exp(s - max) / sum``, the first
 maximum, the stable top-W.
 
-The limit of the design is shared memory: every block of the cluster holds
-the activations, the attention scratch and the token state of all W beams
-(:func:`fused_decode_smem_bytes`), and that must fit one block's 227 KB;
-the weights adapt (each block keeps in shared memory what still fits and
-reads the rest from L2). :func:`fused_decode_fits` answers from that
-formula and the kernel's limits on W (at most 8, and at most C: -1e30
-stands for the dead beams' -inf) and on the head width (at most 128). The
-wrappers raise :class:`DecoderFitError` beyond them -- they never fall back
-to the unfused loop, as the reference's wrappers do; only an engine built
-with ``fused="auto"`` chooses, openly.
+The design (``csrc/decoder.cu``'s header; :func:`decode_plan` mirrors its
+plan): 3 L + 1 stages a step, each (layer, head) unit -- or, where the
+cluster has at least twice as many blocks as heads, each part of a head's
+columns -- and a slice of the FFN and of the classes on a block of the
+cluster, the stages joined by an exchange of partial sums in a fixed order
+(the same bits on every run).
+Shared memory holds a fixed layout (:func:`fused_decode_smem_bytes`), which
+must fit one block's 227 KB with the smallest staging ring; the rest adapts
+-- the self-attention caches and the cross-attention K / V stay in shared
+memory where they fit, else in global memory, and the weights a block
+cannot keep stream through the ring. :func:`fused_decode_fits` answers from
+that formula and the kernel's other limits: W at most C (-1e30 stands for
+the dead beams' -inf), whole heads, ``max_len`` >= 2; any beam width and
+head width within them. The wrappers raise :class:`DecoderFitError` beyond
+them -- they never fall back to the unfused loop, as the reference's
+wrappers do; only an engine built with ``fused="auto"`` chooses, openly.
 """
 
 from __future__ import annotations
@@ -36,8 +42,13 @@ from ..decode.autoregressive import length_normalised, top_w
 NEG = -1e30
 THREADS = 512            # threads a block of the kernel
 SMEM_PER_BLOCK = 232448   # bytes of shared memory a block may use (H100)
-MAX_BEAM = 8
-MAX_HEAD_DIM = 128
+SLOT_FLOATS = {True: 12288, False: 6144}   # a ring slot, greedy / beam
+SLOTS = 2                 # the ring's slots
+PIECE_INTS = 12           # ints a piece in the kernel's piece table
+# the products a block runs, in the order a step consumes them
+QKV, O, CQ, CO, F1, F2, CLS = range(7)
+KIND_NAMES = ("qkv", "out", "cross_q", "cross_out", "fc1", "fc2",
+              "classifier")
 
 
 class DecoderFitError(ValueError):
@@ -48,34 +59,243 @@ def _align4(w: int) -> int:
     return (w + 3) // 4 * 4
 
 
+def _ceil32(w: int) -> int:
+    return (w + 31) // 32 * 32
+
+
+def _rows_lo(n: int, r: int, cl: int) -> int:
+    return n * r // cl
+
+
+def _split(d, H, L, cl, pc):
+    """How the heads go over a cluster of ``cl`` blocks with each head's
+    columns split over ``pc`` blocks (``layout``): (unit slots a layer,
+    the most units a block, the most columns a part)."""
+    stride = cl if pc > 1 else H
+    return stride, -(-L * stride // cl), -(-(d // H) // pc)
+
+
+def _units(d, H, L, cl, pc, rank):
+    """Block ``rank``'s units in slot order (``unit_of``): (slot v, layer,
+    head, first column, columns) -- slot v is layer v // stride, head
+    (v % stride) // pc, part (v % stride) % pc, on block v % cl."""
+    Dh = d // H
+    stride = _split(d, H, L, cl, pc)[0]
+    out = []
+    for v in range(rank, L * stride, cl):
+        s, p = v % stride, v % stride % pc
+        if s // pc < H:
+            c0 = _rows_lo(Dh, p, pc)
+            out.append((v, v // stride, s // pc, c0,
+                        _rows_lo(Dh, p + 1, pc) - c0))
+    return out
+
+
+def _pieces(d, H, L, C, cl, pc, rank):
+    """(kind, idx, N, K) of block ``rank``'s products in consumption order
+    (``csrc/decoder.cu`` ``for_pieces``): per layer its units' q / k / v
+    rows and out columns, their cross q rows and cross out columns, its FFN
+    rows and fc2 columns; then its classifier rows. idx is the unit slot or
+    the layer."""
+    r0, r1 = _rows_lo(4 * d, rank, cl), _rows_lo(4 * d, rank + 1, cl)
+    units = _units(d, H, L, cl, pc, rank)
+    out = []
+    for l in range(L):
+        mine = [u for u in units if u[1] == l]
+        for v, _, _, _, nc in mine:
+            out += [(QKV, v, 3 * nc, d), (O, v, d, nc)]
+        for v, _, _, _, nc in mine:
+            out += [(CQ, v, nc, d), (CO, v, d, nc)]
+        if r1 > r0:
+            out += [(F1, l, r1 - r0, d), (F2, l, d, r1 - r0)]
+    c0, c1 = _rows_lo(C, rank, cl), _rows_lo(C, rank + 1, cl)
+    if c1 > c0:
+        out.append((CLS, 0, c1 - c0, d))
+    return out
+
+
+def _lanes(N, K, slot):
+    """Lanes a row of a product and its padded K (``lanes_of``): the
+    smallest power of two g <= 32 at which a tile of 32 / g rows fits a
+    ring slot and 2 g times the rows of one pass (the piece, or the whole
+    tiles a slot holds) exceeds THREADS."""
+    g = 1
+    while g < 32:
+        tile = (32 // g) * (-(-K // g) * g)
+        if tile > slot:
+            g *= 2
+            continue
+        rows = min(N, (slot // tile) * (32 // g))
+        if 2 * g * rows <= THREADS and g < K:
+            g *= 2
+        else:
+            break
+    return g, -(-K // g) * g
+
+
+def _tile_floats(N, Kg, g):
+    R = 32 // g
+    return -(-N // R) * R * Kg
+
+
+def _place(pieces, budget, slot):
+    """First fit under ``budget`` floats: the first piece of each stage
+    (qkv, cross q, fc1, classifier) in order, then the others; the rest
+    streams in segments of whole tiles that fit a ``slot``. Returns
+    (per-piece resident offset or -1, padded resident floats, padded
+    scratch floats, resident weight floats, streamed weight floats)."""
+    at = [-1] * len(pieces)
+    used = scratch = res = strm = 0
+    for first in (True, False):
+        for i, (kind, _, N, K) in enumerate(pieces):
+            if (kind in (QKV, CQ, F1, CLS)) != first:
+                continue
+            g, Kg = _lanes(N, K, slot)
+            w = _tile_floats(N, Kg, g)
+            if used + w <= budget:
+                at[i], used, res = used, used + w, res + N * K
+            else:
+                R = 32 // g
+                rps = min(max(1, slot // (R * Kg)) * R, -(-N // R) * R)
+                scratch += (N // rps) * rps * Kg + _tile_floats(N % rps, Kg,
+                                                                g)
+                strm += N * K
+    return at, used, scratch, res, strm
+
+
+def _layout_words(d, H, L, C, T, S, W, cl, pc):
+    """Words of the layout every block shares (``layout``) and the widest
+    product's K."""
+    _, umax, cw = _split(d, H, L, cl, pc)
+    Rmax = -(-4 * d // cl)
+    nmax, Ws = max(T, S), min(W, max(1, -(-W * H // 8)))
+    npmax = 4 * umax + 2 * L + 1
+    sl = -(-d // cl)
+    sizes = [2 * W * d, W * d, W * d, 2 * cl * W * sl, W * C, W * cw, W * cw,
+             W * Rmax, Ws * nmax, 2 * (pc - 1) * Ws * nmax,
+             W, W, W * W, W * W, 2 * W * S,
+             W, W, 2 * W, 4,
+             9 * d * L + 2 * d + C + 4 * umax * cw + L * Rmax,
+             4 * umax + L, PIECE_INTS * npmax]
+    return 20 + sum(_align4(s) for s in sizes), max(d, Rmax, cw)
+
+
+def _fixed_words(d, H, L, C, T, S, W, cl, smem=SMEM_PER_BLOCK):
+    """(fixed words, widest K, parts a head) of the largest split whose
+    layout and smallest ring fit ``smem`` bytes (``choose_layout``): each
+    head's columns over pc = cl // H blocks (at most Dh) where the cluster
+    has at least twice as many blocks as heads, down to 1; pc 1's when
+    none fits."""
+    Dh = d // H
+    for pc in range(min(cl // H, Dh) if cl >= 2 * H else 1, 0, -1):
+        fixed, maxK = _layout_words(d, H, L, C, T, S, W, cl, pc)
+        if smem // 4 - fixed >= 2 * _ceil32(maxK):
+            break
+    return fixed, maxK, pc
+
+
 def fused_decode_smem_bytes(d: int, H: int, L: int, C: int, T: int, S: int,
                             W: int = 1) -> int:
-    """Bytes of shared memory a block of the kernel needs besides its weight
-    cache (``csrc/decoder.cu`` ``vector_words``): the weight pointer table;
-    x, the LayerNorm output, q and the context [W, d] each; the FFN hidden
-    [W, 4d]; the logits [W, C]; the scores of max(T, S) keys for each of
-    the block's at most ceil(W H / 8) attention pairs; the context partials,
-    one a thread; the beam scores; the tokens, the cache
-    history and a copy [W, S] each; parents, tokens, flags; the norms'
-    scales and every bias (17 d a layer, decoder_norm, the classifier's)."""
-    ptrs = _align4(2 * (8 * L + 1))
-    floats = (8 * W * d + W * C + -(-W * H // 8) * max(T, S) + THREADS
-              + 2 * W)
-    ints = 3 * W * S + 2 * W + 4
-    vecs = 17 * d * L + 2 * d + C
-    return 4 * _align4(ptrs + floats + ints + vecs)
+    """Bytes of shared memory a block of the kernel must hold whatever
+    streams (``csrc/decoder.cu`` ``ishara_decoder_vector_bytes``), at a
+    cluster of 16: x twice (a stage's and the next), its LayerNorm, the
+    block's partial [W, d]; the slots in which its column slice of the
+    partials arrives, two stages' worth; the logits [W, C]; a unit's q and
+    context; the block's FFN hidden; the scores of the beams an attention
+    pass holds, and, where a head's columns are split, the partial scores
+    of its other blocks, two exchanges' worth; the beam state (scores, top-W
+    candidates, two tables [W, S] of the tokens and their cache banks,
+    parents, flags); the norms' scales and the biases the block adds; the
+    unit and piece tables; the mbarriers; and the smallest staging ring,
+    two rows of the widest product (padded to 32 floats). Weights, the
+    cross-attention K / V and the self-attention caches adapt: what does
+    not fit streams (weights) or stays in global memory (K / V)."""
+    fixed, maxK, _ = _fixed_words(d, H, L, C, T, S, W, 16)
+    return 4 * (fixed + 2 * _ceil32(maxK))
+
+
+def decode_plan(d: int, H: int, L: int, C: int, T: int, S: int, W: int = 1,
+                cluster: int = 16, smem: int = SMEM_PER_BLOCK) -> dict | None:
+    """The kernel's division of the decode over a cluster of ``cluster``
+    blocks with ``smem`` bytes of shared memory each (``csrc/decoder.cu``
+    ``make_plan``), or None when a block's fixed layout and the smallest
+    ring do not fit. The attention work comes in units, each a (layer,
+    head) pair or, where the cluster has at least twice as many blocks as
+    a layer has heads, a part of one: its columns split over ``parts`` =
+    cluster // H blocks, so that every block works in every attention
+    stage. A unit's block computes its q / k / v columns (or cross q), its
+    attention -- where split, the partial scores exchanged among the
+    head's blocks and added in part order (``score_exchanges_per_step``)
+    -- and its slice of the out projection as a partial [W, d]; the FFN's
+    4d hidden rows and the classifier's rows are split in contiguous
+    ranges. Each of the 3 L + 1 stages a step ends in one exchange, the
+    cluster's synchronisation (``barriers_per_step``): block s adds column
+    slice s of the partials in rank order and sends it to every block, or,
+    after the classifier, every block sends its logits to all. Tiles and
+    the lanes a row follow ``lanes_of``. Shared memory holds the fixed
+    layout, then -- when not everything fits -- a staging ring, the
+    self-attention caches if they fit, the cross K / V if they fit, and the
+    weights that fit (first fit: the first product of each stage, then the
+    others); the rest streams through the ring. Bytes are f32 weights."""
+    fixed, maxK, pc = _fixed_words(d, H, L, C, T, S, W, cluster, smem)
+    avail = smem // 4 - fixed
+    if avail < 2 * _ceil32(maxK):
+        return None
+    _, umax, cw = _split(d, H, L, cluster, pc)
+    cwp = cw | 1
+    cache_w = umax * 2 * W * S * cwp
+    cross_w = umax * 2 * T * cwp
+    pieces = [_pieces(d, H, L, C, cluster, pc, r) for r in range(cluster)]
+    slot = max(SLOT_FLOATS[W == 1], _ceil32(maxK))
+    wmax = max(_place(p, 1 << 60, slot)[1] for p in pieces)
+    slots = 0
+    if cache_w + cross_w + wmax <= avail:
+        cache_smem = cross_smem = True
+        rest = avail - cache_w - cross_w
+    else:
+        slots = SLOTS
+        if avail - slots * slot < 2 * _ceil32(maxK):
+            slot = _ceil32(maxK)
+        rest = avail - slots * slot
+        cache_smem = cache_w <= rest
+        rest -= cache_w if cache_smem else 0
+        cross_smem = cross_w <= rest
+        rest -= cross_w if cross_smem else 0
+    o_res = (fixed + slots * slot + (cache_w if cache_smem else 0)
+             + (cross_w if cross_smem else 0))
+    Ws = min(W, max(1, -(-W * H // 8)))
+    blocks = []
+    for r, p in enumerate(pieces):
+        at, used, scratch, res, strm = _place(p, rest, slot)
+        blocks.append(dict(
+            units=[u[1:] for u in _units(d, H, L, cluster, pc, r)],
+            ffn_rows=(_rows_lo(4 * d, r, cluster),
+                      _rows_lo(4 * d, r + 1, cluster)),
+            classifier_rows=(_rows_lo(C, r, cluster),
+                             _rows_lo(C, r + 1, cluster)),
+            pieces=[(KIND_NAMES[k], i, N, K, a >= 0)
+                    for (k, i, N, K), a in zip(p, at)],
+            smem_words=o_res + used, scratch_floats=scratch,
+            resident_bytes=4 * res, streamed_bytes=4 * strm))
+    scratch = max(b["scratch_floats"] for b in blocks)
+    return dict(
+        cluster=cluster, blocks=blocks,
+        smem_bytes=4 * max(b["smem_words"] for b in blocks),
+        fixed_bytes=4 * fixed,
+        scratch_floats=_align4(scratch + (0 if cache_smem else cache_w)),
+        resident_bytes=max(b["resident_bytes"] for b in blocks),
+        streamed_bytes=max(b["streamed_bytes"] for b in blocks),
+        cache_smem=cache_smem, cross_smem=cross_smem, slots=slots,
+        slot_floats=slot, parts=pc, barriers_per_step=3 * L + 1,
+        score_exchanges_per_step=2 * L * -(-W // Ws) if pc > 1 else 0)
 
 
 def _limits(d, H, L, C, T, S, W) -> str | None:
     """Why the kernel cannot take this geometry, or None."""
-    if not 1 <= W <= min(MAX_BEAM, C):
-        return f"beam width {W} outside 1..min({MAX_BEAM}, num_classes={C})"
-    if d % H or d // H > MAX_HEAD_DIM:
-        return f"head dim {d}/{H} is not a whole number <= {MAX_HEAD_DIM}"
-    pairs = -(-W * H // 8)   # attention pairs a block of the cluster, at most
-    if pairs > THREADS // 32 or 32 * (THREADS // 32 // pairs) < d // H:
-        return (f"{W} beams x {H} heads: too many attention pairs a block "
-                f"for heads of {d // H}")
+    if not 1 <= W <= C:
+        return f"beam width {W} outside 1..num_classes={C}"
+    if d % H:
+        return f"head dim {d}/{H} is not a whole number"
     if S < 2:
         return f"max_len {S} < 2"
     need = fused_decode_smem_bytes(d, H, L, C, T, S, W)
@@ -267,31 +487,61 @@ def decode_plain(pack, cross, memadd, *, d: int, H: int, L: int, C: int,
     return toks, scores, steps
 
 
+_PLANS: dict[tuple, dict] = {}
+
+
+def kernel_plan(device_index: int, d, H, L, C, T, S, W) -> dict:
+    """The plan the kernel takes on CUDA device ``device_index``, read from
+    its C side (``ishara_decoder_plan``: the cluster the card places, the
+    shared memory and global scratch a block, the largest block's resident
+    and streamed weight bytes, where the caches and the cross K / V live,
+    the ring, the blocks a head's columns are split over). Kept per device
+    and geometry."""
+    key = (device_index, d, H, L, C, T, S, W)
+    if key not in _PLANS:
+        out = (ctypes.c_longlong * 10)()
+        I = ctypes.c_int
+        fn = _build.function("decoder", "ishara_decoder_plan",
+                             [I] * 8 + [ctypes.POINTER(ctypes.c_longlong)])
+        _build.check("decoder", fn(device_index, d, H, L, C, T, S, W, out),
+                     "decode kernel plan")
+        names = ("cluster", "smem_bytes", "scratch_floats", "resident_bytes",
+                 "streamed_bytes", "cache_smem", "cross_smem", "slots",
+                 "slot_floats", "parts")
+        _PLANS[key] = dict(zip(names, (int(v) for v in out)))
+    return _PLANS[key]
+
+
 def _launch(pack, cross, memadd, d, H, L, C, S, W, beam, sos, eos, pad,
             eps):
+    """One launch: (tokens [W, S], raw scores [W], counts [3] -- the steps
+    run, the stage-ending exchanges and the score exchanges block 0 took
+    part in -- and the cluster size)."""
     T = cross.shape[2]
     dev = pack.device
-    # the kernel reads each layer's K transposed ([d, T]: a thread a key,
-    # neighbouring keys in neighbouring words) and V as it is ([T, d])
-    cross = torch.stack([cross[:, 0].transpose(1, 2).reshape(L, T * d),
-                         cross[:, 1].reshape(L, T * d)], dim=1).contiguous()
+    idx = _build.device_index(pack)
+    plan = kernel_plan(idx, d, H, L, C, T, S, W)
+    cross = cross.reshape(L, 2, T, d).contiguous()
     tokens = torch.empty((W, S), dtype=torch.int32, device=dev)
     scores = torch.empty((W,), dtype=torch.float32, device=dev)
-    steps = torch.empty((1,), dtype=torch.int32, device=dev)
-    cache = torch.zeros((L, 2, W, S, d), dtype=torch.float32, device=dev)
-    cluster = ctypes.c_int(0)   # the kernel's cluster size: 16, or 8
+    # the steps run, and the exchanges block 0 took part in: those that
+    # end a stage, and a split head's partial scores
+    counts = torch.empty((3,), dtype=torch.int32, device=dev)
+    # each block's streamed weights, and its caches where shared memory
+    # does not hold them; written by the kernel before it reads them
+    n = max(4, plan["cluster"] * plan["scratch_floats"])
+    scratch = torch.empty((n,), dtype=torch.float32, device=dev)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.function(
         "decoder", "ishara_decoder_decode",
-        [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, F, F,
-         ctypes.POINTER(ctypes.c_int), P])
-    rc = fn(_build.device_index(pack), pack.data_ptr(), cross.data_ptr(),
-            memadd.data_ptr(), cache.data_ptr(), tokens.data_ptr(),
-            scores.data_ptr(), steps.data_ptr(), d, H, L, C, T, S, W,
-            int(beam), sos, eos, pad, eps, float((d // H) ** -0.5),
-            ctypes.byref(cluster), _build.stream_of(pack))
+        [I, P, P, P, P, ctypes.c_longlong, P, P, P, I, I, I, I, I, I, I, I,
+         I, I, I, F, F, P])
+    rc = fn(idx, pack.data_ptr(), cross.data_ptr(), memadd.data_ptr(),
+            scratch.data_ptr(), n, tokens.data_ptr(), scores.data_ptr(),
+            counts.data_ptr(), d, H, L, C, T, S, W, int(beam), sos, eos,
+            pad, eps, float((d // H) ** -0.5), _build.stream_of(pack))
     _build.check("decoder", rc, "decode kernel")
-    return tokens, scores, steps, cluster.value
+    return tokens, scores, counts, plan["cluster"]
 
 
 def _decode(model, memory, mask, pack, S, W, beam, sos, eos, pad):

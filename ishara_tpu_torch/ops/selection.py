@@ -127,10 +127,11 @@ def conv_module_fused(dim: int, T: int, batch: int | None = None) -> bool:
     return _nearest(dim, T, batch)["conv_module_fused"]
 
 
-# Measured on the H100 by chip_smoke.py's translation phase (the numbers
-# are in PERF.md): at (208, 176), 63 greedy steps, the decode kernel takes
-# about 4 ms against about 140 ms for the unfused KV-cached loop (decode
-# only), and at beam width 4 about 8 ms against about 190 ms: True.
+# Measured on the H100 (80GB HBM3, 700 W) by chip_smoke.py's translation
+# phase, kernel and loop in the same run (PERF.md): at (208, 176), 63
+# greedy steps, the decode kernel takes 2.82 ms against 135.27 ms for the
+# unfused KV-cached loop (decode only), and at beam width 4 5.38 ms
+# against 191.64 ms: True.
 _DECODE_ANCHORS: dict[tuple[int, int], dict] = {
     (208, 176): {"decode_fused": True},
 }

@@ -743,11 +743,12 @@ def test_training_step_on_the_card_matches_the_cpu(dtype):
 # early while the others go on.
 # ---------------------------------------------------------------------------
 
-def _translation_model():
-    from ishara_tpu_torch.models.seq2seq import build_translation_model
+def _translation_model(dim=208, heads=8):
+    from ishara_tpu_torch.models.seq2seq import ASLTranslationModel
 
     _card()
-    m = build_translation_model(device="cuda")
+    m = ASLTranslationModel(num_classes=62, feature_dim=dim, num_layers=2,
+                            num_decoder_layers=2, num_heads=heads).cuda()
     g = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for name, t in m.state_dict().items():
@@ -761,25 +762,29 @@ def _translation_model():
             else:
                 n = 0.1 * n
             t.copy_(n)
-    memory = torch.randn((1, 176, 208), generator=g).cuda()
+    memory = torch.randn((1, 176, dim), generator=g).cuda()
     mask = (torch.arange(176) < 150)[None].cuda()
     return m, memory, mask
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("max_len,width,eos_bias", [
-    (64, 1, 0.0), (18, 1, 0.0), (64, 1, 6.0), (64, 4, 0.0), (64, 3, 0.0),
-    (64, 4, 3.0), (64, 1, None)])
-def test_decode_kernel_matches_plain(max_len, width, eos_bias):
+@pytest.mark.parametrize("max_len,width,eos_bias,dim,heads", [
+    (64, 1, 0.0, 208, 8), (18, 1, 0.0, 208, 8), (64, 1, 6.0, 208, 8),
+    (64, 4, 0.0, 208, 8), (64, 3, 0.0, 208, 8), (64, 4, 3.0, 208, 8),
+    (64, 1, None, 208, 8), (64, 8, 0.0, 208, 8), (64, 12, 0.0, 208, 8),
+    (64, 1, 0.0, 320, 2), (64, 4, 0.0, 320, 2)])
+def test_decode_kernel_matches_plain(max_len, width, eos_bias, dim, heads):
     """Greedy (width 1) and beam decodes: the kernel's tokens and scores
     against its plain version on the card, one launch a decode; the last
-    case is the beam form at width 1, against greedy."""
+    reference case is the beam form at width 1, against greedy. Beam 8
+    and 12 (its caches in global memory) and heads of 160 (dim 320, 2
+    heads) are geometries the first design refused."""
     from ishara_tpu_torch.ops import decoder_kernel as dk
 
-    m, memory, mask = _translation_model()
+    m, memory, mask = _translation_model(dim, heads)
     pack = dk.pack_decoder(m)
     if eos_bias:
-        off = pack.numel() - 62 * 208 - 62 + 2        # the eos logit's bias
+        off = pack.numel() - 62 * dim - 62 + 2        # the eos logit's bias
         pack[off] += eos_bias
     beam = eos_bias is None or width > 1
     fn = dk.fused_beam_decode if beam else dk.fused_greedy_decode
@@ -793,7 +798,8 @@ def test_decode_kernel_matches_plain(max_len, width, eos_bias):
     assert fn.launches == before + 1
     want, wscores, steps = dk.decode_plain(
         pack, dk.cross_pack(m, memory), dk.memory_add(mask, 176, "cuda"),
-        d=208, H=8, L=2, C=62, max_len=max_len, beam_width=width, beam=beam)
+        d=dim, H=heads, L=2, C=62, max_len=max_len, beam_width=width,
+        beam=beam)
     assert torch.equal(got, want), (got, want)
     if beam:
         assert torch.allclose(scores[:, 0], wscores, rtol=1e-6, atol=1e-5)
@@ -834,5 +840,44 @@ def test_decode_kernel_vector_bytes_match_the_guard():
     fn = _build.function("decoder", "ishara_decoder_vector_bytes",
                          [ctypes.c_int] * 7)
     for geo in [(208, 8, 2, 62, 176, 64, 1), (208, 8, 2, 62, 176, 64, 4),
-                (32, 4, 1, 30, 12, 16, 3), (64, 2, 3, 10, 40, 8, 8)]:
+                (32, 4, 1, 30, 12, 16, 3), (64, 2, 3, 10, 40, 8, 8),
+                (208, 8, 2, 62, 176, 64, 12), (320, 2, 2, 62, 176, 64, 4)]:
         assert fn(*geo) == dk.fused_decode_smem_bytes(*geo), geo
+        # the plan the card takes is decode_plan's at its cluster size
+        got = dk.kernel_plan(torch.cuda.current_device(), *geo)
+        want = dk.decode_plan(*geo, cluster=got["cluster"])
+        for key in ("smem_bytes", "scratch_floats", "resident_bytes",
+                    "streamed_bytes", "cache_smem", "cross_smem", "slots",
+                    "slot_floats", "parts"):
+            assert got[key] == int(want[key]), (geo, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,dim,heads", [(1, 208, 8), (4, 208, 8),
+                                            (12, 208, 8), (4, 320, 2)])
+def test_decode_kernel_is_deterministic(width, dim, heads):
+    """Two launches on the same input give the same tokens and the same
+    score bits: the partials are summed in rank order and a split head's
+    partial scores in part order, never by atomics. The kernel's own
+    counts of its exchanges are decode_plan's a step."""
+    from ishara_tpu_torch.ops import decoder_kernel as dk
+
+    m, memory, mask = _translation_model(dim, heads)
+    pack = dk.pack_decoder(m)
+    pack[pack.numel() - 62 * dim - 62 + 2] -= 1e4     # every step runs
+    cross = dk.cross_pack(m, memory)
+    madd = dk.memory_add(mask, 176, "cuda")
+    args = (pack, cross, madd, dim, heads, 2, 62, 64, width, width > 1, 1, 2,
+            0, 1e-6)
+    first = dk._launch(*args)
+    plan = dk.decode_plan(dim, heads, 2, 62, 176, 64, width,
+                          cluster=first[3])
+    assert first[2].tolist() == [
+        63, 63 * plan["barriers_per_step"],
+        63 * plan["score_exchanges_per_step"]]
+    for _ in range(3):
+        again = dk._launch(*args)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1].view(torch.int32),
+                           first[1].view(torch.int32))
+        assert torch.equal(again[2], first[2])

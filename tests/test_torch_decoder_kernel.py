@@ -81,7 +81,8 @@ def test_greedy_plain_matches_jax(models, mask_kind, eos_bias):
 
 @pytest.mark.parametrize("width,penalty,mask_kind,eos_bias", [
     (1, 0.0, "mask", None), (3, 0.0, "mask", None), (3, 0.5, "mask", None),
-    (3, 0.0, "all_masked", None), (3, 0.0, "mask", 2.0)])
+    (3, 0.0, "all_masked", None), (3, 0.0, "mask", 2.0),
+    (9, 0.0, "mask", None)])
 def test_beam_plain_matches_jax(models, width, penalty, mask_kind, eos_bias):
     """The plain beam decode against fused_beam_decode (interpret): every
     beam's tokens exactly and its raw score; the best beam and its
@@ -160,7 +161,7 @@ def test_memory_add_and_pack(models):
 @pytest.mark.parametrize("geometry,fits", [
     (dict(T=12, max_len=12, beam_width=3), True),
     (dict(T=12, max_len=12, beam_width=C + 1), False),      # W > C
-    (dict(T=12, max_len=12, beam_width=tdk.MAX_BEAM + 1), False),
+    (dict(T=12, max_len=12, beam_width=C), True),           # W = C
     (dict(T=70000, max_len=12, beam_width=1), False),        # shared memory
     (dict(T=12, max_len=1, beam_width=1), False),
 ])
@@ -179,18 +180,128 @@ def test_guard(models, geometry, fits):
 
 def test_guard_at_the_reference_geometry():
     """The translation flagship (dim 208, 8 heads, 2 + 2 layers, 62
-    classes, T 176, max_out 64) fits greedy and at beam width 4, its
-    shared memory a block well inside the H100's 227 KB; dim 208 with 7
-    heads does not (208 / 7 is no whole head)."""
+    classes, T 176, max_out 64) fits greedy and at beam width 4 with the
+    caches and the cross-attention K / V in shared memory, each head's
+    columns split over two blocks (4 score exchanges a step), 7 stage
+    exchanges (the cluster's synchronisations) a step, and the weights a
+    block cannot keep streamed through the ring; dim 208 with 7 heads does
+    not fit (208 / 7 is no whole head)."""
     from ishara_tpu_torch.models.seq2seq import ASLTranslationModel
 
     m = ASLTranslationModel()
+    want = {1: (54080, 252096), 4: (35776, 270400)}
     for w in (1, 4):
         assert tdk.fused_decode_fits(m, 176, 64, w)
-        assert tdk.fused_decode_smem_bytes(208, 8, 2, 62, 176, 64, w) \
-            < tdk.SMEM_PER_BLOCK // 2
+        plan = tdk.decode_plan(208, 8, 2, 62, 176, 64, w)
+        assert plan["cluster"] == 16 and plan["barriers_per_step"] == 7
+        assert plan["parts"] == 2 and plan["score_exchanges_per_step"] == 4
+        assert plan["cache_smem"] and plan["cross_smem"] and plan["slots"]
+        assert plan["smem_bytes"] <= tdk.SMEM_PER_BLOCK
+        assert (plan["resident_bytes"], plan["streamed_bytes"]) == want[w]
     m.num_heads = 7
     assert not tdk.fused_decode_fits(m, 176, 64, 1)
+
+
+@pytest.mark.parametrize("geometry", [
+    (208, 8, 2, 62, 176, 64, 1), (208, 8, 2, 62, 176, 18, 1),
+    (208, 8, 2, 62, 176, 64, 4), (208, 8, 2, 62, 176, 64, 12),
+    (320, 2, 2, 62, 176, 64, 1), (32, 4, 2, 30, 12, 12, 3),
+    (64, 16, 3, 10, 40, 8, 8)])
+@pytest.mark.parametrize("cluster", [16, 8])
+def test_decode_plan(geometry, cluster):
+    """decode_plan (the kernel's division of the work, csrc/decoder.cu
+    make_plan): every column of every (layer, head) and every FFN and
+    classifier row belongs to exactly one block, each unit and row range
+    in that block's pieces; a head's columns are split over cluster // H
+    blocks where the cluster has at least twice as many blocks as heads,
+    so that every block takes part in each attention stage; 3 L + 1
+    barriers a step; a block's resident and streamed bytes add up to its
+    pieces, and all blocks' to the pack's product weights (the pack less
+    its vectors and the embedding); the layout fits."""
+    d, H, L, C, T, S, W = geometry
+    plan = tdk.decode_plan(*geometry, cluster=cluster)
+    assert plan is not None and plan["cluster"] == cluster
+    assert plan["barriers_per_step"] == 3 * L + 1
+    Dh = d // H
+    parts = min(cluster // H, Dh) if cluster >= 2 * H else 1
+    assert plan["parts"] == parts
+    assert (plan["score_exchanges_per_step"] > 0) == (parts > 1)
+    blocks = plan["blocks"]
+    assert len(blocks) == cluster
+    cols = sorted((l, h, c) for b in blocks for l, h, c0, nc in b["units"]
+                  for c in range(c0, c0 + nc))
+    assert cols == [(l, h, c) for l in range(L) for h in range(H)
+                    for c in range(Dh)]
+    if parts > 1:   # every block with a unit has one of every layer
+        busy = [b for b in blocks if b["units"]]
+        assert len(busy) == H * parts
+        assert all(sorted(u[0] for u in b["units"]) == list(range(L))
+                   for b in busy)
+    for key, n in (("ffn_rows", 4 * d), ("classifier_rows", C)):
+        ranges = [b[key] for b in blocks]
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    total = 0
+    for b in blocks:
+        kinds = [p[0] for p in b["pieces"]]
+        assert kinds.count("qkv") == kinds.count("cross_q") == len(b["units"])
+        mine = sum(p[2] * p[3] for p in b["pieces"])
+        assert mine == (sum(6 * nc * d for _, _, _, nc in b["units"])
+                        + 2 * L * d * (b["ffn_rows"][1] - b["ffn_rows"][0])
+                        + d * (b["classifier_rows"][1]
+                               - b["classifier_rows"][0]))
+        assert b["resident_bytes"] + b["streamed_bytes"] == 4 * mine
+        assert 4 * b["smem_words"] <= tdk.SMEM_PER_BLOCK
+        total += mine
+    vectors = L * 17 * d + 2 * d + C
+    assert total == tdk.pack_floats(d, L, C) - vectors - C * d
+    assert plan["smem_bytes"] >= plan["fixed_bytes"]
+
+
+@pytest.mark.parametrize("geometry", [
+    dict(T=176, max_len=64, beam_width=9),
+    dict(T=176, max_len=64, beam_width=12),
+    dict(T=176, max_len=64, beam_width=8),
+    dict(T=176, max_len=18, beam_width=1),
+    dict(T=384, max_len=64, beam_width=4),
+])
+def test_guard_takes_the_lifted_limits(geometry):
+    """Beams above 8 (in passes of 4) and the reference geometry's caches
+    in global memory where shared memory cannot hold them (beams 8, 9
+    and 12): the guard takes them; so does a head of 160 (dim 320, 2
+    heads)."""
+    from ishara_tpu_torch.models.seq2seq import ASLTranslationModel
+
+    m = ASLTranslationModel()
+    assert tdk.fused_decode_fits(m, **geometry)
+    wide = ASLTranslationModel(feature_dim=320, num_heads=2)
+    assert tdk.fused_decode_fits(wide, **geometry)
+    plan = tdk.decode_plan(208, 8, 2, 62, geometry["T"],
+                           geometry["max_len"], geometry["beam_width"])
+    assert plan is not None
+    if geometry["beam_width"] >= 8:
+        assert not plan["cache_smem"] and plan["scratch_floats"] > 0
+
+
+@pytest.mark.parametrize("geometry", [
+    (32, 4, 1, 30, 12, 12, 31),      # W > C
+    (32, 4, 1, 30, 12, 1, 1),        # S < 2
+    (32, 5, 1, 30, 12, 12, 1),       # no whole head
+    (32, 4, 1, 30, 70000, 12, 1),    # shared memory
+])
+def test_guard_still_refuses(geometry):
+    assert tdk._limits(*geometry) is not None
+
+
+@pytest.mark.parametrize("geometry", [
+    (208, 8, 2, 62, 176, 64, 1), (208, 8, 2, 62, 176, 64, 4),
+    (208, 8, 2, 62, 176, 64, 8), (32, 4, 2, 30, 12, 12, 3),
+    (64, 2, 3, 10, 40, 8, 8), (128, 1, 2, 62, 2000, 64, 8),
+    (256, 2, 4, 62, 1000, 64, 1)])
+def test_guard_takes_what_the_first_kernel_took(geometry):
+    """Geometries the first design's guard took (every W <= 8, heads up to
+    128, its shared-memory formula) still fit."""
+    assert tdk._limits(*geometry) is None
 
 
 def test_other_devices_are_refused(models):

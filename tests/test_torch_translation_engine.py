@@ -94,9 +94,9 @@ def test_predict_text(setup):
     (dict(decode="sample"), ValueError),
     (dict(decode="beam", kv_cache=False), ValueError),
     (dict(fused="int8"), ValueError),
-    # the kernel takes at most min(8, num_classes) beams: an explicit
-    # fused=True raises where the reference's wrapper falls back
-    (dict(decode="beam", beam_width=9, fused=True), DecoderFitError),
+    # the kernel takes at most num_classes beams: an explicit fused=True
+    # raises where the reference's wrapper falls back
+    (dict(decode="beam", beam_width=31, fused=True), DecoderFitError),
 ])
 def test_engine_argument_errors(setup, kw, error):
     _, _, pm, _, _ = setup
@@ -108,7 +108,7 @@ def test_auto_chooses_the_loop_where_the_kernel_cannot_go(setup):
     """``fused="auto"`` with a beam width the kernel does not take runs the
     unfused beam loop, openly, and still matches JAX's tokens."""
     _, _, pm, reqs, _ = setup
-    kw = dict(decode="beam", beam_width=9)
+    kw = dict(decode="beam", beam_width=31)   # over the 30 classes
     eng = tte.TranslationEngine(pm, **KW, **kw, fused="auto", device="cpu")
     ref = tte.TranslationEngine(pm, **KW, **kw, device="cpu")
     for raw in reqs[:2]:
