@@ -322,6 +322,29 @@ def stem_output(model, raw_np, n):
     return h, frame_mask(x)
 
 
+def stack_run_line(report):
+    """What fused_block.stack_report() says a stack launch ran."""
+    plan = report["plan"]
+    line = (f"{report['stages']} stages counted on the device (plan "
+            f"{plan['stages']}) in {report['launches']} launch(es), at most "
+            f"{report['smem_bytes']} B shared memory a stage (plan "
+            f"{plan['smem_bytes']})")
+    if report["grid"]:
+        grid, per_sm = report["grid"]
+        line += (f", one cooperative launch of {grid} blocks ({per_sm} an "
+                 f"SM)")
+    return line
+
+
+def stack_run_ok(report):
+    """The kernel ran the stages of its plan, counted on the device, in the
+    launches of its form, with the plan's shared memory."""
+    plan = report["plan"]
+    return (report["stages"], report["launches"], report["smem_bytes"]) == (
+        plan["stages"], 1 if report["dma"] else plan["launches"],
+        plan["smem_bytes"])
+
+
 def kernel_phase(models, reqs):
     """Every kernel form against its plain version, timed beside its bound.
     Returns {(config, kind, storage tag, dma): row}."""
@@ -378,6 +401,8 @@ def kernel_phase(models, reqs):
 
                 got = run()
                 torch.cuda.synchronize()
+                report = fb.stack_report()
+                again = run()
                 ref = plain()
                 err = (got - ref).abs()
                 atol, rtol = KERNEL_TOL[tag]
@@ -386,13 +411,13 @@ def kernel_phase(models, reqs):
                 ok = bool(torch.isfinite(got).all()) and bool(
                     (err <= atol + rtol * ref.abs()).all())
                 form = f"{tag} weights" + (", dma" if dma else "")
-                extra = ""
+                same2 = torch.equal(got, again)
+                extra = (f"; {stack_run_line(report)}; a second launch "
+                         f"equals the first bit for bit: {same2}")
+                ok = ok and same2 and stack_run_ok(report)
                 if dma:
                     same = torch.equal(got, outs[tag])
-                    grid, per_sm, smem = fb.last_persistent_launch
-                    extra = (f"; equals dma=False bit for bit: {same}; one "
-                             f"cooperative launch of {grid} blocks "
-                             f"({per_sm} an SM, {smem} B shared memory)")
+                    extra += f"; equals dma=False bit for bit: {same}"
                     ok = ok and same
                 else:
                     outs[tag] = got
@@ -430,8 +455,9 @@ def kernel_phase(models, reqs):
                     f"{row['bound_by']})")
                 if not ok:
                     raise AssertionError(f"{name} [{form}] disagrees with "
-                                         f"its plain version or its "
-                                         f"dma=False form")
+                                         f"its plain version, a second "
+                                         f"launch, its dma=False form or "
+                                         f"its plan")
                 rows[(config, kind, tag, dma)] = row
                 if (tag, dma) == ("f32", False):
                     next_in = ref  # the next segment's input on the path
@@ -458,6 +484,66 @@ def kernel_phase(models, reqs):
                 if key[:2] == (config, kind):
                     row["unfused_modules_ms"] = mods_ms
             x_in = next_in.contiguous()
+
+    # the published Squeezeformer widths that are not multiples of 32 (XS
+    # 144 with 4 heads of 36, S 196 with 4 heads of 49, M 324 with 4 heads
+    # of 81, whose FFN of 1296 is deeper than a GEMM tile's panel), where
+    # the kernel masks the ragged edges of its tiles: preset 5's stacks at
+    # those widths, every form against its plain version
+    from ishara_tpu_torch.config import baseline_config
+    from ishara_tpu_torch.models.encoder import build_model
+
+    for dim in (144, 196, 324):
+        cfg = dataclasses.replace(baseline_config(5).model, dim=dim,
+                                  num_heads=4)
+        model = build_model(cfg, device=DEVICE)
+        randomize(model, seed=dim)
+        sd = model.state_dict()
+        qsd = fb.quantize_serving_weights(sd)
+        g = torch.Generator().manual_seed(dim)
+        x_in = torch.randn((cfg.frame_len, dim), generator=g).to(DEVICE)
+        mask = (torch.arange(cfg.frame_len) < 150).float().to(DEVICE)
+        for kind in ("squeezeformer", "conformer"):
+            fn = wrappers[kind][0]
+            outs = {}
+            for tag, dma in [(t, d) for t in storages for d in (False, True)]:
+                _, leaves = fenc.encoder_segment_args(
+                    cfg, qsd if tag == "int8" else sd, kind, storages[tag])
+                got = fn(x_in, mask, leaves, num_heads=4, dma=dma)
+                torch.cuda.synchronize()
+                report = fb.stack_report()
+                same = torch.equal(got, fn(x_in, mask, leaves, num_heads=4,
+                                           dma=dma))
+                if dma:
+                    same = same and torch.equal(got, outs[tag])
+                outs[tag] = got
+                ref = fb.group_stack_plain(x_in, mask, ((), leaves), kind, 4)
+                err = (got - ref).abs()
+                atol, rtol = KERNEL_TOL[tag]
+                ok = bool(torch.isfinite(got).all()) and bool(
+                    (err <= atol + rtol * ref.abs()).all()) and \
+                    stack_run_ok(report) and same
+                ms = time_ms(lambda: fn(x_in, mask, leaves, num_heads=4,
+                                        dma=dma), runs=20)
+                plain_ms = time_ms(lambda: fb.group_stack_plain(
+                    x_in, mask, ((), leaves), kind, 4), runs=3, warmup=1,
+                    head_start=False)
+                nbytes, ops = stack_work(fb, kind, x_in, mask, (), leaves)
+                bound = max(nbytes / HBM_BYTES_PER_S,
+                            ops / PEAK_OPS_PER_S[tag]) * 1e3
+                log(f"kernel {fn.__name__} [{tag} weights"
+                    f"{', dma' if dma else ''}] dim={dim} heads=4 T="
+                    f"{cfg.frame_len}: max_abs_err {float(err.max()):.3e} "
+                    f"(tol |err| <= {atol} + {rtol}*|plain|) "
+                    f"{'PASS' if ok else 'FAIL'}; {stack_run_line(report)}; "
+                    f"a second launch (and at dma, dma=False) bit-equal: "
+                    f"{same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {bound:.5f} ms")
+                if not ok:
+                    raise AssertionError(f"{fn.__name__} [{tag}] at dim "
+                                         f"{dim} disagrees with its plain "
+                                         f"version, a second launch, its "
+                                         f"dma=False form or its plan")
 
     # K5c: one block alone is the stack kernel with N = 1
     model = models["preset5"]

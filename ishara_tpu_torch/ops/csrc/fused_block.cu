@@ -11,11 +11,13 @@
 // A stack is a list of stages, written once (make_stage) and run two ways.
 // Each stage is a grid of independent tiles of one of these device functions:
 //
-//   gemm_tile       [T,K] @ [K,N] with an optional LayerNorm or per-column
+//   gemm_tile_tc    [T,K] @ [K,N] with an optional LayerNorm or per-column
 //                   gate (ECA) prologue on A and a scale / bias / swish /
-//                   residual epilogue; one 16 x 32 output tile, whose whole A
+//                   residual epilogue; one 16 x 32 output tile, whose A
 //                   panel and B panel are loaded into shared memory at once
-//                   and whose K is split over 4 warp groups
+//                   and whose K is split over 4 pairs of warps, products by
+//                   mma.sync TF32; gemm_tile_any does the same for any
+//                   widths in f32 FMA (K in chunks of 1024 where deeper)
 //   attention_tile  one (head, 8-query tile); the head's K and V sit in
 //                   shared memory, one warp per query row
 //   dwconv_tile     depthwise conv over time: causal or 'same', optional GLU
@@ -35,7 +37,21 @@
 // same operations in the same order: dma = 1 equals dma = 0 bit for bit.
 // Activations written by one stage and read by the next are never read
 // through the read-only (ld.global.nc) path: only weight pointers are
-// __restrict__ const.
+// __restrict__ const. Thread 0 of block 0 of every stage counts it in a
+// device int, so the host reads back how many stages a stack really ran.
+//
+// Any widths, as the reference's whole-array BlockSpecs take: D, F, E and C2
+// of any size and any head width D / H. The last row and column tiles of a
+// product are masked (zero-filled loads, no stores past the edge); a row that
+// is not a whole number of 16-byte chunks (a width not a multiple of 4, or of
+// 8 / 16 for bf16 / int8 weight rows) loads in 8- or 4-byte pieces or one
+// element at a time, with the same arithmetic; attention pads q and K rows
+// with zeros to a multiple of 4; a product deeper than 1024 runs its K in
+// chunks. The presets' widths keep the 16-byte forms of the GEMM and
+// attention tiles (gemm_tile_tc, attention_tile) and the persistent kernel
+// without the general ones. A stage's shared memory is then bounded at any
+// width but attention's, which holds a head's K and V for all T: the host
+// refuses only a geometry whose stage does not fit a block.
 //
 // Numerics follow _mm / _mhsa of the reference: activations and accumulation
 // are f32; matmul weights arrive at their storage type (f32, bf16 or int8)
@@ -43,23 +59,28 @@
 // per-output-channel scale after the dot and before bias, swish and residual;
 // at bf16 and int8 storage the attention q, k, v and the normalised
 // probabilities are rounded to bf16 (round to nearest even) before their
-// products, which accumulate in f32; a masked key adds -1e30. The products
-// run on the CUDA cores in f32 FMA, not on the tensor cores: the bf16 mma
-// instructions would need the activations in bf16 too, which the reference
-// does not do.
+// products, which accumulate in f32; a masked key adds -1e30. The matmuls
+// of gemm_tile_tc run on the tensor cores without changing that arithmetic
+// beyond f32 rounding: bf16 and int8 weights are exact in TF32, and the f32
+// activation goes in as a big and a small TF32 part (2xTF32; 3xTF32 with f32
+// weights). A bf16 mma would round the activations to bf16, which the
+// reference does not do. Attention and the general tile use f32 FMA.
 //
 // Bound on an H100 SXM at T=176, dim 256, 8 heads: a stack must stream its
 // weights once (about 2 MB a block at bf16, 1 MB at int8) and do about
-// 0.4 GFLOP a block, so bytes bound it at a few microseconds; the f32 FMAs
-// these products run at (67 TFLOP/s) would allow about 6 us a block. Every
+// 0.4 GFLOP a block, so bytes bound it at a few microseconds. Every
 // activation of a block (at most 176 x 1024 f32) stays in L2 between stages.
 // What bounds the kernels in fact is latency: a block is 11-12 dependent
 // stages (4 more for each Conv1DBlock), each a few microseconds of fill and
-// drain. Each GEMM tile has all its loads in flight at once (cp.async, 16
-// bytes each), splits K over 4 groups of 2 warps and does 8 FMAs for 3
-// shared-memory loads; tiles are small enough that the widest GEMM fills 264
-// blocks. The persistent form trades the launches for grid barriers. wgmma
-// and TMA are the levers for a later change.
+// drain, one dependent round trip to L2 a stage. Each GEMM tile has all its
+// loads in flight at once (cp.async, 16 bytes each), then splits K over 4
+// pairs of warps on the tensor cores; tiles are small enough that the
+// widest GEMM fills 264 blocks. The persistent form trades the launches for
+// grid barriers. A design that cuts a block into 3 / 2 / 1
+// / 2 stages (Squeezeformer / Conformer / Transformer / Conv1DBlock) over
+// thread-block clusters with tensor-core products measured 2.1-2.2x slower
+// than this one on an H100 80GB HBM3 at 700 W: each of its stages became a
+// chain of 25-40 dependent round trips of ~1.5-3 us (PERF.md).
 
 #include <cmath>
 #include <cstdint>
@@ -68,6 +89,8 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -83,6 +106,11 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
+__device__ __forceinline__ void set_zero(float& v) { v = 0.f; }
+__device__ __forceinline__ void set_zero(__nv_bfloat16& v) {
+  v = __ushort_as_bfloat16(0);
+}
+__device__ __forceinline__ void set_zero(int8_t& v) { v = 0; }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -121,6 +149,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 or 8 bytes, for rows that are not whole 16-byte chunks.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src,
+                                               bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0));
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -195,7 +231,21 @@ struct Stage {
   const float* bn_b;
   const float* bn_m;
   const float* bn_v;
+  int* count;  // stages run, counted on the device (see note_stage)
+  int first;   // the first stage of a stack: resets the count
 };
+
+// Block 0's thread 0 of every stage counts it: a stack's count is the number
+// of stages that ran on the device. The first stage stores 1, the others add
+// 1 with a reduction that returns nothing, so the thread never waits on it.
+__device__ __forceinline__ void note_stage(const Stage& st) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && st.count) {
+    if (st.first)
+      *st.count = 1;
+    else
+      atomicAdd(st.count, 1);
+  }
+}
 
 // Threads of every tile function but the SE and ECA gates, which take any
 // multiple of 32.
@@ -208,33 +258,88 @@ constexpr int GTHREADS = 256;
 //   epilogue: * wscale[n] at int8; + bias[n] if bias; swish if swish;
 //             res[m,n] + . if res
 // res may alias C (each element is read and then written by one thread).
-// Needs K % (4 * GSPLIT) == 0, N % GBN == 0 and 16-byte aligned rows
-// (checked by the host entry). The block's GSPLIT groups of 64 threads
-// each take one K / GSPLIT slice of the products, so that a grid of few
-// tiles still keeps enough warps on each SM; in a group, each thread owns
-// rows ty, ty+8 and columns 4tx..4tx+3 of the tile and sums its slice over
-// k in order. The slices' sums are then added in group order.
+// Any M, K and N: the last row and column tiles are masked (rows past M and
+// columns past N load as zeros and are not written), and a K above GKC runs
+// in chunks of GKC through the same panels (the sums keep their order).
+// Rows that are whole 16-byte chunks (K % 4 == 0 for A, gamma, beta and the
+// gate; N % 4 == 0 for the epilogue's vectors) move 16 bytes at a time, the
+// others one element at a time; a B row moves in the largest of 16, 8 or 4
+// bytes that divides it, else one element at a time. The arithmetic is the
+// same either way. The block's GSPLIT groups of 64 threads each take one
+// slice [g K / GSPLIT, (g+1) K / GSPLIT) of the products, so that a grid
+// of few tiles still keeps enough warps on each SM; in a group, each thread
+// owns rows ty, ty+8 and columns 4tx..4tx+3 of the tile and sums its slice
+// over k in order. The slices' sums are then added in group order.
 // ---------------------------------------------------------------------------
 constexpr int GBM = 16, GBN = 32, GSPLIT = 4;
 static_assert(GTHREADS == 64 * GSPLIT, "a GEMM tile is GSPLIT groups of 64");
 
-__host__ __device__ inline int gemm_lda(int K) { return K + 4; }
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int gemm_lda(int K) { return round4(K) + 4; }
 
-// A panel [GBM][lda], LayerNorm gamma and beta (or the gate) [K] each, the
-// partial sums of groups 1.. [GSPLIT-1][GBM][GBN], B panel [K][GBN].
+// The panels hold K in chunks of at most GKC, so that a tile fits a block's
+// shared memory at any K: A panel [GBM][lda], LayerNorm gamma and beta (or
+// the gate) [round4(KC)] each, the partial sums of groups 1..
+// [GSPLIT-1][GBM][GBN], the rows' LayerNorm statistics [2][GBM], B panel
+// [KC][GBN], KC = min(K, GKC).
+constexpr int GKC = 1024;
+
+// The B panel's row stride in the tensor-core tile: 40 bf16 or f32 values
+// put the 4 rows a warp's B fragment reads on distinct banks (f32 keeps 32,
+// where 40 would not fit a K of 1024 in a block), int8's 32 bytes already do.
+template <typename W>
+__host__ __device__ constexpr int gemm_ldb() {
+  return sizeof(W) == 2 ? GBN + 8 : GBN;
+}
+
 template <typename W>
 __host__ __device__ inline size_t gemm_smem_bytes(int K) {
-  return ((size_t)GBM * gemm_lda(K) + 2 * (size_t)K +
-          (size_t)(GSPLIT - 1) * GBM * GBN) * sizeof(float) +
-         (size_t)K * GBN * sizeof(W);
+  const int KC = K < GKC ? K : GKC;
+  return ((size_t)GBM * gemm_lda(KC) + 2 * (size_t)round4(KC) +
+          (size_t)(GSPLIT - 1) * GBM * GBN + 2 * GBM) * sizeof(float) +
+         (size_t)KC * gemm_ldb<W>() * sizeof(W);
 }
 
 __host__ __device__ inline int gemm_tiles(int M, int N) {
-  return (N / GBN) * ((M + GBM - 1) / GBM);
+  return ((N + GBN - 1) / GBN) * ((M + GBM - 1) / GBM);
 }
 
+// Whether a product takes gemm_tile_tc, the tensor-core form, or
+// gemm_tile_any, whose general indexing costs 1-3% where both could run
+// (H100 80GB HBM3, 700 W; PERF.md).
+__host__ __device__ inline bool gemm_whole(const Stage& st) {
+  return st.K <= GKC && st.K % 8 == 0 && st.N % GBN == 0;
+}
+
+// Rows k0 .. k0 + kn of B's columns n0 .. n0 + GBN into Bs [kn][GBN],
+// columns past N as zeros, BYTES at a time (a B row must be a whole number
+// of such pieces, so that each piece is all inside N or all past it).
+template <typename W, int BYTES>
+__device__ __forceinline__ void load_b_panel(W* Bs, const W* B, int N, int n0,
+                                             int kn) {
+  constexpr int VEC = BYTES / sizeof(W), PER_ROW = GBN / VEC;
+  for (int e = threadIdx.x; e < kn * PER_ROW; e += GTHREADS) {
+    const int k = e / PER_ROW, j = (e - k * PER_ROW) * VEC;
+    const bool ok = n0 + j < N;
+    const W* src = ok ? B + (size_t)k * N + n0 + j : B;
+    if (BYTES == 16)
+      cp_async16(Bs + k * GBN + j, src, ok);
+    else
+      cp_async_small<BYTES>(Bs + k * GBN + j, src, ok);
+  }
+}
+
+// The tensor-core form, for the widths the serving presets use (K <= GKC and
+// a multiple of 8, N a multiple of GBN): every load 16 bytes and in flight at
+// once, then LayerNorm or the gate on the A panel as gemm_tile_any does, then
+// the products by mma.sync m16n8k8 TF32. Warp w takes the K slice w / 2 (of
+// GSPLIT, in whole k8 steps) and the 16 columns (w % 2) * 16; slices 1..3 add
+// into slice 0 through Part in slice order. A is f32: it goes in as two TF32
+// parts, big + small (2xTF32), which carries its f32 value to ~2^-22; bf16
+// and int8 weights are exact in TF32, f32 weights are split too (3xTF32).
+// The int8 scale, bias, swish and residual follow the sum, as in _mm.
 template <typename W>
-__device__ __noinline__ void gemm_tile(const Stage& st, int tile) {
+__device__ __noinline__ void gemm_tile_tc(const Stage& st, int tile) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   const int M = st.M, K = st.K, N = st.N;
   const float* A = st.in;
@@ -242,18 +347,17 @@ __device__ __noinline__ void gemm_tile(const Stage& st, int tile) {
   const float* __restrict__ ln_g = st.ln_g;
   const float* __restrict__ ln_b = st.ln_b;
   const float* gate = st.gate;
+  constexpr int LDB = gemm_ldb<W>();
   const int lda = gemm_lda(K);  // rows 4 floats apart: distinct banks
   float* As = reinterpret_cast<float*>(dyn_smem);
   float* Gs = As + GBM * lda;
   float* Bt = Gs + K;
   float* Part = Bt + K;
-  W* Bs = reinterpret_cast<W*>(Part + (GSPLIT - 1) * GBM * GBN);
+  W* Bs = reinterpret_cast<W*>(Part + (GSPLIT - 1) * GBM * GBN + 2 * GBM);
   const int tid = threadIdx.x;
   const int ntn = N / GBN;
   const int m0 = (tile / ntn) * GBM, n0 = (tile % ntn) * GBN;
 
-  // Every load of the tile in flight at once, 16 bytes each: the A panel
-  // (rows past M as zeros), gamma and beta or the gate, the B panel.
   const int k4 = K / 4;
   for (int e = tid; e < GBM * k4; e += GTHREADS) {
     const int i = e / k4, j = (e - i * k4) * 4;
@@ -272,7 +376,7 @@ __device__ __noinline__ void gemm_tile(const Stage& st, int tile) {
   constexpr int VEC = 16 / sizeof(W), PER_ROW = GBN / VEC;
   for (int e = tid; e < K * PER_ROW; e += GTHREADS) {
     const int k = e / PER_ROW, j = (e - k * PER_ROW) * VEC;
-    cp_async16(Bs + k * GBN + j, B + (size_t)k * N + n0 + j, true);
+    cp_async16(Bs + k * LDB + j, B + (size_t)k * N + n0 + j, true);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -294,22 +398,227 @@ __device__ __noinline__ void gemm_tile(const Stage& st, int tile) {
     __syncthreads();
   }
 
+  const int warp = tid / 32, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int sl = warp >> 1, h = warp & 1, k8 = K / 8;
+  const int kb = sl * k8 / GSPLIT * 8, ke = (sl + 1) * k8 / GSPLIT * 8;
+  const float* a0p = As + g * lda + t;
+  const float* a1p = As + (g + 8) * lda + t;
+  const W* bp = Bs + t * LDB + h * 16 + g;
+  float acc[2][4] = {};
+#pragma unroll 2
+  for (int k = kb; k < ke; k += 8) {
+    const float af[4] = {a0p[k], a1p[k], a0p[k + 4], a1p[k + 4]};
+    const tc::SplitA a(af);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float b0 = to_f(bp[k * LDB + j * 8]);
+      const float b1 = to_f(bp[(k + 4) * LDB + j * 8]);
+      if (std::is_same<W, float>::value) {
+        tc::mma_3xtf32(acc[j], a, b0, b1);
+      } else {  // exact in TF32
+        tc::mma_tf32(acc[j], a.small, __float_as_uint(b0),
+                     __float_as_uint(b1));
+        tc::mma_tf32(acc[j], a.big, __float_as_uint(b0),
+                     __float_as_uint(b1));
+      }
+    }
+  }
+  // accumulator element e of n-block j: row g + 8 (e / 2), column
+  // h * 16 + j * 8 + 2t + e % 2
+  if (sl > 0) {
+    float* mine = Part + (sl - 1) * GBM * GBN;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mine[(g + 8 * (e >> 1)) * GBN + h * 16 + j * 8 + 2 * t + (e & 1)] =
+            acc[j][e];
+  }
+  __syncthreads();
+  if (sl == 0) {
+#pragma unroll
+    for (int q = 0; q < GSPLIT - 1; ++q) {
+      const float* p = Part + q * GBM * GBN;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] +=
+              p[(g + 8 * (e >> 1)) * GBN + h * 16 + j * 8 + 2 * t + (e & 1)];
+    }
+    const float* res = st.res;
+    float* C = st.out;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + h * 16 + j * 8 + 2 * t;
+      float2 bv = make_float2(0.f, 0.f), sv = make_float2(1.f, 1.f);
+      if (st.bias) bv = *reinterpret_cast<const float2*>(st.bias + n);
+      if (std::is_same<W, int8_t>::value)
+        sv = *reinterpret_cast<const float2*>(st.wscale + n);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = m0 + g + 8 * r;
+        if (m >= M) continue;
+        const size_t o = (size_t)m * N + n;
+        float v0 = acc[j][2 * r], v1 = acc[j][2 * r + 1];
+        if (std::is_same<W, int8_t>::value) {
+          v0 *= sv.x;
+          v1 *= sv.y;
+        }
+        v0 += bv.x;
+        v1 += bv.y;
+        if (st.swish) {
+          v0 = swish_f(v0);
+          v1 = swish_f(v1);
+        }
+        if (res) {
+          const float2 rv = *reinterpret_cast<const float2*>(res + o);
+          v0 = rv.x + v0;
+          v1 = rv.y + v1;
+        }
+        *reinterpret_cast<float2*>(C + o) = make_float2(v0, v1);
+      }
+    }
+  }
+  __syncthreads();  // the next tile of a persistent block reuses the panels
+}
+
+template <typename W>
+__device__ __noinline__ void gemm_tile_any(const Stage& st, int tile) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int M = st.M, K = st.K, N = st.N;
+  const float* A = st.in;
+  const W* __restrict__ B = static_cast<const W*>(st.w);
+  const float* __restrict__ ln_g = st.ln_g;
+  const float* __restrict__ ln_b = st.ln_b;
+  const float* gate = st.gate;
+  // the panels hold K in chunks of GKC where K > GKC, else whole
+  const int KC = K < GKC ? K : GKC;
+  const bool chunked = K > KC;
+  const int lda = gemm_lda(KC);  // rows 4 floats apart: distinct banks
+  float* As = reinterpret_cast<float*>(dyn_smem);
+  float* Gs = As + GBM * lda;
+  float* Bt = Gs + round4(KC);
+  float* Part = Bt + round4(KC);
+  float* Stats = Part + (GSPLIT - 1) * GBM * GBN;  // [2][GBM]: mean, 1/std
+  W* Bs = reinterpret_cast<W*>(Stats + 2 * GBM);
+  const int tid = threadIdx.x;
+  const int ntn = (N + GBN - 1) / GBN;
+  const int m0 = (tile / ntn) * GBM, n0 = (tile % ntn) * GBN;
+
+  // Over chunks, each row's LayerNorm statistics come first, read from
+  // global memory in the order row_stats reads a whole row in shared memory.
+  if (ln_g && chunked) {
+    for (int r = tid / 32; r < GBM && m0 + r < M; r += GTHREADS / 32) {
+      float mu, rs;
+      row_stats(A + (size_t)(m0 + r) * K, K, st.eps, &mu, &rs);
+      if ((tid & 31) == 0) {
+        Stats[r] = mu;
+        Stats[GBM + r] = rs;
+      }
+    }
+  }
+
   const int grp = tid / 64, tx = tid % 8, ty = (tid % 64) / 8;
-  const int kc = K / GSPLIT, k0 = grp * kc;
+  const int k0 = grp * K / GSPLIT, k1 = (grp + 1) * K / GSPLIT;
   const float* a0p = As + ty * lda;
   const float* a1p = As + (ty + 8) * lda;
   const W* bp = Bs + 4 * tx;
   float acc[2][4] = {};
-#pragma unroll 8
-  for (int k = k0; k < k0 + kc; ++k) {
-    float b[4];
-    load4(bp + k * GBN, b);
-    const float a0 = a0p[k], a1 = a1p[k];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      acc[0][c] += a0 * b[c];
-      acc[1][c] += a1 * b[c];
+  for (int c0 = 0; c0 < K; c0 += KC) {
+    const int kn = min(KC, K - c0);
+    // Every load of the chunk in flight at once, 16 bytes each where the
+    // rows are whole 16-byte chunks: the A panel (rows past M as zeros),
+    // gamma and beta or the gate, the B panel (columns past N as zeros).
+    if ((K & 3) == 0) {
+      const int k4 = kn / 4;
+      for (int e = tid; e < GBM * k4; e += GTHREADS) {
+        const int i = e / k4, j = (e - i * k4) * 4;
+        const bool ok = m0 + i < M;
+        cp_async16(As + i * lda + j,
+                   ok ? A + (size_t)(m0 + i) * K + c0 + j : A, ok);
+      }
+      if (ln_g) {
+        for (int j = 4 * tid; j < kn; j += 4 * GTHREADS) {
+          cp_async16(Gs + j, ln_g + c0 + j, true);
+          cp_async16(Bt + j, ln_b + c0 + j, true);
+        }
+      } else if (gate) {
+        for (int j = 4 * tid; j < kn; j += 4 * GTHREADS)
+          cp_async16(Gs + j, gate + c0 + j, true);
+      }
+    } else {
+      for (int e = tid; e < GBM * kn; e += GTHREADS) {
+        const int i = e / kn, j = e - i * kn;
+        As[i * lda + j] =
+            m0 + i < M ? A[(size_t)(m0 + i) * K + c0 + j] : 0.f;
+      }
+      for (int j = tid; j < kn; j += GTHREADS) {
+        if (ln_g) {
+          Gs[j] = ln_g[c0 + j];
+          Bt[j] = ln_b[c0 + j];
+        } else if (gate) {
+          Gs[j] = gate[c0 + j];
+        }
+      }
     }
+    const W* Bc = B + (size_t)c0 * N;
+    const int row_bytes = N * (int)sizeof(W);
+    if (row_bytes % 16 == 0) {
+      load_b_panel<W, 16>(Bs, Bc, N, n0, kn);
+    } else if (row_bytes % 8 == 0 && sizeof(W) <= 8) {
+      load_b_panel<W, 8>(Bs, Bc, N, n0, kn);
+    } else if (row_bytes % 4 == 0 && sizeof(W) <= 4) {
+      load_b_panel<W, 4>(Bs, Bc, N, n0, kn);
+    } else {
+      for (int e = tid; e < kn * GBN; e += GTHREADS) {
+        const int k = e / GBN, j = e - k * GBN;
+        if (n0 + j < N)
+          Bs[e] = Bc[(size_t)k * N + n0 + j];
+        else
+          set_zero(Bs[e]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    if (ln_g) {  // each warp normalises its rows in place
+      for (int r = tid / 32; r < GBM && m0 + r < M; r += GTHREADS / 32) {
+        float* row = As + r * lda;
+        float mu, rs;
+        if (chunked) {
+          mu = Stats[r];
+          rs = Stats[GBM + r];
+        } else {
+          row_stats(row, K, st.eps, &mu, &rs);
+        }
+        for (int k = tid & 31; k < kn; k += 32)
+          row[k] = (row[k] - mu) * rs * Gs[k] + Bt[k];
+      }
+      __syncthreads();
+    } else if (gate) {
+      for (int e = tid; e < GBM * kn; e += GTHREADS) {
+        const int i = e / kn, k = e - i * kn;
+        As[i * lda + k] *= Gs[k];
+      }
+      __syncthreads();
+    }
+
+    // this group's k in [k0, k1) that fall in the chunk, in order
+    const int kb = max(k0, c0) - c0, ke = min(k1, c0 + kn) - c0;
+#pragma unroll 8
+    for (int k = kb; k < ke; ++k) {
+      float b[4];
+      load4(bp + k * GBN, b);
+      const float a0 = a0p[k], a1 = a1p[k];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[0][c] += a0 * b[c];
+        acc[1][c] += a1 * b[c];
+      }
+    }
+    if (!chunked) break;  // one pass: the panels hold all of K
+    __syncthreads();      // the next chunk reuses the panels
   }
   if (grp > 0) {
     float* mine = Part + (grp - 1) * GBM * GBN;
@@ -330,17 +639,29 @@ __device__ __noinline__ void gemm_tile(const Stage& st, int tile) {
           acc[r][c] += p[(ty + 8 * r) * GBN + 4 * tx + c];
     }
 
+    // the epilogue's vectors, res and C 16 bytes at a time where N % 4 == 0
+    // (then a thread's 4 columns are all in or all past N), else one
+    // element at a time
     const int n = n0 + 4 * tx;
+    const bool vec = (N & 3) == 0;
+    const int nc = min(4, N - n);  // columns of this thread inside N
     float bv[4] = {0.f, 0.f, 0.f, 0.f};
-    if (st.bias) load4(st.bias + n, bv);
     float sv[4] = {1.f, 1.f, 1.f, 1.f};
-    if (std::is_same<W, int8_t>::value) load4(st.wscale + n, sv);
+    if (vec && nc > 0) {
+      if (st.bias) load4(st.bias + n, bv);
+      if (std::is_same<W, int8_t>::value) load4(st.wscale + n, sv);
+    } else {
+      for (int c = 0; c < nc; ++c) {
+        if (st.bias) bv[c] = st.bias[n + c];
+        if (std::is_same<W, int8_t>::value) sv[c] = st.wscale[n + c];
+      }
+    }
     const float* res = st.res;
     float* C = st.out;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int m = m0 + ty + 8 * r;
-      if (m >= M) continue;
+      if (m >= M || nc <= 0) continue;
       const size_t o = (size_t)m * N + n;
       float v[4];
 #pragma unroll
@@ -350,13 +671,19 @@ __device__ __noinline__ void gemm_tile(const Stage& st, int tile) {
         v[c] += bv[c];
         if (st.swish) v[c] = swish_f(v[c]);
       }
-      if (res) {
-        float rv[4];
-        load4(res + o, rv);
+      if (vec) {
+        if (res) {
+          float rv[4];
+          load4(res + o, rv);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = rv[c] + v[c];
+          for (int c = 0; c < 4; ++c) v[c] = rv[c] + v[c];
+        }
+        *reinterpret_cast<float4*>(C + o) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        for (int c = 0; c < nc; ++c)
+          C[o + c] = res ? res[o + c] + v[c] : v[c];
       }
-      *reinterpret_cast<float4*>(C + o) = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
   __syncthreads();  // the next tile of a persistent block reuses the panels
@@ -366,23 +693,27 @@ __device__ __noinline__ void gemm_tile(const Stage& st, int tile) {
 // Multi-head self-attention over a fused QKV [T, 3*D] whose columns hold, per
 // head h, the blocks [q | k | v] of Dh each. out[T, D] holds head h at
 // columns h*Dh .. (h+1)*Dh. s = q.k * scale + (1 - mask) * -1e30, softmax by
-// max-subtract / exp / divide as the reference does. Needs Dh % 4 == 0.
+// max-subtract / exp / divide as the reference does. Any Dh: q and the K
+// rows are held round4(Dh) wide with zeros past Dh, so the dot products run
+// 4 columns at a time (a zero column adds exactly 0); where Dh % 4 != 0 the
+// rows of qkv are not 16-byte aligned and K and V load one value at a time.
 // ---------------------------------------------------------------------------
 constexpr int AWARPS = GTHREADS / 32, AQ = AWARPS;  // one query row a warp
-
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 __host__ __device__ inline size_t attention_smem_floats(int T, int Dh) {
   // K rows padded by 4 floats: lanes reading neighbouring rows as float4
   // fall on distinct banks
-  return (size_t)T * (Dh + 4) + (size_t)T * Dh + round4(T) +
-         (size_t)AWARPS * round4(T) + (size_t)AWARPS * Dh;
+  const size_t dp = round4(Dh);
+  return (size_t)T * (dp + 4) + (size_t)T * dp + round4(T) +
+         (size_t)AWARPS * round4(T) + (size_t)AWARPS * dp;
 }
 
 __host__ __device__ inline int attention_tiles(int T, int H) {
   return H * ((T + AQ - 1) / AQ);
 }
 
+// The form for heads a multiple of 4 wide (every load 16 bytes, no padded
+// columns); attention_tile_any below takes any head width.
 template <bool RB>
 __device__ __noinline__ void attention_tile(const Stage& st, int tile) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
@@ -478,6 +809,121 @@ __device__ __noinline__ void attention_tile(const Stage& st, int tile) {
   __syncthreads();
 }
 
+template <bool RB>
+__device__ __noinline__ void attention_tile_any(const Stage& st, int tile) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  float* att_sm = reinterpret_cast<float*>(dyn_smem);
+  const int T = st.M, D = st.N, H = st.heads;
+  const float scale = st.scale;
+  const float* qkv = st.in;
+  const float* mask = st.mask;
+  float* out = st.out;
+  const int Dh = D / H, dp = round4(Dh), ks = dp + 4, tp = round4(T);
+  float* Ks = att_sm;
+  float* Vs = Ks + (size_t)T * ks;
+  float* bias = Vs + (size_t)T * dp;
+  float* P = bias + tp;
+  float* Q = P + (size_t)AWARPS * tp;
+  const int h = tile % H, q0 = (tile / H) * AQ;
+  const size_t ld = 3 * (size_t)D;
+  const int base = h * 3 * Dh;
+
+  if ((Dh & 3) == 0) {
+    const int dh4 = Dh / 4;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < T * dh4; e += GTHREADS) {
+      const int t = e / dh4, d = (e - t * dh4) * 4;
+      float4 kv =
+          *reinterpret_cast<const float4*>(qkv + t * ld + base + Dh + d);
+      float4 vv =
+          *reinterpret_cast<const float4*>(qkv + t * ld + base + 2 * Dh + d);
+      if (RB) {
+        kv = make_float4(round_bf16(kv.x), round_bf16(kv.y), round_bf16(kv.z),
+                         round_bf16(kv.w));
+        vv = make_float4(round_bf16(vv.x), round_bf16(vv.y), round_bf16(vv.z),
+                         round_bf16(vv.w));
+      }
+      *reinterpret_cast<float4*>(Ks + t * ks + d) = kv;
+      *reinterpret_cast<float4*>(Vs + t * dp + d) = vv;
+    }
+  } else {
+    for (int e = threadIdx.x; e < T * dp; e += GTHREADS) {
+      const int t = e / dp, d = e - t * dp;
+      float kv = 0.f, vv = 0.f;
+      if (d < Dh) {
+        kv = qkv[t * ld + base + Dh + d];
+        vv = qkv[t * ld + base + 2 * Dh + d];
+        if (RB) {
+          kv = round_bf16(kv);
+          vv = round_bf16(vv);
+        }
+      }
+      Ks[t * ks + d] = kv;
+      Vs[t * dp + d] = vv;
+    }
+  }
+  for (int t = threadIdx.x; t < T; t += GTHREADS)
+    bias[t] = (1.0f - mask[t]) * NEG;
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  float* p = P + (size_t)warp * tp;
+  float* q = Q + (size_t)warp * dp;
+  if (lane < dp - Dh) q[Dh + lane] = 0.f;  // the zero columns past Dh
+  const int qend = min(q0 + AQ, T);
+  for (int qi = q0 + warp; qi < qend; qi += AWARPS) {
+    for (int d = lane; d < Dh; d += 32) {
+      const float v = qkv[qi * ld + base + d];
+      q[d] = RB ? round_bf16(v) : v;
+    }
+    __syncwarp();
+    float mx = -INFINITY;
+    for (int j = lane; j < T; j += 32) {
+      const float* kr = Ks + j * ks;
+      float s = 0.f;
+      for (int d = 0; d < dp; d += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(q + d);
+        const float4 b = *reinterpret_cast<const float4*>(kr + d);
+        s += a.x * b.x;
+        s += a.y * b.y;
+        s += a.z * b.z;
+        s += a.w * b.w;
+      }
+      s = s * scale + bias[j];
+      p[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < T; j += 32) {
+      const float e = expf(p[j] - mx);
+      p[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < T; j += 32) {
+      const float v = p[j] / sum;
+      p[j] = RB ? round_bf16(v) : v;
+    }
+    __syncwarp();
+    for (int d = lane; d < Dh; d += 32) {
+      float o = 0.f;
+      int j = 0;
+      for (; j + 4 <= T; j += 4) {
+        const float4 pj = *reinterpret_cast<const float4*>(p + j);
+        o += pj.x * Vs[j * dp + d];
+        o += pj.y * Vs[(j + 1) * dp + d];
+        o += pj.z * Vs[(j + 2) * dp + d];
+        o += pj.w * Vs[(j + 3) * dp + d];
+      }
+      for (; j < T; ++j) o += p[j] * Vs[j * dp + d];
+      out[(size_t)qi * D + h * Dh + d] = o;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
 // Depthwise conv over time, one thread per output element of [T, C]. The
 // input row is [C] or, with glu, [2C] whose halves (a, b) give a *
@@ -518,13 +964,17 @@ __device__ __noinline__ void dwconv_tile(const Stage& st, int tile) {
 // Masked mean over time of h [T, C] into g [C] (shared memory), denominator
 // max(sum mask, 1). The time sum is split over P = gap_parts(C) interleaved
 // parts, added in order at the end: the order depends on C alone, not on the
-// number of threads. part is [P, C] scratch, den one float. Needs C % 4 == 0
-// and 16-byte aligned rows.
+// number of threads. part is [P, C] scratch, den one float. Rows of whole
+// 16-byte chunks (C % 4 == 0) are read four channels at a time, the others
+// one channel at a time; each channel's sum is the same either way.
 // ---------------------------------------------------------------------------
 constexpr int GATE_THREADS = 1024;  // of a gate launched on its own
 
 __host__ __device__ inline int gap_parts(int C) {
-  return C < GATE_THREADS ? GATE_THREADS / C : 1;
+  // every thread of a gate takes one part of four channels (of one channel
+  // where rows are not whole 16-byte chunks)
+  const int items = C % 4 == 0 ? C / 4 : C;
+  return items < GATE_THREADS ? GATE_THREADS / items : 1;
 }
 
 __device__ __forceinline__ void masked_gap(const float* h, const float* mask,
@@ -539,21 +989,31 @@ __device__ __forceinline__ void masked_gap(const float* h, const float* mask,
     if (lane == 0) *den = fmaxf(m, 1.0f);
   }
   // one thread sums four neighbouring channels of one part, 16 bytes a
-  // load, so that 256 threads cover [P, C] = 1024 columns in one pass
-  const int c4 = C / 4;
-  for (int e = tid; e < P * c4; e += blockDim.x) {
-    const int p = e / c4, c = (e - p * c4) * 4;
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  // load: a gate's 1024 threads cover the [P, C] partial sums in one pass
+  if ((C & 3) == 0) {
+    const int c4 = C / 4;
+    for (int e = tid; e < P * c4; e += blockDim.x) {
+      const int p = e / c4, c = (e - p * c4) * 4;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-    for (int t = p; t < T; t += P) {
-      const float4 v = *reinterpret_cast<const float4*>(h + (size_t)t * C + c);
-      const float m = mask[t];
-      s.x += v.x * m;
-      s.y += v.y * m;
-      s.z += v.z * m;
-      s.w += v.w * m;
+      for (int t = p; t < T; t += P) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(h + (size_t)t * C + c);
+        const float m = mask[t];
+        s.x += v.x * m;
+        s.y += v.y * m;
+        s.z += v.z * m;
+        s.w += v.w * m;
+      }
+      *reinterpret_cast<float4*>(part + p * C + c) = s;
     }
-    *reinterpret_cast<float4*>(part + p * C + c) = s;
+  } else {
+    for (int e = tid; e < P * C; e += blockDim.x) {
+      const int p = e / C, c = e - p * C;
+      float s = 0.f;
+      for (int t = p; t < T; t += P) s += h[(size_t)t * C + c] * mask[t];
+      part[p * C + c] = s;
+    }
   }
   __syncthreads();
   for (int c = tid; c < C; c += blockDim.x) {
@@ -676,35 +1136,48 @@ __host__ __device__ inline size_t stage_smem_bytes(const Stage& st) {
   }
 }
 
-template <typename W>
+template <typename W, bool WHOLE>
 __global__ void __launch_bounds__(GTHREADS)
 gemm_kernel(const __grid_constant__ Stage st) {
-  gemm_tile<W>(st, blockIdx.x);
+  note_stage(st);
+  if (WHOLE)
+    gemm_tile_tc<W>(st, blockIdx.x);
+  else
+    gemm_tile_any<W>(st, blockIdx.x);
 }
-template <bool RB>
+template <bool RB, bool QUAD>
 __global__ void __launch_bounds__(GTHREADS)
 attention_kernel(const __grid_constant__ Stage st) {
-  attention_tile<RB>(st, blockIdx.x);
+  note_stage(st);
+  if (QUAD)
+    attention_tile<RB>(st, blockIdx.x);
+  else
+    attention_tile_any<RB>(st, blockIdx.x);
 }
 __global__ void __launch_bounds__(GTHREADS)
 dwconv_kernel(const __grid_constant__ Stage st) {
+  note_stage(st);
   dwconv_tile(st, blockIdx.x);
 }
 template <typename W>
 __global__ void __launch_bounds__(GATE_THREADS)
 se_gate_kernel(const __grid_constant__ Stage st) {
+  note_stage(st);
   se_gate_tile<W>(st);
 }
 __global__ void __launch_bounds__(GATE_THREADS)
 eca_gate_kernel(const __grid_constant__ Stage st) {
+  note_stage(st);
   eca_gate_tile(st);
 }
 __global__ void __launch_bounds__(GTHREADS)
 se_apply_kernel(const __grid_constant__ Stage st) {
+  note_stage(st);
   apply_tile(st, blockIdx.x);
 }
 __global__ void __launch_bounds__(GTHREADS)
 layernorm_kernel(const __grid_constant__ Stage st) {
+  note_stage(st);
   layernorm_tile(st, blockIdx.x);
 }
 
@@ -729,9 +1202,16 @@ template <typename W, bool RB>
 cudaError_t launch_stage(const Stage& st, cudaStream_t stream) {
   const size_t smem = stage_smem_bytes<W>(st);
   switch (st.op) {
-    case OP_GEMM: return launch(gemm_kernel<W>, st, GTHREADS, smem, stream);
+    case OP_GEMM:
+      return gemm_whole(st)
+                 ? launch(gemm_kernel<W, true>, st, GTHREADS, smem, stream)
+                 : launch(gemm_kernel<W, false>, st, GTHREADS, smem, stream);
     case OP_ATTENTION:
-      return launch(attention_kernel<RB>, st, GTHREADS, smem, stream);
+      return (st.N / st.heads) % 4 == 0
+                 ? launch(attention_kernel<RB, true>, st, GTHREADS, smem,
+                          stream)
+                 : launch(attention_kernel<RB, false>, st, GTHREADS, smem,
+                          stream);
     case OP_DWCONV: return launch(dwconv_kernel, st, GTHREADS, smem, stream);
     case OP_SE_GATE:
       return launch(se_gate_kernel<W>, st, GATE_THREADS, smem, stream);
@@ -764,6 +1244,7 @@ struct StackParams {
   const float* mask;
   float* out;
   float *qkv, *hid, *hid2, *att, *hb, *gate;  // scratch
+  int* count;  // stages run (device), or null
   const char* leaf[MAX_LEAVES];
   long long stride[MAX_LEAVES];
   const char* sleaf[MAX_LEAVES];
@@ -798,7 +1279,7 @@ struct Leaves {
   }
 };
 
-// out[M,N] = epilogue(LN(in) @ leaf wi), see gemm_tile.
+// out[M,N] = epilogue(LN(in) @ leaf wi), see gemm_tile_tc.
 __host__ __device__ inline Stage gemm_stage(const Leaves& L, const float* in,
                                             int M, int K, int ln_g, int ln_b,
                                             int wi, int N, int bias, int swish,
@@ -1005,8 +1486,11 @@ __host__ __device__ inline Stage inner_stage(const StackParams& P, int grp,
 __host__ __device__ inline Stage make_stage(const StackParams& P, int grp,
                                             int s) {
   const int nc = P.nconv * CONV_STAGES;
-  return s < nc ? conv_stage(P, grp, s / CONV_STAGES, s % CONV_STAGES)
-                : inner_stage(P, grp, s - nc);
+  Stage st = s < nc ? conv_stage(P, grp, s / CONV_STAGES, s % CONV_STAGES)
+                    : inner_stage(P, grp, s - nc);
+  st.count = P.count;
+  st.first = grp == 0 && s == 0;
+  return st;
 }
 
 // ---------------------------------------------------------------------------
@@ -1034,7 +1518,9 @@ __device__ __forceinline__ void prefetch_group(const StackParams& P, int grp) {
   }
 }
 
-template <typename W, bool RB>
+// ANY: some product or head width needs the general tiles (gemm_tile_any,
+// attention_tile_any); a stack at whole widths runs a kernel without them.
+template <typename W, bool RB, bool ANY>
 __global__ void __launch_bounds__(GTHREADS)
 stack_persistent_kernel(const __grid_constant__ StackParams P) {
   cg::grid_group grid = cg::this_grid();
@@ -1044,13 +1530,26 @@ stack_persistent_kernel(const __grid_constant__ StackParams P) {
     if (grp == 0) prefetch_group(P, 0);
     prefetch_group(P, grp + 1);
     for (int s = 0; s < nst; ++s) {
-      if (threadIdx.x == 0) st = make_stage(P, grp, s);
+      if (threadIdx.x == 0) {
+        st = make_stage(P, grp, s);
+        note_stage(st);
+      }
       __syncthreads();
       const int nt = stage_tiles(st);
       for (int t = blockIdx.x; t < nt; t += gridDim.x) {
         switch (st.op) {
-          case OP_GEMM: gemm_tile<W>(st, t); break;
-          case OP_ATTENTION: attention_tile<RB>(st, t); break;
+          case OP_GEMM:
+            if (!ANY || gemm_whole(st))
+              gemm_tile_tc<W>(st, t);
+            else
+              gemm_tile_any<W>(st, t);
+            break;
+          case OP_ATTENTION:
+            if (!ANY || (st.N / st.heads) % 4 == 0)
+              attention_tile<RB>(st, t);
+            else
+              attention_tile_any<RB>(st, t);
+            break;
           case OP_DWCONV: dwconv_tile(st, t); break;
           case OP_SE_GATE: se_gate_tile<W>(st); break;
           case OP_ECA_GATE: eca_gate_tile(st); break;
@@ -1070,24 +1569,22 @@ stack_persistent_kernel(const __grid_constant__ StackParams P) {
     if (e_ != cudaSuccess) return (int)e_;      \
   } while (0)
 
-// info, if given, receives {grid blocks, blocks an SM holds, dynamic shared
-// memory bytes} of the persistent launch.
+// info, if given, receives {stages issued, launches, the largest dynamic
+// shared memory of a stage in bytes, grid blocks and blocks an SM holds of
+// the persistent launch (0 and 0 for one launch a stage)}.
 template <typename W, bool RB>
 int run_stack(const StackParams& P, int persistent, int* info,
               cudaStream_t stream) {
   const int nst = group_stages(P);
-  if (!persistent) {
-    for (int grp = 0; grp < P.nblocks; ++grp)
-      for (int s = 0; s < nst; ++s)
-        TRY((launch_stage<W, RB>(make_stage(P, grp, s), stream)));
-    return 0;
-  }
   size_t smem = 0;
   int tiles = 1;
+  bool any = false;
   for (int s = 0; s < nst; ++s) {
     const Stage st = make_stage(P, 0, s);
     const size_t b = stage_smem_bytes<W>(st);
     smem = b > smem ? b : smem;
+    any = any || (st.op == OP_GEMM && !gemm_whole(st)) ||
+          (st.op == OP_ATTENTION && (st.N / st.heads) % 4);
     // the GEMM and attention stages size the grid: their tiles are long,
     // while a block walks several elementwise tiles at little cost and
     // every block more makes each barrier slower
@@ -1095,7 +1592,20 @@ int run_stack(const StackParams& P, int persistent, int* info,
                       ? stage_tiles(st) : 1;
     tiles = t > tiles ? t : tiles;
   }
-  auto* kernel = stack_persistent_kernel<W, RB>;
+  if (info) {
+    info[0] = P.nblocks * nst;
+    info[1] = persistent ? 1 : P.nblocks * nst;
+    info[2] = (int)smem;
+    info[3] = info[4] = 0;
+  }
+  if (!persistent) {
+    for (int grp = 0; grp < P.nblocks; ++grp)
+      for (int s = 0; s < nst; ++s)
+        TRY((launch_stage<W, RB>(make_stage(P, grp, s), stream)));
+    return 0;
+  }
+  auto* kernel = any ? stack_persistent_kernel<W, RB, true>
+                     : stack_persistent_kernel<W, RB, false>;
   // The grid may not exceed what is resident at once, or the barrier never
   // completes: size it from the occupancy at this shared-memory size.
   int device = 0, sms = 0, per_sm = 0, cooperative = 0;
@@ -1115,9 +1625,8 @@ int run_stack(const StackParams& P, int persistent, int* info,
                                   dim3(blocks), dim3(GTHREADS), args, smem,
                                   stream));
   if (info) {
-    info[0] = blocks;
-    info[1] = per_sm;
-    info[2] = (int)smem;
+    info[3] = blocks;
+    info[4] = per_sm;
   }
   return 0;
 }
@@ -1134,9 +1643,11 @@ extern "C" {
 // and ECA kernel sizes. storage: 0 f32, 1 bf16, 2 int8 matrices. persistent:
 // 0 one launch a stage, 1 one cooperative launch for the stack. Scratch:
 // qkv [T, 3D]; hid, hid2 [T, max(F, E, 2D, C2)]; att, hb [T, D];
-// gate [max(D, C2)]. Every matrix and vector leaf, its group stride and every
-// scratch pointer 16-byte aligned; D, F, E and C2 multiples of 32, D / H a
-// multiple of 4. Returns a cudaError_t (0 on success).
+// gate [max(D, C2)]. Every leaf and scratch pointer 16-byte aligned; any
+// widths, D a multiple of H. count: one int on the device that receives the
+// stages the stack ran, counted by the stages themselves; info: see
+// run_stack. A stage whose shared memory exceeds a block's fails its launch.
+// Returns a cudaError_t (0 on success).
 int ishara_block_stack(int device, int kind, int nconv, const int* conv_k,
                        const int* eca_k, const float* x, const float* mask,
                        float* out, void* const* leaves,
@@ -1145,12 +1656,12 @@ int ishara_block_stack(int device, int kind, int nconv, const int* conv_k,
                        int nblocks, int T, int D, int H, int F, int E, int Kw,
                        int R, int C2, float scale, int storage, int persistent,
                        float* qkv, float* hid, float* hid2, float* att,
-                       float* hb, float* gate, void* stream, int* info) {
+                       float* hb, float* gate, int* count, void* stream,
+                       int* info) {
   if (kind < 0 || kind > 2 || nconv < 0 || nconv > MAX_CONV ||
       nleaves != nconv * CONV_LEAVES + inner_leaves(kind) ||
       nleaves > MAX_LEAVES || nblocks < 1 || storage < 0 || storage > 2 ||
-      D % GBN || F % GBN || (kind == 0 && E % GBN) || (nconv && C2 % GBN) ||
-      D % H || (D / H) % 4)
+      T < 1 || D < 1 || H < 1 || D % H)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -1181,6 +1692,7 @@ int ishara_block_stack(int device, int kind, int nconv, const int* conv_k,
   P.att = att;
   P.hb = hb;
   P.gate = gate;
+  P.count = count;
   for (int i = 0; i < nleaves; ++i) {
     P.leaf[i] = static_cast<const char*>(leaves[i]);
     P.stride[i] = strides[i];

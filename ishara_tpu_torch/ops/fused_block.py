@@ -11,7 +11,17 @@ the design, its numerics and its bound on an H100), or raises; on a CPU
 tensor it runs the plain PyTorch version beside it (:func:`squeeze_body`,
 :func:`conformer_body`, :func:`transformer_body`,
 :func:`conv1d_block_body`), which repeat the reference's bodies step by
-step. Each wrapper counts its kernel launches in ``.launches``.
+step. Each wrapper counts its kernel calls in ``.launches``.
+
+The kernel runs a stack as stages -- 12 a Squeezeformer block, 11 a
+Conformer, 5 a Transformer, 4 a Conv1DBlock -- each a grid of small
+independent tiles (16 x 32 GEMM tiles, their products on the tensor cores
+at the presets' widths; 8-query attention tiles). It takes
+any widths D, F, E and C2 and any head width D / H, as the reference does:
+the ragged edges of the last row and column tiles are masked. It refuses
+only a geometry whose stage needs more shared memory than a block has
+(:func:`stack_plan`, which mirrors the kernel's plan); :func:`stack_report`
+reads back what the last launch ran, its stages as the device counted them.
 
 Kernel arguments are the reference's per-block leaf tuples
 (:mod:`ishara_tpu_torch.bridge`), each leaf stacked on a leading block axis
@@ -23,9 +33,9 @@ depthwise kernels ``[K, C]`` in f32. At int8 storage a matrix is the pair
 after the dot.
 
 ``dma=True`` is the port of the reference's manually double-buffered weight
-DMA: the whole stack runs as one persistent cooperative kernel that
-prefetches the next block's weights into L2 while the current block
-computes. Its numerics are those of ``dma=False``.
+DMA: the whole stack runs as one persistent launch that prefetches the next
+block's weights into L2 while the current block computes. Its numerics are
+those of ``dma=False``, bit for bit.
 
 The whole fused forward of an encoder -- stem, the stacks, top and
 classifier (the reference's ``fused_encoder_forward``) -- builds on the model
@@ -35,6 +45,7 @@ package and lives there: :mod:`ishara_tpu_torch.models.fused`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -393,8 +404,9 @@ def _check_leaves(spec, leaves, dims, nb, storage, device):
 
 
 def _check(kind, x, mask, conv, leaves, num_heads):
-    """Validate a stack wrapper's inputs; return (dims, storage, the
-    Conv1DBlocks' (depthwise, ECA) kernel sizes)."""
+    """Validate a stack wrapper's inputs (ranks, shapes, dtypes, devices;
+    any widths); return (dims, storage, the Conv1DBlocks' (depthwise, ECA)
+    kernel sizes)."""
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous f32 [T, dim], got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -443,7 +455,7 @@ def _lib():
         LL = ctypes.POINTER(ctypes.c_longlong)
         lib.ishara_block_stack.argtypes = (
             [I, I, I, IP, IP, P, P, P, P, LL, P, LL, I, I]
-            + [I] * 8 + [F, I, I] + [P] * 6 + [P, IP])
+            + [I] * 8 + [F, I, I] + [P] * 7 + [P, IP])
         lib.ishara_block_stack.restype = I
         lib.ishara_error_string.argtypes = [I]
         lib.ishara_error_string.restype = ctypes.c_char_p
@@ -457,79 +469,195 @@ def _raise_on(lib, rc, what):
                            f"({lib.ishara_error_string(rc).decode()})")
 
 
-def _device_of(x, dims, tensors):
-    """The CUDA device index, after the checks that only the kernels need:
-    widths in whole GEMM tiles and 16-byte aligned rows and blocks."""
-    if x.device.type != "cuda":
-        raise ValueError(f"the fused kernels run on CUDA or CPU tensors, "
-                         f"not {x.device}")
-    for s in ("D", "F", "E", "C"):
-        if dims.get(s, 32) % 32:
-            raise ValueError(f"the CUDA kernels need {s} = {dims[s]} to be a "
-                             f"multiple of 32")
-    if (dims["D"] // dims["H"]) % 4:
-        raise ValueError(f"the CUDA kernels need dim / num_heads = "
-                         f"{dims['D'] // dims['H']} to be a multiple of 4")
-    for w in tensors:
-        if w.data_ptr() % 16 or (w.stride(0) * w.element_size()) % 16:
-            raise ValueError("the CUDA kernels need 16-byte aligned inputs")
-    return x.device.index if x.device.index is not None else \
-        torch.cuda.current_device()
+# ---------------------------------------------------------------------------
+# The kernel's plan, mirrored from csrc/fused_block.cu: the stages a block
+# (group_stages), the tiles of each stage (gemm_tiles, attention_tiles) and
+# the dynamic shared memory of each (stage_smem_bytes).
+# ---------------------------------------------------------------------------
+STAGES_PER_BLOCK = {"squeezeformer": 12, "conformer": 11, "transformer": 5,
+                    "conv1d": 4}
+GEMM_ROWS, GEMM_COLS, QUERY_ROWS = 16, 32, 8  # a GEMM tile, a query tile
+GEMM_DEPTH = 1024  # a GEMM tile's panels hold K in chunks of this depth
+GATE_THREADS = 1024
+SMEM_LIMIT = 232448  # bytes of shared memory a block may take (H100)
+_W_BYTES = {0: 4, 1: 2, 2: 1}
 
 
-# What the last persistent (dma=True) launch used: (grid blocks, blocks an
-# SM holds, dynamic shared memory bytes), for reports.
-last_persistent_launch = None
+def _cdiv(a, b):
+    return -(-a // b)
 
 
-def _run_stack(what, kind, x, mask, conv, leaves, num_heads, dma):
-    """Launch the kernels for N groups of (len(conv) Conv1DBlocks, one
-    ``kind`` block); ``conv`` is () for a plain block stack."""
-    global last_persistent_launch
-    dims, storage, conv_k = _check(kind, x, mask, conv, leaves, num_heads)
-    code, spec, _ = INNER[kind]
-    flat, aligned = [], [x]
+def _r4(n):
+    return _cdiv(n, 4) * 4
+
+
+def _gemm_smem(K, code):
+    kc = min(K, GEMM_DEPTH)
+    ldb = GEMM_COLS + 8 if code == 1 else GEMM_COLS  # bf16 rows padded
+    return ((GEMM_ROWS * (_r4(kc) + 4) + 2 * _r4(kc)
+             + 3 * GEMM_ROWS * GEMM_COLS + 2 * GEMM_ROWS) * 4
+            + kc * ldb * _W_BYTES[code])
+
+
+def _gate_smem(C, extra):
+    items = C // 4 if C % 4 == 0 else C
+    parts = GATE_THREADS // items if items < GATE_THREADS else 1
+    return (parts * C + C + extra + 4) * 4
+
+
+def _attention_smem(T, dh):
+    dp = _r4(dh)
+    return (T * (dp + 4) + T * dp + _r4(T) + 8 * _r4(T) + 8 * dp) * 4
+
+
+def _tiles(n, size):
+    return [(a, min(n, a + size)) for a in range(0, n, size)]
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(kind, T, dim, heads, ffn, expand, se, conv_width, nconv, nblocks,
+          code):
+    if kind not in INNER:
+        raise ValueError(f"kind must be one of {sorted(INNER)}, got {kind!r}")
+    if dim % heads:
+        raise ValueError(f"dim {dim} is not a multiple of heads {heads}")
+    C = conv_width if nconv else 0
+    expand = expand if kind == "squeezeformer" else 0
+    smem = max(_gemm_smem(max(dim, ffn, expand, C), code),
+               _attention_smem(T, dim // heads),
+               _gate_smem(dim, se) if kind == "squeezeformer" else 0,
+               _gate_smem(C, 0) if C else 0)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"the stack kernel cannot take T={T}, dim={dim}, heads={heads}, "
+            f"ffn={ffn}, expand={expand}, conv_width={C}: a stage needs "
+            f"{smem} bytes of shared memory a block, an H100 block has "
+            f"{SMEM_LIMIT}")
+    per = STAGES_PER_BLOCK[kind] + nconv * STAGES_PER_BLOCK["conv1d"]
+    widths = {"ffn": ffn, "qkv": 3 * dim, "channels": dim,
+              "expand": expand, "glu": 2 * dim if kind == "conformer" else 0,
+              "conv": C}
+    return {
+        "stages": nblocks * per,
+        "stages_per_block": STAGES_PER_BLOCK[kind],
+        "stages_per_conv_block": STAGES_PER_BLOCK["conv1d"],
+        "launches": nblocks * per,
+        "launches_dma": 1,
+        "cluster": 1,
+        "smem_bytes": smem,
+        "rows_per_tile": GEMM_ROWS,
+        "row_tiles": _cdiv(T, GEMM_ROWS),
+        "rows": _tiles(T, GEMM_ROWS),
+        "columns": {k: _tiles(n, GEMM_COLS) for k, n in widths.items() if n},
+        "query_tiles": _tiles(T, QUERY_ROWS),
+    }
+
+
+def stack_plan(kind: str, *, T: int, dim: int, heads: int, ffn: int,
+               expand: int = 0, se: int = 0, conv_width: int = 0,
+               nconv: int = 0, nblocks: int = 1, storage=torch.bfloat16):
+    """The plan of a stack on ``csrc/fused_block.cu``, as its C side makes
+    it: the stages (one launch each at ``dma=False``, one launch in all at
+    ``dma=True``) a stack, a block and a Conv1DBlock; the cluster (1: every
+    tile is one thread block); the GEMM tiles' rows and each product's
+    columns (``"columns"``: the FFN, QKV, D-wide, Squeezeformer expand,
+    Conformer GLU and Conv1DBlock products), the attention's query tiles;
+    the largest dynamic shared memory of a stage. ``expand`` is the
+    Squeezeformer conv module's width E, ``se`` its SE width R,
+    ``conv_width`` the Conv1DBlocks' C. Raises ValueError for a geometry
+    the kernel cannot take: a stage that needs more shared memory than a
+    block has."""
+    code = STORAGE_CODE[{"f32": torch.float32, "bf16": torch.bfloat16}.get(
+        storage, storage)]
+    return dict(_plan(kind, T, dim, heads, ffn, expand, se, conv_width, nconv,
+                      nblocks, code))
+
+
+# The last stack launch, for stack_report; the device's stage counters.
+last_stack_run = None
+_COUNTERS = {}
+
+
+def stack_report():
+    """What the last stack launch ran (synchronises with the device): the
+    stages as the kernel counted them on the device, the launches and the
+    largest dynamic shared memory of a stage as its C side issued them, the
+    cluster (1), at ``dma=True`` the grid of the persistent launch (blocks,
+    blocks an SM), and under ``"plan"`` the :func:`stack_plan` of the
+    launch's geometry."""
+    if last_stack_run is None:
+        raise RuntimeError("no stack kernel has been launched")
+    run = last_stack_run
+    issued, launches, smem, blocks, per_sm = run["info"]
+    return {"stages": int(run["count"].item()), "stages_issued": issued,
+            "launches": launches, "smem_bytes": smem, "cluster": 1,
+            "dma": run["dma"], "grid": (blocks, per_sm) if run["dma"]
+            else None, "plan": dict(run["plan"])}
+
+
+def _flat_leaves(kind, conv, leaves):
+    spec = INNER[kind][1]
+    flat, aligned = [], []
     for sp, lv in [(CONV1D_LEAVES, cl) for cl in conv] + [(spec, leaves)]:
         for (_, lkind, _), w in zip(sp, lv):
             q, sc = w if isinstance(w, tuple) else (w, None)
             flat.append((q, sc))
             if lkind != "s":
                 aligned += [q] if sc is None else [q, sc]
-    dev = _device_of(x, dims, aligned)
-    T, D = x.shape
-    F, E, C = dims["F"], dims.get("E", 0), dims.get("C", 0)
-    wide = max(F, E, 2 * D, C)
-    out = torch.empty_like(x)
-    qkv = x.new_empty((T, 3 * D))
-    hid = x.new_empty((T, wide))
-    hid2 = x.new_empty((T, wide))
-    att = x.new_empty((T, D))
-    hb = x.new_empty((T, D))
-    gate = x.new_empty((max(D, C),))
+    return flat, aligned
+
+
+def _leaf_arrays(flat):
     n = len(flat)
     VP, LL = ctypes.c_void_p * n, ctypes.c_longlong * n
-    ptrs = VP(*(q.data_ptr() for q, _ in flat))
-    strides = LL(*(q.stride(0) * q.element_size() for q, _ in flat))
-    sptrs = VP(*(sc.data_ptr() if sc is not None else None
-                 for _, sc in flat))
-    sstrides = LL(*(sc.stride(0) * 4 if sc is not None else 0
-                    for _, sc in flat))
+    return (VP(*(q.data_ptr() for q, _ in flat)),
+            LL(*(q.stride(0) * q.element_size() for q, _ in flat)),
+            VP(*(sc.data_ptr() if sc is not None else None
+                 for _, sc in flat)),
+            LL(*(sc.stride(0) * 4 if sc is not None else 0
+                 for _, sc in flat)))
+
+
+def _run_stack(what, kind, x, mask, conv, leaves, num_heads, dma):
+    """Launch the kernel for N groups of (len(conv) Conv1DBlocks, one
+    ``kind`` block); ``conv`` is () for a plain block stack."""
+    global last_stack_run
+    if x.device.type != "cuda":
+        raise ValueError(f"the fused kernels run on CUDA or CPU tensors, "
+                         f"not {x.device}")
+    dims, storage, conv_k = _check(kind, x, mask, conv, leaves, num_heads)
+    nb = _nblocks(leaves)
+    T, D = x.shape
+    F, E, C = dims["F"], dims.get("E", 0), dims.get("C", 0)
+    plan = _plan(kind, T, D, num_heads, F, E, dims.get("R", 0), C,
+                 len(conv), nb, STORAGE_CODE[storage])
+    flat, aligned = _flat_leaves(kind, conv, leaves)
+    if any(w.data_ptr() % 16 for w in [x] + aligned):
+        raise ValueError("the stack kernel needs 16-byte aligned inputs")
+    ptrs, strides, sptrs, sstrides = _leaf_arrays(flat)
     IC = ctypes.c_int * max(len(conv_k), 1)
-    ck = IC(*(k for k, _ in conv_k))
-    cke = IC(*(k for _, k in conv_k))
-    info = (ctypes.c_int * 3)()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    dev = _build.device_index(x)
+    count = _COUNTERS.get(dev)
+    if count is None:
+        count = _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32,
+                                             device=x.device)
     lib = _lib()
+    wide = max(F, E, 2 * D, C)
+    scratch = [x.new_empty(s) for s in ((T, 3 * D), (T, wide), (T, wide),
+                                        (T, D), (T, D), (max(D, C),))]
+    out = torch.empty_like(x)
+    info = (ctypes.c_int * 5)()
     rc = lib.ishara_block_stack(
-        dev, code, len(conv), ck, cke, x.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), ptrs, strides, sptrs, sstrides, n, _nblocks(leaves),
+        dev, INNER[kind][0], len(conv), IC(*(k for k, _ in conv_k)),
+        IC(*(k for _, k in conv_k)), x.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), ptrs, strides, sptrs, sstrides, len(flat), nb,
         T, D, num_heads, F, E, dims.get("K", 0), dims.get("R", 0), C,
         float(D) ** -0.5, STORAGE_CODE[storage], int(bool(dma)),
-        qkv.data_ptr(), hid.data_ptr(), hid2.data_ptr(), att.data_ptr(),
-        hb.data_ptr(), gate.data_ptr(), stream, info)
+        *(t.data_ptr() for t in scratch), count.data_ptr(),
+        _build.stream_of(x), info)
     _raise_on(lib, rc, what)
-    if dma:
-        last_persistent_launch = tuple(info)
+    last_stack_run = {"count": count, "info": tuple(info), "dma": bool(dma),
+                      "plan": plan}
     return out
 
 

@@ -7,9 +7,14 @@ PyTorch (``conftest.py`` imports JAX, hence ``--noconftest``):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Small shapes (dim 64, 4 heads of 16, T = 24 or 23 with a padded tail, conv
-kernel sizes 7 and 3) that the main paths' widths do not reach, for every
-kernel form: block stacks and conv groups, f32 / bf16 / int8 storage, one
-launch a stage or the persistent ``dma=True`` kernel. Tolerances, per element |got - want| <=
+kernel sizes 7 and 3) that the main paths' widths do not reach, and the
+published Squeezeformer widths that are not multiples of 32 (dim 144 with 4
+heads of 36, dim 196 with 4 heads of 49), for every kernel form: block
+stacks and conv groups, f32 / bf16 / int8 storage, one launch a stage or the
+persistent ``dma=True`` kernel, and dim 324 (M: an FFN of 1296, deeper
+than a GEMM tile's panel, runs in chunks); a second launch gives the same
+bits, and the kernel's report (stages counted on the device) is
+``stack_plan``'s. Tolerances, per element |got - want| <=
 tol + tol * |want|: kernel against plain version 1e-3 at f32 storage (f32
 on both sides, sums in another order) and 1e-2 at bf16 (the same bf16
 rounding points, where a last-bit difference before a rounding can move a
@@ -37,12 +42,12 @@ SEGMENTS = {"hybrid": ("squeezeformer", "conformer"),
             "conv_transformer": ("transformer",)}
 
 
-def _model(variant, T):
+def _model(variant, T, dim=64):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = EncoderConfig(variant=variant, dim=64, num_heads=4,
+    cfg = EncoderConfig(variant=variant, dim=dim, num_heads=4,
                         num_squeeze_blocks=2, num_conform_blocks=2,
                         kernel_sizes=(7, 3), num_conv_per_block=2,
                         frame_len=T)
@@ -72,17 +77,20 @@ def _inputs(T, dim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim", [64, 144, 196, 324])
 @pytest.mark.parametrize("T", [24, 23])
 @pytest.mark.parametrize("dma", [False, True])
 @pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("variant,kind", [
     (v, k) for v, kinds in SEGMENTS.items() for k in kinds])
-def test_kernel_matches_plain(variant, kind, dt, dma, T):
+def test_kernel_matches_plain(variant, kind, dt, dma, T, dim):
     """Every stack kernel -- block stacks and conv groups, each storage, as
-    launches and as the persistent kernel, even and odd T -- against its
-    plain version; the persistent form equals the launches bit for bit."""
+    launches and as the persistent kernel, even and odd T, widths that are
+    and are not multiples of 32 -- against its plain version; a second
+    launch equals the first and the persistent form equals the launches, bit
+    for bit; the kernel ran the stages and launches of its plan."""
     tdt, tol, _ = DTYPES[dt]
-    model = _model(variant, T)
+    model = _model(variant, T, dim)
     sd = model.state_dict()
     if dt == "int8":
         sd = fb.quantize_serving_weights(sd)
@@ -104,20 +112,26 @@ def test_kernel_matches_plain(variant, kind, dt, dma, T):
     got = run(dma)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
+    report = fb.stack_report()  # stages counted on the device
+    plan = report["plan"]
+    assert (report["stages"], report["launches"]) == (
+        plan["stages"], 1 if dma else plan["stages"])
     want = fb.group_stack_plain(x, mask, (conv, leaves), kind, heads)
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.equal(got, run(dma))
     if dma:
         assert torch.equal(got, run(False))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim", [64, 144, 196])
 @pytest.mark.parametrize("dma", [False, True])
 @pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("variant", list(SEGMENTS))
-def test_fused_forward_matches_model(variant, dt, dma):
+def test_fused_forward_matches_model(variant, dt, dma, dim):
     T = 24
     tdt, _, tol = DTYPES[dt]
-    model = _model(variant, T)
+    model = _model(variant, T, dim)
     rng = np.random.default_rng(5)
     x = rng.standard_normal((T, model.cfg.input_dim)).astype(np.float32)
     x[T - 5:] = 0.0  # padding frames
@@ -131,6 +145,56 @@ def test_fused_forward_matches_model(variant, dt, dma):
     with torch.no_grad():
         want = model(x[None])[0]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,heads", [(256, 8), (144, 4)])
+@pytest.mark.parametrize("dma", [False, True])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("variant,kind", [
+    (v, k) for v, kinds in SEGMENTS.items() for k in kinds])
+def test_kernel_reports_its_plan(variant, kind, dt, dma, dim, heads):
+    """At the main paths' widths (dim 256, 8 heads, T 176, 2 groups) and at
+    dim 144 the launch reports what ``stack_plan`` of the geometry says:
+    the stages as the kernel counted them on the device, the launches and
+    the largest shared memory of a stage as its C side issued them, and at
+    ``dma=True`` a grid no larger than the card holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = EncoderConfig(variant=variant, dim=dim, num_heads=heads,
+                        num_squeeze_blocks=2, num_conform_blocks=2,
+                        kernel_sizes=(11, 5, 3), num_conv_per_block=3)
+    model = build_model(cfg, device="cuda")
+    sd = model.state_dict()
+    if dt == "int8":
+        sd = fb.quantize_serving_weights(sd)
+    conv, leaves = fused.encoder_segment_args(cfg, sd, kind, DTYPES[dt][0])
+    x, mask = _inputs(176, dim)
+    fb.fused_conv_group_stack(x, mask, (conv, leaves), kind,
+                              num_heads=heads, dma=dma)
+    report = fb.stack_report()
+    by_name = dict(zip((n for n, _, _ in fb.INNER[kind][1]), leaves))
+
+    def width(w):
+        return 0 if w is None else (w[0] if isinstance(w, tuple) else w
+                                    ).shape[-1]
+
+    plan = fb.stack_plan(
+        kind, T=176, dim=dim, heads=heads,
+        ffn=width(by_name.get("f1w1", by_name.get("f1w"))),
+        expand=width(by_name.get("pw1w")) if kind == "squeezeformer" else 0,
+        se=width(by_name.get("se1w")),
+        conv_width=width(conv[0][0]) if conv else 0, nconv=len(conv),
+        nblocks=2, storage=DTYPES[dt][0])
+    assert report["plan"] == plan
+    assert report["stages"] == report["stages_issued"] == plan["stages"]
+    assert report["launches"] == (1 if dma else plan["launches"])
+    assert report["smem_bytes"] == plan["smem_bytes"]
+    assert report["cluster"] == plan["cluster"] == 1
+    if dma:
+        blocks, per_sm = report["grid"]
+        props = torch.cuda.get_device_properties(0)
+        assert 1 <= blocks <= per_sm * props.multi_processor_count
 
 
 # ---------------------------------------------------------------------------

@@ -49,18 +49,22 @@ from torch_port_helpers import jax_model, perturb, port_model, small_config
 T, DIM, HEADS, K = 24, 64, 4, 15
 DTYPES = {"f32": (jnp.float32, torch.float32, 5e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
+# Published Squeezeformer widths that are not multiples of 32 (XS: 144 with
+# 4 heads; S: 196 with 4 heads of 49), which the CUDA kernel takes since its
+# redesign: the plain versions are held to the reference there too.
+RAGGED = (144, 196)
 
 
-def _block(kind, nblocks):
+def _block(kind, nblocks, dim=DIM, heads=HEADS):
     """Flax variables for ``nblocks`` blocks of one kind, an input and a
     mask with a padded tail."""
     rng = np.random.default_rng(11)
-    x = rng.standard_normal((T, DIM)).astype(np.float32)
+    x = rng.standard_normal((T, dim)).astype(np.float32)
     mask = np.arange(T) < 19
     if kind == "squeezeformer":
-        mod = JSqueezeBlock(DIM, HEADS, 2, K, dropout=0.0)
+        mod = JSqueezeBlock(dim, heads, 2, K, dropout=0.0)
     else:
-        mod = JConformerBlock(DIM, HEADS, 2, K, attn_dropout=0.0,
+        mod = JConformerBlock(dim, heads, 2, K, attn_dropout=0.0,
                               drop_rate=0.0)
     vs = [perturb(mod.init(jax.random.key(i), jnp.asarray(x)[None],
                            jnp.asarray(mask)[None], False), seed=i + 1)
@@ -68,11 +72,17 @@ def _block(kind, nblocks):
     return x, mask, vs
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("kind", ["squeezeformer", "conformer"])
-def test_block_matches_pallas_interpret(kind, dt):
+KINDS = ("squeezeformer", "conformer")
+
+
+@pytest.mark.parametrize("kind,dt,dim", [
+    pytest.param(k, dt, DIM, id=f"{k}-{dt}")
+    for k in KINDS for dt in ("f32", "bf16")] + [
+    pytest.param(k, dt, dim, id=f"{k}-{dt}-dim{dim}")
+    for dim in RAGGED for k in KINDS for dt in ("f32", "bf16")])
+def test_block_matches_pallas_interpret(kind, dt, dim):
     jdt, tdt, tol = DTYPES[dt]
-    x, mask, (v,) = _block(kind, 1)
+    x, mask, (v,) = _block(kind, 1, dim)
     sd = flax_to_state_dict(v)
     if kind == "squeezeformer":
         want = jfb.fused_squeezeformer_block(
@@ -92,11 +102,14 @@ def test_block_matches_pallas_interpret(kind, dt):
                                atol=tol)
 
 
-@pytest.mark.parametrize("kind", ["squeezeformer", "conformer"])
-def test_stack_matches_pallas_interpret(kind):
+@pytest.mark.parametrize("kind,dim", [
+    pytest.param(k, DIM, id=k) for k in KINDS] + [
+    pytest.param(k, dim, id=f"{k}-dim{dim}") for dim in RAGGED
+    for k in KINDS])
+def test_stack_matches_pallas_interpret(kind, dim):
     """Two blocks through the stacked (grid-pipelined) kernel, bf16."""
     jdt, tdt, tol = DTYPES["bf16"]
-    x, mask, vs = _block(kind, 2)
+    x, mask, vs = _block(kind, 2, dim)
     sds = [flax_to_state_dict(v) for v in vs]
     if kind == "squeezeformer":
         want = jfb.fused_squeezeformer_stack(
@@ -169,11 +182,11 @@ def test_fused_encoder_dma_matches_pallas_interpret(variant):
     np.testing.assert_array_equal(got.numpy(), same.numpy())
 
 
-def _groups(inner, dt_j, dt_t, variables=None, quantized=False):
+def _groups(inner, dt_j, dt_t, variables=None, quantized=False, dim=DIM):
     """The conv groups of a small conv-family model for both packages:
     (cfg, jax groups, port groups)."""
     variant = "conv_transformer" if inner == "transformer" else "conv_hybrid"
-    cfg = small_config(variant)
+    cfg = small_config(variant, dim=dim)
     if variables is None:
         _, variables = jax_model(cfg)
     params, stats = variables["params"], variables["batch_stats"]
@@ -205,14 +218,20 @@ def _groups(inner, dt_j, dt_t, variables=None, quantized=False):
     return cfg, jgroups, tgroups
 
 
-@pytest.mark.parametrize("inner", ["squeezeformer", "conformer",
-                                   "transformer"])
-def test_group_stack_matches_pallas_interpret(inner):
+INNERS = ("squeezeformer", "conformer", "transformer")
+
+
+@pytest.mark.parametrize("inner,dim", [
+    pytest.param(i, DIM, id=i) for i in INNERS] + [
+    pytest.param(i, dim, id=f"{i}-dim{dim}") for dim in RAGGED
+    for i in INNERS])
+def test_group_stack_matches_pallas_interpret(inner, dim):
     """K6: two groups of (2 Conv1DBlocks, kernel sizes 7 and 3 -> one
     ``inner`` block) at f32 storage, mask with a padded tail; 5e-5."""
-    cfg, jgroups, tgroups = _groups(inner, jnp.float32, torch.float32)
+    cfg, jgroups, tgroups = _groups(inner, jnp.float32, torch.float32,
+                                    dim=dim)
     rng = np.random.default_rng(12)
-    x = rng.standard_normal((T, DIM)).astype(np.float32)
+    x = rng.standard_normal((T, dim)).astype(np.float32)
     mask = np.arange(T) < 19
     want = jfb.fused_conv_group_stack(jnp.asarray(x), jnp.asarray(mask),
                                       jgroups, inner, num_heads=HEADS,
@@ -375,3 +394,111 @@ def test_cpu_path_counts_no_launch_and_checks_inputs():
                                       torch.from_numpy(mask), args,
                                       num_heads=5)
 
+
+
+# The kernel's plan at the main paths' geometries (presets 5 and 3, the
+# conv_transformer of chip_smoke.py: T 176, dim 256, 8 heads, FFN 1024,
+# conv module 512, SE 32, Conv1DBlocks of 512 / 1024) and at the published
+# Squeezeformer widths XS / S / M (144, 196, 324 with 4 heads).
+PLAN_CASES = {
+    "preset5-sq": ("squeezeformer", dict(T=176, dim=256, heads=8, ffn=1024,
+                                         expand=512, se=32, nblocks=4)),
+    "preset5-cf": ("conformer", dict(T=176, dim=256, heads=8, ffn=1024,
+                                     nblocks=4)),
+    "preset3-sq": ("squeezeformer", dict(T=176, dim=256, heads=8, ffn=1024,
+                                         expand=512, se=32, nconv=3,
+                                         conv_width=512, nblocks=2)),
+    "preset3-cf": ("conformer", dict(T=176, dim=256, heads=8, ffn=1024,
+                                     nconv=3, conv_width=512, nblocks=2)),
+    "conv_transformer": ("transformer", dict(T=176, dim=256, heads=8,
+                                             ffn=1024, nconv=3,
+                                             conv_width=1024, nblocks=2)),
+    "xs-144": ("squeezeformer", dict(T=176, dim=144, heads=4, ffn=576,
+                                     expand=288, se=18, nblocks=16)),
+    "s-196": ("squeezeformer", dict(T=176, dim=196, heads=4, ffn=784,
+                                    expand=392, se=24, nblocks=18)),
+    "m-324": ("squeezeformer", dict(T=176, dim=324, heads=4, ffn=1296,
+                                    expand=648, se=40, nblocks=20)),
+    "s-196-cf": ("conformer", dict(T=176, dim=196, heads=4, ffn=784,
+                                   nblocks=2)),
+}
+
+
+def _partition(tiles, n, size):
+    """Every index of [0, n) in exactly one tile, the tiles in order, each
+    at most ``size`` wide and starting at a multiple of ``size``."""
+    at = 0
+    for a, b in tiles:
+        assert a == at and a % size == 0 and a < b <= a + size
+        at = b
+    assert at == n
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_stack_plan_covers_every_row_and_column_once(case, storage):
+    """The kernel's plan: every output row and every column of every
+    product has one owner tile (16 rows, 32 columns, the last ones masked),
+    every query row one 8-row attention tile; a stage's shared memory fits
+    an H100 block and holds a GEMM tile's B panel; 12 / 11 / 5 stages a
+    Squeezeformer / Conformer / Transformer block and 4 a Conv1DBlock, one
+    launch each or one in all at ``dma=True``."""
+    kind, kw = PLAN_CASES[case]
+    plan = tfb.stack_plan(kind, storage=storage, **kw)
+    D, T = kw["dim"], kw["T"]
+    assert plan["cluster"] == 1
+    _partition(plan["rows"], T, 16)
+    _partition(plan["query_tiles"], T, 8)
+    assert plan["row_tiles"] == len(plan["rows"]) == -(-T // 16)
+    cols = plan["columns"]
+    want = {"ffn": kw["ffn"], "qkv": 3 * D, "channels": D,
+            "expand": kw.get("expand", 0),
+            "glu": 2 * D if kind == "conformer" else 0,
+            "conv": kw.get("conv_width", 0)}
+    assert set(cols) == {k for k, n in want.items() if n}
+    for name, tiles in cols.items():
+        _partition(tiles, want[name], 32)
+    wbytes = {"f32": 4, "bf16": 2, "int8": 1}[storage]
+    depth = min(max(D, kw["ffn"], kw.get("expand", 0),
+                    kw.get("conv_width", 0)), 1024)
+    assert depth * 32 * wbytes < plan["smem_bytes"] <= 232448
+    per = {"squeezeformer": 12, "conformer": 11, "transformer": 5}[kind]
+    assert plan["stages_per_block"] == per
+    assert plan["stages_per_conv_block"] == 4
+    nconv, nb = kw.get("nconv", 0), kw["nblocks"]
+    assert plan["stages"] == nb * (per + 4 * nconv)
+    assert plan["launches"] == plan["stages"] and plan["launches_dma"] == 1
+
+
+def test_stack_plan_refuses_what_cannot_fit():
+    # attention holds a head's K and V for all T in shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        tfb.stack_plan("conformer", T=4096, dim=1000, heads=8, ffn=4000)
+    with pytest.raises(ValueError, match="heads"):
+        tfb.stack_plan("conformer", T=24, dim=100, heads=8, ffn=400)
+    # a product of any depth fits: its panels take K in chunks of 1024
+    plan = tfb.stack_plan("conformer", T=176, dim=1024, heads=8, ffn=4096,
+                          storage="f32")
+    assert plan["smem_bytes"] <= 232448
+    assert plan["smem_bytes"] == tfb.stack_plan(
+        "conformer", T=176, dim=1024, heads=8, ffn=1024,
+        storage="f32")["smem_bytes"]
+
+
+@pytest.mark.parametrize("dim,heads", [(144, 4), (196, 4), (60, 4)])
+def test_guard_takes_any_width_and_checks_leaf_shapes(dim, heads):
+    """Widths that are not multiples of 32 (and heads of 49 or 15) pass the
+    guard and the plan; a leaf of the wrong shape still raises, naming the
+    leaf."""
+    x, mask, (v,) = _block("squeezeformer", 1, dim, heads)
+    args = squeeze_block_args(flax_to_state_dict(v), "", torch.bfloat16)
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    tfb.fused_squeezeformer_block(xt, mt, args, num_heads=heads)
+    plan = tfb.stack_plan("squeezeformer", T=T, dim=dim, heads=heads,
+                          ffn=args[2].shape[-1], expand=args[12].shape[-1],
+                          se=args[17].shape[-1])
+    assert plan["stages"] == 12
+    bad = list(args)
+    bad[8] = bad[8][:, :-1]  # the QKV matrix one column short
+    with pytest.raises(ValueError, match="qkvw"):
+        tfb.fused_squeezeformer_block(xt, mt, tuple(bad), num_heads=heads)
