@@ -35,7 +35,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
    PyTorch version on the card, with dropout at 0.4 and at 0, at bf16 and
    f32 (the feed-forward branch's f32 form is its general kernels), and
    attention also with 4 heads of 64 and 2 of 128, a second backward bit
-   for bit; the CTC kernels also at T 1024 and 2048; the feed-forward
+   for bit; the CTC kernels on chip_smoke's labels and on the training
+   step's own (times a frame beside the chain floor, a second launch bit
+   for bit), and at T 1024 and 2048; the feed-forward
    kernel's masks against
    the plain PyTorch Philox bit for bit; CUDA-event times of forward and
    backward beside the plain version's, the bound and one PyTorch library
@@ -864,13 +866,40 @@ def train_row(name, wrapper, direction, source, replaces, err, ms, plain_ms,
                 library_ms=library_ms, counter=(wrapper, direction))
 
 
+def ctc_chain_floor_ms(T, runs):
+    """Device time of one warp stepping T frames of K1's chain arithmetic
+    alone (csrc/ctc.cu's ctc_chain_floor_kernel: two shuffles and two
+    log-add-exps a step, no loads, launch included): the least a kernel that
+    steps the recursion frame by frame can take."""
+    import ctypes
+
+    import torch
+
+    from ishara_tpu_torch.ops import _build
+
+    out = torch.empty(32, device=DEVICE)
+    fn = _build.function("ctc", "ishara_ctc_chain_floor",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
+    launch = lambda: _build.check(  # noqa: E731
+        "ctc", fn(_build.device_index(out), T, out.data_ptr(),
+                  _build.stream_of(out)), "CTC chain floor")
+    return time_ms(launch, runs=runs)
+
+
 def ctc_kernel_rows(smi, runs):
     """K1: alpha (forward) and beta (backward) against the plain recursions
-    and beside F.ctc_loss, at B 256, T 176, U 64, C 60; and at T 1024 and
-    2048 (8 rows) against the plain recursions."""
+    and beside F.ctc_loss, at B 256, T 176, U 64, C 60 on two label sets:
+    today's (1-30 labels, an all-blank row, a row of repeats, a row of all
+    64 labels: 129 states) and the training step's own
+    (``SyntheticASLFR(256, seed=3)``, phrases of 3-10 characters: at most
+    21 states); a second launch bit for bit; ms a frame beside the chain
+    floor; and at T 1024 and 2048 (8 rows) against the plain recursions."""
     import torch
     import torch.nn.functional as F
 
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
     from ishara_tpu_torch.ops import ctc_kernel as ck
 
     g = torch.Generator(device=DEVICE).manual_seed(11)
@@ -884,25 +913,52 @@ def ctc_kernel_rows(smi, runs):
     labels[0] = 59                          # a row of all-blank labels
     labels[1, :6] = [7, 7, 7, 3, 3, 7]      # repeats
     labels[2] = rng.integers(0, 59, TU)     # all 64 labels used
-    labels_t = torch.from_numpy(labels).to(DEVICE)
+    step_labels = SyntheticASLFR(num_sequences=TB, seed=3).batch(
+        range(TB), CTCTokenizer(), max_frames=96)["labels"]
     dy = torch.rand((TB,), generator=g, device=DEVICE) + 0.5
-
-    def fwd():
-        return ck.ctc_loss_kernel(logits, labels_t, reduction="none")
-
-    nll = fwd()
-
-    def bwd():
-        return torch.autograd.grad(nll, logits, dy, retain_graph=True)[0]
-
-    grad = bwd()
-    torch.cuda.synchronize()
     x = logits.detach()
-    with torch.no_grad():
-        ref_nll, alpha = ck.ctc_forward_plain(x, labels_t)
-        ref_grad = ck.ctc_backward_plain(x, labels_t, alpha, ref_nll, dy)
-    e_f = close("ctc alpha kernel nll", nll, ref_nll, TRAIN_TOL["ctc"])
-    e_b = close("ctc beta kernel gradient", grad, ref_grad, TRAIN_TOL["f32"])
+    floor = ctc_chain_floor_ms(TT, runs)
+    S = 2 * TU + 1
+    b_f = logits.numel() * 4 + labels.size * 4 + TB * 4
+    b_b = 2 * logits.numel() * 4 + labels.size * 4 + 2 * TB * 4
+    measured = {}
+    for tag, lab_np in (("chip_smoke's labels", labels),
+                        ("the step's labels", np.asarray(step_labels))):
+        lab = torch.from_numpy(lab_np.astype(np.int32)).to(DEVICE)
+        fwd = lambda lab=lab: ck.ctc_loss_kernel(  # noqa: E731
+            logits, lab, reduction="none")
+        nll = fwd()
+        bwd = lambda nll=nll: torch.autograd.grad(  # noqa: E731
+            nll, logits, dy, retain_graph=True)[0]
+        grad = bwd()
+        nll2 = fwd()
+        grad2 = torch.autograd.grad(nll2, logits, dy)[0]
+        torch.cuda.synchronize()
+        if not (torch.equal(nll, nll2) and torch.equal(grad, grad2)):
+            raise AssertionError(f"ctc kernels on {tag}: a second launch "
+                                 f"gave other bits")
+        with torch.no_grad():
+            ref_nll, alpha = ck.ctc_forward_plain(x, lab)
+            ref_grad = ck.ctc_backward_plain(x, lab, alpha, ref_nll, dy)
+        e_f = close(f"ctc alpha kernel nll ({tag})", nll, ref_nll,
+                    TRAIN_TOL["ctc"])
+        e_b = close(f"ctc beta kernel gradient ({tag})", grad, ref_grad,
+                    TRAIN_TOL["f32"])
+        ms_f, ms_b = time_ms(fwd, runs=runs), time_ms(bwd, runs=runs)
+        states = int(2 * (lab_np != 59).sum(1).max() + 1)
+        log(f"kernel ctc_loss_kernel {tag} (widest row {states} of {S} "
+            f"states): forward {ms_f:.4f} ms ({1e3 * ms_f / TT:.3f} us a "
+            f"frame), backward {ms_b:.4f} ms ({1e3 * ms_b / TT:.3f} us a "
+            f"frame); nll, gradient max_abs_err {e_f:.3e}, {e_b:.3e}; a "
+            f"second launch bit-equal PASS; chain floor {floor:.4f} ms "
+            f"({1e3 * floor / TT:.3f} us a frame), bytes bound "
+            f"{b_f / HBM_BYTES_PER_S * 1e3:.5f} / "
+            f"{b_b / HBM_BYTES_PER_S * 1e3:.5f} ms, on {smi}")
+        measured[tag] = (lab, nll, e_f, e_b, ms_f, ms_b, fwd, bwd, alpha,
+                         ref_nll)
+    lab, nll, e_f, e_b, ms_f, ms_b, fwd, bwd, alpha, ref_nll = \
+        measured["chip_smoke's labels"]
+    step_f, step_b = measured["the step's labels"][4:6]
 
     # the library's CTC on the same inputs (log-softmax included, as the
     # kernel includes it); also a third opinion on the value
@@ -911,7 +967,7 @@ def ctc_kernel_rows(smi, runs):
     lx = x.clone().requires_grad_()
 
     def lib_fwd():
-        return F.ctc_loss(F.log_softmax(lx, -1).transpose(0, 1), labels_t,
+        return F.ctc_loss(F.log_softmax(lx, -1).transpose(0, 1), lab,
                           lens, tlens, blank=59, reduction="none")
 
     lib = lib_fwd()
@@ -921,22 +977,22 @@ def ctc_kernel_rows(smi, runs):
         return torch.autograd.grad(lib, lx, dy, retain_graph=True)[0]
 
     with torch.no_grad():
-        p_f = time_ms(lambda: ck.ctc_forward_plain(x, labels_t), runs=3,
+        p_f = time_ms(lambda: ck.ctc_forward_plain(x, lab), runs=3,
                       warmup=1, head_start=False)
-        p_b = time_ms(lambda: ck.ctc_backward_plain(x, labels_t, alpha,
+        p_b = time_ms(lambda: ck.ctc_backward_plain(x, lab, alpha,
                                                     ref_nll, dy),
                       runs=3, warmup=1, head_start=False)
     # long rows, beyond what a [T, C] slab in shared memory allowed (T ~ 950)
     for T in (1024, 2048):
         xl = 2.0 * torch.randn((8, T, TC), generator=g, device=DEVICE)
-        lab = labels_t[:8]
+        labl = lab[:8]
         xr = xl.clone().requires_grad_()
-        nll_l = ck.ctc_loss_kernel(xr, lab, reduction="none")
+        nll_l = ck.ctc_loss_kernel(xr, labl, reduction="none")
         (grad_l,) = torch.autograd.grad(nll_l, xr, dy[:8])
         torch.cuda.synchronize()
         with torch.no_grad():
-            rn, ra = ck.ctc_forward_plain(xl, lab)
-            rgl = ck.ctc_backward_plain(xl, lab, ra, rn, dy[:8])
+            rn, ra = ck.ctc_forward_plain(xl, labl)
+            rgl = ck.ctc_backward_plain(xl, labl, ra, rn, dy[:8])
         el = (close(f"ctc alpha kernel nll T {T}", nll_l, rn,
                     TRAIN_TOL["ctc"]),
               close(f"ctc beta kernel gradient T {T}", grad_l, rgl,
@@ -944,20 +1000,20 @@ def ctc_kernel_rows(smi, runs):
         log(f"kernel ctc_loss_kernel [8, {T}, {TC}] U {TU}: nll, gradient "
             f"max_abs_err {el[0]:.3e}, {el[1]:.3e} PASS")
         del xl, xr, nll_l, grad_l, rn, ra, rgl
-    S = 2 * TU + 1
-    b_f = logits.numel() * 4 + labels.size * 4 + TB * 4
-    b_b = 2 * logits.numel() * 4 + labels.size * 4 + 2 * TB * 4
     ops = TB * TT * (S * 12 + TC * 4)   # two log-add-exps a state, softmax
     src, ref = "ctc.cu", "ishara_tpu/ops/ctc_kernel.py"
-    return [
+    rows = [
         train_row("ctc_loss_kernel[alpha]", ck.ctc_loss_kernel, "launches",
-                  src, f"{ref}:163", e_f, time_ms(fwd, runs=runs), p_f, b_f,
-                  ops, "f32", time_ms(lib_fwd, runs=runs), smi),
+                  src, f"{ref}:163", e_f, ms_f, p_f, b_f, ops, "f32",
+                  time_ms(lib_fwd, runs=runs), smi),
         train_row("ctc_loss_kernel[beta]", ck.ctc_loss_kernel,
-                  "launches_bwd", src, f"{ref}:218", e_b,
-                  time_ms(bwd, runs=runs), p_b, b_b, ops, "f32",
-                  time_ms(lib_bwd, runs=runs), smi),
+                  "launches_bwd", src, f"{ref}:218", e_b, ms_b, p_b, b_b,
+                  ops, "f32", time_ms(lib_bwd, runs=runs), smi),
     ]
+    for row, step_ms in zip(rows, (step_f, step_b)):
+        row.update(frames=TT, us_per_frame=1e3 * row["ms"] / TT,
+                   chain_floor_ms=floor, step_labels_ms=step_ms)
+    return rows
 
 
 def dropout_kernel_rows(smi, runs):

@@ -6,11 +6,15 @@ value and gradient as :func:`ishara_tpu_torch.ops.ctc.ctc_loss` restricted
 to the training contract (every row's logit length is the full ``T``, label
 length is the non-blank count, blank = pad). On a CUDA tensor it launches
 ``csrc/ctc.cu`` -- an alpha kernel in the forward pass and a beta kernel in
-the backward pass -- or raises; on a CPU tensor it runs the plain version
-beside it (:func:`ctc_forward_plain`, :func:`ctc_backward_plain`), which
-repeats the kernels' arithmetic step by step: additive -1e30 masks, the
-three-way log-add-exp with its both -1e30 guard, the ``beta + emit`` carry,
-``exp(min(gamma, 0))``.
+the backward pass, each a chain warp per row that steps only the row's own
+``2L + 1`` states, fed by producer warps and, backward, drained by gradient
+warps -- or raises; on a CPU tensor it runs the plain version beside it
+(:func:`ctc_forward_plain`, :func:`ctc_backward_plain`), which repeats the
+kernels' arithmetic step by step: additive -1e30 masks, the three-way
+log-add-exp ``lae(lae(a, b), c)`` with its both -1e30 guard, the ``beta +
+emit`` carry, ``exp(min(gamma, 0))``, occupancies 0 at the states past
+``2L``. The kernels take exp and log from the card's ex2 / lg2 units; the
+plain version from PyTorch.
 
 Gradient identity (the classic forward-backward result): with
 ``alpha_t(s)`` inclusive and ``beta_t(s)`` exclusive of frame t's emission,
@@ -19,7 +23,8 @@ Gradient identity (the classic forward-backward result): with
         - sum_{s: ext[b, s] = c} exp(alpha_t(s) + beta_t(s) - logP_b).
 
 No batch padding is needed here (the reference pads odd batches for its
-grid): one CUDA block handles one batch row.
+grid): one CUDA block handles one batch row. :func:`ctc_plan` mirrors the
+kernels' launch plan and :func:`ctc_fits` their guard.
 """
 
 from __future__ import annotations
@@ -86,13 +91,15 @@ def ctc_forward_plain(logits, labels, blank_id: int = 59):
 
 def ctc_backward_plain(logits, labels, alpha, nll, dy, blank_id: int = 59):
     """Plain version of the beta kernel: d(sum_b dy_b * nll_b) / dlogits,
-    f32 ``[B, T, C]``."""
+    f32 ``[B, T, C]``. Reads ``alpha`` at each row's valid states only (the
+    kernel writes no others)."""
     B, T, C = logits.shape
     lab_ext, skip_add, valid_add, lab_len = _masks(labels, blank_id)
     S = lab_ext.shape[1]
     log_probs, emit = _emit(logits, lab_ext)
     s_idx = torch.arange(S, device=logits.device)[None, :]
     L = lab_len[:, None]
+    state_valid = s_idx < 2 * L + 1
     fin = torch.where((s_idx == 2 * L) | ((s_idx == 2 * L - 1) & (L > 0)),
                       0.0, NEG).to(torch.float32)
     # a skip out of s lands at s + 2: allowed iff allow_skip[s + 2]
@@ -108,11 +115,65 @@ def ctc_backward_plain(logits, labels, alpha, nll, dy, blank_id: int = 59):
                 + valid_add
         be = beta + emit[:, t]
         gamma = alpha[:, t] + beta - logp
-        p_state[t] = torch.exp(torch.clamp(gamma, max=0.0))
+        p_state[t] = torch.where(state_valid,
+                                 torch.exp(torch.clamp(gamma, max=0.0)), 0.0)
     p_state = torch.stack(p_state, dim=1)                     # [B, T, S]
     occ = torch.zeros_like(log_probs).scatter_add_(
         2, lab_ext[:, None, :].expand(B, T, S), p_state)
     return (torch.exp(log_probs) - occ) * dy[:, None, None]
+
+
+# The kernels' launch plan, as csrc/ctc.cu computes it (ishara_ctc_plan):
+# the chain's shape, the shared-memory ring's chunks; a producer warp a
+# ring slot and, backward, GRAD_WARPS gradient warps beside the chain.
+GRAD_WARPS = 6
+MAX_CHAIN_WARPS = 22
+SMEM_PAIR, SMEM_LIMIT = 113 * 1024, 227 * 1024
+
+
+def chain_shape(n: int) -> tuple[int, int]:
+    """(states a lane K, chain warps W) for a row of ``n`` states."""
+    k, w = -(-n // 32), 1
+    if k > 8:
+        k, w = 8, -(-n // 256)
+    if w > 9:
+        k, w = 16, -(-n // 512)
+    return k, w
+
+
+def _smem_bytes(U, C, backward, stage, tc, ns) -> int:
+    slots = ns * tc
+    K, W = chain_shape(2 * U + 1)
+    ring = slots * 32 * K * W
+    words = (2 * ring if backward else ring) + 2 * slots \
+        + (slots * C if stage else 0) + (3 if backward else 1) * U \
+        + 128 + 4 + 32
+    return 3 * ns * 8 + 4 * words
+
+
+def ctc_plan(U: int, C: int, backward: bool):
+    """(K, W, frames a chunk, chunks in the ring, logits staged (0 / 1),
+    shared-memory bytes) of a launch with ``U`` labels (its widest row,
+    ``2U + 1`` states) and ``C`` classes, or None when no ring fits a
+    block."""
+    K, W = chain_shape(2 * U + 1)
+    for limit in (SMEM_PAIR, SMEM_LIMIT):
+        for stage in (1, 0):
+            for tc in (16, 8, 4, 2, 1):
+                for ns in (4, 2):
+                    nbytes = _smem_bytes(U, C, backward, stage, tc, ns)
+                    if nbytes <= limit:
+                        return K, W, tc, ns, stage, nbytes
+    return None
+
+
+def ctc_fits(T: int, C: int, U: int) -> bool:
+    """True when the kernels take rows of T frames, C classes and U labels
+    (``ishara_ctc_fits``): neither T nor C bounds shared memory; the states
+    bound the chain's warps and the ring's smallest plan."""
+    return T >= 1 and C >= 1 and U >= 0 \
+        and 2 * U + 1 <= MAX_CHAIN_WARPS * 512 \
+        and ctc_plan(U, C, True) is not None
 
 
 def _check(logits, labels):
@@ -126,12 +187,11 @@ def _launch_alpha(logits, labels, blank_id, want_alpha):
     B, T, C = logits.shape
     U = labels.shape[1]
     S = 2 * U + 1
-    fits = _build.function("ctc", "ishara_ctc_fits", [ctypes.c_int] * 3)
-    if not fits(T, C, U):
-        raise ValueError(f"the CTC kernels keep T + 6 (2U + 1) + C words of "
-                         f"a row in shared memory (T up to ~50,000 frames) "
-                         f"and take up to 16383 labels, got T={T}, U={U}, "
-                         f"C={C}")
+    if not ctc_fits(T, C, U):
+        raise ValueError(f"the CTC kernels step at most "
+                         f"{MAX_CHAIN_WARPS * 512} states and keep a ring of "
+                         f"at least 4 (2U + 1) words in shared memory, got "
+                         f"T={T}, U={U}, C={C}")
     nll = logits.new_empty((B,))
     alpha = logits.new_empty((B, T, S)) if want_alpha else None
     P, I = ctypes.c_void_p, ctypes.c_int

@@ -191,3 +191,126 @@ def test_auto_uses_the_composite_on_a_cpu_tensor():
     assert float(auto) == float(scan)
     with pytest.raises(ValueError, match="impl"):
         ctc_loss(x, y, blank_id=BLANK, impl="pallas")
+
+
+def short_labels_case(rng, B, T, U, lengths):
+    """Rows with the given label lengths under a long U (a row's 2L + 1
+    states far below S = 2U + 1), repeats among them."""
+    logits = rng.standard_normal((B, T, C)).astype(np.float32)
+    labels = np.full((B, U), BLANK, np.int32)
+    for b, n in enumerate(lengths):
+        labels[b, :n] = rng.choice([0, 1, 2], size=n)
+    return logits, labels
+
+
+@pytest.mark.parametrize("ref", ["scan", "pallas"])
+@pytest.mark.parametrize("T,lengths", [(40, (0, 1, 2, 3, 5, 4)),
+                                       (17, (3, 0, 8, 2))])
+def test_kernel_module_on_short_labels_under_a_long_U(T, lengths, ref):
+    """The plain recursions, which step every state and hold the states past
+    2L at -1e30 (occupancy 0), give what the JAX package gives on rows that
+    use a few of U = 24 labels, an all-blank row and repeats: the kernels
+    step only a row's own states, so these are the rows where the two
+    designs part."""
+    rng = np.random.default_rng(T + len(lengths))
+    logits, labels = short_labels_case(rng, len(lengths), T, 24, lengths)
+    if ref == "scan":
+        fn = lambda lg: j_ctc_loss(lg, jnp.asarray(labels),  # noqa: E731
+                                   blank_id=BLANK, impl="scan")
+    else:
+        fn = lambda lg: j_ctc_loss_kernel(  # noqa: E731
+            lg, jnp.asarray(labels), blank_id=BLANK)
+    want, want_g = jax.value_and_grad(fn)(jnp.asarray(logits))
+    got, got_g = port_value_and_grad(
+        lambda lg: ctc_loss_kernel(lg, torch.from_numpy(labels),
+                                   blank_id=BLANK), logits)
+    np.testing.assert_allclose(got, float(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_g, np.asarray(want_g), rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_kernel_module_at_512_frames_matches_jax_scan():
+    """T 512, the long training step's frames (B 2, C 8, U 16): value at the
+    module's 2e-5, gradient at the 2e-3 the 1024-frame test states for rows
+    beyond a few hundred frames (|logP| ~ 1100 here, where one f32 ulp of
+    gamma is 1.2e-4)."""
+    rng = np.random.default_rng(512)
+    logits, labels = rand_case(rng, 2, 512, 16)
+    want, want_g = jax.value_and_grad(
+        lambda lg: j_ctc_loss(lg, jnp.asarray(labels), blank_id=BLANK,
+                              impl="scan"))(jnp.asarray(logits))
+    got, got_g = port_value_and_grad(
+        lambda lg: ctc_loss_kernel(lg, torch.from_numpy(labels),
+                                   blank_id=BLANK), logits)
+    np.testing.assert_allclose(got, float(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_g, np.asarray(want_g), rtol=0, atol=2e-3)
+
+
+def test_plain_backward_reads_alpha_at_the_valid_states_only():
+    """The forward kernel writes alpha at a row's 2L + 1 states and leaves
+    the rest of its [B, T, S] buffer unwritten: the plain backward gives the
+    same gradient whatever lies there."""
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+
+    rng = np.random.default_rng(5)
+    logits, labels = short_labels_case(rng, 3, 20, 6, (2, 0, 6))
+    x, y = torch.from_numpy(logits), torch.from_numpy(labels)
+    nll, alpha = ck.ctc_forward_plain(x, y, BLANK)
+    dy = torch.tensor([0.5, 1.0, 2.0])
+    want = ck.ctc_backward_plain(x, y, alpha, nll, dy, BLANK)
+    n = 2 * (y != BLANK).sum(1) + 1
+    dead = torch.arange(alpha.shape[2])[None, None, :] >= n[:, None, None]
+    junk = torch.where(dead, torch.tensor(float("nan")), alpha)
+    junk2 = torch.where(dead, torch.tensor(3e38), alpha)
+    assert torch.equal(ck.ctc_backward_plain(x, y, junk, nll, dy, BLANK), want)
+    assert torch.equal(ck.ctc_backward_plain(x, y, junk2, nll, dy, BLANK),
+                       want)
+
+
+def first_design_fits(T, C, U):
+    """The guard of the first card kernel (lse [T], the states' and the
+    classes' buffers in one block's shared memory, 1024 threads of up to 32
+    states)."""
+    S = 2 * U + 1
+    words = T + 2 * (S + 2) + 2 * S + 2 * S + C + 1 + 32
+    return T >= 1 and S <= 1024 * 32 and words * 4 <= 227 * 1024
+
+
+@pytest.mark.parametrize("T,C", [(1, 1), (176, 60), (512, 60), (2048, 60),
+                                 (20, 1000), (1, 2)])
+def test_guard_takes_every_geometry_the_first_design_took(T, C):
+    """Every label count the first kernel took at these T and C (it took at
+    most S = 9677 states, at T 1 and C 1), and the widest C and T it took
+    with few labels, the new guard takes too: T and C no longer bound shared
+    memory."""
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+
+    took = [U for U in range(0, 16384) if first_design_fits(T, C, U)]
+    assert took and all(ck.ctc_fits(T, C, U) for U in took)
+    U = 5
+    widest_c = 58112 - 37 - T - 6 * (2 * U + 1)
+    assert first_design_fits(T, widest_c, U) and ck.ctc_fits(T, widest_c, U)
+    longest_t = 58112 - 37 - C - 6 * (2 * U + 1)
+    assert first_design_fits(longest_t, C, U)
+    assert ck.ctc_fits(longest_t, C, U) and ck.ctc_fits(10 ** 6, C, U)
+
+
+@pytest.mark.parametrize("U", [0, 5, 15, 31, 63, 64, 127, 128, 600, 1152,
+                               2000, 4838])
+@pytest.mark.parametrize("backward", [False, True])
+def test_plan_fits_a_block(U, backward):
+    """The launch plan's shared memory fits a block (two an SM at the
+    training step's 64 labels, where the logits are staged in 16-frame
+    chunks four deep), its threads fit a block, and its chain covers 2U + 1
+    states."""
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+
+    for C in (8, 60, 1000, 40000):
+        K, W, tc, ns, stage, nbytes = ck.ctc_plan(U, C, backward)
+        helpers = ns + (ck.GRAD_WARPS if backward else 0)
+        assert nbytes <= ck.SMEM_LIMIT and 32 * (W + helpers) <= 1024
+        assert 32 * K * W >= 2 * U + 1 and (K, W) == ck.chain_shape(2 * U + 1)
+        assert ns in (2, 4) and tc in (1, 2, 4, 8, 16)
+        if U == 64 and C == 60:
+            assert (K, W, tc, ns, stage) == (5, 1, 16, 4, 1)
+            assert nbytes <= ck.SMEM_PAIR

@@ -220,35 +220,21 @@ def _close(got, want, tol):
         float((got - want).abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,T,U,C", [(3, 12, 5, 8), (2, 9, 1, 8),
-                                     (5, 40, 17, 33), (3, 1024, 64, 60),
-                                     (3, 2048, 64, 60), (2, 30, 600, 12),
-                                     (2, 20, 5, 1000)])
-def test_ctc_kernels_match_plain(B, T, U, C):
-    """Alpha and beta kernels (odd sizes, repeats, an all-blank row) against
-    the plain recursions; T 1024 and 2048 (beyond what a [T, C] slab in
-    shared memory allowed), 1201 states (more than a block's threads) and
-    1000 classes; the wrapper counts one launch each."""
-    _card()
-    from ishara_tpu_torch.ops import ctc_kernel as ck
-
-    blank = C - 1
-    rng = np.random.default_rng(B + T)
-    labels = np.full((B, U), blank, np.int32)
-    for b in range(1, B):
-        n = int(rng.integers(0, U + 1))
-        labels[b, :n] = rng.choice([0, 1], size=n)
-    logits = torch.from_numpy(rng.standard_normal((B, T, C)).astype(
-        np.float32)).cuda().requires_grad_()
-    labels = torch.from_numpy(labels).cuda()
-    dy = torch.from_numpy(rng.random(B).astype(np.float32)).cuda()
+def _ctc_case(ck, logits, labels, dy, blank):
+    """One forward and backward launch of K1, held to the plain recursions
+    (the gradient's tolerance: 2e-4 up to T 256, 2e-3 beyond, see below) and
+    to a second launch bit for bit; the wrapper counts one launch each."""
+    T = logits.shape[1]
     before = (ck.ctc_loss_kernel.launches, ck.ctc_loss_kernel.launches_bwd)
     nll = ck.ctc_loss_kernel(logits, labels, blank_id=blank, reduction="none")
     (grad,) = torch.autograd.grad(nll, logits, dy)
+    nll2 = ck.ctc_loss_kernel(logits, labels, blank_id=blank,
+                              reduction="none")
+    (grad2,) = torch.autograd.grad(nll2, logits, dy)
     torch.cuda.synchronize()
     assert (ck.ctc_loss_kernel.launches, ck.ctc_loss_kernel.launches_bwd) \
-        == (before[0] + 1, before[1] + 1)
+        == (before[0] + 2, before[1] + 2)
+    assert torch.equal(nll, nll2) and torch.equal(grad, grad2)
     x = logits.detach()
     want, alpha = ck.ctc_forward_plain(x, labels, blank)
     _close(nll, want, 2e-5)
@@ -259,6 +245,84 @@ def test_ctc_kernels_match_plain(B, T, U, C):
     # from its scan there): 2e-3 for T > 256, 2e-4 below
     _close(grad, ck.ctc_backward_plain(x, labels, alpha, want, dy, blank),
            2e-4 if T <= 256 else 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,C", [(3, 12, 5, 8), (2, 9, 1, 8),
+                                     (5, 40, 17, 33), (3, 1024, 64, 60),
+                                     (3, 2048, 64, 60), (2, 30, 600, 12),
+                                     (2, 20, 5, 1000), (2, 40, 1500, 8),
+                                     (2, 12, 3, 30000)])
+def test_ctc_kernels_match_plain(B, T, U, C):
+    """Alpha and beta kernels (odd sizes, repeats, an all-blank row) against
+    the plain recursions; T 1024 and 2048, 1201 states (a chain of five
+    warps of 8 states a lane), 3001 (six of 16), 1000 classes and 30000
+    (too wide to stage in shared memory); a second launch gives the same
+    bits."""
+    _card()
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+
+    blank = C - 1
+    rng = np.random.default_rng(B + T)
+    labels = np.full((B, U), blank, np.int32)
+    for b in range(1, B):
+        n = int(rng.integers(0, U + 1))
+        labels[b, :n] = rng.choice([0, 1], size=n)
+    if U >= 600:  # every state valid: the whole multi-warp chain steps
+        labels[1] = rng.choice([0, 1], size=U)
+    logits = torch.from_numpy(rng.standard_normal((B, T, C)).astype(
+        np.float32)).cuda().requires_grad_()
+    labels = torch.from_numpy(labels).cuda()
+    dy = torch.from_numpy(rng.random(B).astype(np.float32)).cuda()
+    _ctc_case(ck, logits, labels, dy, blank)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [176, 512])
+def test_ctc_kernels_on_the_training_steps_labels(T):
+    """The training step's geometry (B 256, U 64, C 60, logits 2 N(0, 1)):
+    labels of 3-10 characters, so that a row's 7-21 states are far fewer
+    than its 129, one row of all 64 labels (129 states, 8 a lane), one of
+    repeats and one all blank; T 176 and the long step's 512."""
+    _card()
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+
+    rng = np.random.default_rng(T)
+    labels = np.full((256, 64), 59, np.int32)
+    for b in range(256):
+        n = int(rng.integers(3, 11))
+        labels[b, :n] = rng.integers(0, 59, n)
+    labels[0] = 59
+    labels[1, :6] = [7, 7, 7, 3, 3, 7]
+    labels[2] = rng.integers(0, 59, 64)
+    logits = torch.from_numpy(2.0 * rng.standard_normal((256, T, 60)).astype(
+        np.float32)).cuda().requires_grad_()
+    dy = torch.from_numpy(rng.random(256).astype(np.float32) + 0.5).cuda()
+    _ctc_case(ck, logits, torch.from_numpy(labels).cuda(), dy, 59)
+
+
+@pytest.mark.cuda
+def test_ctc_plan_and_guard_match_their_mirrors():
+    """ctc_plan and ctc_fits, which the wrapper and the CPU tests use, give
+    what the kernels' own plan and guard give."""
+    _card()
+    import ctypes
+
+    from ishara_tpu_torch.ops import _build
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+
+    plan = _build.function("ctc", "ishara_ctc_plan",
+                           [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    fits = _build.function("ctc", "ishara_ctc_fits", [ctypes.c_int] * 3)
+    out = (ctypes.c_int * 6)()
+    for U in [0, 1, 5, 15, 16, 31, 63, 64, 127, 128, 600, 1151, 1152, 2000,
+              4838, 5200, 5300, 6400, 7000]:
+        for C in (8, 60, 1000, 30000):
+            for backward in (False, True):
+                got = tuple(out) if plan(U, C, int(backward), out) else None
+                assert got == ck.ctc_plan(U, C, backward), (U, C, backward)
+        for T, C in [(1, 1), (176, 60), (50000, 1000)]:
+            assert bool(fits(T, C, U)) == ck.ctc_fits(T, C, U), (T, C, U)
 
 
 @pytest.mark.cuda
