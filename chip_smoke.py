@@ -60,7 +60,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
    at T 200 (blocks of 128, 64 and 16) with a sequence whose keys are all
    masked, a second backward bit for bit; K7 (the conv-module
    branch, ``conv_module_residual``) at x ``[256, 512, 256]`` in bf16 and
-   f32 and at the flagship's ``[256, 176, 256]``; each forward and every
+   f32 and at the flagship's ``[256, 176, 256]``, there also with 33 and 63
+   depthwise taps (tile and general paths; ``conv_kernel.tile_smem`` held
+   to the C side's for every configuration); each forward and every
    gradient against its plain version, timed beside it, the bound and
    ``F.scaled_dot_product_attention`` with the einsum composition (K8) or
    the port's composition (K7). Then ``baseline_config(4)`` at
@@ -71,7 +73,18 @@ Phases, each of which raises on failure (the exit code is then not 0):
    1 + 1, the top dropout 1 + 1, none of K3, K4 and the dropout-add), a
    finite falling loss, ms a step, sequences/s, the peak of allocated
    memory and the device's busy share and time by kernel.
-7. Translation serving: the encoder-decoder model at the reference width
+7. Wide depthwise kernels and the ``Trainer``: ``baseline_config(4)`` with
+   ``transformer_kernel_size`` 33 and 63, one step against the plain
+   versions and 3 steps with K7's launches (4 + 4 a step). Then the CTC
+   ``Trainer`` (no ``device``: the card) on ``HardSyntheticASLFR(1024)``
+   with 256 validation sequences, batch 256, 3 epochs validated every
+   epoch: finite losses, the three scores, the best, periodic and final
+   checkpoints on disk, every training kernel launched; its ms a step
+   beside the bare step's, the time the loop waited for the host, one
+   batch's collation; a second run preempted on its 6th batch load and
+   resumed by a third ``Trainer``, which ends bit for bit where the
+   uninterrupted run did.
+8. Translation serving: the encoder-decoder model at the reference width
    (dim 208, 8 heads of 26, 2 + 2 layers, 62 classes, T 176, max_out 64,
    beam 4) with seeded weights. K9 -- the whole decode loop in one launch,
    greedy at max_out 64 and 18 and beam at width 4 -- against its plain
@@ -82,7 +95,7 @@ Phases, each of which raises on failure (the exit code is then not 0):
    unfused and fused (the same tokens everywhere, one K9 launch a fused
    request), the eos probe, ``BatchedTranslationEngine`` at batch 32
    (sequences/s), p50/p99 latencies and ``torch.profiler`` breakdowns.
-8. One JSON line listing every ported kernel, then the card's name and
+9. One JSON line listing every ported kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with a non-zero code, printing no result, when no CUDA device is
@@ -1893,20 +1906,63 @@ def blocked_attention_kernel_rows(smi, runs):
     return rows
 
 
+# Depthwise widths beyond the 32 taps the first K7 took: a halo of 48 and
+# of 64 rows.
+WIDE_KS = (33, 63)
+
+
+def conv_plan_mirror_check():
+    """conv_kernel.tile_smem against the shared memory csrc/conv_module.cu
+    computes for each tile configuration, and the path each call takes."""
+    import torch
+
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            for cfg, (mtp, _, ec) in enumerate(
+                    ck._TILE_CONFIGS[(dt, backward)]):
+                for D in (64, 144, 256, 512):
+                    for K in (1, 15, 17, 31) + WIDE_KS:
+                        py = ck.tile_smem(dt, backward, mtp, ec, D, K)
+                        c = ck.c_tile_smem(dt, backward, cfg, D, K)
+                        if py != c:
+                            raise AssertionError(
+                                f"tile_smem {dt} backward={backward} config "
+                                f"{cfg} D {D} K {K}: Python {py}, C {c}")
+                        n += 1
+    paths = {(K, tag, d): ("tile" if ck.tile_plan(TT, TD, K, dt, d) else
+                           "general")
+             for K in WIDE_KS for tag, dt in (("bf16", torch.bfloat16),
+                                              ("f32", torch.float32))
+             for d in (False, True)}
+    log(f"conv_kernel.tile_smem equals csrc/conv_module.cu's at {n} "
+        f"(dtype, direction, config, D, K) PASS; at [{TB}, {TT}, {TD}] the "
+        f"wide kernels take " + ", ".join(
+            f"K {K} {tag} {'bwd' if d else 'fwd'} {p}"
+            for (K, tag, d), p in paths.items()))
+
+
 def conv_module_kernel_rows(smi, runs):
     """K7: forward and all twelve gradients against the plain version at
     the long step's shape [256, 512, 256] (E 512, K 15, r 32) and at the
-    flagship's [256, 176, 256], bf16 and f32; timed beside the
-    plain version and the port's composition (no one PyTorch call computes
-    the branch)."""
+    flagship's [256, 176, 256], bf16 and f32, there also with 33 and 63
+    depthwise taps (on the tile path and on the general path); timed beside
+    the plain version and the port's composition (no one PyTorch call
+    computes the branch)."""
     import torch
 
     from ishara_tpu_torch.models.layers import SqueezeformerConvModule
     from ishara_tpu_torch.ops import conv_kernel as ck
 
-    K, r = 15, TD // 8
+    conv_plan_mirror_check()
+    r = TD // 8
     rows = []
-    for T, tag in ((LT, "bf16"), (LT, "f32"), (TT, "bf16"), (TT, "f32")):
+    cases = [(LT, "bf16", 15), (LT, "f32", 15), (TT, "bf16", 15),
+             (TT, "f32", 15)] + [(TT, tag, K) for K in WIDE_KS
+                                 for tag in ("bf16", "f32")]
+    for T, tag, K in cases:
         dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
         torch.manual_seed(T)
         module = SqueezeformerConvModule(TD, K, 2, dtype=dt).to(DEVICE)
@@ -1930,7 +1986,7 @@ def conv_module_kernel_rows(smi, runs):
             ref = ck.conv_module_forward_plain(x, *pa)
             rg = ck.conv_module_backward_plain(x, pa[0], dy, *pa[1:])
         tol = TRAIN_TOL[tag]
-        what = f"conv module [{tag}] x [{TB}, {T}, {TD}]"
+        what = f"conv module [{tag}] x [{TB}, {T}, {TD}] K {K}"
         e_o = close(f"{what} out", out, ref, tol)
         # the kernel's gradients in its own order: dx, then the eleven
         names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dwdw", "dw2", "db2",
@@ -1964,25 +2020,27 @@ def conv_module_kernel_rows(smi, runs):
         log(f"  forward {f_ms:.4f} ms backward {b_ms:.4f} ms; plain "
             f"{p_f:.4f} / {p_b:.4f} ms; the composition (F.conv1d, "
             f"layer_norm, silu, SE) {c_f:.4f} / {c_b:.4f} ms on {smi}")
-        if tag == "bf16":
+        if tag == "bf16" and K == 15:
             log(f"  selection conv_module_fused ({TD}, {T}, {TB}): the kernel "
                 f"{f_ms + b_ms:.4f} ms forward + backward against the "
                 f"composition's {c_f + c_b:.4f} ms")
-        if T == LT:
+        if T == LT or K in WIDE_KS:
             n_f = device_kernels(lambda: ck.conv_module_residual(x, *args))
             n_b = device_kernels(lambda: torch.autograd.grad(
                 out, [x] + params, dy, retain_graph=True))
             log(f"  one call on the card (torch.profiler): "
                 f"{sum(n_f.values())} kernels forward {n_f}, "
                 f"{sum(n_b.values())} backward {n_b}")
-        if (T, tag) == (LT, "bf16"):
+        wide = K in WIDE_KS and tag == "bf16"
+        if (T, tag, K) == (LT, "bf16", 15) or wide:
+            name = "conv_module_residual" + (f"[K{K}]" if wide else "")
             N, E, es = TB * T, 2 * TD, x.element_size()
             weights = 2 * TD * E * es + (K * E + 2 * TD * r + 5 * TD
                                          + E + r) * 4
             product = 2 * N * TD * E
             dw = 2 * N * E * K
             rows.append(train_row(
-                "conv_module_residual", ck.conv_module_residual, "launches",
+                name, ck.conv_module_residual, "launches",
                 "conv_module.cu", f"{CONV_REF}:297", e_o, f_ms, p_f,
                 2 * N * TD * es + N * 4 + weights, 2 * product + dw, tag,
                 None, smi))
@@ -1990,11 +2048,14 @@ def conv_module_kernel_rows(smi, runs):
             # their f32 gradients written; the recomputed forward's two
             # products and conv, and four more products and two convs
             rows.append(train_row(
-                "conv_module_residual[bwd]", ck.conv_module_residual,
+                name.replace("[", "[bwd,") if wide else name + "[bwd]",
+                ck.conv_module_residual,
                 "launches_bwd", "conv_module.cu", f"{CONV_REF}:331",
                 max(e_g.values()), b_ms, p_b,
                 3 * N * TD * es + N * 4 + 2 * weights, 6 * product + 3 * dw,
                 tag, None, smi))
+            if wide:  # launches: the wide-kernel training run's
+                rows[-2]["run"] = rows[-1]["run"] = K
         del module, x, dy, out, grads, co, pa, args, params
         torch.cuda.empty_cache()
     return rows
@@ -2262,6 +2323,258 @@ def long_train_phase(smi, steps: int = 10):
         + f" PASS; max_memory_allocated {peak / 2 ** 30:.2f} GiB")
 
     time_steps("long train", step, state, batch, smi, top=20)
+    return launches
+
+
+def wide_kernel_train_phase(smi, steps: int = 3):
+    """``baseline_config(4)`` with ``transformer_kernel_size`` 33 and 63 at
+    the flagship's batch 256 in bf16: one step on the kernels against the
+    plain versions, then ``steps`` steps with the launch counts read around
+    them (K7 4 + 4 a step). Returns {K: {(wrapper name, direction):
+    launches}}."""
+    import torch
+
+    from ishara_tpu_torch.config import TrainConfig, baseline_config
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    ds = SyntheticASLFR(num_sequences=TB, seed=3)
+    host = ds.batch(range(TB), CTCTokenizer(), max_frames=96)
+    batch = {k: torch.from_numpy(host[k]).to(DEVICE)
+             for k in ("raw", "lengths", "labels")}
+    out = {}
+    for K in WIDE_KS:
+        cfg = dataclasses.replace(baseline_config(4).model,
+                                  transformer_kernel_size=K)
+        torch.manual_seed(K)
+        tx, _ = make_optimizer(TrainConfig())
+        state0 = TrainState.create(build_model(cfg, device=DEVICE), tx,
+                                   device=DEVICE)
+        step = make_fused_ctc_train_step(GroupStats.identity(),
+                                         cfg.frame_len, aug_prob=0.2,
+                                         blank_id=cfg.blank_id)
+        label = f"wide train K {K}"
+        step_against_plain(label, step, state0, batch)
+        counters = train_counters()
+        state = state0.clone()
+        for w in counters.values():
+            w.launches = w.launches_bwd = 0
+        for _ in range(steps):
+            state, m = step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        launches = {(n, d): getattr(w, d) for n, w in counters.items()
+                    for d in ("launches", "launches_bwd")}
+        for (name, direction), n in launches.items():
+            if n != steps * STEP_LAUNCHES.get(name, 0):
+                raise AssertionError(
+                    f"{label}: {name}.{direction} = {n} over {steps} steps, "
+                    f"expected {STEP_LAUNCHES.get(name, 0)} a step")
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"{label}: the loss is not finite")
+        log(f"{label}: {steps} steps, loss {float(m['loss']):.3f}, "
+            f"conv_module_residual "
+            f"{launches[('conv_module_residual', 'launches')]} + "
+            f"{launches[('conv_module_residual', 'launches_bwd')]} launches "
+            f"PASS")
+        out[K] = launches
+        del state0, state
+        torch.cuda.empty_cache()
+    return out
+
+
+# The Trainer phase: baseline_config(4) on the hard corpus the gate trains
+# on (tools/train_hard_torch.py), cut to 1024 training sequences (4 steps an
+# epoch) and 256 validation sequences, 3 epochs, validated every epoch.
+TRAINER_EPOCHS = 3
+HARD = dict(confusability=0.6, hand_nan=0.15, proto_seed=7)
+
+
+class _PreemptedData:
+    """A dataset whose ``batch`` raises on its ``fail_after + 1``-th call:
+    a preemption in the middle of an epoch."""
+
+    def __init__(self, inner, fail_after):
+        self._inner, self._fail, self._n = inner, fail_after, 0
+
+    def __len__(self):
+        return len(self._inner)
+
+    def batch(self, idx, tok, max_frames=None):
+        if self._n >= self._fail:
+            raise RuntimeError("simulated preemption")
+        self._n += 1
+        return self._inner.batch(idx, tok, max_frames=max_frames)
+
+
+def trainer_config():
+    from ishara_tpu_torch.config import baseline_config
+
+    cfg = baseline_config(4)
+    cfg.train.num_epochs = TRAINER_EPOCHS
+    cfg.train.batch_size = TB
+    cfg.train.warmup_epochs = 1
+    cfg.train.validate_every_epochs = 1
+    cfg.train.checkpoint_every_epochs = 2
+    return cfg
+
+
+def trainer_phase(smi, workdir: Path):
+    """The CTC ``Trainer`` on the card (no ``device`` argument: ``cuda``):
+    3 epochs with validation, checkpoints on disk, the kernels' launches
+    over the run, the Trainer's ms a step beside the bare step's and the
+    host's share of an epoch; then a run preempted on its 6th batch load
+    and resumed by a third ``Trainer``, which must end bit for bit where
+    the uninterrupted run did."""
+    import shutil
+
+    import torch
+
+    from ishara_tpu_torch.data.synthetic import HardSyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.train import Trainer
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    tok = CTCTokenizer()
+    train_ds = HardSyntheticASLFR(num_sequences=4 * TB, seed=0, **HARD)
+    val_ds = HardSyntheticASLFR(num_sequences=TB, seed=1, **HARD)
+    idx = np.arange(TB)
+    t0 = time.perf_counter()
+    host = train_ds.batch(idx, tok, max_frames=384)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+
+    counters = train_counters()
+    for w in counters.values():
+        w.launches = w.launches_bwd = 0
+    full = Trainer(trainer_config(), train_ds, val_ds, tok,
+                   workdir=workdir / "full")
+    t0 = time.perf_counter()
+    hist = full.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {(n, d): getattr(w, d) for n, w in counters.items()
+                for d in ("launches", "launches_bwd")}
+    steps = int(full.state.step)
+    spe = full.cfg.train.steps_per_epoch
+    for name, per_step in STEP_LAUNCHES.items():
+        n_f = launches[(name, "launches")]
+        n_b = launches[(name, "launches_bwd")]
+        if n_b != steps * per_step or n_f < n_b:
+            raise AssertionError(f"trainer: {name} launched {n_f} + {n_b} "
+                                 f"times over {steps} steps, expected "
+                                 f"{per_step} + {per_step} a step")
+    for r in hist:
+        log(f"trainer: epoch {r['epoch']} " + json.dumps(r))
+    keys = ("val_loss", "val_score", "val_score_maxlen", "val_score_pooled")
+    ok = (len(hist) == TRAINER_EPOCHS and steps == TRAINER_EPOCHS * spe
+          and all(math.isfinite(r["train_loss"]) for r in hist)
+          and all(all(k in r for k in keys) for r in hist)
+          and all(math.isfinite(r[k]) for r in hist for k in keys)
+          # the competition and pooled scores are 1 - edits / target
+          # length, so a prediction longer than its target scores below 0
+          # (an untrained model's often does); max_len's lies in [0, 1]
+          and all(r[k] <= 1.0 for r in hist for k in keys[1:])
+          and all(r["val_score_maxlen"] >= 0.0 for r in hist))
+    ckpt = workdir / "full" / "ckpt"
+    main = sorted(p.name for p in ckpt.glob("step_*.pt"))
+    best = sorted(p.name for p in (ckpt / "best").glob("step_*.pt"))
+    meta = full.ckpt.read_meta()
+    on_disk = (f"step_{steps}.pt" in main            # final
+               and f"step_{2 * spe}.pt" in main      # periodic, epoch 2
+               and len(best) == 1
+               and best[0] == f"step_{full.ckpt.best_step()}.pt"
+               and meta[str(steps)]["completed_epochs"] == TRAINER_EPOCHS)
+    log(f"trainer: {TRAINER_EPOCHS} epochs of {spe} steps, {steps} steps; "
+        f"losses finite, val_loss and the three val scores present and "
+        f"finite, the scores at most 1 and val_score_maxlen in [0, 1]: "
+        f"{ok}; checkpoints main {main}, best "
+        f"{best}, meta steps {sorted(meta, key=int)}: {on_disk}; launches "
+        f"over the run (training and validation) {launches} "
+        f"{'PASS' if ok and on_disk else 'FAIL'}")
+    if not (ok and on_disk):
+        raise AssertionError("the Trainer run failed its checks")
+
+    # where an epoch's time goes: the Trainer's epoch wall over its steps
+    # against the bare step on a collated batch, and the host's share
+    epoch_s = [r["epoch_time_s"] for r in hist]
+    wait_s = [r["data_wait_s"] for r in hist]
+    val_s = [r["val_time_s"] for r in hist]
+    step = full._train_step
+    batch = {k: torch.from_numpy(host[k]).to(DEVICE)
+             for k in ("raw", "lengths", "labels")}
+    probe = full.state.clone()
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe, _m = step(probe, batch, 0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    bare = statistics.median(times[1:])
+    del probe
+    loop_ms = [1e3 * e / spe for e in epoch_s]
+    share = [round(100 * w / e, 1) for w, e in zip(wait_s, epoch_s)]
+    log(f"trainer timing: epoch wall {epoch_s} s, {spe} steps an epoch: "
+        f"{loop_ms} ms a step in the loop (epoch 0 includes the first "
+        f"batch's collation with nothing to overlap); bare "
+        f"make_fused_ctc_train_step {bare:.3f} ms a step (median of 5, host "
+        f"clock, synchronized); the loop waited for the host's next batch "
+        f"{wait_s} s an epoch ({share}% "
+        f"of the epoch); collating one batch of {TB} at 384 frames "
+        f"{collate_ms:.1f} ms on the host; validation ({len(val_ds)} "
+        f"sequences) {val_s} s; sequences/s over an epoch "
+        f"{[round(spe * TB / e, 1) for e in epoch_s]}; train() wall "
+        f"{wall:.2f} s on {smi}")
+
+    # a preemption mid-epoch, then a resume in a third Trainer
+    cut = Trainer(trainer_config(), _PreemptedData(train_ds, spe + 1),
+                  val_ds, tok, workdir=workdir / "mid")
+    try:
+        cut.train()
+    except RuntimeError as e:
+        if "simulated preemption" not in str(e):
+            raise
+    else:
+        raise AssertionError("the preempted run was not preempted")
+    consumed = cut._epoch_batches_done
+    if not (cut.completed_epochs == 1 and 0 < consumed < spe):
+        raise AssertionError(f"the preemption did not land mid-epoch: "
+                             f"{cut.completed_epochs} epochs, {consumed} "
+                             f"batches")
+    del cut
+    torch.cuda.empty_cache()
+    resumed = Trainer(trainer_config(), train_ds, val_ds, tok,
+                      workdir=workdir / "mid")
+    if not resumed.resume() or resumed._resume_skip != consumed:
+        raise AssertionError("resume() did not find the mid-epoch checkpoint")
+    resumed.train()
+    a, b = resumed.state, full.state
+    pairs = ([("params", a.params, b.params),
+              ("slow_params", a.slow_params, b.slow_params)]
+             + [(f"opt_state.{k}", a.opt_state[k], b.opt_state[k])
+                for k in a.opt_state]
+             + [(f"batch_stats.{k}", v, b.batch_stats[k])
+                for k, v in a.batch_stats.items()])
+    differ = [n for n, x, y in pairs if not torch.equal(x, y)]
+    same_step = int(a.step) == int(b.step)
+    log(f"trainer: preempted on batch load {spe + 2} (epoch 1, {consumed} "
+        f"of {spe} batches done), resumed by a third Trainer: step "
+        f"{int(a.step)} vs {int(b.step)}, params, slow_params, "
+        f"{len(a.opt_state)} optimizer tensors (both moments) and "
+        f"{len(a.batch_stats)} BatchNorm statistics equal the uninterrupted "
+        f"run's bit for bit: {not differ} "
+        f"{'PASS' if same_step and not differ else 'FAIL'}")
+    if differ or not same_step:
+        raise AssertionError(f"the resumed run differs from the "
+                             f"uninterrupted one in {differ}")
+    del full, resumed, a, b
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2697,6 +3010,15 @@ def main() -> int:
     long_rows = long_kernel_phase(smi)
     long_launches = long_train_phase(smi)
     torch.cuda.empty_cache()
+    wide_launches = wide_kernel_train_phase(smi)
+    torch.cuda.empty_cache()
+    workdir = here / "runs" / "chip_smoke_trainer"   # ignored by git
+    try:
+        trainer_phase(smi, workdir)
+    finally:
+        import shutil
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
     tr_rows, tr_launches = translation_phase(smi)
 
     # every ported kernel form that an engine path runs, with the launches
@@ -2724,15 +3046,20 @@ def main() -> int:
                                  f"training run")
         row["config"] = "preset4 training step, batch 256"
         line.append(row)
-    # K7 and K8, with the launches of the long step's 10-step run
+    # K7 and K8, with the launches of the long step's 10-step run; K7 at 33
+    # and 63 taps with those of its wide-kernel training run
     for row in long_rows:
         wrapper, direction = row.pop("counter")
-        row["launches"] = long_launches[(wrapper.__name__, direction)]
+        K = row.pop("run", None)
+        counts = long_launches if K is None else wide_launches[K]
+        row["launches"] = counts[(wrapper.__name__, direction)]
         if row["launches"] <= 0:
-            raise AssertionError(f"{row['name']} was not launched by the "
-                                 f"long training run")
+            raise AssertionError(f"{row['name']} was not launched by its "
+                                 f"training run")
         row["config"] = ("preset4 long-sequence training step (T 512, "
-                         "dropout 0), batch 256")
+                         "dropout 0), batch 256" if K is None else
+                         f"preset4 training step with transformer_kernel_"
+                         f"size {K}, batch 256")
         line.append(row)
     # K9, with the launches of its fused engine's nine-request run
     for row in tr_rows:

@@ -7,7 +7,7 @@ normalized-score conventions (port of ``ishara_tpu/evaluation/metrics.py``):
 * ``pooled`` -- 1 - sum(dist) / sum(len(target)).
 
 Pure Python on the host. The reference's native batched distance is not
-ported yet (ROADMAP.md Queue 1 item 14); the two-row dynamic programme here
+ported yet (ROADMAP.md Queue 1: the rest); the two-row dynamic programme here
 gives identical results.
 """
 

@@ -40,8 +40,8 @@ def check_variant(cfg: EncoderConfig) -> None:
     reference itself refuses."""
     if cfg.variant in UNPORTED_VARIANTS:
         raise NotImplementedError(
-            f"variant {cfg.variant!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item 8, remaining encoder families)")
+            f"variant {cfg.variant!r} is not ported yet (ROADMAP.md Queue 1: "
+            f"the encoder families still missing)")
     if cfg.variant not in PORTED_VARIANTS:
         raise ValueError(f"unknown variant {cfg.variant!r}")
     if cfg.causal and cfg.variant in CONV_VARIANTS:
@@ -51,12 +51,12 @@ def check_variant(cfg: EncoderConfig) -> None:
             f"whole-sequence)")
     if cfg.causal:
         raise NotImplementedError(
-            "causal mode is not ported yet (ROADMAP.md Queue 1 item 9, "
-            "causal mode and streaming)")
+            "causal mode is not ported yet (ROADMAP.md Queue 1: causal mode "
+            "and streaming)")
     if cfg.remat:
         raise NotImplementedError(
             "remat=True (recomputing block activations in the backward pass) "
-            "is not ported yet (ROADMAP.md Queue 1 item 6, training)")
+            "is not ported yet (ROADMAP.md Queue 1: QAT and remat)")
     compute_dtype(cfg.dtype)
 
 

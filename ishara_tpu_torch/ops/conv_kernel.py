@@ -33,7 +33,6 @@ from . import _build
 from .ffn_kernel import wgrad_splits
 
 LN_EPS = 1e-6
-MAX_KERNEL = 32          # depthwise taps the kernel takes
 SMEM_LIMIT = 232448      # bytes of shared memory a block may take (H100)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,17 +52,29 @@ def _rup(nbytes: int) -> int:
     return -(-nbytes // 128) * 128
 
 
+def halo_rows(K: int) -> int:
+    """The tile kernels' halo: ``K`` rounded up to 16 rows."""
+    return -(-K // 16) * 16
+
+
+def taps_rows(K: int) -> int:
+    """Rows of the tile kernels' taps buffer (``csrc/conv_module.cu``'s
+    ``taps_rows``): ``K`` rounded up to 32, so 32 at every K up to 32."""
+    return -(-K // 32) * 32
+
+
 def tile_smem(dtype: torch.dtype, backward: bool, mtp: int, ec: int,
               D: int, K: int) -> int:
     """Bytes of shared memory a tile kernel of ``csrc/conv_module.cu``
     takes (its ``tile_smem``): rows of ``D`` rounded up to 16 and of the
     chunk padded by 16 bytes for the products, f32 rows of the chunk padded
-    by one float; the halo is ``K`` rounded up to 16."""
+    by one float; the halo is ``K`` rounded up to 16 and the taps buffer
+    ``K`` rounded up to 32 rows."""
     sz = 2 if dtype == torch.bfloat16 else 4
     tt, pad = 16 * mtp, 16 // sz
-    dk, halo = -(-D // 16) * 16, -(-K // 16) * 16
+    dk, halo = -(-D // 16) * 16, halo_rows(K)
     ldd, ecl, ecf = dk + pad, ec + pad, ec + 1
-    chunk = _rup(MAX_KERNEL * ec * 4) + _rup(ec * 4)    # taps, b1
+    chunk = _rup(taps_rows(K) * ec * 4) + _rup(ec * 4)   # taps, b1
     if not backward:
         r = tt + halo
         return (_rup(r * ldd * sz) + _rup(r * ecf * 4) + _rup(tt * ecl * sz)
@@ -83,12 +94,18 @@ def tile_plan(T: int, D: int, K: int, dtype: torch.dtype,
     ``tile_rows``, ``halo`` (rows before the tile, and after it in the
     backward), ``chunk`` (channels), ``tiles`` (of a sequence), ``smem``
     (bytes). None when no configuration fits: the call takes the general
-    path (the chain of row kernels)."""
-    dk, halo = -(-D // 16) * 16, -(-K // 16) * 16
+    path (the chain of row kernels), which takes any ``K`` too.
+
+    A tile whose halo is more than twice its own rows is not taken: it
+    recomputes most of its rows (the backward tile 1 + 2H / TT times). On
+    an H100 at ``[256, 176, 256]`` the 16-row tiles with halos of 48 and 64
+    rows took 3.4-3.6x the general path's time (``tools/conv_paths.py``,
+    ``PERF.md``); every halo of up to 32 rows passes."""
+    dk, halo = -(-D // 16) * 16, halo_rows(K)
     for i, (mtp, ntp, ec) in enumerate(_TILE_CONFIGS[(dtype, backward)]):
         smem = tile_smem(dtype, backward, mtp, ec, D, K)
-        if dk <= 64 * ntp and smem <= SMEM_LIMIT:
-            rows = 16 * mtp
+        rows = 16 * mtp
+        if dk <= 64 * ntp and smem <= SMEM_LIMIT and halo <= 2 * rows:
             return {"config": i, "tile_rows": rows, "halo": halo,
                     "chunk": ec, "tiles": -(-T // rows), "smem": smem}
     return None
@@ -236,10 +253,9 @@ def _check_cuda(x, args):
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"the conv-module kernel takes f32 or bf16, got "
                          f"{x.dtype}")
-    if K > MAX_KERNEL or B > 65535:
-        raise ValueError(f"the conv-module kernel takes up to {MAX_KERNEL} "
-                         f"depthwise taps and 65535 sequences, got K={K}, "
-                         f"B={B}")
+    if B > 65535:
+        raise ValueError(f"the conv-module kernel takes up to 65535 "
+                         f"sequences, got B={B}")
     shapes = {"mask": (mask, (B, T)), "gamma": (gamma, (D,)),
               "beta": (beta, (D,)), "w1": (w1, (D, E)), "b1": (b1, (E,)),
               "wdw": (wdw, (K, E)), "w2": (w2, (E, D)), "b2": (b2, (D,)),
@@ -358,3 +374,12 @@ def conv_module_residual(x: torch.Tensor, mask: torch.Tensor,
 # each C call, whatever number of kernels it runs)
 conv_module_residual.launches = 0
 conv_module_residual.launches_bwd = 0
+
+
+def c_tile_smem(dtype: torch.dtype, backward: bool, config: int, D: int,
+                K: int) -> int:
+    """The shared memory ``csrc/conv_module.cu`` computes for tile
+    configuration ``config`` (its ``ishara_conv_tile_smem``; builds the
+    library): what :func:`tile_smem` must equal."""
+    fn = _build.function("conv_module", "ishara_conv_tile_smem", [_I] * 5)
+    return fn(_DTYPE_CODE[dtype], int(backward), config, D, K)

@@ -60,6 +60,9 @@
 // bf16) takes the general path at the end of this file: the same function
 // as a chain of row-tiled kernels passing sequence-sized f32 intermediates
 // through device memory (6 launches forward, 20 backward).
+// Any number of depthwise taps: a halo above 32 rows takes its u and ds
+// products in passes of a warp's m-tiles and its taps 16 at a time, and a
+// K whose halo no tile holds takes the general path as well.
 //
 // Bound: operations. At B 256, T 512, D 256, E 512, K 15 in bf16 the
 // products are 69 GFLOP forward (77 with the halo recomputed) and 206
@@ -114,7 +117,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Time tiles with a halo (the design at the top of this file)
 // ---------------------------------------------------------------------------
 
-constexpr int MAXK = 32;  // depthwise taps the kernels take
+// Depthwise taps the register-resident conv forms hold (halos of 16 and 32
+// rows) and the row kernels keep in registers at once. Wider kernels take
+// their taps in chunks: 16 at a time in the tile kernels (conv_swish_n and
+// friends), MAXK at a time in the row kernels. The tile kernels' taps
+// buffer is K rounded up to 32 rows (taps_rows), so at K <= 32 it is the
+// 32 rows it always was.
+constexpr int MAXK = 32;
+__host__ __device__ constexpr int taps_rows(int H) {
+  return (H + 31) / 32 * 32;
+}
 
 // Everything a tile kernel reads and writes; pointers that a launch does not
 // use are null.
@@ -140,7 +152,7 @@ template <typename T, int MTP, int EC>
 __host__ __device__ size_t tile_smem(bool backward, int Dk, int H) {
   constexpr int TT = 16 * MTP, PADT = 16 / (int)sizeof(T);
   const size_t sz = sizeof(T), LDD = Dk + PADT, ECL = EC + PADT, ECF = EC + 1;
-  const size_t chunk = rup(MAXK * EC * 4) + rup(EC * 4);  // taps, b1
+  const size_t chunk = rup((size_t)taps_rows(H) * EC * 4) + rup(EC * 4);
   if (!backward) {
     const size_t R = TT + H;
     return rup(R * LDD * sz) + rup(R * ECF * 4) + rup(TT * ECL * sz) +
@@ -258,7 +270,7 @@ __device__ __forceinline__ void load_w2(const TileArgs& P, int c, T* dst) {
 template <int EC>
 __device__ __forceinline__ void load_chunk(const TileArgs& P, int c,
                                            float* taps, float* b1c) {
-  for (int i = threadIdx.x; i < MAXK * EC; i += THREADS) {
+  for (int i = threadIdx.x; i < P.H * EC; i += THREADS) {
     const int k = i / EC - (P.H - P.K), ec = c * EC + i % EC;
     taps[i] = (k >= 0 && k < P.K && ec < P.E) ? P.wdw[k * P.E + ec] : 0.f;
   }
@@ -362,6 +374,90 @@ __device__ __forceinline__ void conv_du(const TileArgs& P, const float* ach,
   }
 }
 
+// The same three passes for a halo of any H (a multiple of 16 above 32):
+// the taps are read from shared memory 16 at a time, summed in the order
+// of the forms above. conv_du_n sums dwdw one chunk of 16 taps at a time,
+// after the pass that writes du.
+template <typename T, int EC, int TT>
+__device__ void conv_swish_n(const float* ach, const float* taps, T* sch,
+                             int H) {
+  constexpr int ECF = EC + 1, ECL = EC + 16 / (int)sizeof(T);
+  const int e = threadIdx.x % EC;
+  for (int tt = threadIdx.x / EC; tt < TT; tt += THREADS / EC) {
+    const float* a = ach + (tt + 1) * ECF + e;
+    float cv = 0.f;
+    for (int j0 = 0; j0 < H; j0 += 16)
+#pragma unroll
+      for (int j = j0; j < j0 + 16; ++j) cv += taps[j * EC + e] * a[j * ECF];
+    sch[tt * ECL + e] = narrow<T>(cv * sigmoid(cv));
+  }
+}
+
+template <typename T, int EC>
+__device__ void conv_dc_n(const TileArgs& P, const float* ach,
+                          const float* taps, float* dcs, int RC, int TT,
+                          int t0, int c, long long seq) {
+  constexpr int ECF = EC + 1;
+  const int e = threadIdx.x % EC, ec = c * EC + e;
+  for (int q = threadIdx.x / EC; q < RC; q += THREADS / EC) {
+    const float* a = ach + (q + 1) * ECF + e;
+    float cv = 0.f;
+    for (int j0 = 0; j0 < P.H; j0 += 16)
+#pragma unroll
+      for (int j = j0; j < j0 + 16; ++j) cv += taps[j * EC + e] * a[j * ECF];
+    const float sg = sigmoid(cv);
+    dcs[q * ECF + e] *= dswish(cv, sg);
+    if (q < TT && t0 + q < P.T && ec < P.E)
+      ((T*)P.s_g)[(seq + t0 + q) * P.E + ec] = narrow<T>(cv * sg);
+  }
+}
+
+template <typename T, int EC, int TT>
+__device__ void conv_du_n(const TileArgs& P, const float* ach,
+                          const float* uown, const float* dcs,
+                          const float* taps, T* dus, int t0, int c,
+                          long long part) {
+  constexpr int ECF = EC + 1, ECL = EC + 16 / (int)sizeof(T);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, H = P.H;
+  for (int e = warp; e < EC; e += THREADS / 32) {
+    const int ec = c * EC + e;
+    float* pe = P.part_e + part * (P.E + (long long)P.K * P.E);
+    float db = 0.f;
+    for (int tt = lane; tt < TT; tt += 32) {
+      const float* dc = dcs + (tt + H - 1) * ECF + e;
+      float dav = 0.f;
+      for (int j0 = 0; j0 < H; j0 += 16)
+#pragma unroll
+        for (int j = j0; j < j0 + 16; ++j)
+          dav += taps[j * EC + e] * dc[-j * ECF];
+      const float u = uown[tt * ECF + e];
+      const float du = dav * dswish(u, sigmoid(u));
+      dus[tt * ECL + e] = narrow<T>(du);
+      if (t0 + tt < P.T) db += du;
+    }
+    db = warp_sum(db);
+    if (lane == 0 && ec < P.E) pe[ec] = db;
+    for (int j0 = 0; j0 < H; j0 += 16) {
+      float dw[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) dw[j] = 0.f;
+      for (int tt = lane; tt < TT && t0 + tt < P.T; tt += 32) {
+        const float dct = dcs[tt * ECF + e];
+        const float* a = ach + (tt + 1 + j0) * ECF + e;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) dw[j] += a[j * ECF] * dct;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        dw[j] = warp_sum(dw[j]);
+        const int k = j0 + j - (H - P.K);
+        if (lane == 0 && ec < P.E && k >= 0)
+          pe[P.E + (long long)k * P.E + ec] = dw[j];
+      }
+    }
+  }
+}
+
 // Forward tile kernel, grid (tiles, B). A tile of TT = 16 MTP rows; warp w
 // accumulates p's columns [w * 8 NTP, (w + 1) * 8 NTP) for all TT rows, so
 // Dk <= 64 NTP. The u product: warp (mg, ng) owns 16 channels ng * 16 .. of
@@ -383,7 +479,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   T* sch = cv.take<T>((size_t)TT * ECL);
   T* w1c = cv.take<T>((size_t)Dk * ECL);
   T* w2c = cv.take<T>((size_t)EC * LDD);
-  float* taps = cv.take<float>(MAXK * EC);
+  float* taps = cv.take<float>((size_t)taps_rows(H) * EC);
   float* b1c = cv.take<float>(EC);
   const int tile = blockIdx.x, b = blockIdx.y, t0 = tile * TT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -405,19 +501,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     load_chunk<EC>(P, c, taps, b1c);  // the last chunk's readers are done
     tc::cp_async_wait<1>();  // this chunk's w1 (its w2 may be in flight)
     __syncthreads();
-    {  // a = swish(xn w1 + b1) over all R rows, 0 before t = 0
+    // a = swish(xn w1 + b1) over all R rows, 0 before t = 0, MU of a
+    // warp's m-tiles a pass (one pass unless the halo is above 32 rows)
+    for (int i0 = 0; i0 < mcount; i0 += MU) {
       float ua[MU][2][4];
       tc::zero_acc(ua);
-      tc::warp_mma<MU, 2, false, true>(ua, xn + mg * 16 * LDD, LDD, MG * 16,
-                                       w1c + ng * 16, ECL, Dk, mcount);
+      tc::warp_mma<MU, 2, false, true>(ua, xn + (mg + i0 * MG) * 16 * LDD,
+                                       LDD, MG * 16, w1c + ng * 16, ECL, Dk,
+                                       mcount - i0);
 #pragma unroll
       for (int i = 0; i < MU; ++i) {
-        if (i >= mcount) break;
+        if (i0 + i >= mcount) break;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int row = (mg + i * MG) * 16 + g + (e >> 1) * 8;
+            const int row = (mg + (i0 + i) * MG) * 16 + g + (e >> 1) * 8;
             const int col = ng * 16 + j * 8 + 2 * t + (e & 1);
             const float u = ua[i][j][e] + b1c[col];
             ach[row * ECF + col] = t0 - H + row >= 0 ? u * sigmoid(u) : 0.f;
@@ -429,8 +528,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     tc::cp_async_commit();
     if (H == 16)  // s = swish(causal conv of a), rounded
       conv_swish<T, 16, EC, TT>(ach, taps, sch);
-    else
+    else if (H == 32)
       conv_swish<T, 32, EC, TT>(ach, taps, sch);
+    else
+      conv_swish_n<T, EC, TT>(ach, taps, sch, H);
     tc::cp_async_wait<1>();  // this chunk's w2
     __syncthreads();
     if (pcount > 0)
@@ -510,7 +611,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   cv.take<T>((size_t)Dk * ECL);  // the second w1 buffer, right after
   T* w2c = cv.take<T>((size_t)EC * LDD);
   float* stats = cv.take<float>(2 * TT);
-  float* taps = cv.take<float>(MAXK * EC);
+  float* taps = cv.take<float>((size_t)taps_rows(H) * EC);
   float* b1c = cv.take<float>(EC);
   const size_t w1_stride = rup((size_t)Dk * ECL * sizeof(T)) / sizeof(T);
   const int tile = blockIdx.x, b = blockIdx.y, t0 = tile * TT;
@@ -569,19 +670,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     const T* W1 = w1c + (c & 1) * w1_stride;
     if (c + 1 < nch) load_w1<T, EC>(P, c + 1, w1c + ((c + 1) & 1) * w1_stride);
     tc::cp_async_commit();
-    {  // u and a = swish(u) over the RU rows (a = 0 before t = 0)
+    // u and a = swish(u) over the RU rows (a = 0 before t = 0), MUU of a
+    // warp's m-tiles a pass
+    for (int i0 = 0; i0 < mcu; i0 += MUU) {
       float ua[MUU][2][4];
       tc::zero_acc(ua);
-      tc::warp_mma<MUU, 2, false, true>(ua, xn + mg * 16 * LDD, LDD, MG * 16,
-                                        W1 + ng * 16, ECL, Dk, mcu);
+      tc::warp_mma<MUU, 2, false, true>(ua, xn + (mg + i0 * MG) * 16 * LDD,
+                                        LDD, MG * 16, W1 + ng * 16, ECL, Dk,
+                                        mcu - i0);
 #pragma unroll
       for (int i = 0; i < MUU; ++i) {
-        if (i >= mcu) break;
+        if (i0 + i >= mcu) break;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int row = (mg + i * MG) * 16 + g + (e >> 1) * 8;
+            const int row = (mg + (i0 + i) * MG) * 16 + g + (e >> 1) * 8;
             const int col = ng * 16 + j * 8 + 2 * t + (e & 1);
             const float u = ua[i][j][e] + b1c[col];
             ach[row * ECF + col] = t0 - H + row >= 0 ? u * sigmoid(u) : 0.f;
@@ -589,20 +693,20 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
       }
     }
-    {  // ds = dp w2^T over the RC rows
+    for (int i0 = 0; i0 < mcc; i0 += MUC) {  // ds = dp w2^T, the RC rows
       float da[MUC][2][4];
       tc::zero_acc(da);
-      tc::warp_mma<MUC, 2, false, false>(da, dps + mg * 16 * LDD, LDD,
-                                         MG * 16, w2c + ng * 16 * LDD, LDD,
-                                         Dk, mcc);
+      tc::warp_mma<MUC, 2, false, false>(da, dps + (mg + i0 * MG) * 16 * LDD,
+                                         LDD, MG * 16, w2c + ng * 16 * LDD,
+                                         LDD, Dk, mcc - i0);
 #pragma unroll
       for (int i = 0; i < MUC; ++i) {
-        if (i >= mcc) break;
+        if (i0 + i >= mcc) break;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int row = (mg + i * MG) * 16 + g + (e >> 1) * 8;
+            const int row = (mg + (i0 + i) * MG) * 16 + g + (e >> 1) * 8;
             const int col = ng * 16 + j * 8 + 2 * t + (e & 1);
             dcs[row * ECF + col] = da[i][j][e];
           }
@@ -613,13 +717,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     tc::cp_async_commit();
     if (H == 16)  // c, dc = ds swish'(c) in place, s of the own rows
       conv_dc<T, 16, EC>(P, ach, taps, dcs, RC, TT, t0, c, seq);
-    else
+    else if (H == 32)
       conv_dc<T, 32, EC>(P, ach, taps, dcs, RC, TT, t0, c, seq);
+    else
+      conv_dc_n<T, EC>(P, ach, taps, dcs, RC, TT, t0, c, seq);
     __syncthreads();
     if (H == 16)  // da, du, and the tile's sums for db1 and dwdw
       conv_du<T, 16, EC, TT>(P, ach, uown, dcs, taps, dus, t0, c, part);
-    else
+    else if (H == 32)
       conv_du<T, 32, EC, TT>(P, ach, uown, dcs, taps, dus, t0, c, part);
+    else
+      conv_du_n<T, EC, TT>(P, ach, uown, dcs, taps, dus, t0, c, part);
     __syncthreads();  // du complete
     for (int q = tid; q < TT * EC; q += THREADS) {  // du of the own rows
       const int tt = q / EC, e = q - tt * EC, ec = c * EC + e;
@@ -1112,8 +1220,9 @@ __global__ void dc_kernel(float* __restrict__ ds, const float* __restrict__ c,
 // a thread a column e: da[t] = sum_k wdw[k] dc[t + (K - 1) - k] (zero past
 // the sequence's end), du = da * swish'(u) in the compute type; the chunk's
 // sums of du (db1) and of a[t - (K - 1) + k] * dc[t] (dwdw[k]) into
-// db1_part / dwdw_part[chunk index]. K <= MAXK.
-
+// db1_part / dwdw_part[chunk index]. Up to MAXK taps in one pass with the
+// taps in registers; more in a pass for da and du (taps read as they are
+// used, in the same order), then a pass a chunk of MAXK taps for dwdw.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     dwconv_bwd_kernel(const float* __restrict__ dc,
@@ -1125,35 +1234,67 @@ __global__ void __launch_bounds__(THREADS)
   const int b = blockIdx.z, t0 = blockIdx.y * ROWS;
   const long long part = (long long)b * gridDim.y + blockIdx.y;
   if (e >= E) return;
-  float w[MAXK], dw[MAXK];
-#pragma unroll
-  for (int k = 0; k < MAXK; ++k) {
-    w[k] = k < K ? wdw[k * E + e] : 0.f;
-    dw[k] = 0.f;
-  }
-  float db1 = 0.f;
   const long long base = (long long)b * Tn * E + e;
-  for (int t = t0; t < min(Tn, t0 + ROWS); ++t) {
-    float da = 0.f;
-    const float dct = dc[base + (long long)t * E];
+  const int t1 = min(Tn, t0 + ROWS);
+  float db1 = 0.f;
+  if (K <= MAXK) {
+    float w[MAXK], dw[MAXK];
 #pragma unroll
     for (int k = 0; k < MAXK; ++k) {
-      if (k < K) {
-        const int tf = t + (K - 1) - k;
-        if (tf < Tn) da += w[k] * dc[base + (long long)tf * E];
-        const int tb = t - (K - 1) + k;
-        if (tb >= 0) dw[k] += a[base + (long long)tb * E] * dct;
-      }
+      w[k] = k < K ? wdw[k * E + e] : 0.f;
+      dw[k] = 0.f;
     }
-    const float uv = u[base + (long long)t * E];
-    const float d = da * dswish(uv, sigmoid(uv));
-    du_out[base + (long long)t * E] = narrow<T>(d);
-    db1 += d;
+    for (int t = t0; t < t1; ++t) {
+      float da = 0.f;
+      const float dct = dc[base + (long long)t * E];
+#pragma unroll
+      for (int k = 0; k < MAXK; ++k) {
+        if (k < K) {
+          const int tf = t + (K - 1) - k;
+          if (tf < Tn) da += w[k] * dc[base + (long long)tf * E];
+          const int tb = t - (K - 1) + k;
+          if (tb >= 0) dw[k] += a[base + (long long)tb * E] * dct;
+        }
+      }
+      const float uv = u[base + (long long)t * E];
+      const float d = da * dswish(uv, sigmoid(uv));
+      du_out[base + (long long)t * E] = narrow<T>(d);
+      db1 += d;
+    }
+#pragma unroll
+    for (int k = 0; k < MAXK; ++k)
+      if (k < K) dwdw_part[(part * K + k) * E + e] = dw[k];
+  } else {
+    for (int t = t0; t < t1; ++t) {
+      float da = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const int tf = t + (K - 1) - k;
+        if (tf < Tn) da += wdw[k * E + e] * dc[base + (long long)tf * E];
+      }
+      const float uv = u[base + (long long)t * E];
+      const float d = da * dswish(uv, sigmoid(uv));
+      du_out[base + (long long)t * E] = narrow<T>(d);
+      db1 += d;
+    }
+    for (int k0 = 0; k0 < K; k0 += MAXK) {
+      float dw[MAXK];
+#pragma unroll
+      for (int k = 0; k < MAXK; ++k) dw[k] = 0.f;
+      for (int t = t0; t < t1; ++t) {
+        const float dct = dc[base + (long long)t * E];
+#pragma unroll
+        for (int k = 0; k < MAXK; ++k) {
+          const int tb = t - (K - 1) + k0 + k;
+          if (k0 + k < K && tb >= 0)
+            dw[k] += a[base + (long long)tb * E] * dct;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < MAXK; ++k)
+        if (k0 + k < K) dwdw_part[(part * K + k0 + k) * E + e] = dw[k];
+    }
   }
   db1_part[part * E + e] = db1;
-#pragma unroll
-  for (int k = 0; k < MAXK; ++k)
-    if (k < K) dwdw_part[(part * K + k) * E + e] = dw[k];
 }
 
 // LN backward, one warp a row: dxh = dxn * gamma; dx = dy + (dxh -
@@ -1369,7 +1510,7 @@ cudaError_t branch(const Args& A, const Shape& S, const Work<T>& w,
 
 bool shape_ok(const Shape& S) {
   return S.B > 0 && S.B <= 65535 && S.Tn > 0 && S.D > 0 && S.E > 0 &&
-         S.K > 0 && S.K <= MAXK && S.r > 0 &&
+         S.K > 0 && S.r > 0 &&
          (2 * (size_t)S.D + 3 * (size_t)S.r + 1) * 4 <= SMEM_LIMIT &&
          (size_t)(THREADS / 32) * 2 * S.D * 4 <= SMEM_LIMIT &&
          (long long)S.B * S.Tn < (1LL << 31) &&
@@ -1497,7 +1638,7 @@ cudaError_t launch_tile(Kern kernel, size_t smem, const TileArgs& P,
 
 template <typename T, int MTP, int NTP, int EC>
 cudaError_t run_tile(const TileArgs& P, bool backward, cudaStream_t s) {
-  if (P.Dk > 64 * NTP || P.H > 32) return cudaErrorInvalidValue;
+  if (P.Dk > 64 * NTP) return cudaErrorInvalidValue;
   const size_t smem = tile_smem<T, MTP, EC>(backward, P.Dk, P.H);
   if (backward)
     return launch_tile(bwd_tile_kernel<T, MTP, NTP, EC>, smem, P, s);
@@ -1525,6 +1666,28 @@ cudaError_t tile_kernel(const TileArgs& P, bool backward, int cfg,
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// The shared memory of each entry of cfg_of's table at (Dk, H).
+template <typename T>
+long long tile_smem_of(bool backward, int cfg, int Dk, int H) {
+  const int key = (int)backward * NCFG + cfg;
+  if constexpr (sizeof(T) == 2) {
+    switch (key) {
+      case 0: return (long long)tile_smem<T, 4, 64>(false, Dk, H);
+      case 1: return (long long)tile_smem<T, 1, 32>(false, Dk, H);
+      case NCFG + 0: return (long long)tile_smem<T, 4, 32>(true, Dk, H);
+      case NCFG + 1: return (long long)tile_smem<T, 1, 32>(true, Dk, H);
+    }
+  } else {
+    switch (key) {
+      case 0: return (long long)tile_smem<T, 4, 32>(false, Dk, H);
+      case 1: return (long long)tile_smem<T, 1, 16>(false, Dk, H);
+      case NCFG + 0: return (long long)tile_smem<T, 2, 16>(true, Dk, H);
+      case NCFG + 1: return (long long)tile_smem<T, 1, 16>(true, Dk, H);
+    }
+  }
+  return -1;
 }
 
 template <typename T>
@@ -1705,6 +1868,17 @@ int ishara_conv_workspace(int B, int T, int D, int E, int K, int r,
 }
 
 bool cfg_ok(int cfg) { return cfg >= -1 && cfg < NCFG; }
+
+// Bytes of shared memory tile configuration cfg (0 .. NCFG - 1) of the
+// forward (backward = 0) or backward tile kernel takes at width D with K
+// taps, -1 for an unknown configuration; conv_kernel.tile_smem mirrors it.
+int ishara_conv_tile_smem(int dtype, int backward, int cfg, int D, int K) {
+  if (dtype < 0 || dtype > 1 || cfg < 0 || cfg >= NCFG || D < 1 || K < 1)
+    return -1;
+  const int Dk = (D + 15) / 16 * 16, H = (K + 15) / 16 * 16;
+  return (int)(dtype == 0 ? tile_smem_of<float>(backward != 0, cfg, Dk, H)
+                          : tile_smem_of<bf16>(backward != 0, cfg, Dk, H));
+}
 
 // out [B, T, D] = x + SE(pw2(swish(dw(swish(pw1(LN(x))))))) in x's type.
 // Operand types as at the top of this file; workspace of

@@ -58,8 +58,8 @@ def make_serving_program(model: IsharaEncoder, stats: GroupStats,
     check_variant(cfg)
     if decode == "beam":
         raise NotImplementedError(
-            'decode="beam" is not ported yet (ROADMAP.md Queue 1 item 10, '
-            "CTC beam decoding)")
+            'decode="beam" is not ported yet (ROADMAP.md Queue 1: CTC beam '
+            "decoding)")
     if decode != "greedy":
         raise ValueError(f"decode must be 'greedy' or 'beam', got {decode!r}")
     if fused not in (False, True, "int8"):

@@ -1,3 +1,4 @@
+from .checkpoint import CheckpointManager
 from .optim import Optimizer, lrfn_schedule, make_optimizer, onecycle_schedule
 from .state import (
     TrainState,
@@ -6,9 +7,12 @@ from .state import (
     make_fused_ctc_eval_step,
     make_fused_ctc_train_step,
 )
+from .trainer import Trainer
 
 __all__ = [
+    "CheckpointManager",
     "Optimizer",
+    "Trainer",
     "TrainState",
     "ctc_eval_step",
     "ctc_train_step",

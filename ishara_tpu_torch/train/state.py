@@ -217,7 +217,7 @@ def make_fused_ctc_train_step(stats: GroupStats, frame_len: int,
     if qat:
         raise NotImplementedError(
             "qat=True (training through the int8 fake-quantizer) is not "
-            "ported yet (ROADMAP.md Queue 1 item 12)")
+            "ported yet (ROADMAP.md Queue 1: QAT and remat)")
 
     def step(state: TrainState, batch: dict, seed: int = 0):
         batch = _on(batch, state.device)
@@ -249,7 +249,7 @@ def make_fused_ctc_eval_step(stats: GroupStats, frame_len: int,
     if qat:
         raise NotImplementedError(
             "qat=True (evaluating through the int8 fake-quantizer) is not "
-            "ported yet (ROADMAP.md Queue 1 item 12)")
+            "ported yet (ROADMAP.md Queue 1: QAT and remat)")
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict):

@@ -2,7 +2,7 @@
 whose plain versions run here on the CPU) against the JAX package's
 ``conv_module_residual(interpret=True)`` on the same numpy inputs, at the
 small shapes of ``tests/test_conv_kernel.py``: the forward and all twelve
-gradients (x and the eleven parameters), K 3 and 15, a partial, a full and
+gradients (x and the eleven parameters), K 3 to 63, a partial, a full and
 an empty mask, f32 and bf16. f32: 2e-5 on the output (the JAX package's
 own tolerance for its kernel against the composition), 2e-4 of the largest
 entry on the gradients (sums over every row in another order); bf16: both
@@ -68,6 +68,9 @@ def as_np(t):
     (2, 24, 32, 64, 15, 4, "empty", "float32"),
     (4, 32, 64, 128, 15, 8, "partial", "bfloat16"),
     (3, 16, 32, 64, 3, 4, "full", "bfloat16"),
+    # depthwise kernels wider than 32 taps (halos of 48 and 64 rows)
+    (2, 40, 32, 64, 33, 4, "partial", "float32"),
+    (2, 48, 32, 64, 63, 4, "partial", "bfloat16"),
 ])
 def test_forward_and_all_gradients_match_pallas_interpret(
         B, T, D, E, K, r, mask_kind, dtype):
@@ -250,6 +253,35 @@ def test_tile_plan_shared_memory_and_the_general_path():
     assert ck._configs(x, 15, True) == (-1, -1)
     x = torch.zeros((2, 40, 256), dtype=torch.bfloat16)
     assert ck._configs(x, 15, True) == (0, 0)
+
+
+@pytest.mark.parametrize("K", [33, 48, 63])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backward", [False, True])
+def test_tile_plan_takes_wide_depthwise_kernels(K, dtype, backward):
+    """Beyond 32 taps the halo is K rounded up to 16 rows and the taps
+    buffer K rounded up to 32 (so at K <= 32 every plan is the one the
+    kernel took before); each plan fits in shared memory and has a halo of
+    at most twice its tile's rows, or there is none and the call takes the
+    general path, which takes any K."""
+    assert ck.halo_rows(K) == -(-K // 16) * 16 and ck.taps_rows(K) == 64
+    assert ck.taps_rows(15) == ck.taps_rows(32) == 32
+    for D in (32, 64, 144, 256, 512, 768):
+        plan = ck.tile_plan(176, D, K, dtype, backward)
+        if plan is None:
+            continue
+        mtp, _, ec = ck._TILE_CONFIGS[(dtype, backward)][plan["config"]]
+        assert plan["smem"] == ck.tile_smem(dtype, backward, mtp, ec, D, K)
+        assert plan["smem"] <= ck.SMEM_LIMIT
+        assert plan["halo"] == ck.halo_rows(K)
+        assert plan["halo"] <= 2 * plan["tile_rows"]
+    # the flagship's width in bf16: the 64-row tile forward; backward the
+    # 16-row tile fits but its halo of 48 or 64 rows is too tall
+    if dtype == torch.bfloat16:
+        assert ck.tile_plan(176, 256, K, dtype, False)["tile_rows"] == 64
+        assert ck.tile_plan(176, 256, K, dtype, True) is None
+    x = torch.zeros((2, 40, 768), dtype=dtype)
+    assert ck._configs(x, K, backward) == (-1, -1)
 
 
 @pytest.mark.parametrize("n,p,q,want", [

@@ -722,6 +722,123 @@ def test_conv_module_kernels_match_plain(B, T, D, E, K, r, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("K", [33, 63])
+@pytest.mark.parametrize("path,B,T,D,E,r", [("tile", 3, 200, 64, 128, 8),
+                                            ("general", 2, 40, 768, 96, 4)])
+def test_conv_module_kernel_takes_wide_depthwise_kernels(path, B, T, D, E,
+                                                         r, K, dtype, tol):
+    """K7 beyond 32 taps (a halo of 48 and of 64 rows): on the tile path
+    (D 64) and on the general path (D 768, which no tile holds), forward,
+    dx and the eleven parameter gradients against the plain version, and
+    the same gradients on a second run."""
+    _card()
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    for backward in (False, True):
+        plan = ck.tile_plan(T, D, K, dtype, backward)
+        assert (plan is not None) == (path == "tile")
+        if plan is not None:
+            assert plan["halo"] == ck.halo_rows(K) and \
+                plan["smem"] == ck.c_tile_smem(dtype, backward,
+                                               plan["config"], D, K)
+    g = torch.Generator(device="cuda").manual_seed(K)
+    x, mask, params = _conv_case(B, T, D, E, K, r, dtype, g)
+    dy = torch.randn((B, T, D), generator=g, device="cuda").to(dtype)
+    out = ck.conv_module_residual(x, mask, *params)
+    grads = torch.autograd.grad(out, [x] + params, dy)
+    again = torch.autograd.grad(ck.conv_module_residual(x, mask, *params),
+                                [x] + params, dy)
+    with torch.no_grad():
+        args = ck._prep(x, mask, *params)
+        want = ck.conv_module_forward_plain(x, *args)
+        rgrads = ck.conv_module_backward_plain(x, args[0], dy, *args[1:])
+    _close(out, want, tol)
+    assert len(grads) == len(rgrads) == 12
+    for a, b, c in zip(grads, rgrads, again):
+        _close(a, b, tol)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_conv_tile_smem_mirrors_the_kernel():
+    """``conv_kernel.tile_smem`` equals the shared memory
+    ``csrc/conv_module.cu`` computes for every tile configuration, at
+    widths on and off the tensor-core grid and 1 to 63 taps."""
+    _card()
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    for (dtype, backward), configs in ck._TILE_CONFIGS.items():
+        for cfg, (mtp, _, ec) in enumerate(configs):
+            for D in (48, 64, 144, 256, 512):
+                for K in (1, 3, 15, 16, 17, 31, 32, 33, 48, 63, 64, 65):
+                    assert ck.tile_smem(dtype, backward, mtp, ec, D, K) \
+                        == ck.c_tile_smem(dtype, backward, cfg, D, K), \
+                        (dtype, backward, cfg, D, K)
+
+
+@pytest.mark.cuda
+def test_wide_depthwise_training_step_matches_plain(monkeypatch):
+    """One training step of ``baseline_config(4)`` with
+    ``transformer_kernel_size=33`` (bf16, dropout 0.4, batch 32) on the
+    card runs K7 at every Squeezeformer block and matches the same step
+    with K7 replaced by its plain version, from the same state and seeds:
+    the loss to 5e-3 of itself, the gradient norm to 1e-3, and every
+    gradient entry to 1e-1 of its leaf's largest entry (of 1e-3 of the
+    largest over all leaves where a leaf's true gradient is zero): the bf16
+    tolerance of ``test_training_step_on_the_card_matches_the_cpu``. One
+    kernel call holds 2e-2; a gradient that crosses the eight blocks sums
+    the roundings of each (measured on an H100: 3.5e-2 of
+    ``squeezeformer.0.norm1.weight``'s largest entry)."""
+    _card()
+    import dataclasses
+
+    from ishara_tpu_torch.config import TrainConfig, baseline_config
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.ops import conv_kernel as ck
+    from ishara_tpu_torch.preprocess import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = dataclasses.replace(baseline_config(4).model,
+                              transformer_kernel_size=33)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cuda")
+    batch = SyntheticASLFR(num_sequences=32, seed=3).batch(
+        range(32), CTCTokenizer(), max_frames=96)
+    tx, _ = make_optimizer(TrainConfig())
+    step = make_fused_ctc_train_step(GroupStats.identity(), cfg.frame_len,
+                                     aug_prob=0.2, with_grads=True)
+    state = TrainState.create(model, tx, device="cuda")
+    before = (ck.conv_module_residual.launches,
+              ck.conv_module_residual.launches_bwd)
+    _, mk = step(state.clone(), batch, seed=1)
+    assert (ck.conv_module_residual.launches,
+            ck.conv_module_residual.launches_bwd) \
+        == (before[0] + 4, before[1] + 4)
+    monkeypatch.setattr(ck, "_launch_fwd", lambda x, args:
+                        ck.conv_module_forward_plain(x, *args))
+    monkeypatch.setattr(ck, "_launch_bwd", lambda x, dy, args:
+                        ck.conv_module_backward_plain(x, args[0], dy,
+                                                      *args[1:]))
+    _, mp = step(state.clone(), batch, seed=1)
+    assert abs(float(mk["loss"]) - float(mp["loss"])) \
+        <= 5e-3 * abs(float(mp["loss"]))
+    assert abs(float(mk["grad_norm"]) - float(mp["grad_norm"])) \
+        <= 1e-3 * float(mp["grad_norm"])
+    largest = max(float(g.abs().max()) for g in mp["grads"].values())
+    for name, want in mp["grads"].items():
+        err = float((mk["grads"][name] - want).abs().max())
+        scale = max(float(want.abs().max()), 1e-3 * largest)
+        assert err <= 1e-1 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
 def test_conv_module_kernel_refuses_what_it_cannot_take():
     _card()
     from ishara_tpu_torch.ops import conv_kernel as ck
@@ -730,10 +847,6 @@ def test_conv_module_kernel_refuses_what_it_cannot_take():
     x, mask, params = _conv_case(2, 8, 16, 32, 3, 2, torch.float32, g)
     with pytest.raises(ValueError, match="f32 or bf16"):
         ck.conv_module_residual(x.detach().half(), mask, *params)
-    bad = list(params)
-    bad[4] = torch.zeros((33, 32), device="cuda")       # 33 taps
-    with pytest.raises(ValueError, match="taps"):
-        ck.conv_module_residual(x, mask, *bad)
     bad = list(params)
     bad[2] = torch.zeros((16, 30), device="cuda")       # w1 against b1
     with pytest.raises(ValueError, match="b1"):
