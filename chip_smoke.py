@@ -72,7 +72,11 @@ Phases, each of which raises on failure (the exit code is then not 0):
    bit for bit, 10 steps with the launch counts (K7 4 + 4, K8 8 + 8, K1
    1 + 1, the top dropout 1 + 1, none of K3, K4 and the dropout-add), a
    finite falling loss, ms a step, sequences/s, the peak of allocated
-   memory and the device's busy share and time by kernel.
+   memory and the device's busy share and time by kernel. Then one step of
+   a narrow hybrid at T 400 (``tests/test_torch_cuda.py::test_long_sequence
+   _step_on_the_card_matches_the_cpu``) on the card against the same step
+   on the CPU: loss, gradient norm and every gradient within the test's
+   tolerances.
 7. Wide depthwise kernels and the ``Trainer``: ``baseline_config(4)`` with
    ``transformer_kernel_size`` 33 and 63, one step against the plain
    versions and 3 steps with K7's launches (4 + 4 a step). Then the CTC
@@ -95,7 +99,20 @@ Phases, each of which raises on failure (the exit code is then not 0):
    unfused and fused (the same tokens everywhere, one K9 launch a fused
    request), the eos probe, ``BatchedTranslationEngine`` at batch 32
    (sequences/s), p50/p99 latencies and ``torch.profiler`` breakdowns.
-9. One JSON line listing every ported kernel, then the card's name and
+9. Translation training at the reference width (dim 208, 2 + 2 layers, 8
+   heads, dropout 0.1, T 176, labels of 64 tokens, batch 256, f32, AdamW at
+   a peak of 1e-3): the dropout kernel on the attention probabilities of
+   the encoder ``[256, 8, 176, 176]`` and the decoder ``[256, 8, 63, 63]``
+   (timed rows) and ``[256, 8, 63, 176]``, forward and backward against
+   its plain version beside F.dropout; one ``make_fused_translation_train_
+   step`` on the kernel against the same step with the plain version, the
+   same (seed, step) twice; 20 steps with K2's launches (23 + 23 a step,
+   no other training kernel), a finite falling loss; ms a step,
+   sequences/s and the device's busy share; the eval step. Then
+   ``Trainer(task="translation")`` for 2 epochs of 4 steps on 1024
+   hard-corpus sequences with one validation, and a run preempted
+   mid-epoch and resumed by a third ``Trainer``, bit for bit.
+10. One JSON line listing every ported kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with a non-zero code, printing no result, when no CUDA device is
@@ -1029,9 +1046,13 @@ def ctc_kernel_rows(smi, runs):
     return rows
 
 
-def dropout_kernel_rows(smi, runs):
-    """K2: dropout and dropout-add, forward and backward, bf16 and f32,
-    against the plain Philox version (exact) and beside F.dropout."""
+def dropout_kernel_rows(smi, runs, shape=(TB, TT, TD), tags=("bf16", "f32"),
+                        forms=("fast_dropout", "fast_dropout_add"),
+                        row_tag="bf16", rate=0.4, suffix=""):
+    """K2: dropout and dropout-add, forward and backward, at ``shape`` in
+    each of ``tags``, against the plain Philox version (exact) and beside
+    F.dropout, at ``rate`` and at 0; the timed rows are those of
+    ``row_tag``, named with ``suffix``."""
     import torch
     import torch.nn.functional as F
 
@@ -1039,17 +1060,20 @@ def dropout_kernel_rows(smi, runs):
 
     g = torch.Generator(device=DEVICE).manual_seed(12)
     seed = torch.tensor([20240], dtype=torch.int32, device=DEVICE)
+    drop = rate
     rows = []
-    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        x = torch.randn((TB, TT, TD), generator=g, device=DEVICE).to(dt)
-        res = torch.randn((TB, TT, TD), generator=g, device=DEVICE).to(dt)
-        dy = torch.randn((TB, TT, TD), generator=g, device=DEVICE).to(dt)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for tag in tags:
+        dt = dtypes[tag]
+        x = torch.randn(shape, generator=g, device=DEVICE).to(dt)
+        res = torch.randn(shape, generator=g, device=DEVICE).to(dt)
+        dy = torch.randn(shape, generator=g, device=DEVICE).to(dt)
         size = x.numel() * x.element_size()
-        for form in ("fast_dropout", "fast_dropout_add"):
+        for form in forms:
             add = form == "fast_dropout_add"
             wrapper = getattr(dr, form)
             errs = []
-            for rate in (0.4, 0.0):
+            for rate in (drop, 0.0):
                 xr = x.clone().requires_grad_()
                 out = wrapper(res, xr, seed, rate) if add \
                     else wrapper(xr, seed, rate)
@@ -1060,16 +1084,16 @@ def dropout_kernel_rows(smi, runs):
                                   TRAIN_TOL["dropout"]))
                 errs.append(close(f"{form} {tag} rate {rate} dx", dx, ref_dx,
                                   TRAIN_TOL["dropout"]))
-            kept = float((dr.fast_dropout(x, seed, 0.4) != 0).float().mean())
-            if abs(kept - 0.6) > 2e-3:
+            kept = float((dr.fast_dropout(x, seed, drop) != 0).float().mean())
+            if abs(kept - (1.0 - drop)) > 2e-3:
                 raise AssertionError(f"{form} {tag}: keep share {kept}")
             xr = x.clone().requires_grad_()
-            out = wrapper(res, xr, seed, 0.4) if add \
-                else wrapper(xr, seed, 0.4)
+            out = wrapper(res, xr, seed, drop) if add \
+                else wrapper(xr, seed, drop)
 
             def fwd(add=add, wrapper=wrapper, x=x, res=res):
-                return wrapper(res, x, seed, 0.4) if add \
-                    else wrapper(x, seed, 0.4)
+                return wrapper(res, x, seed, drop) if add \
+                    else wrapper(x, seed, drop)
 
             def bwd(out=out, xr=xr, dy=dy):
                 return torch.autograd.grad(out, xr, dy, retain_graph=True)
@@ -1077,7 +1101,7 @@ def dropout_kernel_rows(smi, runs):
             lx = x.clone().requires_grad_()
 
             def lib(add=add, x=lx, res=res):
-                y = F.dropout(x, 0.4, training=True)
+                y = F.dropout(x, drop, training=True)
                 return res + y if add else y
 
             lout = lib()
@@ -1086,24 +1110,26 @@ def dropout_kernel_rows(smi, runs):
                 return torch.autograd.grad(lout, lx, dy, retain_graph=True)
 
             def plain(add=add, x=x, res=res):
-                return dr.dropout_plain(x, seed, 0.4, res if add else None)
+                return dr.dropout_plain(x, seed, drop, res if add else None)
 
             p_ms = time_ms(plain, runs=3, warmup=1, head_start=False)
             f_ms, b_ms = time_ms(fwd, runs=runs), time_ms(bwd, runs=runs)
             l_ms = time_ms(lib, runs=runs)
             lb_ms = time_ms(lib_bwd, runs=runs)
-            log(f"kernel {form} [{tag}] [{TB}, {TT}, {TD}] rate 0.4 and 0, "
+            log(f"kernel {form} [{tag}] {list(shape)} rate {drop} and 0, "
                 f"forward and dx: equal to the plain Philox version "
                 f"(max_abs_err {max(errs):.1e}), keep share {kept:.4f} PASS; "
                 f"forward {f_ms:.4f} ms backward {b_ms:.4f} ms plain "
                 f"{p_ms:.4f} ms F.dropout{' + add' if add else ''} "
                 f"{l_ms:.4f} ms, its backward {lb_ms:.4f} ms on {smi}")
-            if tag != "bf16":
-                continue        # the training step's tensors are bf16
+            if tag != row_tag:
+                continue        # the timed path's tensors are row_tag's
             ref_line = 154 if add else 93
             for name, direction, ms, nb, lib_ms in (
-                    (form, "launches", f_ms, (3 if add else 2) * size, l_ms),
-                    (form + "[bwd]", "launches_bwd", b_ms, 2 * size, lb_ms)):
+                    (form + suffix, "launches", f_ms,
+                     (3 if add else 2) * size, l_ms),
+                    (form + "[bwd]" + suffix, "launches_bwd", b_ms,
+                     2 * size, lb_ms)):
                 rows.append(train_row(
                     name, wrapper, direction, "dropout.cu",
                     f"ishara_tpu/ops/dropout.py:{ref_line}", max(errs), ms,
@@ -2922,6 +2948,326 @@ def translation_phase(smi):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# Translation training: K2 at every dropout site of the encoder-decoder model
+# ---------------------------------------------------------------------------
+
+# bench.py's ASLTranslationModel at the gate's recipe
+# (tools/train_translation_hard_torch.py): dim 208, 8 heads of 26, 2 RoPE
+# Squeezeformer blocks, 2 decoder layers, 62 classes, dropout 0.1, T 176,
+# labels of 64 tokens, batch 256, f32, AdamW at a peak of 1e-3. Its 23
+# dropout sites (7 an encoder block, 4 a decoder layer, the target
+# embedding's) each launch K2 once forward and once backward a step; no
+# other training kernel runs.
+TR_TRAIN = dict(dim=208, heads=8, layers=2, dropout=0.1, lr=1e-3)
+TR_SITES = 23
+# The attention probabilities K2 drops there: encoder self-attention,
+# decoder self-attention and cross-attention.
+TR_PROB_SHAPES = ((TB, 8, 176, 176), (TB, 8, 63, 63), (TB, 8, 63, 176))
+
+
+def translation_dropout_rows(smi, runs: int = 20):
+    """K2 on the translation step's attention probabilities, f32 at rate
+    0.1: the encoder's [256, 8, 176, 176] and the decoder's [256, 8, 63,
+    63] timed as rows, the cross-attention's [256, 8, 63, 176] held to the
+    plain version; forward and backward exact, beside F.dropout."""
+    import torch
+
+    rows = []
+    for shape in TR_PROB_SHAPES:
+        timed = shape[-1] == shape[-2]
+        rows += dropout_kernel_rows(
+            smi, runs if timed else 3, shape=shape, tags=("f32",),
+            forms=("fast_dropout",), row_tag="f32" if timed else None,
+            rate=TR_TRAIN["dropout"],
+            suffix=f"[f32 {'x'.join(map(str, shape))}]")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def translation_train_phase(smi, steps: int = 20):
+    """The translation training slice on the card. Returns {(wrapper name,
+    direction): launches over the ``steps``-step run}."""
+    import torch
+
+    from ishara_tpu_torch.config import TrainConfig
+    from ishara_tpu_torch.data.synthetic import HardSyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import Seq2SeqTokenizer
+    from ishara_tpu_torch.models.seq2seq import ASLTranslationModel
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_translation_eval_step,
+        make_fused_translation_train_step,
+        make_optimizer,
+    )
+
+    tok = Seq2SeqTokenizer()
+    T = TR["T"]
+    torch.manual_seed(6)            # the weights: PyTorch's default init
+    model = ASLTranslationModel(
+        num_classes=tok.vocab_size, feature_dim=TR_TRAIN["dim"],
+        num_layers=TR_TRAIN["layers"], num_decoder_layers=TR_TRAIN["layers"],
+        num_heads=TR_TRAIN["heads"], dropout=TR_TRAIN["dropout"])
+    host = HardSyntheticASLFR(num_sequences=TB, seed=0, **HARD).batch(
+        range(TB), tok, max_frames=384)
+    batch = {k: torch.from_numpy(host[k]).to(DEVICE)
+             for k in ("raw", "lengths", "labels")}
+    # the gate's AdamW and one-cycle, compressed to this run: from 4e-5 up
+    # to the peak of 1e-3 at step 6 and down again by step 20
+    tcfg = TrainConfig(optimizer="adamw", lr_max=TR_TRAIN["lr"],
+                       num_epochs=1, steps_per_epoch=steps, batch_size=TB)
+    tx, schedule = make_optimizer(tcfg)
+    state0 = TrainState.create(model, tx, device=DEVICE,
+                               lookahead_sync_period=1)
+    step = make_fused_translation_train_step(
+        GroupStats.identity(), T, aug_prob=tcfg.aug_prob,
+        pad_idx=tok.pad_token, eos_idx=tok.eos_token)
+    counters = train_counters()
+    log(f"translation train: ASLTranslationModel(dim {TR_TRAIN['dim']}, "
+        f"{TR_TRAIN['heads']} heads, {TR_TRAIN['layers']} + "
+        f"{TR_TRAIN['layers']} layers, {tok.vocab_size} classes, dropout "
+        f"{TR_TRAIN['dropout']}, {model.num_sites} dropout sites), f32, "
+        f"batch {TB}, T {T}, raw {tuple(batch['raw'].shape)}, labels "
+        f"{tuple(batch['labels'].shape)}, {state0.params.numel()} "
+        f"parameters, adamw, lr {float(schedule(0)):.3e} rising to "
+        f"{TR_TRAIN['lr']:g}")
+    if model.num_sites != TR_SITES:
+        raise AssertionError(f"{model.num_sites} dropout sites, not "
+                             f"{TR_SITES}")
+
+    step_against_plain("translation train", step, state0, batch)
+
+    state = state0.clone()
+    for w in counters.values():
+        w.launches = w.launches_bwd = 0
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, seed=0)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {(n, d): getattr(w, d) for n, w in counters.items()
+                for d in ("launches", "launches_bwd")}
+    losses = [float(v) for v in losses]
+    log(f"translation train: {steps} steps of "
+        f"make_fused_translation_train_step, loss "
+        + " ".join(f"{v:.3f}" for v in losses))
+    log(f"translation train: kernel launches over the run {launches}")
+    for (name, direction), n in launches.items():
+        want = steps * TR_SITES if name == "fast_dropout" else 0
+        if n != want:
+            raise AssertionError(f"{name}.{direction} = {n} over {steps} "
+                                 f"steps, expected {want}")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        raise AssertionError(f"translation loss did not fall: {losses}")
+    if int(state.step) != steps or int(state.nonfinite_count) != 0:
+        raise AssertionError("step counters are off after the run")
+    log(f"translation train: loss finite at every step, mean of the first "
+        f"three {first:.3f} -> of the last three {last:.3f}; fast_dropout "
+        f"{TR_SITES} + {TR_SITES} launches a step, no other training kernel "
+        f"PASS")
+
+    state = time_steps("translation train", step, state, batch, smi)
+
+    ev = make_fused_translation_eval_step(
+        GroupStats.identity(), T, pad_idx=tok.pad_token,
+        eos_idx=tok.eos_token)(state, batch)
+    torch.cuda.synchronize()
+    ok = (math.isfinite(float(ev["loss"]))
+          and ev["ids"].shape == (TB, TR["S"])
+          and bool((ev["ids"][:, 0] == tok.sos_token).all())
+          and bool(ev["loss_per_seq"].isfinite().all())
+          and bool(ev["confidence"].isfinite().all()))
+    log(f"translation train: fused eval step loss {float(ev['loss']):.3f}, "
+        f"ids {tuple(ev['ids'].shape)}, confidence mean "
+        f"{float(ev['confidence'].mean()):.3f} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the translation eval step gave a bad result")
+    del state, state0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def translation_trainer_config():
+    """The gate's recipe at the reference width, cut to 2 epochs of 4 steps
+    with one validation at the end."""
+    from ishara_tpu_torch.config import (
+        EncoderConfig,
+        IsharaConfig,
+        TrainConfig,
+    )
+
+    return IsharaConfig(
+        task="translation",
+        model=EncoderConfig(dim=TR_TRAIN["dim"], num_heads=TR_TRAIN["heads"],
+                            frame_len=TR["T"], dropout=TR_TRAIN["dropout"],
+                            num_classes=TR["C"]),
+        train=TrainConfig(batch_size=TB, num_epochs=2, warmup_epochs=1,
+                          lr_max=TR_TRAIN["lr"], optimizer="adamw",
+                          validate_every_epochs=2,
+                          checkpoint_every_epochs=1))
+
+
+def translation_trainer_phase(smi, workdir: Path):
+    """``Trainer(task="translation")`` on the card: 2 epochs of 4 steps on
+    1024 hard-corpus sequences and one validation; then a run preempted
+    mid-epoch and resumed by a third Trainer, which must end bit for bit
+    where the uninterrupted run did."""
+    import shutil
+
+    import torch
+
+    from ishara_tpu_torch.data.synthetic import HardSyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import Seq2SeqTokenizer
+    from ishara_tpu_torch.ops import dropout as dr
+    from ishara_tpu_torch.train import Trainer
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    tok = Seq2SeqTokenizer()
+    train_ds = HardSyntheticASLFR(num_sequences=4 * TB, seed=0, **HARD)
+    val_ds = HardSyntheticASLFR(num_sequences=TB, seed=1, **HARD)
+    dr.fast_dropout.launches = dr.fast_dropout.launches_bwd = 0
+    full = Trainer(translation_trainer_config(), train_ds, val_ds, tok,
+                   workdir=workdir / "full", task="translation")
+    t0 = time.perf_counter()
+    hist = full.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = int(full.state.step)
+    spe = full.cfg.train.steps_per_epoch
+    bwd = dr.fast_dropout.launches_bwd
+    for r in hist:
+        log(f"translation trainer: epoch {r['epoch']} " + json.dumps(r))
+    keys = ("val_loss", "val_score", "val_score_maxlen", "val_score_pooled")
+    ok = (len(hist) == 2 and steps == 2 * spe == 8
+          and bwd == steps * TR_SITES
+          and all(math.isfinite(r["train_loss"]) for r in hist)
+          and all(k in hist[-1] and math.isfinite(hist[-1][k])
+                  for k in keys)
+          and all(k not in hist[0] for k in keys))
+    log(f"translation trainer: 2 epochs of {spe} steps, {steps} steps, "
+        f"fast_dropout {bwd} backward launches ({TR_SITES} a step), losses "
+        f"finite, one validation at the end; train() wall {wall:.2f} s on "
+        f"{smi} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the translation Trainer run failed its checks")
+
+    cut = Trainer(translation_trainer_config(),
+                  _PreemptedData(train_ds, spe + 1), val_ds, tok,
+                  workdir=workdir / "mid", task="translation")
+    try:
+        cut.train()
+    except RuntimeError as e:
+        if "simulated preemption" not in str(e):
+            raise
+    else:
+        raise AssertionError("the preempted run was not preempted")
+    consumed = cut._epoch_batches_done
+    if not (cut.completed_epochs == 1 and 0 < consumed < spe):
+        raise AssertionError(f"the preemption did not land mid-epoch: "
+                             f"{cut.completed_epochs} epochs, {consumed} "
+                             f"batches")
+    del cut
+    torch.cuda.empty_cache()
+    resumed = Trainer(translation_trainer_config(), train_ds, val_ds, tok,
+                      workdir=workdir / "mid", task="translation")
+    if not resumed.resume() or resumed._resume_skip != consumed:
+        raise AssertionError("resume() did not find the mid-epoch checkpoint")
+    rh = resumed.train()
+    a, b = resumed.state, full.state
+    pairs = ([("params", a.params, b.params),
+              ("slow_params", a.slow_params, b.slow_params)]
+             + [(f"opt_state.{k}", a.opt_state[k], b.opt_state[k])
+                for k in a.opt_state]
+             + [(f"batch_stats.{k}", v, b.batch_stats[k])
+                for k, v in a.batch_stats.items()])
+    differ = [n for n, x, y in pairs if not torch.equal(x, y)]
+    same = (int(a.step) == int(b.step)
+            and rh[-1]["val_score"] == hist[-1]["val_score"])
+    log(f"translation trainer: preempted on batch load {spe + 2} (epoch 1, "
+        f"{consumed} of {spe} batches done), resumed by a third Trainer: "
+        f"step {int(a.step)} vs {int(b.step)}, val_score "
+        f"{rh[-1]['val_score']} vs {hist[-1]['val_score']}; params, "
+        f"slow_params, {len(a.opt_state)} optimizer tensors and "
+        f"{len(a.batch_stats)} BatchNorm statistics equal the "
+        f"uninterrupted run's bit for bit: {not differ} "
+        f"{'PASS' if same and not differ else 'FAIL'}")
+    if differ or not same:
+        raise AssertionError(f"the resumed translation run differs from "
+                             f"the uninterrupted one in {differ}")
+    del full, resumed, a, b
+    torch.cuda.empty_cache()
+
+
+# The long-sequence step on the card against the same step on the CPU:
+# tests/test_torch_cuda.py::test_long_sequence_step_on_the_card_matches_the_
+# cpu, with its tolerances (loss 1e-6, gradient norm 1e-4 relative, every
+# gradient 1e-3 of its leaf's largest entry).
+LONG_CPU_TOL = {"loss": 1e-6, "grad_norm": 1e-4, "grad": 1e-3}
+
+
+def long_step_against_cpu_phase(smi):
+    """One fused step of a narrow long-sequence hybrid (dim 64, T 400,
+    attention dropout 0: the tiled attention, the conv-module kernel and
+    K1 on the card) on the card and on this machine's CPU, from the same
+    weights and seeds, at f32."""
+    import torch
+
+    from ishara_tpu_torch.config import EncoderConfig, TrainConfig
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = EncoderConfig(variant="hybrid", dim=64, num_heads=4,
+                        num_squeeze_blocks=1, num_conform_blocks=1,
+                        frame_len=400, dropout=0.0, top_dropout=0.2)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cpu")
+    batch = SyntheticASLFR(num_sequences=4, frames_per_char=16,
+                           seed=3).batch(range(4), CTCTokenizer(),
+                                         max_frames=600)
+    tx, _ = make_optimizer(TrainConfig())
+    step = make_fused_ctc_train_step(GroupStats.identity(), 400,
+                                     aug_prob=0.2, with_grads=True)
+    cpu = TrainState.create(copy.deepcopy(model), tx, device="cpu")
+    card = TrainState.create(copy.deepcopy(model), tx, device=DEVICE)
+    before = ck.ctc_loss_kernel.launches_bwd
+    _, mc = step(cpu, batch, seed=1)
+    _, mg = step(card, batch, seed=1)
+    torch.cuda.synchronize()
+    d_loss = abs(float(mg["loss"]) - float(mc["loss"])) \
+        / abs(float(mc["loss"]))
+    d_norm = abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
+        / float(mc["grad_norm"])
+    largest = max(float(g.abs().max()) for g in mc["grads"].values())
+    d_grad = max(float((mg["grads"][n].cpu() - g).abs().max())
+                 / max(float(g.abs().max()), 1e-3 * largest)
+                 for n, g in mc["grads"].items())
+    ok = (ck.ctc_loss_kernel.launches_bwd == before + 1
+          and d_loss <= LONG_CPU_TOL["loss"]
+          and d_norm <= LONG_CPU_TOL["grad_norm"]
+          and d_grad <= LONG_CPU_TOL["grad"])
+    log(f"long step on the card against the CPU (hybrid 1 + 1, dim 64, T "
+        f"400, f32): loss {float(mg['loss']):.6f} vs {float(mc['loss']):.6f}"
+        f" (rel {d_loss:.2e}, tol {LONG_CPU_TOL['loss']}), gradient norm "
+        f"{float(mg['grad_norm']):.4f} vs {float(mc['grad_norm']):.4f} (rel "
+        f"{d_norm:.2e}, tol {LONG_CPU_TOL['grad_norm']}), largest gradient "
+        f"difference {d_grad:.2e} of its leaf's largest entry (of 1e-3 of "
+        f"the largest over all leaves where that is more; tol "
+        f"{LONG_CPU_TOL['grad']}) on {smi} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the long-sequence step on the card disagrees "
+                             "with the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -3009,6 +3355,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     long_rows = long_kernel_phase(smi)
     long_launches = long_train_phase(smi)
+    long_step_against_cpu_phase(smi)
     torch.cuda.empty_cache()
     wide_launches = wide_kernel_train_phase(smi)
     torch.cuda.empty_cache()
@@ -3020,6 +3367,15 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
     tr_rows, tr_launches = translation_phase(smi)
+    torch.cuda.empty_cache()
+    tr_drop_rows = translation_dropout_rows(smi)
+    tr_train_launches = translation_train_phase(smi)
+    workdir = here / "runs" / "chip_smoke_translation_trainer"
+    try:
+        translation_trainer_phase(smi, workdir)
+    finally:
+        import shutil
+        shutil.rmtree(workdir, ignore_errors=True)
 
     # every ported kernel form that an engine path runs, with the launches
     # of that path's nine-request run
@@ -3070,6 +3426,17 @@ def main() -> int:
                                  f"engine")
         row["config"] = ("translation reference (dim 208, 2 + 2 layers, "
                          "T 176), batch 1")
+        line.append(row)
+    # K2 at the translation step's attention probabilities, with the
+    # launches of its 20-step training run (all 23 sites of a step)
+    for row in tr_drop_rows:
+        wrapper, direction = row.pop("counter")
+        row["launches"] = tr_train_launches[(wrapper.__name__, direction)]
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched by the "
+                                 f"translation training run")
+        row["config"] = ("translation training step (dim 208, 2 + 2 "
+                         "layers, T 176, labels of 64), batch 256, f32")
         line.append(row)
     log(json.dumps({"kernels": line}))
     log(smi)

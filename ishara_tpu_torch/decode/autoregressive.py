@@ -43,9 +43,18 @@ def greedy_translate(model, x, mask=None, max_len: int = 64, sos: int = 1,
     confidence [B]). Runs all ``max_len - 1`` steps, as the reference's
     ``fori_loop`` does."""
     memory, confidence = model.encode(x, mask)
-    B = x.shape[0]
-    tokens = _init_tokens(B, max_len, sos, pad, x.device)
-    finished = torch.zeros((B,), dtype=torch.bool, device=x.device)
+    return greedy_from_memory(model, memory, mask, max_len, sos, eos,
+                              pad), confidence
+
+
+@torch.no_grad()
+def greedy_from_memory(model, memory, mask=None, max_len: int = 64,
+                       sos: int = 1, eos: int = 2, pad: int = 0):
+    """:func:`greedy_translate`'s loop over an encoder output ``memory``
+    [B, T, d]: token ids [B, max_len] int32."""
+    B = memory.shape[0]
+    tokens = _init_tokens(B, max_len, sos, pad, memory.device)
+    finished = torch.zeros((B,), dtype=torch.bool, device=memory.device)
     for s in range(1, max_len):
         # positions >= s are not yet decoded; the causal mask hides them
         logits = model.decode(tokens, memory, mask)
@@ -53,7 +62,7 @@ def greedy_translate(model, x, mask=None, max_len: int = 64, sos: int = 1,
         nxt = torch.where(finished, pad, nxt)
         tokens[:, s] = nxt
         finished = finished | (nxt == eos)
-    return tokens, confidence
+    return tokens
 
 
 @torch.no_grad()

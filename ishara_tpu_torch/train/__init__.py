@@ -8,6 +8,12 @@ from .state import (
     make_fused_ctc_train_step,
 )
 from .trainer import Trainer
+from .translation import (
+    make_fused_translation_eval_step,
+    make_fused_translation_train_step,
+    make_translation_train_step,
+    token_lengths,
+)
 
 __all__ = [
     "CheckpointManager",
@@ -19,6 +25,10 @@ __all__ = [
     "lrfn_schedule",
     "make_fused_ctc_eval_step",
     "make_fused_ctc_train_step",
+    "make_fused_translation_eval_step",
+    "make_fused_translation_train_step",
     "make_optimizer",
+    "make_translation_train_step",
     "onecycle_schedule",
+    "token_lengths",
 ]

@@ -143,24 +143,29 @@ def _preprocess_batch(raw, lengths, stats, frame_len, dominant_hand):
                                 dominant_hand=dominant_hand))(raw, lengths)
 
 
+def _flat_grads(state: TrainState, loss) -> torch.Tensor:
+    """The gradient of ``loss`` by every parameter, laid out as
+    ``state.params`` (zeros where a parameter does not reach the loss)."""
+    grads = torch.autograd.grad(loss, list(state.model.parameters()),
+                                allow_unused=True)
+    return torch.cat([
+        (torch.zeros_like(p) if g is None else g).reshape(-1)
+        .to(torch.float32)
+        for g, p in zip(grads, state.model.parameters())])
+
+
 def _loss_and_grads(state: TrainState, x, labels, seed, blank_id):
     """(loss, flat gradient, the batch statistics before the forward)."""
     old_stats = [b.clone() for b in state.batch_stats.values()]
     logits = state.model(x, training=True, seed=seed)
     loss = ctc_loss(logits, labels, blank_id=blank_id)
-    grads = torch.autograd.grad(loss, list(state.model.parameters()),
-                                allow_unused=True)
-    flat = torch.cat([
-        (torch.zeros_like(p) if g is None else g).reshape(-1)
-        .to(torch.float32)
-        for g, p in zip(grads, state.model.parameters())])
-    return loss.detach(), flat, old_stats
+    return loss.detach(), _flat_grads(state, loss), old_stats
 
 
 @torch.no_grad()
 def _finish_step(state: TrainState, loss, grads, old_stats):
     """Optimizer update + Lookahead + non-finite guard, shared by the CTC
-    train steps. A non-finite loss or gradient leaves every leaf of the
+    and translation train steps. A non-finite loss or gradient leaves every leaf of the
     state unchanged but ``step`` and ``nonfinite_count``; the decision is a
     ``where`` on the device."""
     grad_norm = grads.norm()

@@ -1,11 +1,18 @@
 """The Trainer: epoch orchestration, validation, checkpoints, telemetry (port
-of ``ishara_tpu/train/trainer.py``, its CTC branch).
+of ``ishara_tpu/train/trainer.py``).
 
+* ``task="ctc"`` trains the encoder (:class:`IsharaEncoder`) on CTC,
+  ``task="translation"`` the encoder-decoder model
+  (:class:`ASLTranslationModel`, built from the model config's ``dim``,
+  ``num_heads``, ``dropout`` and ``variant``) on cross-entropy plus its
+  confidence loss;
 * each batch is one call of the fused step: augment -> preprocess ->
-  forward -> CTC -> backward -> update on the device, the host only
+  forward -> loss -> backward -> update on the device, the host only
   collating the next batch on a prefetch thread;
-* validation every ``validate_every_epochs`` with greedy decode and the
-  three normalized-Levenshtein conventions, and 32 example predictions;
+* validation every ``validate_every_epochs`` with greedy decode (for
+  translation the uncached autoregressive decode, decoded through the
+  tokenizer) and the three normalized-Levenshtein conventions, and 32
+  example predictions;
 * best, periodic and final checkpoints, exact mid-epoch resume, early
   stopping, restoring the best weights at the end, and a checkpoint on
   SIGTERM.
@@ -32,6 +39,7 @@ from ..config import IsharaConfig
 from ..device import resolve_device
 from ..evaluation.metrics import normalized_levenshtein
 from ..models.encoder import IsharaEncoder
+from ..models.seq2seq import ASLTranslationModel
 from ..preprocess.pipeline import GroupStats
 from ..utils.logging import MetricLogger
 from ..utils.prefetch import prefetch
@@ -42,6 +50,10 @@ from .state import (
     TrainState,
     make_fused_ctc_eval_step,
     make_fused_ctc_train_step,
+)
+from .translation import (
+    make_fused_translation_eval_step,
+    make_fused_translation_train_step,
 )
 
 
@@ -59,11 +71,7 @@ class Trainer:
         task: str = "ctc",
         device=None,
     ):
-        if task == "translation":
-            raise NotImplementedError(
-                'task="translation" is not ported yet (ROADMAP.md Queue 1: '
-                "translation training)")
-        if task != "ctc":
+        if task not in ("ctc", "translation"):
             raise ValueError(task)
         if mesh is not None:
             raise NotImplementedError(
@@ -102,21 +110,43 @@ class Trainer:
                      if tcfg.optimizer == "radam_lookahead" else 1)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(tcfg.seed)
-            self.model = IsharaEncoder(mcfg)
+            if task == "ctc":
+                self.model = IsharaEncoder(mcfg)
+            else:
+                self.model = ASLTranslationModel(
+                    num_classes=tokenizer.vocab_size, feature_dim=mcfg.dim,
+                    num_heads=mcfg.num_heads, dropout=mcfg.dropout,
+                    # model.variant selects the encoder family here too
+                    encoder_type=("conformer" if mcfg.variant == "conformer"
+                                  else "squeezeformer"))
         self.state = TrainState.create(self.model, tx, device=self.device,
                                        lookahead_sync_period=lookahead)
-        step_kw = dict(lr_flip_prob=tcfg.lr_flip_prob,
-                       dominant_hand=mcfg.dominant_hand, qat=tcfg.qat)
-        self._train_step = make_fused_ctc_train_step(
-            self.stats, mcfg.frame_len, tcfg.aug_prob, mcfg.blank_id,
-            **step_kw)
-        self._hist_step = make_fused_ctc_train_step(
-            self.stats, mcfg.frame_len, tcfg.aug_prob, mcfg.blank_id,
-            with_grads=True, **step_kw,
-        ) if tcfg.histogram_every_steps > 0 else None
-        self._eval_step = make_fused_ctc_eval_step(
-            self.stats, mcfg.frame_len, mcfg.blank_id,
-            dominant_hand=mcfg.dominant_hand, qat=tcfg.qat)
+        if task == "ctc":
+            step_kw = dict(lr_flip_prob=tcfg.lr_flip_prob,
+                           dominant_hand=mcfg.dominant_hand, qat=tcfg.qat)
+
+            def make_step(with_grads=False):
+                return make_fused_ctc_train_step(
+                    self.stats, mcfg.frame_len, tcfg.aug_prob,
+                    mcfg.blank_id, with_grads=with_grads, **step_kw)
+
+            self._eval_step = make_fused_ctc_eval_step(
+                self.stats, mcfg.frame_len, mcfg.blank_id,
+                dominant_hand=mcfg.dominant_hand, qat=tcfg.qat)
+        else:
+            ids = dict(pad_idx=tokenizer.pad_token,
+                       eos_idx=tokenizer.eos_token)
+
+            def make_step(with_grads=False):
+                return make_fused_translation_train_step(
+                    self.stats, mcfg.frame_len, tcfg.aug_prob,
+                    with_grads=with_grads, **ids)
+
+            self._eval_step = make_fused_translation_eval_step(
+                self.stats, mcfg.frame_len, **ids)
+        self._train_step = make_step()
+        self._hist_step = make_step(with_grads=True) \
+            if tcfg.histogram_every_steps > 0 else None
 
         self.workdir.mkdir(parents=True, exist_ok=True)
         config.to_json(self.workdir / "config.json")

@@ -124,9 +124,18 @@ def test_trainer_runs_on_cuda_by_default_and_refuses_unported_branches(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(tcfg, train, val, CTCTokenizer(), workdir=tmp_path)
-    with pytest.raises(NotImplementedError, match="translation training"):
+    # the translation branch builds (its own model, steps and tokenizer)
+    from ishara_tpu_torch.data.tokenizer import Seq2SeqTokenizer
+    from ishara_tpu_torch.models.seq2seq import ASLTranslationModel
+
+    tr = Trainer(tcfg, train, val, Seq2SeqTokenizer(), workdir=tmp_path,
+                 task="translation", device="cpu")
+    assert isinstance(tr.model, ASLTranslationModel)
+    assert tr.model.num_classes == Seq2SeqTokenizer().vocab_size
+    assert tr.state.device.type == "cpu"
+    with pytest.raises(ValueError):
         Trainer(tcfg, train, val, CTCTokenizer(), workdir=tmp_path,
-                task="translation", device="cpu")
+                task="segmentation", device="cpu")
     with pytest.raises(NotImplementedError, match="distribution"):
         Trainer(tcfg, train, val, CTCTokenizer(), workdir=tmp_path,
                 mesh=object(), device="cpu")
