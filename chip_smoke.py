@@ -27,7 +27,19 @@ Phases, each of which raises on failure (the exit code is then not 0):
    on the dequantized weights), dma ids against non-dma ids, the kernels'
    launch counts over each nine-request run, p50/p99 request latency, device
    time by kernel under ``torch.profiler``, ``BatchedEngine``, and the
-   constant-phrase fallback probe.
+   constant-phrase fallback probe. Then the CTC prefix beam search (W 8,
+   K 8) in the serving program: preset 5 through
+   ``InferenceEngine(decode="beam")`` with ``fused`` True, "int8" and True
+   + dma, preset 3 fused, ``BatchedEngine(decode="beam")`` at batch 8;
+   every request's ids and counts against the port's search on the CPU on
+   the log-probs copied off the card, at K 60 against the host search's
+   best prefix; the stacks' launches, p50 / p99 beside the greedy engines,
+   the search's own time and device kernels. Then export bundles: preset 5
+   as f32, bf16 and int8 bundles read back by the port's own msgpack codec,
+   each ``load_engine(fused=True)`` against an engine on the same (rounded
+   or dequantized) weights; a translation bundle through K9; the fused
+   beam program through ``export_serving_program`` /
+   ``load_serving_program`` against its engine, the stacks launched.
 4. Training kernels at the flagship training step's shapes (batch 256,
    T = 176, dim 256, 8 heads of 32, hidden 512, 64 labels, 60 classes): the
    CTC alpha / beta kernels, dropout and dropout-add, attention and the
@@ -853,6 +865,365 @@ def engine_phase(models, reqs, smi):
                                  f"{fused!r}) gave {text!r}")
         log(f"fallback probe {config} fused={fused!r}: {text!r} PASS")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# CTC beam serving, export bundles and the exported serving program
+# ---------------------------------------------------------------------------
+
+BEAM_W, BEAM_K = 8, 8   # the engines' defaults (the reference's)
+
+
+def stack_wrappers():
+    from ishara_tpu_torch.ops import fused_block as fb
+
+    return (fb.fused_squeezeformer_stack, fb.fused_conformer_stack,
+            fb.fused_conv_group_stack)
+
+
+def zero_stack_counts():
+    """Every stack wrapper's launch count and the device's stage counters
+    to 0."""
+    from ishara_tpu_torch.ops import fused_block as fb
+
+    for w in stack_wrappers():
+        w.launches = 0
+    fb.fused_conv_group_stack.launches_by_inner.clear()
+    for c in fb._COUNTERS.values():
+        c.zero_()
+
+
+def stack_counts() -> dict:
+    return {w.__name__: w.launches for w in stack_wrappers()}
+
+
+STACKS_OF = {"preset5": ("fused_squeezeformer_stack",
+                         "fused_conformer_stack"),
+             "preset3": ("fused_conv_group_stack",)}
+
+
+def check_launched(label, counts, config):
+    for name in STACKS_OF[config]:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by {label}")
+
+
+def request_log_probs(engine, encoder, raw):
+    """The log-probs that ``engine``'s program searches for ``raw``: its
+    preprocess, ``encoder`` (the engine's encoder rebuilt from the same
+    weights), the f32 log-softmax, on the card."""
+    import torch
+
+    from ishara_tpu_torch.preprocess.pipeline import preprocess
+
+    n = min(raw.shape[0], engine.max_raw_frames)
+    buf = torch.zeros((engine.max_raw_frames, raw.shape[1]), device=DEVICE)
+    buf[:n] = torch.from_numpy(raw[:n]).to(DEVICE)
+    cfg = engine.model.cfg
+    x = preprocess(buf, torch.tensor(max(n, 1), device=DEVICE), engine.stats,
+                   cfg.frame_len, thin=True, dominant_hand=cfg.dominant_hand)
+    with torch.no_grad():
+        return torch.log_softmax(encoder(x).float(), dim=-1)
+
+
+def with_fallback(ids, count, max_out):
+    """The serving program's fallback: fewer than 3 ids -> the constant
+    phrase (cropped to max_out)."""
+    from ishara_tpu_torch.serve.engine import FALLBACK_IDS
+
+    if count >= 3:
+        return np.asarray(ids), count
+    nfb = min(len(FALLBACK_IDS), max_out)
+    out = np.full(max_out, 59, np.int64)
+    out[:nfb] = FALLBACK_IDS[:nfb]
+    return out, nfb
+
+
+def device_profile(fn):
+    """(device kernels and copies, device us, wall us) of one call of
+    ``fn`` under torch.profiler, the second of two profiled calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows), wall)
+
+
+def beam_phase(models, reqs, smi):
+    """The CTC prefix beam search in the serving program at W 8, K 8:
+    preset 5 through ``InferenceEngine(decode="beam")`` with ``fused``
+    True, "int8" and True + dma, preset 3 with ``fused=True`` and
+    ``BatchedEngine(decode="beam", fused=True)`` at batch 8; every
+    request's ids and counts against the port's search on the CPU on the
+    log-probs copied off the card (the same fallback), at K 60 (every
+    class) against the host search's best prefix; the stack launches of
+    each nine-request run, p50 / p99 beside the greedy engines, and the
+    search's own time and device kernels."""
+    import torch
+
+    from ishara_tpu_torch.decode.beam import ctc_beam_search
+    from ishara_tpu_torch.decode.beam_device import beam_search_device
+    from ishara_tpu_torch.models.fused import FusedEncoder
+    from ishara_tpu_torch.ops import fused_block as fb
+    from ishara_tpu_torch.serve import BatchedEngine, InferenceEngine
+
+    plan = [("preset5", True, False), ("preset5", "int8", False),
+            ("preset5", True, True), ("preset3", True, False)]
+    beam = dict(decode="beam", beam_width=BEAM_W, beam_top_k=BEAM_K)
+    engines, results, launches = {}, {}, {}
+    for config, fused, dma in plan:
+        model = models[config]
+        label = f"InferenceEngine(decode=beam, fused={fused!r}, dma={dma}) " \
+            f"{config}"
+        eng = InferenceEngine(model, fused=fused, dma=dma, device=DEVICE,
+                              **beam)
+        engines[(config, fused, dma)] = eng
+        eng(reqs[0][1])
+        torch.cuda.synchronize()
+        zero_stack_counts()
+        res = [eng(raw) for _, raw in reqs]
+        torch.cuda.synchronize()
+        counts = launches[(config, fused, dma)] = stack_counts()
+        log(f"beam {label}: {len(reqs)} requests, kernel launches {counts}")
+        check_launched(label, counts, config)
+        results[(config, fused, dma)] = res
+
+        sd = model.state_dict()
+        if fused == "int8":
+            sd = fb.quantize_serving_weights(sd)
+        enc = FusedEncoder(model.cfg, sd, dma=dma, device=DEVICE,
+                           compute_dtype="int8" if fused == "int8"
+                           else torch.bfloat16)
+        t0 = time.perf_counter()
+        for (rl, raw), (ids, count) in zip(reqs, res):
+            lp = request_log_probs(eng, enc, raw).cpu()
+            want = beam_search_device(lp, beam_width=BEAM_W, top_k=BEAM_K,
+                                      max_len=eng.max_out)
+            want_ids, want_count = with_fallback(want[0].numpy(),
+                                                 int(want[1]), eng.max_out)
+            if count != want_count or not np.array_equal(ids, want_ids):
+                raise AssertionError(
+                    f"{label} {rl}: ids {ids[:count].tolist()} differ from "
+                    f"the CPU search's {want_ids[:want_count].tolist()}")
+            log(f"  {rl:14s} T={raw.shape[0]:4d} count={count:2d} "
+                f"best log-prob {float(want[2]):.4f}")
+        log(f"  ids and counts equal the port's beam search on the CPU on "
+            f"the card's log-probs, all {len(reqs)} requests "
+            f"({time.perf_counter() - t0:.1f} s of CPU search) PASS")
+
+    batched = BatchedEngine(models["preset5"], batch_size=8, fused=True,
+                            device=DEVICE, **beam)
+    zero_stack_counts()
+    bids, bcounts = batched([raw for _, raw in reqs[:8]])
+    counts = stack_counts()
+    check_launched("BatchedEngine(decode=beam)", counts, "preset5")
+    for i, (ids, count) in enumerate(results[("preset5", True, False)][:8]):
+        if not (np.array_equal(bids[i], ids) and bcounts[i] == count):
+            raise AssertionError(f"BatchedEngine(decode=beam) row {i} "
+                                 f"differs from InferenceEngine")
+    log(f"BatchedEngine(decode=beam, fused=True) preset5 batch 8: kernel "
+        f"launches {counts}, ids equal InferenceEngine's PASS")
+
+    # every class a frame: exact prefix search, the host search's best
+    # prefix (max_out at the window's length, so no prefix is cut)
+    T = models["preset5"].cfg.frame_len
+    exact = InferenceEngine(models["preset5"], fused=True, device=DEVICE,
+                            decode="beam", beam_width=BEAM_W, beam_top_k=60,
+                            max_out=T)
+    enc = FusedEncoder(models["preset5"].cfg, models["preset5"].state_dict(),
+                       device=DEVICE)
+    zero_stack_counts()
+    for rl, raw in reqs:
+        ids, count = exact(raw)
+        lp = request_log_probs(exact, enc, raw).cpu().numpy()
+        best = ctc_beam_search(lp, BEAM_W, 59, top_k_emissions=60)[0][0]
+        want_ids, want_count = with_fallback(
+            list(best) + [59] * (T - len(best)), len(best), T)
+        if count != want_count or not np.array_equal(ids, want_ids):
+            raise AssertionError(f"K=60 {rl}: ids differ from the host "
+                                 f"search's best prefix")
+    check_launched("InferenceEngine(decode=beam, K=60)", stack_counts(),
+                   "preset5")
+    log(f"InferenceEngine(decode=beam, beam_top_k=60, max_out={T}) preset5: "
+        f"ids equal the host ctc_beam_search's best prefix on all "
+        f"{len(reqs)} requests PASS")
+
+    timed = {
+        "InferenceEngine(greedy, fused=True) preset5": (InferenceEngine(
+            models["preset5"], fused=True, device=DEVICE), True),
+        "InferenceEngine(greedy, fused=True) preset3": (InferenceEngine(
+            models["preset3"], fused=True, device=DEVICE), True)}
+    for (config, fused, dma), eng in engines.items():
+        timed[f"InferenceEngine(decode=beam, fused={fused!r}, dma={dma}) "
+              f"{config}"] = (eng, True)
+    latencies(timed, reqs, smi, rounds=20)
+    profile_phase("InferenceEngine(decode=beam, fused=True) preset5",
+                  engines[("preset5", True, False)], reqs, n=3)
+
+    eng = engines[("preset5", True, False)]
+    lp = request_log_probs(eng, FusedEncoder(
+        models["preset5"].cfg, models["preset5"].state_dict(),
+        device=DEVICE), reqs[1][1])
+
+    def search():
+        return beam_search_device(lp, beam_width=BEAM_W, top_k=BEAM_K,
+                                  max_len=eng.max_out)
+
+    ms = host_ms(search, runs=10)
+    kernels, dev_us, wall_us = device_profile(search)
+    log(f"beam_search_device (T {lp.shape[0]}, W {BEAM_W}, K {BEAM_K}, "
+        f"max_len {eng.max_out}) alone: {ms:.4f} ms a request (host clock, "
+        f"median of 10); {kernels} device kernels and copies a request, "
+        f"device busy {dev_us / 1e3:.4f} of {wall_us / 1e3:.4f} ms "
+        f"profiled ({100 * dev_us / wall_us:.1f}%) on {smi}")
+    return launches
+
+
+def bundle_phase(models, reqs, smi, workdir: Path):
+    """Export bundles and the serving program on the card: preset 5 as
+    f32, bf16 and int8 bundles read back by the port's own codec, each
+    ``load_engine(fused=True)`` against an engine built directly on the
+    same (rounded or dequantized) weights; a translation bundle of the
+    reference model served through K9; the fused preset-5 beam program
+    through ``export_serving_program`` / ``load_serving_program`` against
+    its engine, the stacks launched (the device's stage counter)."""
+    import importlib.util
+
+    import torch
+
+    from ishara_tpu_torch.config import EncoderConfig, IsharaConfig
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.models.seq2seq import build_translation_model
+    from ishara_tpu_torch.ops import decoder_kernel as dk
+    from ishara_tpu_torch.ops import fused_block as fb
+    from ishara_tpu_torch.serve import (
+        InferenceEngine,
+        TranslationEngine,
+        export_model,
+        export_serving_program,
+        load_engine,
+        load_serving_program,
+    )
+
+    log(f"bundles: msgpack importable here: "
+        f"{importlib.util.find_spec('msgpack') is not None}; the port's "
+        f"codec reads and writes params.msgpack")
+    model = models["preset5"]
+    config = IsharaConfig(model=model.cfg)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    forms = {
+        "f32": (dict(half_precision=False), sd),
+        "bf16": (dict(half_precision=True),
+                 {k: v.to(torch.bfloat16).float() if v.is_floating_point()
+                  else v for k, v in sd.items()}),
+        "int8": (dict(quantize_int8=True), fb.dequantize_serving_weights(
+            fb.quantize_serving_weights(sd))),
+    }
+    for form, (kw, weights) in forms.items():
+        d = workdir / f"preset5_{form}"
+        export_model(d, config, model, **kw)
+        size = (d / "params.msgpack").stat().st_size
+        t0 = time.perf_counter()
+        got = load_engine(d, fused=True, device=DEVICE)
+        load_s = time.perf_counter() - t0
+        direct = build_model(model.cfg, device=DEVICE)
+        direct.load_state_dict(weights)
+        want = InferenceEngine(direct, fused=True, device=DEVICE)
+        zero_stack_counts()
+        res = [got(raw) for _, raw in reqs]
+        counts = stack_counts()
+        check_launched(f"load_engine({form} bundle)", counts, "preset5")
+        for (rl, raw), (ids, count) in zip(reqs, res):
+            want_ids, want_count = want(raw)
+            if count != want_count or not np.array_equal(ids, want_ids):
+                raise AssertionError(f"{form} bundle {rl}: ids differ from "
+                                     f"the engine on the same weights")
+        log(f"bundle preset5 {form}: params.msgpack {size} bytes, "
+            f"load_engine(fused=True) {load_s:.2f} s, kernel launches "
+            f"{counts}, ids equal the engine on the same weights on all "
+            f"{len(reqs)} requests PASS")
+    if "msgpack" in sys.modules:
+        raise AssertionError("the port imported msgpack")
+
+    translation = build_translation_model(device=DEVICE)
+    randomize(translation, seed=7)
+    tconfig = IsharaConfig(task="translation", model=EncoderConfig(
+        dim=translation.feature_dim, num_heads=translation.num_heads,
+        num_classes=translation.num_classes, frame_len=TR["T"]))
+    d = workdir / "translation_f32"
+    export_model(d, tconfig, translation, half_precision=False)
+    got = load_engine(d, fused=True, max_out=TR["S"], device=DEVICE)
+    want = TranslationEngine(translation, frame_len=TR["T"], max_out=TR["S"],
+                             fused=True, device=DEVICE)
+    dk.fused_greedy_decode.launches = 0
+    res = [got(raw) for _, raw in reqs]
+    k9 = dk.fused_greedy_decode.launches
+    if k9 != len(reqs):
+        raise AssertionError(f"the translation bundle's engine launched K9 "
+                             f"{k9} times, not once a request")
+    for (rl, raw), (toks, conf) in zip(reqs, res):
+        want_toks, want_conf = want(raw)
+        if not np.array_equal(toks, want_toks) \
+                or abs(conf - want_conf) > 1e-6:
+            raise AssertionError(f"translation bundle {rl}: tokens differ")
+    log(f"bundle translation (dim {translation.feature_dim}, "
+        f"{translation.num_layers} + {translation.num_decoder_layers} "
+        f"layers) f32: load_engine(fused=True) K9 launches {k9}, tokens and "
+        f"confidence equal the engine on the same weights PASS")
+
+    eng = InferenceEngine(model, fused=True, device=DEVICE, decode="beam",
+                          beam_width=BEAM_W, beam_top_k=BEAM_K)
+    d = workdir / "program"
+    t0 = time.perf_counter()
+    export_serving_program(d, eng)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = load_serving_program(d, device=DEVICE)
+    load_s = time.perf_counter() - t0
+
+    def run_program(raw):
+        n = min(raw.shape[0], eng.max_raw_frames)
+        buf = np.zeros((eng.max_raw_frames, raw.shape[1]), np.float32)
+        buf[:n] = raw[:n]
+        ids, count = program(torch.from_numpy(buf).to(DEVICE),
+                             torch.tensor(max(n, 1), dtype=torch.int32)
+                             .to(DEVICE))
+        return ids.cpu().numpy(), int(count)
+
+    zero_stack_counts()
+    stages, res = [], []
+    for rl, raw in reqs:
+        res.append(run_program(raw))
+        stages.append(sum(int(c.item()) for c in fb._COUNTERS.values()))
+    counts = stack_counts()
+    for (rl, raw), (ids, count) in zip(reqs, res):
+        want_ids, want_count = eng(raw)
+        if count != want_count or not np.array_equal(ids, want_ids):
+            raise AssertionError(f"exported program {rl}: ids differ from "
+                                 f"its engine's")
+    check_launched("the exported program", counts, "preset5")
+    if min(stages) <= 0:
+        raise AssertionError("the exported program ran no stack stage on "
+                             "the device")
+    log(f"export_serving_program (fused, beam) preset5: exported in "
+        f"{export_s:.2f} s, loaded in {load_s:.2f} s, "
+        f"{(d / 'serving_program.pt2').stat().st_size} bytes; ids equal the "
+        f"engine's on all {len(reqs)} requests, stack launches {counts}, "
+        f"device stage counter {stages[0]} after a request PASS")
+    latencies({"exported program (fused, beam) preset5": (run_program, True),
+               "InferenceEngine(decode=beam, fused=True) preset5":
+               (eng, True)}, reqs, smi, rounds=10)
 
 
 # ---------------------------------------------------------------------------
@@ -3348,6 +3719,13 @@ def main() -> int:
 
     rows = kernel_phase(models, reqs)
     launches = engine_phase(models, reqs, smi)
+    beam_phase(models, reqs, smi)
+    workdir = here / "runs" / "chip_smoke_bundles"   # ignored by git
+    try:
+        bundle_phase(models, reqs, smi, workdir)
+    finally:
+        import shutil
+        shutil.rmtree(workdir, ignore_errors=True)
     del models
     torch.cuda.empty_cache()
     train_rows = train_kernel_phase(smi)

@@ -6,16 +6,23 @@ module layout and names so each counterpart is easy to find. It imports
 reference's numpy-only modules (landmark layout, vocabulary, config) lives
 here as its own copy.
 
-Ported so far: the batch-1 CTC serving path (preprocess -> encoder -> greedy
-collapse -> constant-phrase fallback) of the squeezeformer, conformer,
-hybrid, conv_hybrid and conv_transformer families, with the fused encoder
-blocks -- at bf16, f32 or int8 weight storage, launch by launch or as one
-persistent kernel per stack -- as hand-written CUDA kernels
-(:mod:`ishara_tpu_torch.ops.fused_block`); the CTC training step with its
-kernels; and batch-1 translation serving of the encoder-decoder model
-(greedy or beam, the whole decode loop as one kernel launch,
-:mod:`ishara_tpu_torch.ops.decoder_kernel`). See ``ROADMAP.md`` for the
-rest.
+Ported so far: the five served encoder families (squeezeformer, conformer,
+hybrid, conv_hybrid, conv_transformer) in eval and training mode, and the
+encoder-decoder translation model; preprocessing and augmentation; CTC and
+translation training (train steps, the ``Trainer`` loop, checkpoints, the
+evaluation harness); batch-1 and batched CTC serving (greedy collapse or the
+on-device CTC prefix beam search, :mod:`ishara_tpu_torch.decode.beam_device`,
+then the constant-phrase fallback) with the fused encoder blocks -- at bf16,
+f32 or int8 weight storage, launch by launch or as one persistent kernel per
+stack -- as hand-written CUDA kernels
+(:mod:`ishara_tpu_torch.ops.fused_block`); translation serving (greedy or
+beam, the whole decode loop as one kernel launch,
+:mod:`ishara_tpu_torch.ops.decoder_kernel`); export bundles in the JAX
+package's format, both ways, ``load_engine`` and the ``torch.export``
+serving program (:mod:`ishara_tpu_torch.serve.export`); Keras / TFLite
+weight import and the real-time clients. Every training kernel has its
+CUDA counterpart too. See ``ROADMAP.md`` for the rest (the U-Net and
+parallel-branches families, causal mode and streaming, QAT, distribution).
 
 Entry points take a ``device``; without one they run on ``cuda`` and raise
 when no card is visible (:func:`resolve_device`) -- they never fall back to

@@ -141,7 +141,11 @@ class IsharaConfig:
 
     @classmethod
     def from_json(cls, source: str | Path) -> "IsharaConfig":
-        text = Path(source).read_text() if Path(str(source)).exists() else str(source)
+        # JSON text, or the path of a file that holds it (a long JSON
+        # string is no valid path to test for existence)
+        text = (str(source) if isinstance(source, str)
+                and source.lstrip().startswith("{")
+                else Path(source).read_text())
         raw = json.loads(text)
         model = EncoderConfig(**{**raw.get("model", {}),
                                  "kernel_sizes": tuple(raw.get("model", {}).get("kernel_sizes", (11, 5, 3)))})

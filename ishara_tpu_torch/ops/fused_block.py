@@ -11,7 +11,10 @@ the design, its numerics and its bound on an H100), or raises; on a CPU
 tensor it runs the plain PyTorch version beside it (:func:`squeeze_body`,
 :func:`conformer_body`, :func:`transformer_body`,
 :func:`conv1d_block_body`), which repeat the reference's bodies step by
-step. Each wrapper counts its kernel calls in ``.launches``.
+step. Each wrapper counts its kernel calls in ``.launches``. The three call
+registered operators (``torch.ops.ishara_tpu_torch.fused_*_stack``), which
+hold that device dispatch, so a serving program traced by ``torch.export``
+keeps them as calls that launch the same kernels.
 
 The kernel runs a stack as stages -- 12 a Squeezeformer block, 11 a
 Conformer, 5 a Transformer, 4 a Conv1DBlock -- each a grid of small
@@ -661,6 +664,107 @@ def _run_stack(what, kind, x, mask, conv, leaves, num_heads, dma):
     return out
 
 
+def _flatten(leaves) -> tuple[list[torch.Tensor], list[int]]:
+    """A tuple of leaves (tensors or int8 (q, scale) pairs) -> the flat
+    tensor list a registered op takes and each leaf's count of tensors."""
+    flat, counts = [], []
+    for w in leaves:
+        parts = list(w) if isinstance(w, tuple) else [w]
+        flat += parts
+        counts.append(len(parts))
+    return flat, counts
+
+
+def _unflatten(flat, counts) -> tuple:
+    out, i = [], 0
+    for n in counts:
+        out.append(tuple(flat[i:i + n]) if n > 1 else flat[i])
+        i += n
+    return tuple(out)
+
+
+def _groups(flat, counts, nconv: int):
+    """The registered op's flat arguments -> ``(conv, leaves)``: ``nconv``
+    Conv1DBlock positions of ``len(CONV1D_LEAVES)`` leaves, then the inner
+    block's."""
+    n = len(CONV1D_LEAVES)
+    per = [sum(counts[j * n:(j + 1) * n]) for j in range(nconv)]
+    conv, i = [], 0
+    for j in range(nconv):
+        conv.append(_unflatten(flat[i:i + per[j]],
+                               counts[j * n:(j + 1) * n]))
+        i += per[j]
+    return tuple(conv), _unflatten(flat[i:], counts[nconv * n:])
+
+
+# The three serving entry points are registered operators
+# (``torch.ops.ishara_tpu_torch.*``), so that ``torch.export`` can trace a
+# serving program through them: on a CUDA tensor the operator launches the
+# kernel and counts the launch, on a CPU tensor it runs the plain version.
+# Weights arrive as a flat tensor list with each leaf's count of tensors (2
+# for an int8 pair), ``dma`` as a flag.
+
+@torch.library.custom_op("ishara_tpu_torch::fused_squeezeformer_stack",
+                         mutates_args=(), device_types="cpu")
+def _squeeze_op(x: torch.Tensor, mask: torch.Tensor,
+                flat: list[torch.Tensor], counts: list[int], num_heads: int,
+                dma: bool) -> torch.Tensor:
+    leaves = _unflatten(flat, counts)
+    _check("squeezeformer", x, mask, (), leaves, num_heads)
+    return squeeze_stack_plain(x, mask, leaves, num_heads)
+
+
+@_squeeze_op.register_kernel("cuda")
+def _(x, mask, flat, counts, num_heads, dma):
+    out = _run_stack("fused_squeezeformer_stack", "squeezeformer", x, mask,
+                     (), _unflatten(flat, counts), num_heads, dma)
+    fused_squeezeformer_stack.launches += 1
+    return out
+
+
+@torch.library.custom_op("ishara_tpu_torch::fused_conformer_stack",
+                         mutates_args=(), device_types="cpu")
+def _conformer_op(x: torch.Tensor, mask: torch.Tensor,
+                  flat: list[torch.Tensor], counts: list[int],
+                  num_heads: int, dma: bool) -> torch.Tensor:
+    leaves = _unflatten(flat, counts)
+    _check("conformer", x, mask, (), leaves, num_heads)
+    return conformer_stack_plain(x, mask, leaves, num_heads)
+
+
+@_conformer_op.register_kernel("cuda")
+def _(x, mask, flat, counts, num_heads, dma):
+    out = _run_stack("fused_conformer_stack", "conformer", x, mask, (),
+                     _unflatten(flat, counts), num_heads, dma)
+    fused_conformer_stack.launches += 1
+    return out
+
+
+@torch.library.custom_op("ishara_tpu_torch::fused_conv_group_stack",
+                         mutates_args=(), device_types="cpu")
+def _group_op(x: torch.Tensor, mask: torch.Tensor, flat: list[torch.Tensor],
+              counts: list[int], nconv: int, inner: str, num_heads: int,
+              dma: bool) -> torch.Tensor:
+    conv, leaves = groups = _groups(flat, counts, nconv)
+    _check(inner, x, mask, conv, leaves, num_heads)
+    return group_stack_plain(x, mask, groups, inner, num_heads)
+
+
+@_group_op.register_kernel("cuda")
+def _(x, mask, flat, counts, nconv, inner, num_heads, dma):
+    conv, leaves = _groups(flat, counts, nconv)
+    out = _run_stack(f"fused_conv_group_stack[{inner}]", inner, x, mask,
+                     conv, leaves, num_heads, dma)
+    fused_conv_group_stack.launches += 1
+    by_inner = fused_conv_group_stack.launches_by_inner
+    by_inner[inner] = by_inner.get(inner, 0) + 1
+    return out
+
+
+for _op in (_squeeze_op, _conformer_op, _group_op):
+    _op.register_fake(lambda x, *args: torch.empty_like(x))
+
+
 def fused_squeezeformer_stack(x, mask, leaves, *, num_heads: int,
                               dma: bool = False):
     """N eval-mode Squeezeformer blocks on x [T, dim] f32 with mask [T]
@@ -669,14 +773,9 @@ def fused_squeezeformer_stack(x, mask, leaves, *, num_heads: int,
     the stack as one persistent kernel that prefetches the next block's
     weights (same numerics). Replaces
     ``ishara_tpu.ops.fused_block.fused_squeezeformer_stack``."""
-    mask = mask.to(torch.float32).contiguous()
-    if x.device.type == "cpu":
-        _check("squeezeformer", x, mask, (), leaves, num_heads)
-        return squeeze_stack_plain(x, mask, leaves, num_heads)
-    out = _run_stack("fused_squeezeformer_stack", "squeezeformer", x, mask,
-                     (), leaves, num_heads, dma)
-    fused_squeezeformer_stack.launches += 1
-    return out
+    flat, counts = _flatten(leaves)
+    return _squeeze_op(x, mask.to(torch.float32).contiguous(), flat, counts,
+                       num_heads, bool(dma))
 
 
 def fused_conformer_stack(x, mask, leaves, *, num_heads: int,
@@ -685,14 +784,9 @@ def fused_conformer_stack(x, mask, leaves, *, num_heads: int,
     ``leaves`` from :func:`stack_block_args` over
     :func:`ishara_tpu_torch.bridge.conformer_block_args`. Replaces
     ``ishara_tpu.ops.fused_block.fused_conformer_stack``."""
-    mask = mask.to(torch.float32).contiguous()
-    if x.device.type == "cpu":
-        _check("conformer", x, mask, (), leaves, num_heads)
-        return conformer_stack_plain(x, mask, leaves, num_heads)
-    out = _run_stack("fused_conformer_stack", "conformer", x, mask, (),
-                     leaves, num_heads, dma)
-    fused_conformer_stack.launches += 1
-    return out
+    flat, counts = _flatten(leaves)
+    return _conformer_op(x, mask.to(torch.float32).contiguous(), flat,
+                         counts, num_heads, bool(dma))
 
 
 def fused_conv_group_stack(x, mask, groups, inner: str, *, num_heads: int,
@@ -705,17 +799,14 @@ def fused_conv_group_stack(x, mask, groups, inner: str, *, num_heads: int,
     if inner not in INNER:
         raise ValueError(f"inner must be one of {sorted(INNER)}, "
                          f"got {inner!r}")
-    mask = mask.to(torch.float32).contiguous()
     conv, leaves = groups
-    if x.device.type == "cpu":
-        _check(inner, x, mask, conv, leaves, num_heads)
-        return group_stack_plain(x, mask, groups, inner, num_heads)
-    out = _run_stack(f"fused_conv_group_stack[{inner}]", inner, x, mask,
-                     conv, leaves, num_heads, dma)
-    fused_conv_group_stack.launches += 1
-    by_inner = fused_conv_group_stack.launches_by_inner
-    by_inner[inner] = by_inner.get(inner, 0) + 1
-    return out
+    flat, counts = [], []
+    for part in (*conv, leaves):
+        f, c = _flatten(part)
+        flat += f
+        counts += c
+    return _group_op(x, mask.to(torch.float32).contiguous(), flat, counts,
+                     len(conv), inner, num_heads, bool(dma))
 
 
 fused_squeezeformer_stack.launches = 0

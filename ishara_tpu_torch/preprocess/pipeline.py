@@ -41,12 +41,16 @@ _COL_CACHE: dict[tuple[str, str], torch.Tensor] = {}
 
 def _cols(name: str, device) -> torch.Tensor:
     """A constant column-index table on ``device``, copied there once (a
-    fresh host-to-device copy on every request would stall the stream)."""
+    fresh host-to-device copy on every request would stall the stream). A
+    table made while ``torch.export`` traces is a tracing tensor, kept out
+    of the cache."""
     key = (name, str(device))
-    if key not in _COL_CACHE:
-        _COL_CACHE[key] = torch.as_tensor(_TABLES[name], dtype=torch.long,
-                                          device=device)
-    return _COL_CACHE[key]
+    if key in _COL_CACHE:
+        return _COL_CACHE[key]
+    table = torch.as_tensor(_TABLES[name], dtype=torch.long, device=device)
+    if type(table) is torch.Tensor:
+        _COL_CACHE[key] = table
+    return table
 
 
 def resample_or_pad(x: torch.Tensor, length: torch.Tensor,

@@ -1,12 +1,13 @@
 """Batch-1 inference engine (port of ``ishara_tpu/serve/engine.py``).
 
 Raw landmark frames -> thin -> normalize/resample -> encoder -> greedy CTC
-collapse -> short-output fallback, all on the device: the host pads the raw
-sequence into a fixed ``[max_raw_frames, 276]`` buffer, and the only sync is
-the copy of the ids back. ``fused=True`` runs the encoder blocks through the
-hand-written CUDA kernels (:mod:`ishara_tpu_torch.ops.fused_block`),
-``fused="int8"`` with the matmul weights stored as int8, ``dma=True`` with
-each block stack as one persistent kernel.
+collapse or CTC prefix beam search -> short-output fallback, all on the
+device: the host pads the raw sequence into a fixed ``[max_raw_frames,
+276]`` buffer, and the only sync is the copy of the ids back.
+``fused=True`` runs the encoder blocks through the hand-written CUDA
+kernels (:mod:`ishara_tpu_torch.ops.fused_block`), ``fused="int8"`` with the
+matmul weights stored as int8, ``dma=True`` with each block stack as one
+persistent kernel.
 
 The reference's fallback substitutes the constant phrase "2 a-e -aroe"
 whenever the decode yields fewer than 3 characters; reproduced here.
@@ -19,6 +20,7 @@ import torch
 
 from ..data import landmarks as lm
 from ..data.vocab import PAD_TOKEN_IDX
+from ..decode.beam_device import beam_search_device
 from ..decode.greedy import greedy_decode
 from ..device import resolve_device
 from ..models.encoder import IsharaEncoder, check_variant
@@ -39,11 +41,18 @@ def _stats_on(stats: GroupStats | None, device) -> GroupStats:
 
 def make_serving_program(model: IsharaEncoder, stats: GroupStats,
                          max_out: int, decode: str = "greedy",
+                         beam_width: int = 8, beam_top_k: int = 8,
                          fused: bool | str = False, dma: bool = False,
                          compute_dtype=torch.bfloat16):
     """The per-sequence serving program ``(raw [Tmax, 276], length) ->
     (ids [max_out], count)`` on the model's device: preprocess, encoder,
-    greedy decode, fallback.
+    decode, fallback.
+
+    ``decode``: "greedy" (reference parity) or "beam": the on-device CTC
+    prefix beam search (:func:`~ishara_tpu_torch.decode.beam_device.
+    beam_search_device`, ``beam_width`` beams, ``beam_top_k`` symbols a
+    frame) on the float32 log-softmax of the logits, over all ``frame_len``
+    frames of the window, padding included, as the reference searches.
 
     ``fused=True`` runs the encoder through :class:`~ishara_tpu_torch.
     models.fused.FusedEncoder` with the block weights packed once, here, at
@@ -52,15 +61,10 @@ def make_serving_program(model: IsharaEncoder, stats: GroupStats,
     (the reference's ``prepare_serving_variables``), and the kernels scale
     each product after the dot. ``dma=True`` (with either fused mode) runs
     each stack as one persistent kernel that prefetches the next block's
-    weights. ``decode="beam"`` is not ported yet and raises
-    ``NotImplementedError`` (ROADMAP.md)."""
+    weights."""
     cfg = model.cfg
     check_variant(cfg)
-    if decode == "beam":
-        raise NotImplementedError(
-            'decode="beam" is not ported yet (ROADMAP.md Queue 1: CTC beam '
-            "decoding)")
-    if decode != "greedy":
+    if decode not in ("greedy", "beam"):
         raise ValueError(f"decode must be 'greedy' or 'beam', got {decode!r}")
     if fused not in (False, True, "int8"):
         raise ValueError(f"fused must be False, True or 'int8', got {fused!r}")
@@ -87,7 +91,13 @@ def make_serving_program(model: IsharaEncoder, stats: GroupStats,
     def program(raw: torch.Tensor, length: torch.Tensor):
         x = preprocess(raw, length, stats, cfg.frame_len, thin=True,
                        dominant_hand=cfg.dominant_hand)
-        ids, count = greedy_decode(encoder(x), max_len=max_out)
+        logits = encoder(x)
+        if decode == "beam":
+            lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            ids, count, _ = beam_search_device(
+                lp, beam_width=beam_width, top_k=beam_top_k, max_len=max_out)
+        else:
+            ids, count = greedy_decode(logits, max_len=max_out)
         # reference fallback: <3 chars -> constant phrase (cropped if a
         # caller configures max_out below the 11-char fallback)
         use_fb = count < 3
@@ -105,7 +115,8 @@ class InferenceEngine:
     def __init__(self, model: IsharaEncoder, stats: GroupStats | None = None,
                  max_raw_frames: int = 384,
                  max_out: int = lm.MAX_PHRASE_LENGTH,
-                 decode: str = "greedy", fused: bool | str = False,
+                 decode: str = "greedy", beam_width: int = 8,
+                 beam_top_k: int = 8, fused: bool | str = False,
                  dma: bool = False, compute_dtype=torch.bfloat16,
                  device=None):
         """See :func:`make_serving_program` for the option semantics."""
@@ -116,7 +127,8 @@ class InferenceEngine:
         self.max_out = max_out
         self.frame_len = model.cfg.frame_len
         self._program = make_serving_program(
-            self.model, self.stats, max_out, decode=decode, fused=fused,
+            self.model, self.stats, max_out, decode=decode,
+            beam_width=beam_width, beam_top_k=beam_top_k, fused=fused,
             dma=dma, compute_dtype=compute_dtype)
 
     def program_fn(self):
@@ -148,7 +160,8 @@ class BatchedEngine:
     def __init__(self, model: IsharaEncoder, batch_size: int = 8,
                  stats: GroupStats | None = None, max_raw_frames: int = 384,
                  max_out: int = lm.MAX_PHRASE_LENGTH,
-                 decode: str = "greedy", fused: bool | str = False,
+                 decode: str = "greedy", beam_width: int = 8,
+                 beam_top_k: int = 8, fused: bool | str = False,
                  compute_dtype=torch.bfloat16, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -157,7 +170,8 @@ class BatchedEngine:
         self.max_out = max_out
         self._program = make_serving_program(
             self.model, _stats_on(stats, self.device), max_out,
-            decode=decode, fused=fused, compute_dtype=compute_dtype)
+            decode=decode, beam_width=beam_width, beam_top_k=beam_top_k,
+            fused=fused, compute_dtype=compute_dtype)
 
     def __call__(self, sequences: list[np.ndarray]):
         """list of [T_i, 276] arrays (<= batch_size) -> (ids [B, max_out],

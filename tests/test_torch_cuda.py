@@ -1218,3 +1218,147 @@ def test_decode_kernel_is_deterministic(width, dim, heads):
         assert torch.equal(again[1].view(torch.int32),
                            first[1].view(torch.int32))
         assert torch.equal(again[2], first[2])
+
+
+# ---------------------------------------------------------------------------
+# The beam engines, bundles and the exported serving program on the card
+# ---------------------------------------------------------------------------
+
+def _serving_requests():
+    rng = np.random.default_rng(8)
+    reqs = [rng.random((T, 276)).astype(np.float32) for T in (10, 40, 90)]
+    hands = rng.random((30, 276)).astype(np.float32)
+    hands[:, :42] = np.nan
+    hands[:, 92:134] = np.nan
+    hands[:, 184:226] = np.nan
+    return reqs + [hands, np.full((12, 276), np.nan, np.float32)]
+
+
+def _cpu_beam(engine, raw, W, K, is_fused):
+    """The request's log-probs from the card, copied off it, through the
+    port's beam search on the CPU, then the fallback: (ids, count)."""
+    from ishara_tpu_torch.decode.beam_device import beam_search_device
+    from ishara_tpu_torch.preprocess.pipeline import preprocess
+    from ishara_tpu_torch.serve.engine import FALLBACK_IDS
+
+    buf = torch.zeros((engine.max_raw_frames, 276), device="cuda")
+    n = min(len(raw), engine.max_raw_frames)
+    buf[:n] = torch.from_numpy(raw[:n]).cuda()
+    x = preprocess(buf, torch.tensor(max(n, 1), device="cuda"), engine.stats,
+                   engine.frame_len, thin=True)
+    with torch.no_grad():
+        if is_fused:
+            enc = fused.FusedEncoder(engine.model.cfg,
+                                     engine.model.state_dict(),
+                                     device="cuda")
+            logits = enc(x)
+        else:
+            logits = engine.model(x[None])[0]
+    lp = torch.log_softmax(logits.float(), dim=-1).cpu()
+    ids, count, _ = beam_search_device(lp, beam_width=W, top_k=K,
+                                       max_len=engine.max_out)
+    ids, count = ids.numpy(), int(count)
+    if count < 3:
+        nfb = min(len(FALLBACK_IDS), engine.max_out)
+        ids = np.full(engine.max_out, 59)
+        ids[:nfb] = FALLBACK_IDS[:nfb]
+        count = nfb
+    return ids, count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_mode", [False, True])
+def test_beam_engine_on_the_card_matches_the_cpu_search(fused_mode):
+    """The serving program's beam search on the card gives the ids and
+    counts of the same search run on the CPU on the card's log-probs; the
+    fused engine launches both stacks."""
+    from ishara_tpu_torch.serve.engine import BatchedEngine, InferenceEngine
+
+    m = _model("hybrid", 48)
+    W, K = 4, 6
+    eng = InferenceEngine(m, max_raw_frames=96, decode="beam",
+                          beam_width=W, beam_top_k=K, fused=fused_mode,
+                          device="cuda")
+    fb.fused_squeezeformer_stack.launches = 0
+    fb.fused_conformer_stack.launches = 0
+    reqs = _serving_requests()
+    got = [eng(r) for r in reqs]
+    if fused_mode:
+        assert fb.fused_squeezeformer_stack.launches == len(reqs)
+        assert fb.fused_conformer_stack.launches == len(reqs)
+    for raw, (ids, count) in zip(reqs, got):
+        want_ids, want_count = _cpu_beam(eng, raw, W, K, fused_mode)
+        assert count == want_count
+        np.testing.assert_array_equal(ids, want_ids)
+    batched = BatchedEngine(m, batch_size=len(reqs), max_raw_frames=96,
+                            decode="beam", beam_width=W, beam_top_k=K,
+                            fused=fused_mode, device="cuda")
+    bids, bcounts = batched(reqs)
+    for i, (ids, count) in enumerate(got):
+        assert bcounts[i] == count
+        np.testing.assert_array_equal(bids[i], ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8"])
+def test_bundle_round_trip_on_the_card(tmp_path, form):
+    """A bundle written on the card and read back with the port's codec
+    serves the ids of an engine on the same (rounded or dequantized)
+    weights, fused, with both stacks launched."""
+    from ishara_tpu_torch.config import IsharaConfig
+    from ishara_tpu_torch.serve.engine import InferenceEngine
+    from ishara_tpu_torch.serve.export import export_model, load_engine
+
+    m = _model("hybrid", 48)
+    kw = {"f32": dict(half_precision=False), "bf16": {},
+          "int8": dict(quantize_int8=True)}[form]
+    export_model(tmp_path, IsharaConfig(model=m.cfg), m, **kw)
+    sd = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+    if form == "bf16":
+        sd = {k: v.to(torch.bfloat16).float() if v.is_floating_point()
+              else v for k, v in sd.items()}
+    elif form == "int8":
+        sd = fb.dequantize_serving_weights(fb.quantize_serving_weights(sd))
+    direct = build_model(m.cfg, device="cuda")
+    direct.load_state_dict(sd)
+    want = InferenceEngine(direct, max_raw_frames=96, fused=True,
+                           device="cuda")
+    got = load_engine(tmp_path, max_raw_frames=96, fused=True)
+    fb.fused_squeezeformer_stack.launches = 0
+    for raw in _serving_requests():
+        ids, count = got(raw)
+        want_ids, want_count = want(raw)
+        assert count == want_count
+        np.testing.assert_array_equal(ids, want_ids)
+    assert fb.fused_squeezeformer_stack.launches > 0
+
+
+@pytest.mark.cuda
+def test_exported_fused_beam_program_on_the_card(tmp_path):
+    """``export_serving_program`` of a fused beam engine on the card: the
+    loaded program gives the engine's ids and launches the stack kernels
+    (the stages the device counted)."""
+    from ishara_tpu_torch.serve.engine import InferenceEngine
+    from ishara_tpu_torch.serve.export import (
+        export_serving_program,
+        load_serving_program,
+    )
+
+    m = _model("hybrid", 48)
+    eng = InferenceEngine(m, max_raw_frames=96, decode="beam", beam_width=4,
+                          beam_top_k=6, fused=True, device="cuda")
+    export_serving_program(tmp_path, eng)
+    program = load_serving_program(tmp_path)
+    for raw in _serving_requests():
+        ids, count = eng(raw)
+        buf = torch.zeros((96, 276), device="cuda")
+        n = min(len(raw), 96)
+        buf[:n] = torch.from_numpy(raw[:n]).cuda()
+        for c in fb._COUNTERS.values():
+            c.zero_()
+        got_ids, got_count = program(buf, torch.tensor(max(n, 1),
+                                                       dtype=torch.int32,
+                                                       device="cuda"))
+        assert int(got_count) == count
+        np.testing.assert_array_equal(got_ids.cpu().numpy(), ids)
+        assert sum(int(c.item()) for c in fb._COUNTERS.values()) > 0

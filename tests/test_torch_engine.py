@@ -113,9 +113,11 @@ def test_batched_engine_matches_inference_engine(models):
 
 
 def test_unported_options_raise(models):
+    """decode="beam" serves (tests/test_torch_beam.py holds it to JAX);
+    an unknown decode or fused mode raises."""
     cfg, _, variables = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(cfg, variables, decode="beam")
+    with pytest.raises(ValueError, match="decode"):
+        _port(cfg, variables, decode="prefix")
     with pytest.raises(ValueError, match="fused"):
         _port(cfg, variables, fused="int4")
     with pytest.raises(ValueError, match="decode"):

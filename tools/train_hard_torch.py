@@ -7,10 +7,10 @@ the reference recipe -- batch 256, 30 epochs of exponential warm-up and
 half-cosine lrfn, RAdam + Lookahead -- on ``HardSyntheticASLFR`` (8192
 training sequences, seed 0; 512 validation sequences, seed 1; confusability
 0.6, hand NaNs 0.15, prototype seed 7) through the port's ``Trainer``, then
-scores the trained weights through ``run_harness`` at the three precisions an
-export bundle gives (f32; rounded to bf16 and cast back; int8 per output
-channel, dequantized), each in an ``InferenceEngine`` with the engine's
-defaults, as ``load_engine`` would build it.
+exports the trained weights as f32, bf16 and int8 bundles (``export_model``,
+the JAX package's bundle format, under ``--workdir``) and scores each
+through ``run_harness`` in the ``InferenceEngine`` that ``load_engine``
+builds from it, with the engine's defaults.
 
     python tools/train_hard_torch.py                 # on the card
     python tools/train_hard_torch.py --resume        # continue a run
@@ -32,33 +32,22 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 TARGET, MARGIN = 0.945, 0.005
 
 
-def precision_engines(trainer, max_raw_frames, device):
-    """(name, InferenceEngine) for the f32, bf16 and int8 weights of the
-    trainer's model, each on a fresh model of the training config."""
-    import torch
+def bundle_engines(trainer, workdir, max_raw_frames, device):
+    """(name, InferenceEngine) for the f32, bf16 and int8 export bundles of
+    the trainer's model: each written by ``export_model`` under
+    ``workdir`` and served by ``load_engine`` with the engine's defaults,
+    as ``examples/train_hard.py`` scores the JAX package's bundles."""
+    from ishara_tpu_torch.serve.export import export_model, load_engine
 
-    from ishara_tpu_torch.models.encoder import build_model
-    from ishara_tpu_torch.ops.fused_block import (
-        dequantize_serving_weights,
-        quantize_serving_weights,
-    )
-    from ishara_tpu_torch.serve.engine import InferenceEngine
-
-    sd = {k: v.detach().to("cpu", torch.float32)
-          if v.is_floating_point() else v.detach().cpu()
-          for k, v in trainer.state.model.state_dict().items()}
-    forms = {
-        "f32": sd,
-        "bf16": {k: v.to(torch.bfloat16).to(torch.float32)
-                 if v.is_floating_point() else v for k, v in sd.items()},
-        "int8": dequantize_serving_weights(quantize_serving_weights(sd)),
-    }
-    for name, weights in forms.items():
-        model = build_model(trainer.cfg.model, device=device)
-        model.load_state_dict(weights)
-        yield name, InferenceEngine(model, stats=trainer.stats,
-                                    max_raw_frames=max_raw_frames,
-                                    device=device)
+    for name, kw in (("f32", dict(half_precision=False)),
+                     ("bf16", dict(half_precision=True)),
+                     ("int8", dict(quantize_int8=True))):
+        bundle = Path(workdir) / ("bundle" if name == "f32"
+                                  else f"bundle_{name}")
+        export_model(bundle, trainer.cfg, trainer.state.model,
+                     stats=trainer.stats, **kw)
+        yield name, load_engine(bundle, device=device,
+                                max_raw_frames=max_raw_frames)
 
 
 def main(argv=None):
@@ -129,8 +118,8 @@ def main(argv=None):
         return
 
     scores = {}
-    for name, engine in precision_engines(trainer, args.max_raw_frames,
-                                          args.device):
+    for name, engine in bundle_engines(trainer, args.workdir,
+                                       args.max_raw_frames, args.device):
         result = run_harness(engine, val_ds, tok,
                              num_sequences=args.val_sequences)
         scores[name] = result.score

@@ -10,8 +10,10 @@ one-cycle schedule peaking at 1e-3, gradient clip 1.0, batch 256, 40 epochs
 of 32 steps -- on ``HardSyntheticASLFR`` phrases (8192 training sequences,
 seed 0; 512 validation sequences, seed 1; confusability 0.6, hand NaNs
 0.15, prototype seed 7) through ``Seq2SeqTokenizer`` and the port's
-``Trainer(task="translation")``, then scores the trained weights through
-``run_harness`` in a ``TranslationEngine`` (KV-cached greedy decode).
+``Trainer(task="translation")``, then exports the trained weights as an f32
+bundle (``export_model``, under ``--workdir``) and scores them through
+``run_harness`` in the ``TranslationEngine`` that ``load_engine`` builds
+from it (KV-cached greedy decode).
 
     python tools/train_translation_hard_torch.py              # on the card
     python tools/train_translation_hard_torch.py --resume     # continue
@@ -61,8 +63,7 @@ def main(argv=None):
     from ishara_tpu_torch.data.synthetic import HardSyntheticASLFR
     from ishara_tpu_torch.data.tokenizer import Seq2SeqTokenizer
     from ishara_tpu_torch.evaluation.harness import run_harness
-    from ishara_tpu_torch.models.seq2seq import ASLTranslationModel
-    from ishara_tpu_torch.serve import TranslationEngine
+    from ishara_tpu_torch.serve.export import export_model, load_engine
     from ishara_tpu_torch.train import Trainer
 
     # the reference geometry: 4 x FeatureExtractor(52) = 208 features, 2
@@ -102,18 +103,13 @@ def main(argv=None):
              if "val_score" in r]
     final = history[-1].get("val_score")
 
-    # the serving path on the trained weights, as an export would carry
-    # them: a fresh model of the same geometry
-    m = trainer.model
-    model = ASLTranslationModel(
-        num_classes=m.num_classes, feature_dim=m.feature_dim,
-        num_layers=m.num_layers, num_decoder_layers=m.num_decoder_layers,
-        num_heads=m.num_heads, encoder_type=m.encoder_type)
-    model.load_state_dict(m.state_dict())
-    engine = TranslationEngine(model, stats=trainer.stats,
-                               frame_len=args.frame_len,
-                               max_raw_frames=args.max_raw_frames,
-                               device=args.device)
+    # the serving path on the trained weights through an f32 export
+    # bundle, as examples/train_translation_hard.py serves the JAX one
+    bundle = Path(args.workdir) / "bundle"
+    export_model(bundle, cfg, trainer.model, stats=trainer.stats,
+                 half_precision=False)
+    engine = load_engine(bundle, device=args.device,
+                         max_raw_frames=args.max_raw_frames)
     result = run_harness(engine, val_ds, tok,
                          num_sequences=args.val_sequences, translation=True)
     print("harness:", json.dumps(result.as_dict()), flush=True)
