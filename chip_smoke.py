@@ -124,7 +124,23 @@ Phases, each of which raises on failure (the exit code is then not 0):
    ``Trainer(task="translation")`` for 2 epochs of 4 steps on 1024
    hard-corpus sequences with one validation, and a run preempted
    mid-epoch and resumed by a third ``Trainer``, bit for bit.
-10. One JSON line listing every ported kernel, then the card's name and
+10. Causal mode and the two further families: the dropout kernel on the
+   causal attention probabilities ``[256, 8, 176, 176]`` bf16 at rate 0.4
+   against its plain version beside F.dropout; ``baseline_config(4)`` with
+   ``causal=True``, ``attn_context`` 176 (bf16, batch 256): one step on the
+   kernels against the plain versions, 10 steps with the launch counts (the
+   feed-forward, dropout and CTC kernels; never the attention, tiled
+   attention or conv-module kernels), ms a step beside the bidirectional
+   flagship's, the busy share; one step of a small causal hybrid on the
+   card against the CPU; ``StreamingEncoder`` over the causal flagship
+   (f32, seeded weights) in chunks of 8 against the batch causal forward
+   on the card (logits to 1e-4, the emitted ids), then per-chunk p50 / p99
+   over 200 chunks and the device kernels a chunk; ``parallel_branches``
+   at preset 4's widths and the Temporal U-Net at dim 144 (8 blocks, 4
+   heads): one step against the plain versions, 3 steps with the launch
+   counts, nine unfused requests and ``BatchedEngine``, the fused modes
+   refused.
+11. One JSON line listing every ported kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with a non-zero code, printing no result, when no CUDA device is
@@ -1938,6 +1954,9 @@ def step_against_plain(label, step, state0, batch):
     torch.cuda.empty_cache()
 
 
+STEP_MS: dict[str, float] = {}     # ms a step by label, this run
+
+
 def time_steps(label, step, state, batch, smi, top=16):
     """ms a step (host clock around a step that ends in a synchronize,
     median of 10), sequences/s, and the device's busy share and time by
@@ -1954,6 +1973,7 @@ def time_steps(label, step, state, batch, smi, top=16):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(times)
+    STEP_MS[label] = step_ms
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1979,6 +1999,40 @@ def time_steps(label, step, state, batch, smi, top=16):
     return state
 
 
+def train_batch(n=TB, seed=3):
+    import torch
+
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+
+    host = SyntheticASLFR(num_sequences=n, seed=seed).batch(
+        range(n), CTCTokenizer(), max_frames=96)
+    return {k: torch.from_numpy(host[k]).to(DEVICE)
+            for k in ("raw", "lengths", "labels")}
+
+
+def run_counted(step, state, batch, steps):
+    """``steps`` steps with every training wrapper's count set to 0 just
+    before and read just after: (state, losses, {(wrapper, direction):
+    launches})."""
+    import torch
+
+    counters = train_counters()
+    for w in counters.values():
+        w.launches = w.launches_bwd = 0
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, seed=0)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {(n, d): getattr(w, d) for n, w in counters.items()
+                for d in ("launches", "launches_bwd")}
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"a non-finite training loss: {losses}")
+    return state, losses, launches
+
+
 def train_phase(smi, steps: int = 20):
     """The training slice on the card. Returns {(wrapper name, direction):
     launches over the ``steps``-step run}."""
@@ -1986,8 +2040,6 @@ def train_phase(smi, steps: int = 20):
 
     from ishara_tpu_torch.config import TrainConfig, baseline_config
     from ishara_tpu_torch.data.landmarks import MAX_PHRASE_LENGTH
-    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
-    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
     from ishara_tpu_torch.models.encoder import build_model
     from ishara_tpu_torch.preprocess.pipeline import GroupStats, preprocess
     from ishara_tpu_torch.train import (
@@ -2003,17 +2055,13 @@ def train_phase(smi, steps: int = 20):
     tcfg = TrainConfig()            # the recipe, as the main path takes it
     torch.manual_seed(4)            # the weights: PyTorch's default init
     model = build_model(cfg, device=DEVICE)
-    ds = SyntheticASLFR(num_sequences=TB, seed=3)
-    host = ds.batch(range(TB), CTCTokenizer(), max_frames=96)
-    batch = {k: torch.from_numpy(host[k]).to(DEVICE)
-             for k in ("raw", "lengths", "labels")}
+    batch = train_batch()
     tx, schedule = make_optimizer(tcfg)
     state0 = TrainState.create(model, tx, device=DEVICE)
     stats = GroupStats.identity()
     step = make_fused_ctc_train_step(stats, cfg.frame_len,
                                      aug_prob=tcfg.aug_prob,
                                      blank_id=cfg.blank_id)
-    counters = train_counters()
     log(f"train: baseline_config(4) ({cfg.variant} "
         f"{cfg.num_squeeze_blocks}+{cfg.num_conform_blocks}, dim {cfg.dim}, "
         f"{cfg.dtype}, dropout {cfg.dropout}), batch {TB}, raw "
@@ -2024,17 +2072,7 @@ def train_phase(smi, steps: int = 20):
     step_against_plain("train", step, state0, batch)
 
     # the main path, with the launch counts read around it
-    state = state0.clone()
-    for w in counters.values():
-        w.launches = w.launches_bwd = 0
-    losses = []
-    for _ in range(steps):
-        state, m = step(state, batch, seed=0)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    launches = {(n, d): getattr(w, d) for n, w in counters.items()
-                for d in ("launches", "launches_bwd")}
-    losses = [float(v) for v in losses]
+    state, losses, launches = run_counted(step, state0.clone(), batch, steps)
     log(f"train: {steps} steps of make_fused_ctc_train_step, loss "
         + " ".join(f"{v:.3f}" for v in losses))
     log(f"train: kernel launches over the run {launches}")
@@ -3639,6 +3677,373 @@ def long_step_against_cpu_phase(smi):
                              "with the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# Causal mode, streaming, and the parallel-branches and U-Net families
+# ---------------------------------------------------------------------------
+
+CAUSAL_CONTEXT = 176
+# Launches a causal step of baseline_config(4) makes, forward and backward
+# alike: the feed-forward kernel at both sites of all 8 blocks; the dropout
+# kernel on each block's attention probabilities (causal attention is the
+# masked einsum composition, never the attention kernels) and on the top;
+# the dropout-add on each Squeezeformer block's attention branch; one CTC
+# loss. No attention kernel (flash or tiled) and no conv-module kernel: they
+# implement full attention and the whole-sequence SE gate.
+CAUSAL_STEP_LAUNCHES = {"ffn_residual": 16, "fast_dropout": 9,
+                        "fast_dropout_add": 4, "ctc_loss_kernel": 1,
+                        "flash_mhsa": 0, "flash_mhsa_blocked": 0,
+                        "conv_module_residual": 0}
+CAUSAL_PROBS = (TB, TH, TT, TT)
+STREAM_CHUNK, STREAM_TOL = 8, 1e-4
+
+
+def causal_config(**kw):
+    from ishara_tpu_torch.config import baseline_config
+
+    return dataclasses.replace(baseline_config(4).model, causal=True,
+                               attn_context=CAUSAL_CONTEXT, **kw)
+
+
+def causal_train_phase(smi, steps: int = 10):
+    """The causal flagship's training step: baseline_config(4) with
+    ``causal=True``, ``attn_context`` 176 (bf16, dropout 0.4, batch 256,
+    the recipe's ``TrainConfig()``): one step against the plain versions,
+    ``steps`` steps with the launch counts (K1, K2 and K4 on, K3, K7 and K8
+    never), ms a step beside the bidirectional flagship's of this run, the
+    busy share. Returns the run's launches."""
+    import torch
+
+    from ishara_tpu_torch.config import TrainConfig
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = causal_config()
+    tcfg = TrainConfig()
+    torch.manual_seed(4)
+    model = build_model(cfg, device=DEVICE)
+    batch = train_batch()
+    tx, _ = make_optimizer(tcfg)
+    state0 = TrainState.create(model, tx, device=DEVICE)
+    step = make_fused_ctc_train_step(GroupStats.identity(), cfg.frame_len,
+                                     aug_prob=tcfg.aug_prob,
+                                     blank_id=cfg.blank_id)
+    log(f"causal train: baseline_config(4) causal, attn_context "
+        f"{cfg.attn_context} ({cfg.variant} {cfg.num_squeeze_blocks}+"
+        f"{cfg.num_conform_blocks}, dim {cfg.dim}, {cfg.dtype}, dropout "
+        f"{cfg.dropout}), batch {TB}, {state0.params.numel()} parameters")
+    step_against_plain("causal train", step, state0, batch)
+    state, losses, launches = run_counted(step, state0.clone(), batch, steps)
+    log(f"causal train: {steps} steps, loss "
+        + " ".join(f"{v:.3f}" for v in losses))
+    log(f"causal train: kernel launches over the run {launches}")
+    for (name, direction), n in launches.items():
+        if n != steps * CAUSAL_STEP_LAUNCHES[name]:
+            raise AssertionError(
+                f"causal train: {name}.{direction} = {n} over {steps} "
+                f"steps, expected {CAUSAL_STEP_LAUNCHES[name]} a step")
+    log("causal train: launches a step: "
+        + ", ".join(f"{n} {c} + {c}" for n, c in CAUSAL_STEP_LAUNCHES.items())
+        + " (forward + backward; K1, K2 and K4 launched, K3, K7 and K8 "
+          "never) PASS")
+    time_steps("causal train", step, state, batch, smi)
+    if "train" in STEP_MS:
+        log(f"causal train: {STEP_MS['causal train']:.2f} ms a step against "
+            f"the bidirectional flagship's {STEP_MS['train']:.2f} ms in this "
+            f"run ({STEP_MS['causal train'] / STEP_MS['train']:.2f}x) on "
+            f"{smi}")
+    del state, state0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def causal_step_against_cpu_phase(smi):
+    """One fused step of a small causal hybrid (dim 64, 1 + 1 blocks, T
+    176, attn_context 64, dropout 0.1, f32) on the card and on this
+    machine's CPU from the same weights and seeds."""
+    import torch
+
+    from ishara_tpu_torch.config import EncoderConfig, TrainConfig
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = EncoderConfig(variant="hybrid", dim=64, num_heads=4,
+                        num_squeeze_blocks=1, num_conform_blocks=1,
+                        frame_len=176, dropout=0.1, top_dropout=0.1,
+                        causal=True, attn_context=64)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cpu")
+    batch = SyntheticASLFR(num_sequences=8, seed=3).batch(
+        range(8), CTCTokenizer(), max_frames=200)
+    tx, _ = make_optimizer(TrainConfig())
+    step = make_fused_ctc_train_step(GroupStats.identity(), cfg.frame_len,
+                                     aug_prob=0.2, with_grads=True)
+    cpu = TrainState.create(copy.deepcopy(model), tx, device="cpu")
+    card = TrainState.create(copy.deepcopy(model), tx, device=DEVICE)
+    counters = train_counters()
+    before = {n: w.launches_bwd for n, w in counters.items()}
+    _, mc = step(cpu, batch, seed=1)
+    _, mg = step(card, batch, seed=1)
+    torch.cuda.synchronize()
+    launched = {n: w.launches_bwd - before[n] for n, w in counters.items()}
+    d_loss = abs(float(mg["loss"]) - float(mc["loss"])) \
+        / abs(float(mc["loss"]))
+    d_norm = abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
+        / float(mc["grad_norm"])
+    largest = max(float(g.abs().max()) for g in mc["grads"].values())
+    d_grad = max(float((mg["grads"][n].cpu() - g).abs().max())
+                 / max(float(g.abs().max()), 1e-3 * largest)
+                 for n, g in mc["grads"].items())
+    ok = (launched["ffn_residual"] == 4 and launched["ctc_loss_kernel"] == 1
+          and launched["fast_dropout"] == 3
+          and launched["flash_mhsa"] == launched["flash_mhsa_blocked"]
+          == launched["conv_module_residual"] == 0
+          and d_loss <= LONG_CPU_TOL["loss"]
+          and d_norm <= LONG_CPU_TOL["grad_norm"]
+          and d_grad <= LONG_CPU_TOL["grad"])
+    log(f"causal step on the card against the CPU (hybrid 1 + 1, dim 64, T "
+        f"176, attn_context 64, f32): loss {float(mg['loss']):.6f} vs "
+        f"{float(mc['loss']):.6f} (rel {d_loss:.2e}, tol "
+        f"{LONG_CPU_TOL['loss']}), gradient norm "
+        f"{float(mg['grad_norm']):.6f} vs {float(mc['grad_norm']):.6f} (rel "
+        f"{d_norm:.2e}, tol {LONG_CPU_TOL['grad_norm']}), largest gradient "
+        f"difference {d_grad:.2e} (tol {LONG_CPU_TOL['grad']}); card "
+        f"launches {launched} on {smi} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the causal step on the card disagrees with "
+                             "the CPU's")
+
+
+def stream_frames(rng, T):
+    """Raw [T, 276] landmarks in [0, 1], the right hand missing in frames
+    20-39 and every landmark in frames 100-103 (all-NaN frames: invalid)."""
+    from ishara_tpu_torch.data import landmarks as lm
+
+    raw = rng.random((T, lm.N_COLS)).astype(np.float32)
+    raw[20:40, lm.GROUP_IDX["rhand"].ravel()] = np.nan
+    if T > 104:
+        raw[100:104] = np.nan
+    return raw
+
+
+def streaming_phase(smi, chunks: int = 200):
+    """``StreamingEncoder`` over the causal flagship (baseline_config(4)
+    causal, attn_context 176, seeded weights, f32) in chunks of 8: the
+    streamed logits against the batch causal forward on the card on the
+    same unresampled frames, the emitted ids against a greedy collapse of
+    the batch logits; then per-chunk latency (host clock, each chunk ending
+    in a synchronize) over ``chunks`` chunks and the device kernels a
+    chunk."""
+    import torch
+
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import _TABLES
+    from ishara_tpu_torch.serve.streaming import StreamingEncoder
+
+    cfg = causal_config(dtype="float32")
+    model = build_model(cfg, device=DEVICE)
+    randomize(model, seed=11)
+    rng = np.random.default_rng(5)
+    T = cfg.frame_len
+    raw = stream_frames(rng, T)
+    x = torch.from_numpy(np.nan_to_num(raw[:, _TABLES["out"]])).to(DEVICE)
+    with torch.no_grad():
+        want = model(x[None])[0]
+    streamer = StreamingEncoder(cfg, model, chunk_size=STREAM_CHUNK)
+    state, got, emitted = streamer.init_state(), [], []
+    for i in range(0, T, STREAM_CHUNK):
+        state, ids, _, logits = streamer.step(state, raw[i:i + STREAM_CHUNK])
+        got.append(logits)
+        emitted.append(ids)
+    got = torch.cat(got)
+    err = float((got - want).abs().max())
+    within = bool(((got - want).abs()
+                   <= STREAM_TOL + STREAM_TOL * want.abs()).all())
+    top2 = want.topk(2, dim=-1).values
+    clear = bool(((top2[:, 0] - top2[:, 1]) > 1e-3).all())
+    collapsed, prev = [], cfg.blank_id
+    for t in want.argmax(-1).tolist():
+        if t != prev and t != cfg.blank_id:
+            collapsed.append(t)
+        prev = t
+    same_ids = StreamingEncoder.collect(emitted) == collapsed
+    ok = within and (same_ids or not clear)
+    log(f"streaming: baseline_config(4) causal (attn_context "
+        f"{cfg.attn_context}, f32), {T} unresampled frames with NaN hands "
+        f"and 4 all-NaN frames in chunks of {STREAM_CHUNK}: streamed logits "
+        f"against the batch causal forward on the card max_abs_err "
+        f"{err:.3e} (tol {STREAM_TOL} + {STREAM_TOL} |logit|), emitted ids "
+        f"{'equal to' if same_ids else 'NOT equal to'} the batch logits' "
+        f"greedy collapse ({len(collapsed)} ids; every frame's top two "
+        f"{'more' if clear else 'not all more'} than 1e-3 apart) "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("streaming disagrees with the batch causal "
+                             "forward")
+
+    long_raw = stream_frames(rng, chunks * STREAM_CHUNK)
+    state, times = streamer.init_state(), []
+    for i in range(chunks):
+        chunk = long_raw[i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, ids, n, logits = streamer.step(state, chunk)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not bool(logits.isfinite().all()) or state.pos != chunks * STREAM_CHUNK:
+        raise AssertionError("the long stream went wrong")
+    warm = times[5:]
+    p50, p99 = np.percentile(warm, 50), np.percentile(warm, 99)
+    chunk = long_raw[:STREAM_CHUNK]
+    kernels, dev_us, wall_us = device_profile(
+        lambda: streamer.step(state, chunk))
+    log(f"streaming: {chunks} chunks of {STREAM_CHUNK} frames "
+        f"({chunks * STREAM_CHUNK} frames, past frame_len), per chunk p50 "
+        f"{p50:.4f} ms p99 {p99:.4f} ms (host clock, each ending in a "
+        f"synchronize; the first 5 left out), "
+        f"{STREAM_CHUNK / p50 * 1e3:.0f} frames/s at p50; one chunk: "
+        f"{kernels} device kernels and copies, device busy {dev_us:.1f} of "
+        f"{wall_us:.1f} us ({100 * dev_us / wall_us:.1f}%) on {smi}")
+    del streamer, model
+    torch.cuda.empty_cache()
+
+
+FAMILY_KERNELS = {
+    # launches a step (forward + backward alike) at each family's config
+    "parallel_branches": {"ffn_residual": 16, "flash_mhsa": 8,
+                          "conv_module_residual": 4, "fast_dropout_add": 4,
+                          "fast_dropout": 1, "ctc_loss_kernel": 1,
+                          "flash_mhsa_blocked": 0},
+    # three dropout sites a block (attention probabilities, each FFN's
+    # hidden), eight blocks; no other kernel on the U-Net's path
+    "squeezeformer_unet": {"fast_dropout": 24, "ctc_loss_kernel": 1,
+                           "ffn_residual": 0, "flash_mhsa": 0,
+                           "flash_mhsa_blocked": 0,
+                           "conv_module_residual": 0,
+                           "fast_dropout_add": 0},
+}
+
+
+def family_configs():
+    from ishara_tpu_torch.config import EncoderConfig, baseline_config
+
+    return {
+        # preset 4's widths (bf16, dropout 0.4), 4 Conformer || 4
+        # Squeezeformer blocks
+        "parallel_branches": dataclasses.replace(
+            baseline_config(4).model, variant="parallel_branches"),
+        # the speech Squeezeformer-XS widths the U-Net module defaults to:
+        # 8 blocks (reduction at 2, recovery at 5), dim 144, 4 heads
+        "squeezeformer_unet": EncoderConfig(
+            variant="squeezeformer_unet", dim=144, num_squeeze_blocks=8,
+            num_heads=4),
+    }
+
+
+def families_phase(smi, reqs, steps: int = 3):
+    """parallel_branches and the Temporal U-Net at full width: one step
+    against the plain versions, ``steps`` steps with the launch counts,
+    nine unfused requests through ``InferenceEngine`` (ids against the
+    greedy collapse of the same program's log-probs), ``BatchedEngine``,
+    and the fused modes refused with ValueError."""
+    import torch
+
+    from ishara_tpu_torch.config import TrainConfig
+    from ishara_tpu_torch.decode.greedy import greedy_decode
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.serve.engine import BatchedEngine, InferenceEngine
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    batch = train_batch()
+    for name, cfg in family_configs().items():
+        torch.manual_seed(5)
+        model = build_model(cfg, device=DEVICE)
+        tx, _ = make_optimizer(TrainConfig())
+        state0 = TrainState.create(model, tx, device=DEVICE)
+        step = make_fused_ctc_train_step(GroupStats.identity(), cfg.frame_len,
+                                         aug_prob=0.2, blank_id=cfg.blank_id)
+        blocks = (f"{cfg.num_squeeze_blocks} blocks" if name.endswith("unet")
+                  else f"{cfg.num_conform_blocks} || "
+                       f"{cfg.num_squeeze_blocks} blocks")
+        log(f"{name}: dim {cfg.dim}, {cfg.num_heads} heads, {blocks}, "
+            f"{cfg.dtype}, dropout {cfg.dropout}, batch {TB}, "
+            f"{state0.params.numel()} parameters")
+        step_against_plain(f"{name} train", step, state0, batch)
+        state, losses, launches = run_counted(step, state0.clone(), batch,
+                                              steps)
+        want = FAMILY_KERNELS[name]
+        bad = {k: n for k, n in launches.items()
+               if n != steps * want.get(k[0], 0)}
+        log(f"{name} train: {steps} steps, loss "
+            + " ".join(f"{v:.3f}" for v in losses)
+            + f"; launches {launches} "
+            + ("PASS" if not bad else f"FAIL {bad}"))
+        if bad:
+            raise AssertionError(f"{name}: launches off the expected "
+                                 f"{want} a step: {bad}")
+        time_steps(f"{name} train", step, state, batch, smi, top=8)
+        del state0
+
+        model = state.model.eval()
+        engine = InferenceEngine(model, device=DEVICE)
+
+        def encoder(x, model=model):
+            return model(x[None])[0]
+
+        for label, raw in reqs:
+            ids, count = engine(raw)
+            lp = request_log_probs(engine, encoder, raw)
+            want_ids, want_count = greedy_decode(lp, max_len=engine.max_out)
+            want_ids, want_count = with_fallback(
+                want_ids.cpu().numpy(), int(want_count), engine.max_out)
+            if count != want_count or not np.array_equal(
+                    ids[:count], want_ids[:count]):
+                raise AssertionError(f"{name} engine, {label}: ids "
+                                     f"{ids[:count]} against {want_ids}")
+        p50 = host_ms(lambda: engine(reqs[1][1]), runs=20)
+        batched = BatchedEngine(model, batch_size=len(reqs), device=DEVICE)
+        b_ids, b_counts = batched([r for _, r in reqs])
+        for i, (label, raw) in enumerate(reqs):
+            ids, count = engine(raw)
+            if b_counts[i] != count or not np.array_equal(b_ids[i], ids):
+                raise AssertionError(f"{name} BatchedEngine, {label}: "
+                                     f"ids differ from InferenceEngine's")
+        refused = 0
+        for kw in ({"fused": True}, {"fused": "int8"},
+                   {"fused": True, "dma": True}):
+            try:
+                InferenceEngine(model, device=DEVICE, **kw)
+            except ValueError:
+                refused += 1
+        if refused != 3:
+            raise AssertionError(f"{name}: a fused mode was not refused")
+        log(f"{name} serving: {len(reqs)} unfused requests, ids equal to "
+            f"the greedy collapse of the program's log-probs (fallback "
+            f"included), BatchedEngine's equal to InferenceEngine's, "
+            f"fused True / int8 / dma refused with ValueError PASS; a "
+            f"150-frame request {p50:.3f} ms (median of 20, host clock) on "
+            f"{smi}")
+        del state, model, engine, batched
+        torch.cuda.empty_cache()
+
+
+
 def main() -> int:
     import torch
 
@@ -3754,6 +4159,14 @@ def main() -> int:
     finally:
         import shutil
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    causal_drop_rows = dropout_kernel_rows(
+        smi, 20, shape=CAUSAL_PROBS, tags=("bf16",), forms=("fast_dropout",),
+        suffix=f"[bf16 {'x'.join(map(str, CAUSAL_PROBS))} causal]")
+    causal_launches = causal_train_phase(smi)
+    causal_step_against_cpu_phase(smi)
+    streaming_phase(smi)
+    families_phase(smi, requests(seed=0))
 
     # every ported kernel form that an engine path runs, with the launches
     # of that path's nine-request run
@@ -3815,6 +4228,17 @@ def main() -> int:
                                  f"translation training run")
         row["config"] = ("translation training step (dim 208, 2 + 2 "
                          "layers, T 176, labels of 64), batch 256, f32")
+        line.append(row)
+    # K2 at the causal attention probabilities, with the launches of the
+    # causal step's run (every dropout site of a step)
+    for row in causal_drop_rows:
+        wrapper, direction = row.pop("counter")
+        row["launches"] = causal_launches[(wrapper.__name__, direction)]
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched by the "
+                                 f"causal training run")
+        row["config"] = ("preset4 causal training step (attn_context 176), "
+                         "batch 256")
         line.append(row)
     log(json.dumps({"kernels": line}))
     log(smi)

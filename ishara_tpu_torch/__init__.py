@@ -6,8 +6,10 @@ module layout and names so each counterpart is easy to find. It imports
 reference's numpy-only modules (landmark layout, vocabulary, config) lives
 here as its own copy.
 
-Ported so far: the five served encoder families (squeezeformer, conformer,
-hybrid, conv_hybrid, conv_transformer) in eval and training mode, and the
+Ported so far: all seven encoder families (squeezeformer, conformer,
+hybrid, conv_hybrid, conv_transformer, parallel_branches and the Temporal
+U-Net squeezeformer_unet) in eval and training mode, the attention-block
+ones also causal, with ``get_model`` and ``build_model``, and the
 encoder-decoder translation model; preprocessing and augmentation; CTC and
 translation training (train steps, the ``Trainer`` loop, checkpoints, the
 evaluation harness); batch-1 and batched CTC serving (greedy collapse or the
@@ -20,22 +22,32 @@ beam, the whole decode loop as one kernel launch,
 :mod:`ishara_tpu_torch.ops.decoder_kernel`); export bundles in the JAX
 package's format, both ways, ``load_engine`` and the ``torch.export``
 serving program (:mod:`ishara_tpu_torch.serve.export`); Keras / TFLite
-weight import and the real-time clients. Every training kernel has its
-CUDA counterpart too. See ``ROADMAP.md`` for the rest (the U-Net and
-parallel-branches families, causal mode and streaming, QAT, distribution).
+weight import and the real-time clients; chunked streaming of a causal
+model (:mod:`ishara_tpu_torch.serve.streaming`). Every training kernel has
+its CUDA counterpart too. See ``ROADMAP.md`` for the rest (QAT, remat,
+distribution).
 
 Entry points take a ``device``; without one they run on ``cuda`` and raise
 when no card is visible (:func:`resolve_device`) -- they never fall back to
 the CPU on their own.
 """
 
-from .config import EncoderConfig, IsharaConfig, baseline_config
-from .data.landmarks import FRAME_LEN, MAX_PHRASE_LENGTH, N_COLS
+from .config import EncoderConfig, IsharaConfig, TrainConfig, baseline_config
+from .data.landmarks import FRAME_LEN, MAX_PHRASE_LENGTH, N_COLS, SEL_COLS
 from .data.tokenizer import CTCTokenizer, Seq2SeqTokenizer
 from .data.vocab import NUM_CLASSES, PAD_TOKEN, PAD_TOKEN_IDX
 from .device import resolve_device
 
 __version__ = "0.1.0"
+
+
+def get_model(*args, **kwargs):
+    """Lazy re-export of :func:`ishara_tpu_torch.models.get_model` (the
+    reference README API)."""
+    from .models import get_model as _gm
+
+    return _gm(*args, **kwargs)
+
 
 __all__ = [
     "CTCTokenizer",
@@ -47,7 +59,10 @@ __all__ = [
     "NUM_CLASSES",
     "PAD_TOKEN",
     "PAD_TOKEN_IDX",
+    "SEL_COLS",
     "Seq2SeqTokenizer",
+    "TrainConfig",
     "baseline_config",
+    "get_model",
     "resolve_device",
 ]

@@ -17,7 +17,11 @@ returns them or ``params.msgpack`` holds them -- into the port's
   / ``conv_conform{i}_{j}`` / ``conv_t{i}_{j}`` become ``conv_squeeze.{i}.{j}``
   / ``conv_conform.{i}.{j}`` / ``conv_t.{i}.{j}``;
 * the translation model's ``squeezeformer_layers_{i}`` / ``decoder_layers_{i}``
-  become ``squeezeformer_layers.{i}`` / ``decoder_layers.{i}``; a flax
+  and the U-Net's ``block_{i}`` become ``squeezeformer_layers.{i}`` /
+  ``decoder_layers.{i}`` / ``block.{i}``; a flax Conv2D kernel ``[kh, kw,
+  in/g, out]`` becomes ``Conv2d.weight`` ``[out, in/g, kh, kw]``, and the
+  relative attention's ``u_bias`` / ``v_bias`` ``[H, Dh]`` keep their names
+  and layout; a flax
   ``Embed``'s ``embedding`` ``[num, dim]`` keeps its name and layout, and a
   module's own ``scale`` leaf (the RoPE blocks' shared residual scale, which
   sits beside sub-modules, unlike a norm's) keeps its name.
@@ -49,11 +53,13 @@ import torch
 
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var"}
+# parameters that keep their flax name and layout
+_AS_IS = ("embedding", "u_bias", "v_bias")
 
 
 def _module_name(key: str) -> str:
     m = re.fullmatch(r"(squeezeformer|conformer|transformer|"
-                     r"squeezeformer_layers|decoder_layers)_(\d+)", key)
+                     r"squeezeformer_layers|decoder_layers|block)_(\d+)", key)
     if m:
         return f"{m.group(1)}.{m.group(2)}"
     m = re.fullmatch(r"conv_(squeeze|conform|t)(\d+)_(\d+)", key)
@@ -67,6 +73,8 @@ def _convert_kernel(a: np.ndarray) -> np.ndarray:
         return a.T
     if a.ndim == 3:                      # Conv [K, in/g, out] -> [out, in/g, K]
         return a.transpose(2, 1, 0)
+    if a.ndim == 4:    # Conv2D [kh, kw, in/g, out] -> [out, in/g, kh, kw]
+        return a.transpose(3, 2, 0, 1)
     raise ValueError(f"unexpected kernel rank {a.ndim}")
 
 
@@ -78,8 +86,8 @@ def _walk(tree, prefix, out, bn_modules):
         a = np.asarray(val, dtype=np.float32)
         if key == "kernel":
             name, a = "weight", _convert_kernel(a)
-        elif key == "embedding":           # flax Embed [num, dim], as it is
-            name = "embedding"
+        elif key in _AS_IS:     # flax Embed [num, dim], u / v biases [H, Dh]
+            name = key
         elif key == "scale" and any(isinstance(v, dict)
                                     for v in tree.values()):
             name = "scale"     # a module's own parameter, not a norm's
@@ -103,19 +111,20 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-_LEAF_BACK = {v: k for k, v in _LEAF.items()} | {"scale": "scale",
-                                                  "embedding": "embedding"}
+_LEAF_BACK = {v: k for k, v in _LEAF.items()} | {"scale": "scale"} \
+    | {k: k for k in _AS_IS}
+_KERNEL_BACK = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def _flax_module_name(parts: list[str]) -> list[str]:
     """Port module path -> flax path: ``squeezeformer.{i}`` ->
-    ``squeezeformer_{i}`` (and so ``decoder_layers.{i}``),
+    ``squeezeformer_{i}`` (and so ``decoder_layers.{i}``, ``block.{i}``),
     ``conv_squeeze.{i}.{j}`` -> ``conv_squeeze{i}_{j}``."""
     out, i = [], 0
     while i < len(parts):
         p = parts[i]
         if p in ("squeezeformer", "conformer", "transformer",
-                 "squeezeformer_layers", "decoder_layers") \
+                 "squeezeformer_layers", "decoder_layers", "block") \
                 and i + 1 < len(parts) and parts[i + 1].isdigit():
             out.append(f"{p}_{parts[i + 1]}")
             i += 2
@@ -143,7 +152,7 @@ def state_dict_to_flax(sd: dict) -> dict:
             tree, name = out["batch_stats"], _LEAF_BACK[leaf]
         elif leaf == "weight" and a.ndim >= 2:
             tree, name = out["params"], "kernel"
-            a = a.T if a.ndim == 2 else a.transpose(2, 1, 0)
+            a = a.transpose(_KERNEL_BACK[a.ndim])
         else:
             tree, name = out["params"], _LEAF_BACK[leaf]
         for part in _flax_module_name(path):

@@ -58,21 +58,25 @@ class Conv1DBlock(nn.Module):
 class SqueezeformerBlock(nn.Module):
     """Pre-LN FFN -> pre-LN MHSA -> conv module (with SE) -> pre-LN FFN,
     plain residuals with shared dropout: each FFN drops its hidden and its
-    branch, the attention its weights and its branch."""
+    branch, the attention its weights and its branch. ``causal=True``
+    makes the attention causal (within ``attn_context`` keys when that is
+    above 0) and the SE gate a running mean."""
 
     def __init__(self, dim: int, num_heads: int = 8, expansion_factor: int = 4,
                  kernel_size: int = 31, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32, use_flash: bool = False):
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
+                 causal: bool = False, attn_context: int = 0):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=LN_EPS, dtype=dtype)
         self.ffn1 = FusedFFN(dim, expansion_factor, dropout, res_rate=dropout,
                              dtype=dtype)
         self.norm2 = LayerNorm(dim, eps=LN_EPS, dtype=dtype)
         self.mha = MultiHeadSelfAttention(dim, num_heads, dropout, dtype=dtype,
-                                          use_flash=use_flash)
+                                          use_flash=use_flash, causal=causal,
+                                          attn_context=attn_context)
         self.mha_drop = FastDropoutAdd(dropout)
         self.conv = SqueezeformerConvModule(dim, kernel_size, expansion_factor,
-                                            dtype=dtype)
+                                            dtype=dtype, causal_se=causal)
         self.norm3 = LayerNorm(dim, eps=LN_EPS, dtype=dtype)
         self.ffn2 = FusedFFN(dim, expansion_factor, dropout, res_rate=dropout,
                              dtype=dtype)
@@ -89,18 +93,24 @@ class SqueezeformerBlock(nn.Module):
 class ConformerBlock(nn.Module):
     """FFN -> MHSA -> conv module -> FFN with plain residuals; ``ln1`` is
     shared by the FFN1 and MHSA pre-norms (reference quirk). The FFNs drop
-    their hidden only, the attention its weights only."""
+    their hidden only, the attention its weights only. ``causal=True``
+    makes the attention causal (within ``attn_context`` keys when that is
+    above 0) and the depthwise conv left-padded."""
 
     def __init__(self, dim: int, num_heads: int = 8, expand: int = 4,
                  kernel_size: int = 31, attn_dropout: float = 0.0,
                  drop_rate: float = 0.0, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False):
+                 use_flash: bool = False, causal: bool = False,
+                 attn_context: int = 0):
         super().__init__()
         self.ln1 = LayerNorm(dim, eps=LN_EPS, dtype=dtype)
         self.ffn1 = FusedFFN(dim, expand, drop_rate, res_rate=0.0, dtype=dtype)
         self.mha = MultiHeadSelfAttention(dim, num_heads, attn_dropout,
-                                          dtype=dtype, use_flash=use_flash)
-        self.conv = ConformerConvModule(dim, kernel_size, dtype=dtype)
+                                          dtype=dtype, use_flash=use_flash,
+                                          causal=causal,
+                                          attn_context=attn_context)
+        self.conv = ConformerConvModule(dim, kernel_size, dtype=dtype,
+                                        causal=causal)
         self.ln2 = LayerNorm(dim, eps=LN_EPS, dtype=dtype)
         self.ffn2 = FusedFFN(dim, expand, drop_rate, res_rate=0.0, dtype=dtype)
         number_dropout_sites(self)

@@ -25,7 +25,7 @@ from ..ops.fused_block import (
     stack_group_args,
 )
 from ..preprocess.pipeline import frame_mask
-from .encoder import block_counts, check_variant
+from .encoder import block_counts, check_fused
 from .layers import positional_encoding
 
 
@@ -83,7 +83,7 @@ class FusedEncoder:
     def __init__(self, cfg: EncoderConfig, state_dict, *,
                  compute_dtype=torch.bfloat16, dma: bool = False,
                  device=None):
-        check_variant(cfg)
+        check_fused(cfg)
         dev = resolve_device(device)
         dt = _storage_dtype(compute_dtype)
 

@@ -1,5 +1,5 @@
 """Core encoder layers as ``nn.Module``s (port of ``ishara_tpu/models/
-layers.py``), eval and training mode, non-causal only.
+layers.py``), eval and training mode, bidirectional or causal.
 
 Tensors are ``[B, T, C]`` as in the reference. The reference's quirks that
 affect weight parity are kept: attention scores scaled by ``dim**-0.5`` over
@@ -82,6 +82,16 @@ def masked_global_average_pool(x: torch.Tensor,
     return (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
 
 
+def causal_masked_mean(x: torch.Tensor,
+                       mask: torch.Tensor | None) -> torch.Tensor:
+    """[B, T, C] -> [B, T, C] running mean over the valid frames <= t (the
+    causal form of the masked average pool; denominator max(count, 1))."""
+    m = torch.ones_like(x[..., :1]) if mask is None \
+        else mask[..., None].to(x.dtype)
+    return torch.cumsum(x * m, dim=1) / torch.clamp(torch.cumsum(m, dim=1),
+                                                    min=1.0)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` with float32 parameters that computes in ``dtype``."""
 
@@ -98,17 +108,25 @@ class Dense(nn.Linear):
 
 class Conv(nn.Conv1d):
     """``nn.Conv1d`` with float32 parameters that computes in ``dtype`` on a
-    channel-last ``[B, T, C]`` tensor."""
+    channel-last ``[B, T, C]`` tensor. A pointwise conv (one tap, stride 1,
+    no padding, one group) is the product it is, ``F.linear``: cuBLAS's is
+    deterministic, where cuDNN may take a float32 weight gradient with
+    atomic sums, so the same step would not give the same bits twice."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  dtype: torch.dtype = torch.float32, **kw):
         super().__init__(in_channels, out_channels, kernel_size, **kw)
         self.compute_dtype = dtype
+        self.pointwise = (self.kernel_size, self.stride, self.padding,
+                          self.dilation, self.groups) \
+            == ((1,), (1,), (0,), (1,), 1)
 
     def forward(self, x):
         dt = self.compute_dtype
-        y = F.conv1d(x.to(dt).transpose(1, 2), self.weight.to(dt),
-                     None if self.bias is None else self.bias.to(dt),
+        b = None if self.bias is None else self.bias.to(dt)
+        if self.pointwise:
+            return F.linear(x.to(dt), self.weight[:, :, 0].to(dt), b)
+        y = F.conv1d(x.to(dt).transpose(1, 2), self.weight.to(dt), b,
                      self.stride, self.padding, self.dilation, self.groups)
         return y.transpose(1, 2)
 
@@ -243,19 +261,26 @@ class RowDropout(nn.Module):
 # ---------------------------------------------------------------------------
 
 class SqueezeExcite(nn.Module):
-    """SE gate: masked GAP -> Linear(C/r, swish) -> Linear(C, sigmoid)."""
+    """SE gate: masked GAP -> Linear(C/r, swish) -> Linear(C, sigmoid).
+
+    ``causal=True`` pools with the running mean (:func:`causal_masked_mean`)
+    instead, so the gate is ``[B, T, C]`` and frame t's sees only frames
+    <= t; the parameters are the same either way."""
 
     def __init__(self, channels: int, reduction_ratio: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, causal: bool = False):
         super().__init__()
         r = max(1, channels // reduction_ratio)
+        self.causal = causal
         self.fc1 = Dense(channels, r, dtype=dtype)
         self.fc2 = Dense(r, channels, dtype=dtype)
 
     def forward(self, x, mask=None):
-        g = masked_global_average_pool(x, mask)
-        g = torch.sigmoid(self.fc2(F.silu(self.fc1(g))))
-        return x * g[:, None, :]
+        if self.causal:
+            g = causal_masked_mean(x, mask)
+        else:
+            g = masked_global_average_pool(x, mask)[:, None, :]
+        return x * torch.sigmoid(self.fc2(F.silu(self.fc1(g))))
 
 
 class ECA(nn.Module):
@@ -314,14 +339,21 @@ class MultiHeadSelfAttention(nn.Module):
     bias): taken in training on a CUDA device when the attention dropout is
     exactly 0 and the table says "flash_blocked". The choice is the table's
     alone: a geometry a kernel cannot take raises there. Eval always takes
-    the einsum path (every row's ``serve_attn``)."""
+    the einsum path (every row's ``serve_attn``).
+
+    ``causal=True`` (the streaming families) lets query ``qi`` attend to the
+    keys ``ki <= qi``, and with ``attn_context > 0`` only to those with
+    ``qi - ki < attn_context``. It always takes the einsum path, before any
+    selection, as the reference does: neither kernel applies that mask."""
 
     def __init__(self, dim: int = 256, num_heads: int = 4,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
-                 use_flash: bool = False):
+                 use_flash: bool = False, causal: bool = False,
+                 attn_context: int = 0):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.dropout, self.use_flash = float(dropout), use_flash
+        self.causal, self.attn_context = causal, int(attn_context)
         self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype)
         self.proj = Dense(dim, dim, bias=False, dtype=dtype)
         self.site = 0                       # the dropout site, either path
@@ -335,9 +367,13 @@ class MultiHeadSelfAttention(nn.Module):
         scale = self.dim ** -0.5
         rate = self.dropout if training else 0.0
         s = site_seeds(_need_seed(seed), 1, self.site) if rate > 0.0 else None
-        path = selection.train_attention(self.dim, T, rate > 0.0, B) \
-            if training and on_card(x) else "einsum"
-        flash = self.use_flash or (path == "flash" and T <= attention.MAX_T)
+        if self.causal:
+            path, flash = "einsum", False
+        else:
+            path = selection.train_attention(self.dim, T, rate > 0.0, B) \
+                if training and on_card(x) else "einsum"
+            flash = self.use_flash or (path == "flash"
+                                       and T <= attention.MAX_T)
         if path == "flash_blocked" and rate == 0.0:
             out = attention_blocked.flash_mhsa_blocked(
                 q, k, v, self._bias(mask, B, T, x.device), scale)
@@ -347,12 +383,25 @@ class MultiHeadSelfAttention(nn.Module):
                                        scale=scale, dropout_rate=rate)
         else:
             attn = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-            if mask is not None:
-                attn = attn.masked_fill(~mask[:, None, None, :],
-                                        torch.finfo(attn.dtype).min)
+            keep = self._allowed(mask, T, x.device)
+            if keep is not None:
+                attn = attn.masked_fill(~keep, torch.finfo(attn.dtype).min)
             attn = fast_dropout(attn.softmax(dim=-1), s, rate)
             out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         return self.proj(out.transpose(1, 2).reshape(B, T, self.dim))
+
+    def _allowed(self, mask, T, device):
+        """The keys each query may attend to, broadcastable to ``[B, H, T,
+        T]``, or None when all may."""
+        keep = None if mask is None else mask[:, None, None, :]
+        if self.causal:
+            qi = torch.arange(T, device=device)[:, None]
+            ki = torch.arange(T, device=device)[None, :]
+            band = ki <= qi
+            if self.attn_context > 0:
+                band = band & (qi - ki < self.attn_context)
+            keep = band if keep is None else keep & band
+        return keep
 
     @staticmethod
     def _bias(mask, B, T, device):
@@ -410,19 +459,21 @@ class SqueezeformerConvModule(nn.Module):
     :func:`ishara_tpu_torch.ops.conv_kernel.conv_module_residual`, whose
     backward recomputes the branch from ``x``; it reads the module's own
     parameters in the reference's layouts (:meth:`kernel_args`). Otherwise,
-    and always in eval, it is the composition."""
+    and always in eval, it is the composition. ``causal_se=True`` gates
+    with the running mean (causal :class:`SqueezeExcite`) and always takes
+    the composition: the kernel's gate is the whole sequence's."""
 
     def __init__(self, dim: int, kernel_size: int, expansion_factor: int = 2,
                  dtype: torch.dtype = torch.float32,
-                 fused: bool | None = None):
+                 fused: bool | None = None, causal_se: bool = False):
         super().__init__()
         e = dim * expansion_factor
-        self.dim, self.fused = dim, fused
+        self.dim, self.fused, self.causal_se = dim, fused, causal_se
         self.norm = LayerNorm(dim, eps=LN_EPS, dtype=dtype)
         self.pw1 = Conv(dim, e, 1, dtype=dtype)
         self.dw = CausalDWConv1D(e, kernel_size, dtype=dtype)
         self.pw2 = Conv(e, dim, 1, dtype=dtype)
-        self.se = SqueezeExcite(dim, dtype=dtype)
+        self.se = SqueezeExcite(dim, dtype=dtype, causal=causal_se)
 
     def kernel_args(self, x, mask=None) -> tuple:
         """The kernel's arguments after ``x``: the mask as float (all ones
@@ -440,7 +491,7 @@ class SqueezeformerConvModule(nn.Module):
                 self.se.fc2.weight.t(), self.se.fc2.bias)
 
     def forward(self, x, mask=None, training: bool = False):
-        if training and on_card(x) and (
+        if training and on_card(x) and not self.causal_se and (
                 selection.conv_module_fused(self.dim, x.shape[1], x.shape[0])
                 if self.fused is None else self.fused):
             return conv_kernel.conv_module_residual(
@@ -454,14 +505,16 @@ class SqueezeformerConvModule(nn.Module):
 class ConformerConvModule(nn.Module):
     """pw(2*dim) -> GLU -> 'same' DW conv (+bias) -> BN -> pw(dim)
     -> LN(x + residual), with Keras-default eps 1e-3 for BN and LN and BN
-    momentum 0.99."""
+    momentum 0.99. ``causal=True`` pads the depthwise conv by ``k-1`` on
+    the left only."""
 
     def __init__(self, dim: int, kernel_size: int = 31,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, causal: bool = False):
         super().__init__()
         self.dim = dim
         # 'same' for stride 1: (k-1)//2 on the left, k//2 on the right
-        self.pad = ((kernel_size - 1) // 2, kernel_size // 2)
+        self.pad = (kernel_size - 1, 0) if causal \
+            else ((kernel_size - 1) // 2, kernel_size // 2)
         self.pw1 = Conv(dim, 2 * dim, 1, dtype=dtype)
         self.dw = Conv(dim, dim, kernel_size, dtype=dtype, groups=dim)
         self.bn = BatchNorm(dim, eps=BN_EPS, momentum=BN_MOMENTUM_DEFAULT,

@@ -14,10 +14,12 @@ from .import_weights import (
     load_h5_weights,
     load_tflite_weights,
 )
+from .streaming import BlockState, StreamingEncoder, StreamState
 from .translation_engine import BatchedTranslationEngine, TranslationEngine
 
 __all__ = ["FALLBACK_IDS", "BatchedEngine", "BatchedTranslationEngine",
-           "InferenceEngine", "TranslationEngine", "build_task_model",
+           "BlockState", "InferenceEngine", "StreamState", "StreamingEncoder",
+           "TranslationEngine", "build_task_model",
            "diff_variables", "export_model", "export_serving_program",
            "import_by_structure", "import_reference_h5", "load_bundle",
            "load_engine", "load_h5_weights", "load_serving_program",

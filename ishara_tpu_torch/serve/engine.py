@@ -23,7 +23,7 @@ from ..data.vocab import PAD_TOKEN_IDX
 from ..decode.beam_device import beam_search_device
 from ..decode.greedy import greedy_decode
 from ..device import resolve_device
-from ..models.encoder import IsharaEncoder, check_variant
+from ..models.encoder import IsharaEncoder, check_fused, check_variant
 from ..preprocess.pipeline import GroupStats, preprocess
 
 # Reference constant-phrase fallback ids, in the CTC vocab.
@@ -61,13 +61,18 @@ def make_serving_program(model: IsharaEncoder, stats: GroupStats,
     (the reference's ``prepare_serving_variables``), and the kernels scale
     each product after the dot. ``dma=True`` (with either fused mode) runs
     each stack as one persistent kernel that prefetches the next block's
-    weights."""
+    weights. The fused modes and ``dma`` raise ValueError for a causal
+    model and for the ``parallel_branches`` and ``squeezeformer_unet``
+    families, whose semantics the kernels do not implement; the unfused
+    program serves every family."""
     cfg = model.cfg
     check_variant(cfg)
     if decode not in ("greedy", "beam"):
         raise ValueError(f"decode must be 'greedy' or 'beam', got {decode!r}")
     if fused not in (False, True, "int8"):
         raise ValueError(f"fused must be False, True or 'int8', got {fused!r}")
+    if fused or dma:
+        check_fused(cfg)
     device = next(model.parameters()).device
     if fused:
         from ..models.fused import FusedEncoder
@@ -108,9 +113,10 @@ def make_serving_program(model: IsharaEncoder, stats: GroupStats,
 
 
 class InferenceEngine:
-    """Batch-1 serving of a port ``IsharaEncoder``: the full landmarks ->
-    ids pipeline on ``device`` (default ``cuda``; raises when no card is
-    visible). The model is moved to ``device`` and set to eval mode."""
+    """Batch-1 serving of a port encoder of any CTC family: the full
+    landmarks -> ids pipeline on ``device`` (default ``cuda``; raises when
+    no card is visible). The model is moved to ``device`` and set to eval
+    mode."""
 
     def __init__(self, model: IsharaEncoder, stats: GroupStats | None = None,
                  max_raw_frames: int = 384,

@@ -83,6 +83,13 @@ def onecycle_schedule(lr_max: float, total_steps: int,
     return schedule
 
 
+def global_norm(flat: torch.Tensor) -> torch.Tensor:
+    """The 2-norm of a flat float32 vector, as optax's ``global_norm``. A
+    pairwise sum of the squares: on the CPU ``Tensor.norm`` accumulates in
+    one float32 running sum, 1.2e-4 off at 1.7 million entries."""
+    return torch.sqrt(torch.sum(flat * flat))
+
+
 class Optimizer:
     """clip by global norm -> RAdam / Adam direction -> ``+ wd_ratio * p``
     -> ``* -lr(schedule_count)`` on one flat float32 parameter tensor."""
@@ -108,7 +115,7 @@ class Optimizer:
         new parameters. ``grad_norm`` is the global norm of ``grads`` when
         the caller already has it."""
         b1, b2 = self.b1, self.b2
-        g_norm = grads.norm() if grad_norm is None else grad_norm
+        g_norm = global_norm(grads) if grad_norm is None else grad_norm
         # as optax.clip_by_global_norm: no epsilon in the division
         g = torch.where(g_norm < self.clip_norm, grads,
                         grads / g_norm * self.clip_norm)

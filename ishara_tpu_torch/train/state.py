@@ -34,6 +34,7 @@ from ..ops.ctc import ctc_loss
 from ..ops.dropout import step_seeds
 from ..preprocess.augment import augment, draws_from_seed
 from ..preprocess.pipeline import GroupStats, preprocess
+from .optim import global_norm
 
 _STATS = ("running_mean", "running_var")
 
@@ -168,7 +169,7 @@ def _finish_step(state: TrainState, loss, grads, old_stats):
     and translation train steps. A non-finite loss or gradient leaves every leaf of the
     state unchanged but ``step`` and ``nonfinite_count``; the decision is a
     ``where`` on the device."""
-    grad_norm = grads.norm()
+    grad_norm = global_norm(grads)
     updates, new_opt = state.tx.update(grads, state.opt_state, state.params,
                                        grad_norm=grad_norm)
     fast = state.params + updates

@@ -1,7 +1,8 @@
 """The Trainer: epoch orchestration, validation, checkpoints, telemetry (port
 of ``ishara_tpu/train/trainer.py``).
 
-* ``task="ctc"`` trains the encoder (:class:`IsharaEncoder`) on CTC,
+* ``task="ctc"`` trains the encoder of any CTC family
+  (:func:`~ishara_tpu_torch.models.encoder.build_model`) on CTC,
   ``task="translation"`` the encoder-decoder model
   (:class:`ASLTranslationModel`, built from the model config's ``dim``,
   ``num_heads``, ``dropout`` and ``variant``) on cross-entropy plus its
@@ -38,7 +39,7 @@ import torch
 from ..config import IsharaConfig
 from ..device import resolve_device
 from ..evaluation.metrics import normalized_levenshtein
-from ..models.encoder import IsharaEncoder
+from ..models.encoder import build_model
 from ..models.seq2seq import ASLTranslationModel
 from ..preprocess.pipeline import GroupStats
 from ..utils.logging import MetricLogger
@@ -111,7 +112,8 @@ class Trainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(tcfg.seed)
             if task == "ctc":
-                self.model = IsharaEncoder(mcfg)
+                # on the CPU: TrainState.create moves it
+                self.model = build_model(mcfg, device="cpu")
             else:
                 self.model = ASLTranslationModel(
                     num_classes=tokenizer.vocab_size, feature_dim=mcfg.dim,

@@ -1362,3 +1362,161 @@ def test_exported_fused_beam_program_on_the_card(tmp_path):
         assert int(got_count) == count
         np.testing.assert_array_equal(got_ids.cpu().numpy(), ids)
         assert sum(int(c.item()) for c in fb._COUNTERS.values()) > 0
+
+
+# ---------------------------------------------------------------------------
+# Causal mode, streaming and the parallel-branches and U-Net families
+# ---------------------------------------------------------------------------
+
+def _step_on_card_and_cpu(cfg, dtype="float32"):
+    """One fused training step (dropout and augmentation on) of ``cfg``'s
+    model on the card and on the CPU from the same weights and seeds:
+    (card metrics, CPU metrics, launches counted on the card by wrapper)."""
+    import copy
+
+    from ishara_tpu_torch.config import TrainConfig
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import attention_blocked as ab
+    from ishara_tpu_torch.ops import conv_kernel as cm
+    from ishara_tpu_torch.ops import ctc_kernel as ck
+    from ishara_tpu_torch.ops import dropout as dr
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+    from ishara_tpu_torch.preprocess import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cpu")
+    batch = SyntheticASLFR(num_sequences=8, seed=3).batch(
+        range(8), CTCTokenizer(), max_frames=64)
+    tx, _ = make_optimizer(TrainConfig())
+    step = make_fused_ctc_train_step(GroupStats.identity(), cfg.frame_len,
+                                     aug_prob=0.2, with_grads=True)
+    cpu = TrainState.create(copy.deepcopy(model), tx, device="cpu")
+    card = TrainState.create(copy.deepcopy(model), tx, device="cuda")
+    wrappers = {"flash_mhsa": at.flash_mhsa,
+                "flash_mhsa_blocked": ab.flash_mhsa_blocked,
+                "conv_module_residual": cm.conv_module_residual,
+                "ffn_residual": fk.ffn_residual,
+                "fast_dropout": dr.fast_dropout,
+                "fast_dropout_add": dr.fast_dropout_add,
+                "ctc_loss_kernel": ck.ctc_loss_kernel}
+    before = {n: w.launches_bwd for n, w in wrappers.items()}
+    _, mc = step(cpu, batch, seed=1)
+    _, mg = step(card, batch, seed=1)
+    launched = {n: w.launches_bwd - before[n] for n, w in wrappers.items()}
+    return mg, mc, launched
+
+
+def _assert_step_matches(mg, mc, dtype):
+    LOSS_TOL, NORM_TOL, GRAD_TOL = {"float32": (1e-6, 1e-5, 2e-4),
+                                    "bfloat16": (1e-3, 2e-3, 1e-1)}[dtype]
+    assert abs(float(mg["loss"]) - float(mc["loss"])) \
+        <= LOSS_TOL * abs(float(mc["loss"]))
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
+        <= NORM_TOL * float(mc["grad_norm"])
+    largest = max(float(g.abs().max()) for g in mc["grads"].values())
+    for name, want in mc["grads"].items():
+        err = float((mg["grads"][name].cpu() - want).abs().max())
+        scale = max(float(want.abs().max()), 1e-3 * largest)
+        assert err <= GRAD_TOL * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_step_on_the_card_matches_the_cpu(dtype):
+    """A causal hybrid's fused step on the card against the CPU's, at the
+    tolerances of ``test_training_step_on_the_card_matches_the_cpu``: on
+    the card the feed-forward, dropout and CTC kernels run, and neither
+    attention kernel nor the conv-module kernel (which implement the
+    bidirectional semantics) launches, though the selection table picks
+    them for this geometry's bidirectional model."""
+    _card()
+    cfg = EncoderConfig(variant="hybrid", dim=128, num_heads=4,
+                        num_squeeze_blocks=1, num_conform_blocks=1,
+                        frame_len=32, dropout=0.2, top_dropout=0.2,
+                        dtype=dtype, causal=True, attn_context=20)
+    mg, mc, launched = _step_on_card_and_cpu(cfg, dtype)
+    assert launched["flash_mhsa"] == launched["flash_mhsa_blocked"] \
+        == launched["conv_module_residual"] == 0
+    assert launched["ffn_residual"] == 4 and launched["ctc_loss_kernel"] == 1
+    # the two attention sites' probabilities and the top dropout; the
+    # Squeezeformer block's attention residual
+    assert launched["fast_dropout"] == 3
+    assert launched["fast_dropout_add"] == 1
+    _assert_step_matches(mg, mc, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["parallel_branches",
+                                     "squeezeformer_unet"])
+def test_new_family_step_on_the_card_matches_the_cpu(variant):
+    """One fused step of each new family on the card (its kernels) against
+    the CPU's (their plain versions), f32, at the tolerances above:
+    parallel_branches runs the attention, feed-forward, conv-module,
+    dropout and CTC kernels; the U-Net's relative attention and plain FFNs
+    run the dropout and CTC kernels only."""
+    _card()
+    cfg = EncoderConfig(variant=variant, dim=128, num_heads=4,
+                        num_squeeze_blocks=4 if variant.endswith("unet")
+                        else 1, num_conform_blocks=1, frame_len=32,
+                        dropout=0.2, top_dropout=0.2)
+    mg, mc, launched = _step_on_card_and_cpu(cfg)
+    assert launched["ctc_loss_kernel"] == 1 and launched["fast_dropout"] > 0
+    if variant == "parallel_branches":
+        assert launched["flash_mhsa"] == 2
+        assert launched["ffn_residual"] == 4
+        assert launched["conv_module_residual"] == 1
+    else:
+        assert launched["fast_dropout"] == 12      # three sites a block
+        assert launched["flash_mhsa"] == launched["ffn_residual"] \
+            == launched["conv_module_residual"] == 0
+    _assert_step_matches(mg, mc, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 8])
+def test_streaming_on_the_card_matches_the_batch_causal_forward(chunk):
+    """``StreamingEncoder`` on the card against the batch causal forward on
+    the card (f32, unresampled frames with NaN hands and all-NaN frames
+    mid-stream): logits to 1e-4, the same emitted ids as a greedy collapse
+    of the batch logits."""
+    _card()
+    from ishara_tpu_torch.data import landmarks as lm
+    from ishara_tpu_torch.preprocess.pipeline import _TABLES
+    from ishara_tpu_torch.serve.streaming import StreamingEncoder
+
+    T = 48
+    cfg = EncoderConfig(variant="hybrid", dim=64, num_heads=4,
+                        num_squeeze_blocks=2, num_conform_blocks=2,
+                        frame_len=T, causal=True, attn_context=20)
+    model = build_model(cfg, device="cuda")
+    # the seeded weights and statistics of the same structure, bidirectional
+    model.load_state_dict(_model("hybrid", T).state_dict())
+    rng = np.random.default_rng(7)
+    raw = rng.random((T, lm.N_COLS)).astype(np.float32) * 0.8 + 0.1
+    raw[10:16, lm.GROUP_IDX["rhand"].ravel()] = np.nan
+    raw[30:33] = np.nan
+    x = torch.from_numpy(np.nan_to_num(raw[:, _TABLES["out"]])).cuda()
+    with torch.no_grad():
+        want = model(x[None])[0]
+    eng = StreamingEncoder(cfg, model, chunk_size=chunk)
+    state, got, emitted = eng.init_state(), [], []
+    for i in range(0, T, chunk):
+        state, ids, _, logits = eng.step(state, raw[i:i + chunk])
+        got.append(logits)
+        emitted.append(ids)
+    got = torch.cat(got)
+    assert got.is_cuda
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    collapsed, prev = [], cfg.blank_id
+    for t in want.argmax(-1).tolist():
+        if t != prev and t != cfg.blank_id:
+            collapsed.append(t)
+        prev = t
+    assert StreamingEncoder.collect(emitted) == collapsed

@@ -37,7 +37,9 @@ def _inputs(kind, cfg):
 
 @pytest.mark.parametrize("kind", ["padded", "all_padding"])
 @pytest.mark.parametrize("variant", ["squeezeformer", "conformer", "hybrid",
-                                     "conv_hybrid", "conv_transformer"])
+                                     "conv_hybrid", "conv_transformer",
+                                     "parallel_branches",
+                                     "squeezeformer_unet"])
 def test_encoder_matches_flax(variant, kind):
     cfg = small_config(variant)
     model, variables = jax_model(cfg)
@@ -149,14 +151,90 @@ def test_bridge_covers_every_conv_family_tensor(variant):
 @pytest.mark.parametrize("variant", ["parallel_branches",
                                      "squeezeformer_unet"])
 def test_unported_variants_raise(variant):
+    """The two families once refused are built now, as a causal hybrid
+    is; what still raises is serving either through the fused kernels,
+    which implement neither (ValueError, as the reference's
+    ``fused_encoder_forward``)."""
     from ishara_tpu_torch.config import EncoderConfig
     from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.serve.engine import InferenceEngine
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(EncoderConfig(variant=variant, dim=32), device="cpu")
-    with pytest.raises(NotImplementedError, match="causal"):
-        build_model(EncoderConfig(variant="hybrid", dim=32, causal=True),
-                    device="cpu")
+    for cfg in (EncoderConfig(variant=variant, dim=32, num_heads=4,
+                              frame_len=16),
+                EncoderConfig(variant="hybrid", dim=32, num_heads=4,
+                              frame_len=16, causal=True)):
+        model = build_model(cfg, device="cpu")
+        with torch.no_grad():
+            out = model(torch.ones(1, 16, 276))
+        assert out.shape[-1] == cfg.num_classes
+        assert torch.isfinite(out).all()
+        with pytest.raises(ValueError, match="fused"):
+            InferenceEngine(model, device="cpu", fused=True)
+
+
+@pytest.mark.parametrize("variant", ["parallel_branches",
+                                     "squeezeformer_unet"])
+def test_new_family_bf16_matches_flax(variant):
+    """bf16 against bf16 (see ``test_torch_train_modules.py``'s tolerance:
+    each framework rounds every product, in another order; the small
+    models' logits are held to atol = 0.15)."""
+    cfg = small_config(variant, dtype="bfloat16", num_squeeze_blocks=2,
+                       num_conform_blocks=1)
+    model, variables = jax_model(cfg)
+    x = _inputs("padded", cfg)
+    want = np.asarray(model.apply(variables, jnp.asarray(x), training=False))
+    with torch.no_grad():
+        got = port_model(cfg, variables)(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=0.15)
+
+
+@pytest.mark.parametrize("variant", ["conv_hybrid", "squeezeformer",
+                                     "hybrid", "parallel_branches"])
+def test_get_model_matches_jax(variant):
+    """``get_model`` builds the configuration JAX's builds (the reference
+    defaults, ``top_mult`` 2 for conv_hybrid and squeezeformer, kwargs into
+    the config) and, on JAX's weights, its logits; the top-level export is
+    the same function."""
+    import dataclasses
+
+    from ishara_tpu import get_model as jget_model
+    import ishara_tpu_torch
+    from ishara_tpu_torch.models import get_model
+
+    kw = dict(dim=32, num_conv_squeeze_blocks=1, num_conv_conform_blocks=1,
+              kernel_sizes=(5, 3), num_conv_per_block=2, dropout_rate=0.0,
+              num_heads=4, variant=variant, frame_len=24, top_dropout=0.0)
+    jm = jget_model(**kw)
+    tm = ishara_tpu_torch.get_model(device="cpu", **kw)
+    assert dataclasses.asdict(tm.cfg) == dataclasses.asdict(jm.cfg)
+    assert tm.cfg.top_mult == (2 if variant in ("conv_hybrid",
+                                                "squeezeformer") else 1)
+    assert not tm.training
+    x = _inputs("padded", jm.cfg)
+    variables = perturb(jm.init(jax.random.key(0), jnp.zeros_like(x[:1])))
+    tm.load_state_dict(flax_to_state_dict(variables))
+    want = np.asarray(jm.apply(variables, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert get_model(device="cpu").cfg.variant == "conv_hybrid"
+    # as JAX's get_model, it builds an IsharaEncoder: the U-Net is
+    # build_model's
+    with pytest.raises(ValueError, match="unknown variant"):
+        get_model(variant="squeezeformer_unet", device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["parallel_branches",
+                                     "squeezeformer_unet"])
+def test_bridge_covers_every_new_family_tensor(variant):
+    cfg = small_config(variant)
+    _, variables = jax_model(cfg)
+    sd = flax_to_state_dict(variables)
+    own = port_model(cfg, variables).state_dict()
+    assert set(sd) == set(own)
+    for k, v in own.items():
+        assert tuple(sd[k].shape) == tuple(v.shape), k
 
 
 @pytest.mark.parametrize("variant", ["conv_hybrid", "conv_transformer"])

@@ -283,7 +283,9 @@ def test_int8_bundle_carries_the_int8_engines_weights(ctc, tmp_path):
 
 
 @pytest.mark.parametrize("variant", ["squeezeformer", "conformer", "hybrid",
-                                     "conv_hybrid", "conv_transformer"])
+                                     "conv_hybrid", "conv_transformer",
+                                     "parallel_branches",
+                                     "squeezeformer_unet"])
 def test_bridge_gives_the_jax_template_key_set(variant):
     """``state_dict_to_flax`` of a whole port model has exactly the names
     and shapes of the JAX model's ``init`` tree (what ``from_bytes`` needs
@@ -294,6 +296,52 @@ def test_bridge_gives_the_jax_template_key_set(variant):
         port_model(cfg, v).state_dict()).items() if t}
     want = jax.tree_util.tree_map(np.shape, _flax_f32(v))
     assert jax.tree_util.tree_map(np.shape, back) == want
+
+
+@pytest.mark.parametrize("variant,extra", [
+    ("parallel_branches", {}), ("squeezeformer_unet", {}),
+    ("hybrid", dict(causal=True, attn_context=9)),
+])
+def test_new_family_bundles_cross_both_ways(tmp_path, variant, extra):
+    """A bundle of each new family and of a causal hybrid, both ways: JAX's
+    f32 bundle loads into the port bit for bit and its ``load_engine``
+    (unfused, as a causal model or a new family requires; ``fused=True``
+    raises ValueError) gives JAX's ids; the port's bf16 bundle loads into
+    JAX's ``load_bundle`` as the bf16-rounded weights."""
+    from ishara_tpu.config import IsharaConfig
+
+    cfg = small_config(variant, frame_len=24, **extra)
+    _, v = jax_model(cfg)
+    v = jax.tree_util.tree_map(np.array, v)
+    head = v["params"]["unet"]["fc"] if "unet" in v["params"] \
+        else v["params"]["classifier"]
+    head["kernel"] *= 8.0
+    config = IsharaConfig(model=cfg)
+    jexport.export_model(tmp_path / "jax", config, v, half_precision=False)
+    pconfig, sd, _ = texport.load_bundle(tmp_path / "jax")
+    assert pconfig.model.causal == cfg.causal
+    _assert_state_dicts_equal(sd, flax_to_state_dict(_flax_f32(v)))
+    want = jexport.load_engine(tmp_path / "jax", max_raw_frames=MAX_RAW)
+    got = texport.load_engine(tmp_path / "jax", device="cpu",
+                              max_raw_frames=MAX_RAW)
+    assert got.model.cfg.causal == cfg.causal
+    for raw in _requests():
+        ids, count = want(raw)
+        got_ids, got_count = got(raw)
+        assert got_count == count
+        np.testing.assert_array_equal(got_ids, ids)
+    with pytest.raises(ValueError, match="fused"):
+        texport.load_engine(tmp_path / "jax", device="cpu", fused=True)
+    texport.export_model(tmp_path / "port", _port_config(config),
+                         port_model(cfg, v))
+    _, jv, _ = jexport.load_bundle(tmp_path / "port")
+    source = _flax_f32(jexport._cast_floats(_flax_f32(v), jnp.bfloat16))
+    got_tree = _flax_f32(jv)
+    assert jax.tree_util.tree_structure(got_tree) == \
+        jax.tree_util.tree_structure(source)
+    for a, b in zip(jax.tree_util.tree_leaves(got_tree),
+                    jax.tree_util.tree_leaves(source)):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("encoder_type", ["squeezeformer", "conformer"])

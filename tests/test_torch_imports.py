@@ -31,7 +31,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "             'decode.autoregressive', 'ops.decoder_kernel',\n"
         "             'serve.translation_engine', 'ops.attention_blocked',\n"
         "             'ops.conv_kernel',\n"
-        "             'preprocess.augment', 'serve.engine', 'bridge'):\n"
+        "             'preprocess.augment', 'serve.engine', 'bridge',\n"
+        "             'models.squeezeformer_unet', 'serve.streaming'):\n"
         "    assert 'ishara_tpu_torch.' + want in names, want\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -62,6 +63,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         TranslationEngine,
     )
     from ishara_tpu_torch.train import TrainState, make_optimizer
+    import ishara_tpu_torch
+    from ishara_tpu_torch.serve.streaming import StreamingEncoder
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tcfg.EncoderConfig(variant="squeezeformer", dim=32,
@@ -81,6 +84,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: TranslationEngine(translation),
         lambda: TranslationEngine(translation, fused=True),
         lambda: BatchedTranslationEngine(translation),
+        lambda: ishara_tpu_torch.get_model(dim=32, num_heads=4),
+        lambda: build_model(tcfg.EncoderConfig(
+            variant="squeezeformer_unet", dim=32, num_heads=4)),
+        lambda: StreamingEncoder(tcfg.EncoderConfig(
+            variant="squeezeformer", dim=32, num_squeeze_blocks=1,
+            num_heads=4, frame_len=16, causal=True, attn_context=8), model),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -4,14 +4,33 @@ statistics from a numpy seed, and bridge them into the port."""
 
 from __future__ import annotations
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from ishara_tpu.config import EncoderConfig
 from ishara_tpu.models.encoder import build_model
 
 from ishara_tpu_torch.bridge import flax_to_state_dict
+
+
+def cap_torch_threads() -> int:
+    """Share the host's cores among pytest-xdist's workers: each worker's
+    torch otherwise starts one intra-op thread per core, and six workers on
+    eight cores then spend most of their time waiting for each other.
+    Every worker collects every test module, so importing this module caps
+    the whole process. Returns the thread count set."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    n = max(1, (os.cpu_count() or 1) // workers)
+    torch.set_num_threads(n)
+    return n
+
+
+cap_torch_threads()
 
 
 def small_config(variant: str = "hybrid", **kw) -> EncoderConfig:
@@ -67,6 +86,33 @@ def port_model(cfg_jax, variables):
     model = tbuild(cfg, device="cpu")
     model.load_state_dict(flax_to_state_dict(variables))
     return model
+
+
+# A depthwise conv's bias right in front of a training-mode BatchNorm (the
+# Conformer conv module's, the U-Net block's) has a gradient of exactly
+# zero: the batch mean takes it out. Both packages leave rounding noise in
+# its place (~1e-7 of the largest gradient entry).
+ZERO_GRADIENT = re.compile(r"(conv\.dw|block\.\d+\.dw)\.bias$")
+
+
+def assert_grads_match(got: dict, want: dict, tol: float = 1e-4):
+    """The port's gradients ``got`` (name -> tensor) against JAX's bridged
+    ``want`` (name -> tensor), same keys: each entry within ``tol`` of its
+    leaf's largest entry (of 1e-3 of the largest over all leaves, where
+    that is more); a leaf whose true gradient is zero (ZERO_GRADIENT) within
+    1e-5 of the largest in both."""
+    assert set(got) == set(want)
+    largest = max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        g = got[name].detach().numpy()
+        w = w.numpy()
+        if ZERO_GRADIENT.search(name):
+            assert max(np.abs(g).max(), np.abs(w).max()) <= 1e-5 * largest, \
+                name
+            continue
+        scale = max(float(np.abs(w).max()), 1e-3 * largest)
+        np.testing.assert_allclose(g / scale, w / scale, rtol=tol, atol=tol,
+                                   err_msg=name)
 
 
 def raw_sequence(rng, T: int, nan_hands: bool = False,
