@@ -140,7 +140,21 @@ Phases, each of which raises on failure (the exit code is then not 0):
    heads): one step against the plain versions, 3 steps with the launch
    counts, nine unfused requests and ``BatchedEngine``, the fused modes
    refused.
-11. One JSON line listing every ported kernel, then the card's name and
+11. QAT, ``remat``, data parallelism and the shard cache: the dropout,
+   attention and feed-forward kernels on rows [128, 256) of the flagship
+   batch with those rows' element offset, against their plain versions
+   and the whole batch's launch (bit for bit); ``baseline_config(4)`` with
+   ``qat=True`` (one step against the plain versions, 10 steps with the
+   launch counts, ms a step beside the plain step, the QAT eval step's
+   ids against ``InferenceEngine(fused="int8")`` on the nine requests)
+   and with ``remat=True`` (one step bit for bit against ``remat=False``,
+   ms a step and peak memory of both); the data-parallel step (f32) on a
+   1-rank NCCL mesh against the plain step, and on two gloo ranks of 128
+   rows sharing the card (``chip_smoke.py --dp-rank``) against the
+   single-process batch-256 step, the replicas bit for bit; a ``Trainer``
+   epoch on ``ShardedASLFR`` shards of the hard corpus.
+12. One JSON line listing every ported kernel (``offset``: whether it
+   takes a data-parallel rank's element offset), then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with a non-zero code, printing no result, when no CUDA device is
@@ -1847,12 +1861,16 @@ def plain_versions():
     from ishara_tpu_torch.ops import ffn_kernel as fk
 
     swaps = [
-        (dr, "_launch", lambda x, res, seed, rate:
-            dr.dropout_plain(x, seed, rate, res)),
-        (at, "_launch_fwd", at.mhsa_forward_plain),
-        (at, "_launch_bwd", at.mhsa_backward_plain),
-        (fk, "_launch_fwd", fk.ffn_forward_plain),
-        (fk, "_launch_bwd", fk.ffn_backward_plain),
+        (dr, "_launch", lambda x, res, seed, rate, offset=0:
+            dr.dropout_plain(x, seed, rate, res, offset)),
+        (at, "_launch_fwd", lambda *a, offset=0:
+            at.mhsa_forward_plain(*a, offset=offset)),
+        (at, "_launch_bwd", lambda *a, offset=0:
+            at.mhsa_backward_plain(*a, offset=offset)),
+        (fk, "_launch_fwd", lambda *a, row_offset=0:
+            fk.ffn_forward_plain(*a, row_offset=row_offset)),
+        (fk, "_launch_bwd", lambda *a, row_offset=0:
+            fk.ffn_backward_plain(*a, row_offset=row_offset)),
         (ck, "_launch_alpha", lambda logits, labels, blank_id, want_alpha:
             ck.ctc_forward_plain(logits, labels, blank_id)),
         (ck, "_launch_beta", lambda logits, labels, alpha, nll, dy, blank_id:
@@ -4044,6 +4062,530 @@ def families_phase(smi, reqs, steps: int = 3):
 
 
 
+# ---------------------------------------------------------------------------
+# QAT, remat, data parallelism and the shard cache
+# ---------------------------------------------------------------------------
+
+HALF = TB // 2     # a rank's rows of the flagship batch at two ranks
+
+
+def offset_kernel_checks(smi):
+    """K2, K3 and K4 on a rank's half of the flagship batch (rows [128,
+    256)) with the element offset of those rows: each kernel against its
+    plain version with the same offset, and against the rows [128, 256)
+    of the whole batch's launch (forward and the input gradients, bit for
+    bit: every row's arithmetic is the same)."""
+    import torch
+
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import dropout as dr
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    seed = torch.tensor([77], dtype=torch.int32, device=DEVICE)
+    bf = torch.bfloat16
+    rows = slice(HALF, TB)
+
+    def grads(fn, inputs, dy):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, dy)
+
+    # K2
+    x, res, dy = (torch.randn(TB, TT, TD, generator=g, device=DEVICE).to(bf)
+                  for _ in range(3))
+    off = HALF * TT * TD
+    for form in ("fast_dropout", "fast_dropout_add"):
+        add = form == "fast_dropout_add"
+        w = getattr(dr, form)
+
+        def call(*t, o=0, w=w, add=add):
+            return w(t[0], t[1], seed, 0.4, o) if add else w(t[0], seed, 0.4,
+                                                            o)
+        ins = (res, x) if add else (x,)
+        full, fg = grads(call, ins, dy)
+        part, pg = grads(lambda *t: call(*t, o=off),
+                         [t[rows] for t in ins], dy[rows])
+        plain = dr.dropout_plain(x[rows], seed, 0.4,
+                                 res[rows] if add else None, off)
+        ok = (torch.equal(part, full[rows]) and torch.equal(part, plain)
+              and all(torch.equal(a, b[rows]) for a, b in zip(pg, fg)))
+        log(f"offset {form} [bf16 {HALF}x{TT}x{TD}] rows [{HALF}, {TB}) at "
+            f"offset {off}: equal to the whole batch's launch and to the "
+            f"plain version (forward, dx) bit for bit "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{form} with an offset differs")
+    # K3
+    q, k, v, d_o = (torch.randn(TB, TH, TT, TD // TH, generator=g,
+                                device=DEVICE).to(bf) for _ in range(4))
+    mask = torch.ones(TB, TT, dtype=torch.bool, device=DEVICE)
+    mask[::3, TT - 40:] = False
+    bias = at.mask_to_bias(mask)
+    scale = TD ** -0.5
+    off = HALF * TH * TT * TT
+
+    def attn(q, k, v, o=0, b=bias):
+        return at.flash_mhsa(q, k, v, b, seed, scale, 0.4, offset=o)
+
+    full, fg = grads(attn, (q, k, v), d_o)
+    part, pg = grads(lambda *t: attn(*t, o=off, b=bias[rows]),
+                     [t[rows] for t in (q, k, v)], d_o[rows])
+    po, plse = at.mhsa_forward_plain(q[rows], k[rows], v[rows], bias[rows],
+                                     seed, scale, 0.4, offset=off)
+    pgr = at.mhsa_backward_plain(q[rows], k[rows], v[rows], bias[rows], seed,
+                                 po, plse, d_o[rows], scale, 0.4, offset=off)
+    same = torch.equal(part, full[rows]) \
+        and all(torch.equal(a, b[rows]) for a, b in zip(pg, fg))
+    err = max([close("flash_mhsa offset", part, po, TRAIN_TOL["bf16"])]
+              + [close("flash_mhsa offset grad", a, b, TRAIN_TOL["bf16"])
+                 for a, b in zip(pg, pgr)])
+    log(f"offset flash_mhsa [bf16 {HALF}x{TH}x{TT}x{TD // TH}] at offset "
+        f"{off}: equal to the whole batch's launch bit for bit {same}; "
+        f"against the plain version with the offset max_abs_err {err:.3e} "
+        f"{'PASS' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("flash_mhsa with an offset differs from the "
+                             "whole batch's rows")
+    # K4
+    seeds = torch.tensor([5, 6], dtype=torch.int32, device=DEVICE)
+    w1 = torch.randn(TD, TM, generator=g, device=DEVICE) * TD ** -0.5
+    w2 = torch.randn(TM, TD, generator=g, device=DEVICE) * TM ** -0.5
+    b1 = torch.randn(TM, generator=g, device=DEVICE) * 0.1
+    b2 = torch.randn(TD, generator=g, device=DEVICE) * 0.1
+    roff = HALF * TT
+
+    def ffn(x, res, r=0):
+        return fk.ffn_residual(x, res, w1, b1, w2, b2, seeds, 0.4, 0.4, r)
+
+    full, fg = grads(ffn, (x, res), dy)
+    part, pg = grads(lambda *t: ffn(*t, r=roff), [x[rows], res[rows]],
+                     dy[rows])
+    n = HALF * TT
+    ref = fk.ffn_forward_plain(x[rows].reshape(n, TD),
+                               res[rows].reshape(n, TD), w1.to(bf), b1,
+                               w2.to(bf), b2, seeds, 0.4, 0.4,
+                               row_offset=roff)
+    rdx = fk.ffn_backward_plain(x[rows].reshape(n, TD),
+                                dy[rows].reshape(n, TD), w1.to(bf), b1,
+                                w2.to(bf), seeds, 0.4, 0.4,
+                                row_offset=roff)[0]
+    m1, m2 = fk.debug_masks(n, TM, TD, seeds, 0.4, 0.4, roff)
+    c1, c2 = fk.debug_masks(n, TM, TD, seeds.cpu(), 0.4, 0.4, roff)
+    same = (torch.equal(part, full[rows])
+            and all(torch.equal(a, b[rows]) for a, b in zip(pg, fg))
+            and torch.equal(m1.cpu(), c1) and torch.equal(m2.cpu(), c2))
+    err = max(close("ffn_residual offset", part.reshape(n, TD), ref,
+                    TRAIN_TOL["bf16"]),
+              close("ffn_residual offset dx", pg[0].reshape(n, TD), rdx,
+                    TRAIN_TOL["bf16"]))
+    log(f"offset ffn_residual [bf16 {n}x{TD}, hidden {TM}] at row offset "
+        f"{roff}: equal to the whole batch's launch (forward, dx, dres) bit "
+        f"for bit, masks equal to the CPU's Philox {same}; against the plain "
+        f"version with the offset max_abs_err {err:.3e} "
+        f"{'PASS' if same else 'FAIL'} on {smi}")
+    if not same:
+        raise AssertionError("ffn_residual with an offset differs")
+    del x, res, dy, q, k, v, d_o
+    torch.cuda.empty_cache()
+
+
+def median_step_ms(step, state, batch, runs=5):
+    """(state, median host-clock ms of ``runs`` steps, each ending in a
+    synchronize) after one warm-up step."""
+    import torch
+
+    state, _ = step(state, batch, seed=0)
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, statistics.median(times)
+
+
+def qat_phase(smi, steps: int = 10):
+    """``baseline_config(4)`` at batch 256, bf16, ``qat=True``: one step on
+    the kernels against the plain versions; ``steps`` steps with the launch
+    counts (the same as the plain step's); ms a step beside the non-QAT
+    step; then the QAT eval step's ids against an
+    ``InferenceEngine(fused="int8")`` on the same weights on nine requests
+    (the int8 stacks launched). Returns the launches."""
+    import torch
+
+    from ishara_tpu_torch.config import TrainConfig, baseline_config
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.ops import fused_block as fb
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats, thin_frames
+    from ishara_tpu_torch.serve import InferenceEngine
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_eval_step,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = baseline_config(4).model
+    tcfg = TrainConfig()
+    torch.manual_seed(4)
+    state0 = TrainState.create(build_model(cfg, device=DEVICE),
+                               make_optimizer(tcfg)[0], device=DEVICE)
+    batch = train_batch()
+    stats = GroupStats.identity()
+    kw = dict(aug_prob=tcfg.aug_prob, blank_id=cfg.blank_id)
+    qstep = make_fused_ctc_train_step(stats, cfg.frame_len, qat=True, **kw)
+    pstep = make_fused_ctc_train_step(stats, cfg.frame_len, **kw)
+    step_against_plain("qat", qstep, state0, batch)
+    state, losses, launches = run_counted(qstep, state0.clone(), batch, steps)
+    for (name, direction), n in launches.items():
+        if n != steps * STEP_LAUNCHES.get(name, 0):
+            raise AssertionError(f"qat: {name}.{direction} = {n} over "
+                                 f"{steps} steps")
+    log(f"qat: {steps} steps, loss " + " ".join(f"{v:.3f}" for v in losses)
+        + f"; launches {launches} (the plain step's a step) PASS")
+    state, q_ms = median_step_ms(qstep, state, batch)
+    _, p_ms = median_step_ms(pstep, state.clone(), batch)
+    log(f"qat: {q_ms:.2f} ms a QAT step against {p_ms:.2f} ms a plain step "
+        f"(median of 5 each, host clock, this run) on {smi}")
+
+    # the QAT eval step on the trained weights against the int8 engine on
+    # the same ones: an f32 copy of the model, so the two differ only in
+    # the int8 kernels' arithmetic. The engine thins each request's frames
+    # on the card; the eval batch takes the same frames already thinned.
+    f32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                      device=DEVICE)
+    f32.load_state_dict(state.model.state_dict())
+    estate = TrainState.create(f32, state.tx, device=DEVICE)
+    eng = InferenceEngine(f32, fused="int8", device=DEVICE)
+    reqs = requests(seed=0)
+    raw = torch.zeros((len(reqs), eng.max_raw_frames, 276), device=DEVICE)
+    lengths = torch.zeros(len(reqs), dtype=torch.int32, device=DEVICE)
+    for i, (_, r) in enumerate(reqs):
+        n = min(r.shape[0], eng.max_raw_frames)
+        buf = torch.zeros((eng.max_raw_frames, 276), device=DEVICE)
+        buf[:n] = torch.from_numpy(r[:n]).to(DEVICE)
+        raw[i], lengths[i] = thin_frames(buf, torch.tensor(max(n, 1),
+                                                           device=DEVICE))
+    ev = make_fused_ctc_eval_step(stats, cfg.frame_len, cfg.blank_id,
+                                  dominant_hand=cfg.dominant_hand,
+                                  qat=True)(estate, {
+        "raw": raw, "lengths": torch.clamp(lengths, min=1),
+        "labels": torch.full((len(reqs), 8), 59, dtype=torch.int32,
+                             device=DEVICE)})
+    stacks = (fb.fused_squeezeformer_stack, fb.fused_conformer_stack)
+    for w in stacks:
+        w.launches = 0
+    served = [eng(r) for _, r in reqs]
+    torch.cuda.synchronize()
+    stack_launches = {w.__name__: w.launches for w in stacks}
+    same = 0
+    for i, ((label, r), (ids, count)) in enumerate(zip(reqs, served)):
+        want, wn = with_fallback(ev["ids"][i].cpu().numpy(),
+                                 int(ev["counts"][i]), eng.max_out)
+        ok = wn == count and np.array_equal(np.asarray(ids)[:count],
+                                            want[:wn])
+        same += ok
+        log(f"  qat eval vs int8 engine {label:14s}: count {count} / {wn} "
+            f"{'same ids' if ok else 'DIFFERENT ids'}")
+    ok = same == len(reqs) and all(v > 0 for v in stack_launches.values())
+    log(f"qat: the QAT eval step's ids equal InferenceEngine(fused='int8')'s "
+        f"on {same}/{len(reqs)} requests; int8 stack launches "
+        f"{stack_launches} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the QAT eval step disagrees with the int8 "
+                             "engine")
+    del state, state0, estate, eng, f32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_phase(smi):
+    """The same model with ``remat=True`` against ``remat=False`` from one
+    state: one step bit for bit (loss, gradient norm, parameters, batch
+    statistics), then ms a step and the peak of allocated memory of each."""
+    import torch
+
+    from ishara_tpu_torch.config import TrainConfig, baseline_config
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = baseline_config(4).model
+    torch.manual_seed(4)
+    tx = make_optimizer(TrainConfig())[0]
+    batch = train_batch()
+    step = make_fused_ctc_train_step(GroupStats.identity(), cfg.frame_len,
+                                     aug_prob=0.2, blank_id=cfg.blank_id)
+    states, out = {}, {}
+    base = build_model(cfg, device=DEVICE)
+    for remat in (False, True):
+        model = build_model(dataclasses.replace(cfg, remat=remat),
+                            device=DEVICE)
+        model.load_state_dict(base.state_dict())
+        states[remat] = TrainState.create(model, tx, device=DEVICE)
+    for remat, s in states.items():
+        s, m = step(s.clone(), batch, seed=0)
+        torch.cuda.synchronize()
+        out[remat] = (s, m)
+    (a, ma), (b, mb) = out[False], out[True]
+    same = (torch.equal(ma["loss"], mb["loss"])
+            and torch.equal(ma["grad_norm"], mb["grad_norm"])
+            and torch.equal(a.params, b.params)
+            and all(torch.equal(x, y) for x, y in
+                    zip(a.batch_stats.values(), b.batch_stats.values())))
+    log(f"remat: one step with remat=True against remat=False: loss "
+        f"{float(mb['loss']):.6f} / {float(ma['loss']):.6f}, grad norm "
+        f"{float(mb['grad_norm']):.6f} / {float(ma['grad_norm']):.6f}, "
+        f"parameters and batch statistics bit for bit {same} "
+        f"{'PASS' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("remat=True changed the step")
+    del out, a, b
+    for remat, s in states.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, ms = median_step_ms(step, s, batch, runs=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"remat={remat}: {ms:.2f} ms a step (median of 3, host clock), "
+            f"peak allocated {peak:.2f} GiB on {smi}")
+    del states
+    torch.cuda.empty_cache()
+
+
+DP_TOL = {"loss": 1e-5, "param": 1e-5}
+
+
+def dp_state_and_step(mesh=None):
+    """``baseline_config(4)`` at float32 (the tolerances of the sharded
+    step against the whole batch's are those of two f32 sums in another
+    order), dropout 0.4, the recipe's optimizer; its fused step."""
+    import torch
+
+    from ishara_tpu_torch.config import TrainConfig, baseline_config
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = dataclasses.replace(baseline_config(4).model, dtype="float32")
+    torch.manual_seed(4)
+    state = TrainState.create(build_model(cfg, device=DEVICE),
+                              make_optimizer(TrainConfig())[0],
+                              device=DEVICE)
+    step = make_fused_ctc_train_step(GroupStats.identity(), cfg.frame_len,
+                                     aug_prob=0.2, blank_id=cfg.blank_id,
+                                     mesh=mesh)
+    return state, step
+
+
+def dp_rank_main(rank: int, port: int, out: str) -> int:
+    """One of two gloo ranks on the one card (NCCL takes one rank a
+    device): rows [128 rank, 128 rank + 128) of the flagship batch, one
+    step on the offset kernels; saves the step's results to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from ishara_tpu_torch.parallel import make_mesh
+
+    # as main() sets them: the reference step is taken at full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        mesh = make_mesh()
+        state, step = dp_state_and_step(mesh)
+        batch = {k: v[HALF * rank:HALF * (rank + 1)]
+                 for k, v in train_batch().items()}
+        counters = train_counters()
+        for w in counters.values():
+            w.launches = w.launches_bwd = 0
+        state, m = step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        result = {"loss": m["loss"].cpu(), "grad_norm": m["grad_norm"].cpu(),
+                  "params": state.params.cpu(),
+                  "stats": [b.cpu() for b in state.batch_stats.values()],
+                  "launches": {n: (w.launches, w.launches_bwd)
+                               for n, w in counters.items()}}
+        # ms a step: both ranks step together (the gradient's all-reduce
+        # joins them), sharing the card
+        _, result["ms"] = median_step_ms(step, state, batch, runs=3)
+        torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_compare(label, got, ref_m, ref_state):
+    """The sharded step's loss and parameters against the unsharded
+    step's, at DP_TOL."""
+    d_loss = abs(float(got["loss"]) - float(ref_m["loss"])) \
+        / abs(float(ref_m["loss"]))
+    d_par = float((got["params"].to(DEVICE) - ref_state.params).abs().max())
+    d_bn = max(float((a.to(DEVICE) - b).abs().max()) for a, b in
+               zip(got["stats"], ref_state.batch_stats.values()))
+    ok = d_loss <= DP_TOL["loss"] and d_par <= DP_TOL["param"]
+    log(f"{label}: against the single-process batch-{TB} step: loss "
+        f"{float(got['loss']):.6f} vs {float(ref_m['loss']):.6f} (rel "
+        f"{d_loss:.2e}, tol {DP_TOL['loss']}), grad norm "
+        f"{float(got['grad_norm']):.6f} vs {float(ref_m['grad_norm']):.6f}, "
+        f"parameters max |diff| {d_par:.2e} (tol {DP_TOL['param']}), batch "
+        f"statistics {d_bn:.2e} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the sharded step is not the "
+                             f"unsharded step")
+
+
+def dp_phase(smi, scratch: Path):
+    """Data parallelism on the one card: a 1-rank NCCL group (the mesh step
+    against the plain step, launch counts), then two spawned gloo ranks of
+    128 rows each with the offset kernels, held against the single-process
+    batch-256 step, the two replicas bit for bit. Returns the 1-rank
+    launches."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from ishara_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    batch = train_batch()
+    ref0, step = dp_state_and_step()
+    ref, ref_m = step(ref0.clone(), batch, seed=0)
+    torch.cuda.synchronize()
+
+    port = free_port()
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0)     # NCCL
+    try:
+        mesh = make_mesh()
+        state, mstep = dp_state_and_step(mesh)
+        s1, m1 = mstep(state.clone(), batch, seed=0)
+        torch.cuda.synchronize()
+        dp_compare("data parallel, 1-rank NCCL mesh", {
+            "loss": m1["loss"], "grad_norm": m1["grad_norm"],
+            "params": s1.params, "stats": list(s1.batch_stats.values())},
+            ref_m, ref)
+        _, mesh_ms = median_step_ms(mstep, state.clone(), batch, runs=3)
+        _, plain_ms = median_step_ms(step, ref0.clone(), batch, runs=3)
+        log(f"data parallel, 1-rank NCCL mesh: {mesh_ms:.2f} ms a step "
+            f"against {plain_ms:.2f} ms for the step without a mesh (f32, "
+            f"median of 3 each, host clock) on {smi}")
+        _, losses, launches = run_counted(mstep, state.clone(), batch, 3)
+        for (name, direction), n in launches.items():
+            if n != 3 * STEP_LAUNCHES.get(name, 0):
+                raise AssertionError(f"dp: {name}.{direction} = {n}")
+        log(f"data parallel, 1-rank NCCL mesh: 3 steps, loss "
+            + " ".join(f"{v:.3f}" for v in losses)
+            + f"; launches {launches} PASS")
+    finally:
+        dist.destroy_process_group()
+
+    scratch.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(r),
+         str(port), str(scratch / f"rank{r}.pt")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode()[-3000:])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"a data-parallel rank failed:\n{text}")
+    wall = time.perf_counter() - t0
+    got = [torch.load(scratch / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    same = (torch.equal(got[0]["params"], got[1]["params"])
+            and torch.equal(got[0]["loss"], got[1]["loss"])
+            and all(torch.equal(a, b) for a, b in
+                    zip(got[0]["stats"], got[1]["stats"])))
+    log(f"data parallel, 2 gloo ranks on one card ({HALF} rows each, "
+        f"{wall:.1f} s for both processes from start to exit): replicas "
+        f"bit for bit {same}; rank launches {got[0]['launches']}; "
+        f"{got[0]['ms']:.2f} / {got[1]['ms']:.2f} ms a step on rank 0 / 1 "
+        f"(f32, median of 3, host clock) on {smi}")
+    if not same:
+        raise AssertionError("the two replicas differ")
+    for r in range(2):
+        for name, per in STEP_LAUNCHES.items():
+            if tuple(got[r]["launches"][name]) != (per, per):
+                raise AssertionError(f"rank {r}: {name} launched "
+                                     f"{got[r]['launches'][name]}")
+    dp_compare("data parallel, 2 gloo ranks", got[0], ref_m, ref)
+    del ref, ref0, s1, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_trainer_phase(smi, workdir: Path):
+    """``write_shards`` of 512 hard-corpus sequences (the training set) and
+    256 (validation), read back by ``ShardedASLFR`` and fed to a ``Trainer``
+    (preset 4, batch 256, length buckets from ``sequence_lengths``) for one
+    epoch with its validation."""
+    import shutil
+
+    from ishara_tpu_torch.data.cache import ShardedASLFR, write_shards
+    from ishara_tpu_torch.data.sampler import dataset_lengths
+    from ishara_tpu_torch.data.synthetic import HardSyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.train import Trainer
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    src = HardSyntheticASLFR(num_sequences=2 * TB, seed=0, **HARD)
+    train = ShardedASLFR(write_shards(src, workdir / "train",
+                                      shard_size=TB, num_workers=4))
+    val = ShardedASLFR(write_shards(
+        HardSyntheticASLFR(num_sequences=TB, seed=1, **HARD),
+        workdir / "val", shard_size=TB))
+    write_s = time.perf_counter() - t0
+    x, p = train.render(TB + 3)
+    want = src.render(TB + 3)
+    if p != want[1] or not np.array_equal(np.nan_to_num(x, nan=-7),
+                                          np.nan_to_num(want[0], nan=-7)):
+        raise AssertionError("ShardedASLFR does not render the corpus")
+    cfg = trainer_config()
+    cfg.train.num_epochs = 1
+    lengths = dataset_lengths(train)
+    if list(lengths) != [src.render(i)[0].shape[0] for i in range(len(src))]:
+        raise AssertionError("sequence_lengths differs from the corpus")
+    t = Trainer(cfg, train, val, CTCTokenizer(), workdir=workdir / "run")
+    t0 = time.perf_counter()
+    hist = t.train()
+    wall = time.perf_counter() - t0
+    rec = hist[-1]
+    ok = (math.isfinite(rec["train_loss"]) and "val_score" in rec
+          and int(t.state.step) >= 1)
+    log(f"ShardedASLFR: {len(train)} + {len(val)} sequences written in "
+        f"{write_s:.1f} s, {len(lengths)} lengths read from the shards "
+        f"(dataset_lengths) equal the corpus's; Trainer 1 epoch "
+        f"({int(t.state.step)} steps) in {wall:.1f} s: train "
+        f"loss {rec['train_loss']:.3f}, val_score {rec['val_score']:.4f} "
+        f"{'PASS' if ok else 'FAIL'} on {smi}")
+    if not ok:
+        raise AssertionError("the Trainer on ShardedASLFR failed")
+
+
 def main() -> int:
     import torch
 
@@ -4167,6 +4709,27 @@ def main() -> int:
     causal_step_against_cpu_phase(smi)
     streaming_phase(smi)
     families_phase(smi, requests(seed=0))
+    torch.cuda.empty_cache()
+    offset_kernel_checks(smi)
+    qat_launches = qat_phase(smi)
+    remat_phase(smi)
+    import shutil
+    scratch = here / "runs" / "chip_smoke_dp"        # ignored by git
+    try:
+        dp_launches = dp_phase(smi, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    workdir = here / "runs" / "chip_smoke_shards"
+    try:
+        sharded_trainer_phase(smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for counts in (qat_launches, dp_launches):
+        for name in ("ctc_loss_kernel", "fast_dropout", "fast_dropout_add",
+                     "flash_mhsa", "ffn_residual", "conv_module_residual"):
+            if counts[(name, "launches")] <= 0:
+                raise AssertionError(f"{name} was not launched by the QAT "
+                                     f"or the data-parallel step")
 
     # every ported kernel form that an engine path runs, with the launches
     # of that path's nine-request run
@@ -4240,6 +4803,10 @@ def main() -> int:
         row["config"] = ("preset4 causal training step (attn_context 176), "
                          "batch 256")
         line.append(row)
+    # which kernels take an element offset (a data-parallel rank's rows)
+    for row in line:
+        row["offset"] = row["name"].split("[")[0] in (
+            "fast_dropout", "fast_dropout_add", "flash_mhsa", "ffn_residual")
     log(json.dumps({"kernels": line}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
@@ -4249,4 +4816,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
     sys.exit(main())

@@ -23,9 +23,13 @@ beam, the whole decode loop as one kernel launch,
 package's format, both ways, ``load_engine`` and the ``torch.export``
 serving program (:mod:`ishara_tpu_torch.serve.export`); Keras / TFLite
 weight import and the real-time clients; chunked streaming of a causal
-model (:mod:`ishara_tpu_torch.serve.streaming`). Every training kernel has
-its CUDA counterpart too. See ``ROADMAP.md`` for the rest (QAT, remat,
-distribution).
+model (:mod:`ishara_tpu_torch.serve.streaming`); quantization-aware
+training (:mod:`ishara_tpu_torch.train.qat`), ``remat``, and data-parallel
+training over a device mesh (:mod:`ishara_tpu_torch.parallel`); the parquet
+corpus reader and the shard cache (:mod:`ishara_tpu_torch.data.dataset`,
+:mod:`ishara_tpu_torch.data.cache`). Every training kernel has its CUDA
+counterpart too. See ``ROADMAP.md`` for the rest (tensor parallelism, the
+native Levenshtein, the CLI).
 
 Entry points take a ``device``; without one they run on ``cuda`` and raise
 when no card is visible (:func:`resolve_device`) -- they never fall back to

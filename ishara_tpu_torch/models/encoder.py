@@ -8,8 +8,11 @@ reference's parameterized constructor."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import EncoderConfig
 from ..device import resolve_device
@@ -28,6 +31,7 @@ from .layers import (
     Dense,
     FastDropout,
     compute_dtype,
+    frozen_running_stats,
     number_dropout_sites,
     positional_encoding,
 )
@@ -49,10 +53,6 @@ def check_variant(cfg: EncoderConfig) -> None:
             f"causal/streaming mode supports the attention-block families, "
             f"not {cfg.variant!r} (the conv families' ECA gate is "
             f"whole-sequence)")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True (recomputing block activations in the backward pass) "
-            "is not ported yet (ROADMAP.md Queue 1: QAT and remat)")
     compute_dtype(cfg.dtype)
 
 
@@ -97,6 +97,14 @@ class IsharaEncoder(nn.Module):
     statistics in every BatchNorm (whose running statistics move in place),
     dropout at ``cfg.dropout`` / ``cfg.top_dropout`` with the masks of the
     step's dropout ``seed``.
+
+    With ``cfg.remat`` each Squeezeformer, Conformer and Transformer block
+    of a training forward runs under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward pass
+    instead of stored, as the reference's ``nn.remat`` does (the conv
+    groups, the stem and the head are not wrapped). The recomputation draws
+    the same dropout masks -- a function of (seed, site, position) -- and
+    leaves the BatchNorm running statistics where the forward put them.
 
     ``parallel_branches`` runs the Conformer blocks and the Squeezeformer
     blocks side by side from the stem's output and joins them as
@@ -172,9 +180,9 @@ class IsharaEncoder(nn.Module):
         if self.merge is not None:
             a = b = x
             for blk in self.conformer:
-                a = blk(a, mask, training, seed)
+                a = self._block(blk, a, mask, training, seed)
             for blk in self.squeezeformer:
-                b = blk(b, mask, training, seed)
+                b = self._block(blk, b, mask, training, seed)
             x = self.merge(torch.cat([a, b], dim=-1))
             return self._head(x, training, seed)
         for convs, blocks in ((self.conv_squeeze, self.squeezeformer),
@@ -183,12 +191,26 @@ class IsharaEncoder(nn.Module):
             for i, blk in enumerate(blocks):
                 for conv in (convs[i] if len(convs) else ()):
                     x = conv(x, mask, training, seed)
-                x = blk(x, mask, training, seed)
+                x = self._block(blk, x, mask, training, seed)
         return self._head(x, training, seed)
+
+    def _block(self, blk, x, mask, training, seed):
+        if self.cfg.remat and training and torch.is_grad_enabled():
+            return checkpoint(blk, x, mask, training, seed,
+                              use_reentrant=False,
+                              context_fn=_remat_contexts)
+        return blk(x, mask, training, seed)
 
     def _head(self, x, training, seed):
         x = self.top_drop(torch.relu(self.top_conv(x)), training, seed)
         return self.classifier(x).to(torch.float32)
+
+
+def _remat_contexts():
+    """The contexts of a ``remat`` block's forward and of its
+    recomputation: the recomputation does not move BatchNorm's running
+    statistics a second time."""
+    return contextlib.nullcontext(), frozen_running_stats()
 
 
 class _SpeechUNetAdapter(nn.Module):

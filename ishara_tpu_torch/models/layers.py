@@ -25,9 +25,23 @@ seeds from the step's seed once a step
 ``seed`` argument of every layer and block below it; nothing draws
 from a stateful generator, so the same (seed, step) gives the same masks
 whatever path was taken before.
+
+**Data parallelism.** Inside :func:`ishara_tpu_torch.parallel.shard.
+batch_shard` a process holds rows ``[row0, row0 + local)`` of a global
+batch: :class:`BatchNorm` takes its statistics over the global batch,
+every dropout site offsets its mask to its rows' flat positions in the
+global tensor, and the kernel selection is keyed on the global batch -- so
+the step computes what the unsharded step computes on all rows.
+
+**Recomputation.** A ``remat`` block's forward runs again in the backward
+pass; within :func:`frozen_running_stats` (the recomputation's context)
+:class:`BatchNorm` leaves its running statistics where the first forward
+put them, as flax's ``nn.remat`` applies the update once.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -38,6 +52,12 @@ from ..config import BN_EPS, LN_EPS, LN_EPS_DEFAULT
 from ..ops import attention, attention_blocked, conv_kernel, selection
 from ..ops.dropout import fast_dropout, fast_dropout_add, keep_mask, site_seeds
 from ..ops.ffn_kernel import ffn_residual
+from ..parallel.shard import (
+    current_shard,
+    element_offset,
+    global_batch,
+    sum_over_shards,
+)
 
 # flax BatchNorm momentum: the decay of the running statistics.
 BN_MOMENTUM = 0.95
@@ -51,6 +71,22 @@ def on_card(x: torch.Tensor) -> bool:
     device. Every layer below asks here, so a test can take the kernel
     paths on the CPU, where each wrapper runs its plain version."""
     return x.is_cuda
+
+
+_frozen_stats = False
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Within the block, training-mode :class:`BatchNorm` layers normalise
+    with the batch's statistics but do not move their running ones (a
+    module global: the recomputation may run on an autograd thread)."""
+    global _frozen_stats
+    saved, _frozen_stats = _frozen_stats, True
+    try:
+        yield
+    finally:
+        _frozen_stats = saved
 
 
 def compute_dtype(name) -> torch.dtype:
@@ -156,7 +192,13 @@ class BatchNorm(nn.Module):
     variance (``torch.nn.BatchNorm1d`` uses the unbiased one and the other
     momentum convention), in place. Eval: the running statistics. Either
     way the arithmetic is float32 and the result is rounded once to
-    ``dtype``. The ``state_dict`` keys are ``nn.BatchNorm1d``'s."""
+    ``dtype``. The ``state_dict`` keys are ``nn.BatchNorm1d``'s.
+
+    Inside a batch shard (:mod:`ishara_tpu_torch.parallel.shard`) the
+    statistics are the global batch's: the f32 sums of ``x`` and ``x^2``
+    over this process's rows, summed over every process by a differentiable
+    all-reduce, over the global count (not ``nn.SyncBatchNorm``, whose
+    running variance is the unbiased one)."""
 
     def __init__(self, channels: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM,
@@ -174,12 +216,24 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.float32)
         if training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            sh = current_shard()
+            if sh.groups:
+                c = x.shape[-1]
+                sums = sum_over_shards(torch.cat(
+                    [xf.sum(dim=axes), (xf * xf).sum(dim=axes)]))
+                # the count over the global batch: rows / local times ours
+                n = (xf.numel() // c) * sh.rows // sh.local
+                mean = sums[:c] / n
+                var = torch.clamp(sums[c:] / n - mean * mean, min=0.0)
+            else:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
+                                  min=0.0)
+            if not _frozen_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                    self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
@@ -222,7 +276,7 @@ class FastDropout(nn.Module):
         if not training or self.rate <= 0.0:
             return x
         return fast_dropout(x, site_seeds(_need_seed(seed), 1, self.site),
-                            self.rate)
+                            self.rate, element_offset(x))
 
 
 class FastDropoutAdd(nn.Module):
@@ -236,7 +290,8 @@ class FastDropoutAdd(nn.Module):
         if not training or self.rate <= 0.0:
             return res + h
         return fast_dropout_add(
-            res, h, site_seeds(_need_seed(seed), 1, self.site), self.rate)
+            res, h, site_seeds(_need_seed(seed), 1, self.site), self.rate,
+            element_offset(h))
 
 
 class RowDropout(nn.Module):
@@ -251,7 +306,8 @@ class RowDropout(nn.Module):
         if not training or self.rate <= 0.0:
             return x
         keep = keep_mask(site_seeds(_need_seed(seed), 1, self.site),
-                         (x.shape[0],), self.rate)
+                         (x.shape[0],), self.rate,
+                         element_offset(x) // x[0].numel())
         scale = keep.to(x.dtype) / (1.0 - self.rate)
         return x * scale.reshape((-1,) + (1,) * (x.dim() - 1))
 
@@ -370,7 +426,8 @@ class MultiHeadSelfAttention(nn.Module):
         if self.causal:
             path, flash = "einsum", False
         else:
-            path = selection.train_attention(self.dim, T, rate > 0.0, B) \
+            path = selection.train_attention(self.dim, T, rate > 0.0,
+                                             global_batch(x)) \
                 if training and on_card(x) else "einsum"
             flash = self.use_flash or (path == "flash"
                                        and T <= attention.MAX_T)
@@ -380,13 +437,15 @@ class MultiHeadSelfAttention(nn.Module):
         elif flash:
             out = attention.flash_mhsa(q, k, v,
                                        self._bias(mask, B, T, x.device), s,
-                                       scale=scale, dropout_rate=rate)
+                                       scale=scale, dropout_rate=rate,
+                                       offset=element_offset(q) // Dh * T)
         else:
             attn = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
             keep = self._allowed(mask, T, x.device)
             if keep is not None:
                 attn = attn.masked_fill(~keep, torch.finfo(attn.dtype).min)
-            attn = fast_dropout(attn.softmax(dim=-1), s, rate)
+            attn = attn.softmax(dim=-1)
+            attn = fast_dropout(attn, s, rate, element_offset(attn))
             out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         return self.proj(out.transpose(1, 2).reshape(B, T, self.dim))
 
@@ -441,12 +500,17 @@ class FusedFFN(nn.Module):
             return res + self.fc2(F.silu(self.fc1(x)))
         seeds = site_seeds(_need_seed(seed), 2, self.site)
         if on_card(x) and selection.ffn_fused_when_dropout(
-                self.dim, x.shape[1], x.shape[0]):
+                self.dim, x.shape[1], global_batch(x)):
+            # the kernel's row offset: in rows of x's [N, dim] flattening
+            rows = element_offset(x) // self.dim
             return ffn_residual(x, res, self.fc1.weight.t(), self.fc1.bias,
                                 self.fc2.weight.t(), self.fc2.bias, seeds,
-                                self.dropout, self.res_rate)
-        h = fast_dropout(F.silu(self.fc1(x)), seeds[0:1], self.dropout)
-        return fast_dropout_add(res, self.fc2(h), seeds[1:2], self.res_rate)
+                                self.dropout, self.res_rate, rows)
+        h = F.silu(self.fc1(x))
+        h = fast_dropout(h, seeds[0:1], self.dropout, element_offset(h))
+        y = self.fc2(h)
+        return fast_dropout_add(res, y, seeds[1:2], self.res_rate,
+                                element_offset(y))
 
 
 class SqueezeformerConvModule(nn.Module):
@@ -492,7 +556,8 @@ class SqueezeformerConvModule(nn.Module):
 
     def forward(self, x, mask=None, training: bool = False):
         if training and on_card(x) and not self.causal_se and (
-                selection.conv_module_fused(self.dim, x.shape[1], x.shape[0])
+                selection.conv_module_fused(self.dim, x.shape[1],
+                                            global_batch(x))
                 if self.fused is None else self.fused):
             return conv_kernel.conv_module_residual(
                 x, *self.kernel_args(x, mask))

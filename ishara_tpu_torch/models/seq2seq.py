@@ -444,13 +444,19 @@ class ASLTranslationModel(nn.Module):
 def translation_loss(logits: torch.Tensor, targets: torch.Tensor,
                      confidence: torch.Tensor,
                      confidence_target: torch.Tensor, pad_idx: int = 0,
-                     conf_weight: float = 0.1) -> torch.Tensor:
+                     conf_weight: float = 0.1,
+                     ce_denominator: torch.Tensor | None = None
+                     ) -> torch.Tensor:
     """Cross-entropy over the non-pad targets plus ``conf_weight`` times the
-    mean squared error of the confidence."""
+    mean squared error of the confidence. The token sum is divided by
+    ``ce_denominator`` when given (a data-parallel step's share of the
+    global count), else by this batch's token count (at least 1)."""
     valid = (targets != pad_idx).to(torch.float32)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
-    ce = (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    if ce_denominator is None:
+        ce_denominator = torch.clamp(valid.sum(), min=1.0)
+    ce = (nll * valid).sum() / ce_denominator
     mse = ((confidence - confidence_target) ** 2).mean()
     return ce + conf_weight * mse
 

@@ -18,6 +18,8 @@ from ``q``'s dtype, one rounding on the way out.
 The dropout mask is the Philox function of :mod:`.dropout` under the site's
 ``seed``, with the flat index into ``[B, H, T, T]`` as the counter: every
 (batch, head, query, key) has its own word, and the backward regenerates it.
+``offset`` is added to every index: a process holding rows ``[r0, r1)`` of
+the batch passes ``r0 * H * T * T`` and draws the whole batch's mask there.
 Semantics match ``models.layers.MultiHeadSelfAttention``'s einsum path,
 including the reference's full-width ``dim**-0.5`` scaling, passed in as
 ``scale``.
@@ -52,32 +54,33 @@ def reference_mhsa(q, k, v, bias, scale):
                         v.to(torch.float32)).to(q.dtype)
 
 
-def _scaled_keep(seed, shape, rate, keep):
+def _scaled_keep(seed, shape, rate, keep, offset=0):
     if rate <= 0.0:
         return None
     if keep is None:
-        keep = keep_mask(seed, shape, rate)
+        keep = keep_mask(seed, shape, rate, offset)
     return keep.to(torch.float32).reshape(shape) * (1.0 / (1.0 - rate))
 
 
-def mhsa_forward_plain(q, k, v, bias, seed, scale, rate=0.0, keep=None):
+def mhsa_forward_plain(q, k, v, bias, seed, scale, rate=0.0, keep=None,
+                       offset=0):
     """Plain version of the forward kernel: (o in ``q``'s dtype, lse f32
     ``[B, H, T]``). ``keep`` (bool ``[B, H, T, T]``) overrides the Philox
-    mask of ``seed``."""
+    mask of ``seed`` (from flat index ``offset`` on)."""
     qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale \
         + bias[:, None, None, :]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    kp = _scaled_keep(seed, s.shape, rate, keep)
+    kp = _scaled_keep(seed, s.shape, rate, keep, offset)
     p_used = p if kp is None else p * kp
     o = torch.einsum("bhqk,bhkd->bhqd", p_used, vf) / l
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
 def mhsa_backward_plain(q, k, v, bias, seed, o, lse, d_o, scale, rate=0.0,
-                        keep=None):
+                        keep=None, offset=0):
     """Plain version of the backward kernel: (dq, dk, dv) in ``q``'s
     dtype."""
     qf, kf, vf, of, dof = (t.to(torch.float32) for t in (q, k, v, o, d_o))
@@ -85,7 +88,7 @@ def mhsa_backward_plain(q, k, v, bias, seed, o, lse, d_o, scale, rate=0.0,
         + bias[:, None, None, :]
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
-    kp = _scaled_keep(seed, s.shape, rate, keep)
+    kp = _scaled_keep(seed, s.shape, rate, keep, offset)
     if kp is not None:
         dv = torch.einsum("bhqk,bhqd->bhkd", p * kp, dof)
         dp = dp * kp
@@ -139,7 +142,7 @@ def _unit_last(t):
     return t if t.stride(3) == 1 else t.contiguous()
 
 
-def _launch_fwd(q, k, v, bias, seed, scale, rate):
+def _launch_fwd(q, k, v, bias, seed, scale, rate, offset=0):
     _check_cuda(q, k, v, bias, seed)
     B, H, T, Dh = q.shape
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
@@ -149,17 +152,18 @@ def _launch_fwd(q, k, v, bias, seed, scale, rate):
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     S3 = ctypes.POINTER(ctypes.c_longlong)
     fn = _build.function("attention", "ishara_attention_fwd", [
-        I, P, P, P, S3, S3, S3, P, P, P, P, I, I, I, I, F, U, F, I, P])
+        I, P, P, P, S3, S3, S3, P, P, P, P, I, I, I, I, F, U, F,
+        ctypes.c_ulonglong, I, P])
     rc = fn(_build.device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _strides3(q), _strides3(k), _strides3(v), bias.data_ptr(),
             seed.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, T, Dh,
-            scale, threshold_of(rate), 1.0 / (1.0 - rate),
+            scale, threshold_of(rate), 1.0 / (1.0 - rate), int(offset),
             _DTYPE_CODE[q.dtype], _build.stream_of(q))
     _build.check("attention", rc, "attention forward kernel")
     return o, lse
 
 
-def _launch_bwd(q, k, v, bias, seed, o, lse, d_o, scale, rate):
+def _launch_bwd(q, k, v, bias, seed, o, lse, d_o, scale, rate, offset=0):
     B, H, T, Dh = q.shape
     q, k, v, d_o = (_unit_last(t) for t in (q, k, v, d_o))
     d_o = d_o.to(q.dtype)
@@ -170,27 +174,30 @@ def _launch_bwd(q, k, v, bias, seed, o, lse, d_o, scale, rate):
     S3 = ctypes.POINTER(ctypes.c_longlong)
     fn = _build.function("attention", "ishara_attention_bwd", [
         I, P, P, P, P, S3, S3, S3, S3, P, P, P, P, P, P, P, P, I, I, I, I, F,
-        U, F, I, P])
+        U, F, ctypes.c_ulonglong, I, P])
     rc = fn(_build.device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             d_o.data_ptr(), _strides3(q), _strides3(k), _strides3(v),
             _strides3(d_o), bias.data_ptr(), seed.data_ptr(), o.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, T, Dh, scale, threshold_of(rate),
-            1.0 / (1.0 - rate), _DTYPE_CODE[q.dtype], _build.stream_of(q))
+            1.0 / (1.0 - rate), int(offset), _DTYPE_CODE[q.dtype],
+            _build.stream_of(q))
     _build.check("attention", rc, "attention backward kernel")
     return dq, dk, dv
 
 
 class _FlashMhsa(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, scale, rate):
+    def forward(ctx, q, k, v, bias, seed, scale, rate, offset):
         if q.device.type == "cpu":
-            o, lse = mhsa_forward_plain(q, k, v, bias, seed, scale, rate)
+            o, lse = mhsa_forward_plain(q, k, v, bias, seed, scale, rate,
+                                        offset=offset)
         else:
-            o, lse = _launch_fwd(q, k, v, bias, seed, scale, rate)
+            o, lse = _launch_fwd(q, k, v, bias, seed, scale, rate,
+                                 offset=offset)
             flash_mhsa.launches += 1
         ctx.save_for_backward(q, k, v, bias, seed, o, lse)
-        ctx.scale, ctx.rate = scale, rate
+        ctx.scale, ctx.rate, ctx.offset = scale, rate, offset
         return o
 
     @staticmethod
@@ -198,20 +205,23 @@ class _FlashMhsa(torch.autograd.Function):
         q, k, v, bias, seed, o, lse = ctx.saved_tensors
         if q.device.type == "cpu":
             grads = mhsa_backward_plain(q, k, v, bias, seed, o, lse, d_o,
-                                        ctx.scale, ctx.rate)
+                                        ctx.scale, ctx.rate,
+                                        offset=ctx.offset)
         else:
             grads = _launch_bwd(q, k, v, bias.contiguous(), seed, o, lse,
-                                d_o, ctx.scale, ctx.rate)
+                                d_o, ctx.scale, ctx.rate, offset=ctx.offset)
             flash_mhsa.launches_bwd += 1
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                bias: torch.Tensor, seed: torch.Tensor | None = None,
-               scale: float = 1.0, dropout_rate: float = 0.0):
+               scale: float = 1.0, dropout_rate: float = 0.0,
+               offset: int = 0):
     """``q``, ``k``, ``v``: ``[B, H, T, Dh]`` (f32 or bf16); ``bias``:
     ``[B, T]`` additive f32 key bias (0 or -1e30); ``seed``: int32 ``[1]``
-    driving the dropout of the attention weights when ``dropout_rate`` > 0.
+    driving the dropout of the attention weights when ``dropout_rate`` > 0,
+    whose mask starts at flat index ``offset``.
     Returns ``[B, H, T, Dh]``. Replaces
     ``ishara_tpu.ops.attention.flash_mhsa``."""
     if q.device.type not in ("cpu", "cuda"):
@@ -222,7 +232,7 @@ def flash_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if seed is None:
         seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
     return _FlashMhsa.apply(q, k, v, bias, seed, float(scale),
-                            float(dropout_rate))
+                            float(dropout_rate), int(offset))
 
 
 # launches of the forward and of the backward kernel

@@ -12,9 +12,10 @@
 // once to q's type; lse = max + log l. Backward: P = exp(s - lse),
 // dP = dO.V^T, dV = (P * keep')^T dO, delta = sum dO * O,
 // dS = P * (dP * keep' - delta), dQ = dS.K * scale, dK = dS^T.Q * scale.
-// keep' = keep / (1 - rate) is the Philox function of (seed, flat index into
-// [B, H, T, T]) of philox.cuh, so the backward regenerates the forward's
-// mask. A row whose keys are all masked averages V over its T keys; keys
+// keep' = keep / (1 - rate) is the Philox function of (seed, offset + flat
+// index into [B, H, T, T]) of philox.cuh, so the backward regenerates the
+// forward's mask; a process holding rows [r0, r1) of the batch passes offset
+// r0 H T T and draws the whole batch's mask there. A row whose keys are all masked averages V over its T keys; keys
 // beyond T are excluded (Tc = T).
 //
 // Bound: bytes. At B 256, H 8, T 176, Dh 32 in bf16 the forward moves
@@ -31,14 +32,15 @@ extern "C" {
 
 // o [B, H, T, Dh] and lse [B, H, T] from q, k, v (element strides over
 // b, h, t in qs, ks, vs; unit stride over Dh), bias [B, T] f32, one int32
-// seed on the device. dtype 0 = f32, 1 = bf16. threshold 0 means no dropout.
+// seed on the device, the mask's index offset. dtype 0 = f32, 1 = bf16.
+// threshold 0 means no dropout.
 int ishara_attention_fwd(int device, const void* q, const void* k,
                          const void* v, const long long* qs,
                          const long long* ks, const long long* vs,
                          const void* bias, const void* seed, void* o,
                          void* lse, int B, int H, int T, int Dh, float scale,
-                         unsigned int threshold, float keep_scale, int dtype,
-                         void* stream) {
+                         unsigned int threshold, float keep_scale,
+                         unsigned long long offset, int dtype, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   tc::Params P{};
@@ -54,6 +56,7 @@ int ishara_attention_fwd(int device, const void* q, const void* k,
   P.scale = scale;
   P.threshold = threshold;
   P.keep_scale = keep_scale;
+  P.offset = offset;
   if (T > 384) return (int)cudaErrorInvalidValue;
   return tc::dispatch(P, dtype, false, stream);
 }
@@ -68,8 +71,8 @@ int ishara_attention_bwd(int device, const void* q, const void* k,
                          const void* seed, const void* o, const void* lse,
                          void* delta, void* dq, void* dk, void* dv, int B,
                          int H, int T, int Dh, float scale,
-                         unsigned int threshold, float keep_scale, int dtype,
-                         void* stream) {
+                         unsigned int threshold, float keep_scale,
+                         unsigned long long offset, int dtype, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   tc::Params P{};
@@ -88,6 +91,7 @@ int ishara_attention_bwd(int device, const void* q, const void* k,
   P.scale = scale;
   P.threshold = threshold;
   P.keep_scale = keep_scale;
+  P.offset = offset;
   if (T > 384) return (int)cudaErrorInvalidValue;
   return tc::dispatch(P, dtype, true, stream);
 }

@@ -44,8 +44,9 @@
 // (K8's padded keys, k = v = 0, which count in an all-masked row's
 // average), j >= Tc is excluded (weight exactly 0). K3 passes Tc = T.
 // Dropout (K3): keep' = keep / (1 - rate) with keep the Philox function of
-// (seed, flat index into [B, H, T, T]) of philox.cuh, applied to P before
-// P.V and to dP in the backward; the row sum l is the undropped one.
+// (seed, offset + flat index into [B, H, T, T]) of philox.cuh, applied to P
+// before P.V and to dP in the backward; the row sum l is the undropped one.
+// A process holding rows [r0, r1) of a batch passes offset = r0 H T T.
 
 #pragma once
 
@@ -77,6 +78,7 @@ struct Params {
   float scale;
   uint32_t threshold;  // 0: no dropout
   float keep_scale;
+  uint64_t offset;     // added to every mask index (a batch shard's rows)
   int vec;             // 1: rows 16-byte aligned, cp.async copies
 };
 
@@ -243,16 +245,18 @@ __device__ __forceinline__ float keep_of(uint32_t w, const Params& P) {
 
 // keep'[n][.] in accumulator layout, rows r_g = row0 + g and r_g + 8 (the
 // flat index's major coordinate), columns col0 + 8n + 2t (+1, the minor
-// one): flat index (bh * T + row) * T + col. With T % 4 == 0 a thread pair
-// shares one Philox block a row and 4 columns (shuffled).
+// one): flat index offset + (bh * T + row) * T + col. With T % 4 == 0 (and
+// offset % 4 == 0) a thread pair shares one Philox block a row and 4
+// columns (shuffled).
 template <int NT>
 __device__ __forceinline__ void keep_rowmajor(const Params& P, uint32_t seed,
                                               long long bh, int row0,
                                               int col0, float kp[NT][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint64_t base0 = ((uint64_t)bh * P.T + row0 + g) * (uint64_t)P.T;
+  const uint64_t base0 =
+      P.offset + ((uint64_t)bh * P.T + row0 + g) * (uint64_t)P.T;
   const uint64_t base8 = base0 + 8ull * P.T;
-  if ((P.T & 3) == 0) {
+  if ((P.T & 3) == 0 && (P.offset & 3) == 0) {
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const uint64_t c = col0 + n * 8 + 4 * (t >> 1);
@@ -292,14 +296,14 @@ __device__ __forceinline__ void keep_colmajor(const Params& P, uint32_t seed,
                                               float kp[NT][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint64_t head = (uint64_t)bh * P.T;
-  if ((P.T & 3) == 0) {
+  if ((P.T & 3) == 0 && (P.offset & 3) == 0) {
     const int i = g & 3, u4 = g & ~3;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       // block c = i: query q0 + 8n + 2t + (c & 1), keys key0 + u4 + 8(c >> 1)
       const uint64_t qc = q0 + n * 8 + 2 * t + (i & 1);
-      const uint64_t idx = (head + qc) * (uint64_t)P.T + key0 + u4 +
-                           8 * (i >> 1);
+      const uint64_t idx = P.offset + (head + qc) * (uint64_t)P.T + key0 +
+                           u4 + 8 * (i >> 1);
       const uint4 w = philox::block(seed, idx >> 2);
       // round r: lane i takes word i of block (i + r) & 3 from the lane
       // that computed it, which sends its word (own index - r) & 3
@@ -320,7 +324,7 @@ __device__ __forceinline__ void keep_colmajor(const Params& P, uint32_t seed,
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const uint64_t qc = q0 + n * 8 + 2 * t;
-      const uint64_t a = (head + qc) * (uint64_t)P.T + key0 + g;
+      const uint64_t a = P.offset + (head + qc) * (uint64_t)P.T + key0 + g;
       const uint64_t b = a + P.T;
       kp[n][0] = keep_of(philox::bits(seed, a), P);
       kp[n][1] = keep_of(philox::bits(seed, b), P);

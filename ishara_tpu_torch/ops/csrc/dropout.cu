@@ -40,7 +40,8 @@ struct Pack {
 template <typename T, bool ADD>
 __global__ void dropout_kernel(const T* __restrict__ x,
                                const T* __restrict__ res, T* __restrict__ out,
-                               long long n, const int* __restrict__ seed_ptr,
+                               long long n, unsigned long long offset,
+                               const int* __restrict__ seed_ptr,
                                uint32_t threshold, float scale, int aligned) {
   constexpr int V = Pack<T>::V;
   const uint32_t seed = (uint32_t)seed_ptr[0];
@@ -57,7 +58,8 @@ __global__ void dropout_kernel(const T* __restrict__ x,
 #pragma unroll
     for (int q = 0; q < V; q += 4) {
       float keep[4];
-      philox::keep4(seed, (uint64_t)(p * V + q), threshold, scale, keep);
+      philox::keep4(seed, offset + (uint64_t)(p * V + q), threshold, scale,
+                    keep);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         // separate multiply and add, each rounded: no fused multiply-add
@@ -70,7 +72,7 @@ __global__ void dropout_kernel(const T* __restrict__ x,
   }
   for (long long i = packs * V + tid; i < n; i += stride) {
     const float keep =
-        philox::bits(seed, (uint64_t)i) >= threshold ? scale : 0.f;
+        philox::bits(seed, offset + (uint64_t)i) >= threshold ? scale : 0.f;
     float y = __fmul_rn(to_f(x[i]), keep);
     if (ADD) y = __fadd_rn(y, to_f(res[i]));
     from_f(y, &out[i]);
@@ -79,8 +81,8 @@ __global__ void dropout_kernel(const T* __restrict__ x,
 
 template <typename T>
 cudaError_t launch(const void* x, const void* res, void* out, long long n,
-                   const int* seed, uint32_t threshold, float scale,
-                   cudaStream_t stream) {
+                   unsigned long long offset, const int* seed,
+                   uint32_t threshold, float scale, cudaStream_t stream) {
   if (n <= 0) return cudaSuccess;
   constexpr int V = Pack<T>::V;
   const uintptr_t bits = (uintptr_t)x | (uintptr_t)out | (uintptr_t)res;
@@ -90,11 +92,12 @@ cudaError_t launch(const void* x, const void* res, void* out, long long n,
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
   if (res != nullptr) {
     dropout_kernel<T, true><<<blocks, threads, 0, stream>>>(
-        (const T*)x, (const T*)res, (T*)out, n, seed, threshold, scale,
-        aligned);
+        (const T*)x, (const T*)res, (T*)out, n, offset, seed, threshold,
+        scale, aligned);
   } else {
     dropout_kernel<T, false><<<blocks, threads, 0, stream>>>(
-        (const T*)x, nullptr, (T*)out, n, seed, threshold, scale, aligned);
+        (const T*)x, nullptr, (T*)out, n, offset, seed, threshold, scale,
+        aligned);
   }
   return cudaGetLastError();
 }
@@ -105,18 +108,23 @@ extern "C" {
 
 // out = [res +] x * keep(seed, index) / (1 - rate) over n values of dtype
 // 0 (f32) or 1 (bf16); res may be null. seed points at one int32 on the
-// device; threshold = uint32(rate * 2^32), scale = 1 / (1 - rate).
+// device; threshold = uint32(rate * 2^32), scale = 1 / (1 - rate). Value i
+// takes the mask word of flat index offset + i: a process holding rows
+// [r0, r1) of a batch passes r0 times the values a row, and draws what the
+// whole batch's launch draws there.
 int ishara_dropout(int device, const void* x, const void* res, void* out,
-                   long long n, const int* seed, unsigned int threshold,
-                   float scale, int dtype, void* stream) {
+                   long long n, unsigned long long offset, const int* seed,
+                   unsigned int threshold, float scale, int dtype,
+                   void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(x, res, out, n, seed, threshold, scale, s);
+    return (int)launch<float>(x, res, out, n, offset, seed, threshold, scale,
+                              s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, res, out, n, seed, threshold, scale,
-                                      s);
+    return (int)launch<__nv_bfloat16>(x, res, out, n, offset, seed,
+                                      threshold, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

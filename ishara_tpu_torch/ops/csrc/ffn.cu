@@ -15,8 +15,9 @@
 // for its two products, dh = (g . w2^T) * keep1' * swish'(h) is f32 (summed
 // into db1 unrounded) and rounded for its two. keep' = keep /
 // (1 - rate) is the Philox function of philox.cuh: the hidden's mask is keyed
-// by seeds[0] with flat index row * M + column, the output's by seeds[1] with
-// row * K + column.
+// by seeds[0] with flat index (roff + row) * M + column, the output's by
+// seeds[1] with (roff + row) * K + column; roff is 0 unless the rows are a
+// shard of a larger batch.
 //
 // Two sets of kernels. bf16 at widths that are multiples of 128 -- every
 // preset's training geometry -- takes the tensor cores (mma.sync m16n8k16);
@@ -122,7 +123,8 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
                const bf16* __restrict__ w1, const float* __restrict__ b1,
                const bf16* __restrict__ w2, const float* __restrict__ b2,
                const int* __restrict__ seeds, bf16* __restrict__ out, int K,
-               int M, uint32_t thr1, float sc1, uint32_t thr2, float sc2) {
+               int M, uint32_t thr1, float sc1, uint32_t thr2, float sc2,
+               long long roff) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int ldx = K + PAD, ldh = M + PAD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -178,7 +180,7 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
         const int c = col0 + j * 8 + 2 * t;
         float kp[4];
         if (first) {
-          keep_pair(seed1, (uint64_t)(row0 + r), c, M, thr1, sc1, kp);
+          keep_pair(seed1, (uint64_t)(roff + row0 + r), c, M, thr1, sc1, kp);
           float v[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -190,7 +192,7 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
           *reinterpret_cast<uint32_t*>(hs + (r + 8) * ldh + c) =
               tc::pack_bf16(v[2], v[3]);
         } else {
-          keep_pair(seed2, (uint64_t)(row0 + r), c, K, thr2, sc2, kp);
+          keep_pair(seed2, (uint64_t)(roff + row0 + r), c, K, thr2, sc2, kp);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const size_t at = (size_t)(row0 + r + 8 * h) * K + c;
@@ -224,7 +226,7 @@ ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                     bf16* __restrict__ dh_g, bf16* __restrict__ g_g,
                     float* __restrict__ db1_part, float* __restrict__ db2_part,
                     int K, int M, uint32_t thr1, float sc1, uint32_t thr2,
-                    float sc2) {
+                    float sc2, long long roff) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int ldx = K + PAD, ldh = M + PAD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -250,7 +252,9 @@ ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     for (int lr = rg * 16; lr < rg * 16 + 16; ++lr) {
       const size_t at = (size_t)(row0 + lr) * K + c;
       float kp[4] = {1.f, 1.f, 1.f, 1.f};
-      if (thr2) philox::keep4(seed2, (uint64_t)at, thr2, sc2, kp);
+      if (thr2)
+        philox::keep4(seed2, (uint64_t)(at + (size_t)roff * K), thr2, sc2,
+                      kp);
       const uint2 raw = *reinterpret_cast<const uint2*>(dy + at);
       const bf16* dv = reinterpret_cast<const bf16*>(&raw);
       float v[4];
@@ -347,7 +351,7 @@ ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       for (int j = 0; j < 4; ++j) {
         const int c = col0 + j * 8 + 2 * t;
         float kp[4], d[4], dh[4];
-        keep_pair(seed1, (uint64_t)(row0 + r), c, M, thr1, sc1, kp);
+        keep_pair(seed1, (uint64_t)(roff + row0 + r), c, M, thr1, sc1, kp);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float h = acc_h[a][j][e] + b1[c + (e & 1)];
@@ -391,14 +395,15 @@ ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 __global__ void ffn_masks_kernel(const int* __restrict__ seeds,
                                  float* __restrict__ k1, float* __restrict__ k2,
                                  long long n1, long long n2, uint32_t thr1,
-                                 uint32_t thr2) {
+                                 uint32_t thr2, long long o1, long long o2) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   for (long long i = tid; i < n1 + n2; i += stride) {
     const bool first = i < n1;
     const long long idx = first ? i : i - n1;
     const uint32_t word =
-        philox::bits((uint32_t)seeds[first ? 0 : 1], (uint64_t)idx);
+        philox::bits((uint32_t)seeds[first ? 0 : 1],
+                     (uint64_t)(idx + (first ? o1 : o2)));
     (first ? k1 : k2)[idx] = word >= (first ? thr1 : thr2) ? 1.f : 0.f;
   }
 }
@@ -443,7 +448,7 @@ ffn_fwd_general_kernel(const T* __restrict__ x, const T* __restrict__ res,
                        const T* __restrict__ w2, const float* __restrict__ b2,
                        const int* __restrict__ seeds, T* __restrict__ out,
                        int K, int M, uint32_t thr1, float sc1, uint32_t thr2,
-                       float sc2) {
+                       float sc2, long long roff) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);
   float* hs = xs + GR * K;
@@ -470,7 +475,7 @@ ffn_fwd_general_kernel(const T* __restrict__ x, const T* __restrict__ res,
       const float h = acc[r] + bias;
       const float sig = 1.f / (1.f + expf(-h));
       const float keep =
-          keep1(seed1, (uint64_t)(row0 + r) * M + c, thr1, sc1);
+          keep1(seed1, (uint64_t)(roff + row0 + r) * M + c, thr1, sc1);
       hs[r * M + c] = widen(narrow<T>(__fmul_rn(__fmul_rn(h, sig), keep)));
     }
   }
@@ -491,7 +496,8 @@ ffn_fwd_general_kernel(const T* __restrict__ x, const T* __restrict__ res,
     for (int r = 0; r < GR; ++r) {
       const size_t at = (size_t)(row0 + r) * K + c;
       const float y = acc[r] + bias;
-      const float keep = keep1(seed2, (uint64_t)at, thr2, sc2);
+      const float keep =
+          keep1(seed2, (uint64_t)(at + (size_t)roff * K), thr2, sc2);
       out[at] = narrow<T>(__fadd_rn(widen(res[at]), __fmul_rn(y, keep)));
     }
   }
@@ -512,7 +518,7 @@ ffn_bwd_rows_general_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                             T* __restrict__ g_g, float* __restrict__ db1_part,
                             float* __restrict__ db2_part, int K, int M,
                             uint32_t thr1, float sc1, uint32_t thr2,
-                            float sc2) {
+                            float sc2, long long roff) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);
   float* gs = xs + GR * K;
@@ -529,7 +535,8 @@ ffn_bwd_rows_general_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     for (int r = 0; r < GR; ++r) {
       const size_t at = (size_t)(row0 + r) * K + c;
       const float g =
-          __fmul_rn(widen(dy[at]), keep1(seed2, (uint64_t)at, thr2, sc2));
+          __fmul_rn(widen(dy[at]),
+                    keep1(seed2, (uint64_t)(at + (size_t)roff * K), thr2, sc2));
       sum += g;
       const T gt = narrow<T>(g);
       gs[r * K + c] = widen(gt);
@@ -558,7 +565,8 @@ ffn_bwd_rows_general_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
     for (int r = 0; r < GR; ++r) {
       const size_t at = (size_t)(row0 + r) * M + c;
-      const float keep = keep1(seed1, (uint64_t)at, thr1, sc1);
+      const float keep =
+          keep1(seed1, (uint64_t)(at + (size_t)roff * M), thr1, sc1);
       const float h = acc_h[r] + bias;
       const float sig = 1.f / (1.f + expf(-h));
       const float hsw = __fmul_rn(h, sig);
@@ -628,7 +636,7 @@ cudaError_t fwd_general(const void* x, const void* res, const void* w1,
                         const void* b1, const void* w2, const void* b2,
                         const void* seeds, void* out, int N, int K, int M,
                         uint32_t thr1, float sc1, uint32_t thr2, float sc2,
-                        cudaStream_t s) {
+                        long long roff, cudaStream_t s) {
   const size_t smem = fwd_general_smem(K, M);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(ffn_fwd_general_kernel<T>, smem);
@@ -636,7 +644,7 @@ cudaError_t fwd_general(const void* x, const void* res, const void* w1,
   ffn_fwd_general_kernel<T><<<N / GR, THREADS, smem, s>>>(
       (const T*)x, (const T*)res, (const T*)w1, (const float*)b1,
       (const T*)w2, (const float*)b2, (const int*)seeds, (T*)out, K, M, thr1,
-      sc1, thr2, sc2);
+      sc1, thr2, sc2, roff);
   return cudaGetLastError();
 }
 
@@ -648,7 +656,7 @@ cudaError_t bwd_general(const void* x, const void* dy, const void* w1,
                         void* dx, void* d_g, void* dh_g, void* g_g, void* wt,
                         float* db1_part, float* db2_part, int N, int K, int M,
                         uint32_t thr1, float sc1, uint32_t thr2, float sc2,
-                        cudaStream_t s) {
+                        long long roff, cudaStream_t s) {
   const size_t smem = bwd_general_smem(K, M);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(ffn_bwd_rows_general_kernel<T>, smem);
@@ -661,7 +669,7 @@ cudaError_t bwd_general(const void* x, const void* dy, const void* w1,
   ffn_bwd_rows_general_kernel<T><<<N / GR, THREADS, smem, s>>>(
       (const T*)x, (const T*)dy, (const T*)w1, (const float*)b1, w2t, w1t,
       (const int*)seeds, (T*)dx, (T*)d_g, (T*)dh_g, (T*)g_g, db1_part,
-      db2_part, K, M, thr1, sc1, thr2, sc2);
+      db2_part, K, M, thr1, sc1, thr2, sc2, roff);
   return cudaGetLastError();
 }
 
@@ -685,12 +693,13 @@ extern "C" {
 // out [N, K] = res + drop2(drop1(swish(x . w1 + b1)) . w2 + b2). dtype 0 =
 // f32, 1 = bf16 (x, res, w1, w2, out). N must be a multiple of 64. seeds
 // points at two int32 on the device; thr = uint32(rate * 2^32) (0: no
-// dropout), sc = 1 / (1 - rate).
+// dropout), sc = 1 / (1 - rate). Row r takes the mask words of row roff + r:
+// a process holding rows [r0, r1) of the whole batch's N rows passes r0.
 int ishara_ffn_fwd(int device, int dtype, const void* x, const void* res,
                    const void* w1, const void* b1, const void* w2,
                    const void* b2, const void* seeds, void* out, int N, int K,
                    int M, unsigned int thr1, float sc1, unsigned int thr2,
-                   float sc2, void* stream) {
+                   float sc2, long long roff, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (!shape_ok(N, K, M) || dtype < 0 || dtype > 1)
@@ -699,9 +708,9 @@ int ishara_ffn_fwd(int device, int dtype, const void* x, const void* res,
   if (!tensor_cores(dtype, K, M)) {
     if (dtype == 0)
       return (int)fwd_general<float>(x, res, w1, b1, w2, b2, seeds, out, N, K,
-                                     M, thr1, sc1, thr2, sc2, s);
+                                     M, thr1, sc1, thr2, sc2, roff, s);
     return (int)fwd_general<bf16>(x, res, w1, b1, w2, b2, seeds, out, N, K, M,
-                                  thr1, sc1, thr2, sc2, s);
+                                  thr1, sc1, thr2, sc2, roff, s);
   }
   const size_t smem = fwd_smem(K, M);
   e = allow_smem(ffn_fwd_kernel, smem);
@@ -709,7 +718,7 @@ int ishara_ffn_fwd(int device, int dtype, const void* x, const void* res,
   ffn_fwd_kernel<<<N / R, THREADS, smem, s>>>(
       (const bf16*)x, (const bf16*)res, (const bf16*)w1, (const float*)b1,
       (const bf16*)w2, (const float*)b2, (const int*)seeds, (bf16*)out, K, M,
-      thr1, sc1, thr2, sc2);
+      thr1, sc1, thr2, sc2, roff);
   return (int)cudaGetLastError();
 }
 
@@ -733,7 +742,7 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
                    void* dw1_part, void* dw2_part, void* dw1, void* db1,
                    void* dw2, void* db2, int N, int K, int M, int S,
                    unsigned int thr1, float sc1, unsigned int thr2, float sc2,
-                   void* stream) {
+                   long long roff, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (!shape_ok(N, K, M) || S < 1 || dtype < 0 || dtype > 1)
@@ -744,11 +753,11 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
     if (dtype == 0)
       e = bwd_general<float>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
                              (float*)db1_part, (float*)db2_part, N, K, M, thr1,
-                             sc1, thr2, sc2, s);
+                             sc1, thr2, sc2, roff, s);
     else
       e = bwd_general<bf16>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
                             (float*)db1_part, (float*)db2_part, N, K, M, thr1,
-                            sc1, thr2, sc2, s);
+                            sc1, thr2, sc2, roff, s);
   } else {
     const size_t smem = bwd_smem(K, M);
     e = allow_smem(ffn_bwd_rows_kernel, smem);
@@ -757,7 +766,7 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
         (const bf16*)x, (const bf16*)dy, (const bf16*)w1, (const float*)b1,
         (const bf16*)w2, (const int*)seeds, (bf16*)dx, (bf16*)d_g,
         (bf16*)dh_g, (bf16*)g_g, (float*)db1_part, (float*)db2_part, K, M,
-        thr1, sc1, thr2, sc2);
+        thr1, sc1, thr2, sc2, roff);
     e = cudaGetLastError();
   }
   if (e != cudaSuccess) return (int)e;
@@ -778,10 +787,11 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
 }
 
 // The keep masks the kernels draw for an [n, k] input with hidden width m:
-// k1 [n, m] under seeds[0], k2 [n, k] under seeds[1], as 1.0 / 0.0.
+// k1 [n, m] under seeds[0], k2 [n, k] under seeds[1], as 1.0 / 0.0; row r
+// takes the words of row roff + r.
 int ishara_ffn_masks(int device, const void* seeds, void* k1, void* k2, int n,
                      int m, int k, unsigned int thr1, unsigned int thr2,
-                     void* stream) {
+                     long long roff, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const long long n1 = (long long)n * m, n2 = (long long)n * k;
@@ -789,7 +799,8 @@ int ishara_ffn_masks(int device, const void* seeds, void* k1, void* k2, int n,
   const long long want = (n1 + n2 + 255) / 256;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
   ffn_masks_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      (const int*)seeds, (float*)k1, (float*)k2, n1, n2, thr1, thr2);
+      (const int*)seeds, (float*)k1, (float*)k2, n1, n2, thr1, thr2,
+      roff * m, roff * k);
   return (int)cudaGetLastError();
 }
 

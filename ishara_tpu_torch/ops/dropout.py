@@ -19,6 +19,12 @@ products); ``csrc/philox.cuh`` is the same function for the kernels of this
 module, of :mod:`.attention` and of :mod:`.ffn_kernel`, which therefore agree
 with their plain versions element for element with dropout active.
 
+**Offsets.** Every mask function takes the index of its first element
+(``offset``; ``start`` for :func:`philox_bits` and :func:`keep_mask`): a
+process that holds rows ``[r0, r1)`` of a batch passes ``r0`` times the
+elements a row and draws, element for element, what the whole batch's call
+draws on those rows. It is 0 unless the batch is split across processes.
+
 **Seeds.** A step's randomness is a pure function of (base seed, step):
 :func:`step_seeds` gives the step's dropout and augmentation seeds,
 :func:`site_seed_table` the seeds of that step's dropout sites in one pass,
@@ -92,13 +98,16 @@ def threshold_of(rate: float) -> int:
     return int(rate * (2 ** 32))
 
 
-def keep_mask(seed: torch.Tensor, shape, rate: float) -> torch.Tensor:
+def keep_mask(seed: torch.Tensor, shape, rate: float,
+              start: int = 0) -> torch.Tensor:
     """Boolean keep mask of ``shape`` for ``seed``: element at flat index
-    ``i`` is kept when ``philox_bits(seed)[i] >= threshold_of(rate)``."""
+    ``i`` is kept when ``philox_bits(seed)[start + i] >=
+    threshold_of(rate)``."""
     n = 1
     for d in shape:
         n *= int(d)
-    return (philox_bits(seed, n) >= threshold_of(rate)).reshape(tuple(shape))
+    return (philox_bits(seed, n, int(start)) >= threshold_of(rate)) \
+        .reshape(tuple(shape))
 
 
 def step_seeds(base_seed: int, step: torch.Tensor) -> torch.Tensor:
@@ -140,12 +149,14 @@ def site_seeds(table: torch.Tensor, n: int = 1, site: int = 0) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def dropout_plain(x: torch.Tensor, seed: torch.Tensor, rate: float,
-                  res: torch.Tensor | None = None) -> torch.Tensor:
-    """``[res +] x * keep / (1 - rate)`` with the Philox mask: f32
-    arithmetic, one rounding to ``x``'s dtype (the kernel's semantics)."""
+                  res: torch.Tensor | None = None,
+                  offset: int = 0) -> torch.Tensor:
+    """``[res +] x * keep / (1 - rate)`` with the Philox mask from flat
+    index ``offset`` on: f32 arithmetic, one rounding to ``x``'s dtype (the
+    kernel's semantics)."""
     if rate <= 0.0:
         return x if res is None else res + x
-    keep = keep_mask(seed, x.shape, rate).to(torch.float32)
+    keep = keep_mask(seed, x.shape, rate, offset).to(torch.float32)
     y = x.to(torch.float32) * (keep * (1.0 / (1.0 - rate)))
     if res is not None:
         y = res.to(torch.float32) + y
@@ -155,7 +166,7 @@ def dropout_plain(x: torch.Tensor, seed: torch.Tensor, rate: float,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(x, res, seed, rate):
+def _launch(x, res, seed, rate, offset=0):
     """Run ``csrc/dropout.cu`` on contiguous CUDA tensors."""
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"the dropout kernel takes f32 or bf16, got "
@@ -171,67 +182,71 @@ def _launch(x, res, seed, rate):
     out = torch.empty_like(x)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("dropout", "ishara_dropout", [
-        I, P, P, P, ctypes.c_longlong, P, ctypes.c_uint, ctypes.c_float, I, P])
+        I, P, P, P, ctypes.c_longlong, ctypes.c_ulonglong, P, ctypes.c_uint,
+        ctypes.c_float, I, P])
     rc = fn(_build.device_index(x), x.data_ptr(),
             None if res is None else res.data_ptr(), out.data_ptr(),
-            x.numel(), seed.data_ptr(), threshold_of(rate),
+            x.numel(), int(offset), seed.data_ptr(), threshold_of(rate),
             1.0 / (1.0 - rate), _DTYPE_CODE[x.dtype], _build.stream_of(x))
     _build.check("dropout", rc, "dropout kernel")
     return out
 
 
-def _apply(x, res, seed, rate, counter, direction):
+def _apply(x, res, seed, rate, offset, counter, direction):
     if x.device.type == "cpu":
-        return dropout_plain(x, seed, rate, res)
-    out = _launch(x, res, seed, rate)
+        return dropout_plain(x, seed, rate, res, offset)
+    out = _launch(x, res, seed, rate, offset)
     setattr(counter, direction, getattr(counter, direction) + 1)
     return out
 
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, rate):
+    def forward(ctx, x, seed, rate, offset):
         ctx.save_for_backward(seed)
-        ctx.rate = rate
-        return _apply(x, None, seed, rate, fast_dropout, "launches")
+        ctx.rate, ctx.offset = rate, offset
+        return _apply(x, None, seed, rate, offset, fast_dropout, "launches")
 
     @staticmethod
     def backward(ctx, dy):
         (seed,) = ctx.saved_tensors
-        return _apply(dy, None, seed, ctx.rate, fast_dropout,
-                      "launches_bwd"), None, None
+        return _apply(dy, None, seed, ctx.rate, ctx.offset, fast_dropout,
+                      "launches_bwd"), None, None, None
 
 
 class _DropoutAdd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, res, x, seed, rate):
+    def forward(ctx, res, x, seed, rate, offset):
         ctx.save_for_backward(seed)
-        ctx.rate = rate
-        return _apply(x, res, seed, rate, fast_dropout_add, "launches")
+        ctx.rate, ctx.offset = rate, offset
+        return _apply(x, res, seed, rate, offset, fast_dropout_add,
+                      "launches")
 
     @staticmethod
     def backward(ctx, dy):
         (seed,) = ctx.saved_tensors
-        return dy, _apply(dy, None, seed, ctx.rate, fast_dropout_add,
-                          "launches_bwd"), None, None
+        return dy, _apply(dy, None, seed, ctx.rate, ctx.offset,
+                          fast_dropout_add, "launches_bwd"), None, None, None
 
 
-def fast_dropout(x: torch.Tensor, seed: torch.Tensor, rate: float):
+def fast_dropout(x: torch.Tensor, seed: torch.Tensor, rate: float,
+                 offset: int = 0):
     """Inverted dropout of ``x`` (any shape, f32 or bf16) at static ``rate``
     with the mask of ``seed`` (int32 ``[1]`` on ``x``'s device, fresh per
-    site and step). Replaces ``ishara_tpu.ops.dropout.tpu_dropout``."""
+    site and step) from flat index ``offset`` on. Replaces
+    ``ishara_tpu.ops.dropout.tpu_dropout``."""
     if rate <= 0.0:
         return x
-    return _Dropout.apply(x, seed, float(rate))
+    return _Dropout.apply(x, seed, float(rate), int(offset))
 
 
 def fast_dropout_add(res: torch.Tensor, x: torch.Tensor, seed: torch.Tensor,
-                     rate: float):
+                     rate: float, offset: int = 0):
     """``res + dropout(x)`` in one pass. Replaces
     ``ishara_tpu.ops.dropout.tpu_dropout_add``."""
     if rate <= 0.0:
         return res + x
-    return _DropoutAdd.apply(res, x, seed, float(rate))
+    return _DropoutAdd.apply(res, x, seed, float(rate), int(offset))
 
 
 # kernel launches of the forward pass and of the backward pass

@@ -68,13 +68,16 @@ def draw(batch: int, device, generator: torch.Generator) -> dict:
     return out
 
 
-def draws_from_seed(seed: torch.Tensor, batch: int) -> dict:
+def draws_from_seed(seed: torch.Tensor, batch: int, row0: int = 0) -> dict:
     """All of :func:`augment`'s draws for ``batch`` rows as a pure function
     of ``seed`` (a one-element integer tensor; the draws live on its
     device): 24-bit uniforms cut from the Philox words of
-    :func:`ishara_tpu_torch.ops.dropout.philox_bits`."""
+    :func:`ishara_tpu_torch.ops.dropout.philox_bits`. ``row0`` is the index
+    of the first row in the whole batch: a process holding rows ``[r0, r1)``
+    draws what the whole batch's call draws for them."""
     width = sum(math.prod(shape) for shape, _, _ in _DRAWS.values())
-    bits = philox_bits(seed, batch * width).reshape(batch, width)
+    bits = philox_bits(seed, batch * width, row0 * width) \
+        .reshape(batch, width)
     u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
     out, at = {}, 0
     for name, (shape, _, _) in _DRAWS.items():

@@ -1,5 +1,6 @@
 from .checkpoint import CheckpointManager
 from .optim import Optimizer, lrfn_schedule, make_optimizer, onecycle_schedule
+from .qat import fake_quant, fake_quant_params, qat_weights
 from .state import (
     TrainState,
     ctc_eval_step,
@@ -22,6 +23,8 @@ __all__ = [
     "TrainState",
     "ctc_eval_step",
     "ctc_train_step",
+    "fake_quant",
+    "fake_quant_params",
     "lrfn_schedule",
     "make_fused_ctc_eval_step",
     "make_fused_ctc_train_step",
@@ -30,5 +33,6 @@ __all__ = [
     "make_optimizer",
     "make_translation_train_step",
     "onecycle_schedule",
+    "qat_weights",
     "token_lengths",
 ]

@@ -19,6 +19,20 @@ on the device (:func:`ishara_tpu_torch.ops.dropout.step_seeds`), so the same
 (seed, step) gives the same masks and augmentations -- also on a step that
 the guard skipped, since ``state.step`` advances on those too, while the
 learning-rate schedule's own count does not.
+
+**QAT** (``qat=True``): the forward pass computes with the int8
+fake-quantized weights of :mod:`.qat`, the gradient reaches the float32
+master weights through the straight-through estimator.
+
+**Data parallelism** (``mesh=``): each process takes its rows of a global
+batch of ``B`` rows (``B / mesh.size()`` a process) and the step computes
+the function the unsharded step computes on all ``B``: its augmentation
+and dropout draw at the global rows, BatchNorm takes the global batch's
+statistics (:mod:`ishara_tpu_torch.parallel.shard`), and one all-reduce
+averages the flat gradient with the loss, so the loss, the gradient norm,
+the non-finite guard and Lookahead see the global values and every replica
+stays the same bit for bit. On a 2-D ``(dcn, data)`` mesh the sums run
+within ``data`` first, then across ``dcn``.
 """
 
 from __future__ import annotations
@@ -32,9 +46,11 @@ from ..decode.greedy import greedy_decode_batch
 from ..device import resolve_device
 from ..ops.ctc import ctc_loss
 from ..ops.dropout import step_seeds
+from ..parallel.shard import batch_shard, gather_rows, reduce_sum_
 from ..preprocess.augment import augment, draws_from_seed
 from ..preprocess.pipeline import GroupStats, preprocess
 from .optim import global_norm
+from .qat import qat_weights
 
 _STATS = ("running_mean", "running_var")
 
@@ -122,11 +138,56 @@ class TrainState:
             self.lookahead_sync_period, self.lookahead_alpha)
 
 
+def _local(v):
+    """A DTensor's local rows (a batch from ``host_local_to_global``), or
+    ``v`` itself."""
+    to_local = getattr(v, "to_local", None)
+    return to_local() if to_local is not None else v
+
+
 def _on(batch: dict, device) -> dict:
     """The batch's arrays as tensors on ``device`` (other entries, such as
-    the phrases' strings, are left out)."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()
+    the phrases' strings, are left out); a DTensor gives its local rows."""
+    return {k: torch.as_tensor(_local(v)).to(device)
+            for k, v in batch.items()
             if isinstance(v, (torch.Tensor, np.ndarray))}
+
+
+def check_mesh(mesh) -> None:
+    """Raise TypeError unless ``mesh`` is None or a ``DeviceMesh``."""
+    if mesh is None:
+        return
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch DeviceMesh "
+                        f"(ishara_tpu_torch.parallel.make_mesh), got "
+                        f"{type(mesh).__name__}")
+
+
+def mesh_shard(mesh, local_rows: int):
+    """This process's batch shard of ``local_rows`` rows on ``mesh`` (None
+    without a mesh)."""
+    if mesh is None:
+        return None
+    from ..parallel.mesh import batch_shard_of
+
+    return batch_shard_of(mesh, local_rows)
+
+
+def _row0(shard) -> int:
+    return 0 if shard is None else shard.row0
+
+
+def _mean_over_shards(grads, loss, shard):
+    """The gradient and the loss averaged over the shard's processes in
+    one all-reduce (identity without a shard)."""
+    if shard is None:
+        return grads, loss
+    buf = torch.cat([grads, loss.reshape(1).to(torch.float32)])
+    reduce_sum_(buf, shard.groups)
+    buf.div_(shard.rows // shard.local)
+    return buf[:-1], buf[-1].to(loss.dtype)
 
 
 def _stats_on(stats: GroupStats, device) -> GroupStats:
@@ -144,23 +205,31 @@ def _preprocess_batch(raw, lengths, stats, frame_len, dominant_hand):
                                 dominant_hand=dominant_hand))(raw, lengths)
 
 
-def _flat_grads(state: TrainState, loss) -> torch.Tensor:
-    """The gradient of ``loss`` by every parameter, laid out as
-    ``state.params`` (zeros where a parameter does not reach the loss)."""
-    grads = torch.autograd.grad(loss, list(state.model.parameters()),
-                                allow_unused=True)
+def _flat_grads(state: TrainState, loss, params=None) -> torch.Tensor:
+    """The gradient of ``loss`` by every parameter (``params``: the model's
+    ``Parameter``s, taken before any were swapped for fake-quantized
+    copies), laid out as ``state.params`` (zeros where a parameter does not
+    reach the loss)."""
+    params = list(state.model.parameters()) if params is None else params
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
     return torch.cat([
         (torch.zeros_like(p) if g is None else g).reshape(-1)
         .to(torch.float32)
-        for g, p in zip(grads, state.model.parameters())])
+        for g, p in zip(grads, params)])
 
 
-def _loss_and_grads(state: TrainState, x, labels, seed, blank_id):
-    """(loss, flat gradient, the batch statistics before the forward)."""
+def _loss_and_grads(state: TrainState, x, labels, seed, blank_id,
+                    qat=False):
+    """(loss, flat gradient, the batch statistics before the forward); the
+    backward pass runs inside the QAT block too (a ``remat`` block's
+    recomputation must see the same weights)."""
     old_stats = [b.clone() for b in state.batch_stats.values()]
-    logits = state.model(x, training=True, seed=seed)
-    loss = ctc_loss(logits, labels, blank_id=blank_id)
-    return loss.detach(), _flat_grads(state, loss), old_stats
+    params = list(state.model.parameters())
+    with qat_weights(state.model, qat):
+        logits = state.model(x, training=True, seed=seed)
+        loss = ctc_loss(logits, labels, blank_id=blank_id)
+        grads = _flat_grads(state, loss, params)
+    return loss.detach(), grads, old_stats
 
 
 @torch.no_grad()
@@ -212,32 +281,35 @@ def make_fused_ctc_train_step(stats: GroupStats, frame_len: int,
                               aug_prob: float = 0.2, blank_id: int = 59,
                               lr_flip_prob: float = 0.0,
                               dominant_hand: bool = False, qat: bool = False,
-                              with_grads: bool = False):
+                              with_grads: bool = False, mesh=None):
     """Train step from a raw batch: ``raw`` ``[B, Tmax, 276]``, ``lengths``
     ``[B]`` and ``labels`` ``[B, U]`` go through augmentation, preprocessing,
     forward, CTC, backward and the update on the device.
     ``dominant_hand`` canonicalises handedness in the preprocess (must match
-    serving); ``lr_flip_prob`` enables the LR-flip augmentation;
-    ``with_grads`` also returns the gradients by parameter name. Training
-    through the int8 fake-quantizer (``qat``) is not ported yet."""
-    if qat:
-        raise NotImplementedError(
-            "qat=True (training through the int8 fake-quantizer) is not "
-            "ported yet (ROADMAP.md Queue 1: QAT and remat)")
+    serving); ``lr_flip_prob`` enables the LR-flip augmentation; ``qat``
+    trains through the int8 fake-quantizer (:mod:`.qat`); ``with_grads``
+    also returns the gradients by parameter name. With ``mesh`` (a
+    ``DeviceMesh``) the batch is this process's rows of the global batch
+    (a DTensor from ``host_local_to_global`` gives its local rows)."""
+    check_mesh(mesh)
 
     def step(state: TrainState, batch: dict, seed: int = 0):
         batch = _on(batch, state.device)
         seeds = step_seeds(seed, state.step)
+        shard = mesh_shard(mesh, batch["raw"].shape[0])
         with torch.no_grad():
             raw, lengths = batch["raw"], batch["lengths"]
             if aug_prob > 0.0 or lr_flip_prob > 0.0:
                 raw, lengths = augment(
                     raw, lengths, prob=aug_prob, flip_prob=lr_flip_prob,
-                    draws=draws_from_seed(seeds[1:2], raw.shape[0]))
+                    draws=draws_from_seed(seeds[1:2], raw.shape[0],
+                                          _row0(shard)))
             x = _preprocess_batch(raw, lengths, stats, frame_len,
                                   dominant_hand)
-        loss, grads, old = _loss_and_grads(state, x, batch["labels"],
-                                           seeds[0:1], blank_id)
+        with batch_shard(shard):
+            loss, grads, old = _loss_and_grads(state, x, batch["labels"],
+                                               seeds[0:1], blank_id, qat)
+        grads, loss = _mean_over_shards(grads, loss, shard)
         state, metrics = _finish_step(state, loss, grads, old)
         if with_grads:
             metrics["grads"] = state._leaves(grads)
@@ -248,24 +320,29 @@ def make_fused_ctc_train_step(stats: GroupStats, frame_len: int,
 
 def make_fused_ctc_eval_step(stats: GroupStats, frame_len: int,
                              blank_id: int = 59, dominant_hand: bool = False,
-                             qat: bool = False):
+                             qat: bool = False, mesh=None):
     """Eval step from a raw batch: preprocess (no augmentation) -> forward
     -> per-sequence loss -> greedy decode. ``loss_per_seq`` lets a caller
-    pad a tail batch and still average over the real rows."""
-    if qat:
-        raise NotImplementedError(
-            "qat=True (evaluating through the int8 fake-quantizer) is not "
-            "ported yet (ROADMAP.md Queue 1: QAT and remat)")
+    pad a tail batch and still average over the real rows. With ``qat``
+    the forward sees the int8 fake-quantized weights (the numerics of the
+    int8 export). With ``mesh`` the batch is this process's rows and the
+    outputs are the global batch's, on every process."""
+    check_mesh(mesh)
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict):
         batch = _on(batch, state.device)
+        shard = mesh_shard(mesh, batch["raw"].shape[0])
         x = _preprocess_batch(batch["raw"], batch["lengths"], stats,
                               frame_len, dominant_hand)
-        logits = state.model(x, training=False)
+        with qat_weights(state.model, qat):
+            logits = state.model(x, training=False)
         per_seq = ctc_loss(logits, batch["labels"], blank_id=blank_id,
                            reduction="none")
         ids, counts = greedy_decode_batch(logits, blank_id=blank_id)
+        if shard is not None:
+            per_seq, ids, counts = (gather_rows(t, shard)
+                                    for t in (per_seq, ids, counts))
         return {"loss": per_seq.mean(), "loss_per_seq": per_seq,
                 "ids": ids, "counts": counts}
 

@@ -16,7 +16,13 @@ of ``ishara_tpu/train/trainer.py``).
   example predictions;
 * best, periodic and final checkpoints, exact mid-epoch resume, early
   stopping, restoring the best weights at the end, and a checkpoint on
-  SIGTERM.
+  SIGTERM;
+* with ``mesh`` (a ``DeviceMesh``, :mod:`ishara_tpu_torch.parallel`) data
+  parallelism, one process a card: every process draws the same global
+  batch order and keeps its rows (``batch_size / mesh.size()``), the steps
+  compute the unsharded step's function, validation scores the global
+  batch, and only rank 0 writes logs, histograms and checkpoints, which
+  every rank restores from.
 
 Where it differs from the reference: the state lives on ``device`` (default
 ``cuda``; raises when no card is visible); the step's randomness is the
@@ -35,6 +41,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import IsharaConfig
 from ..device import resolve_device
@@ -49,8 +56,10 @@ from .checkpoint import CheckpointManager
 from .optim import make_optimizer
 from .state import (
     TrainState,
+    check_mesh,
     make_fused_ctc_eval_step,
     make_fused_ctc_train_step,
+    mesh_shard,
 )
 from .translation import (
     make_fused_translation_eval_step,
@@ -74,10 +83,17 @@ class Trainer:
     ):
         if task not in ("ctc", "translation"):
             raise ValueError(task)
-        if mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh is not ported yet (ROADMAP.md "
-                "Queue 1: distribution)")
+        check_mesh(mesh)
+        bs = config.train.batch_size
+        if mesh is not None and bs % mesh.size():
+            raise ValueError(f"batch_size {bs} is not divisible by the "
+                             f"mesh's {mesh.size()} processes")
+        self.mesh = mesh
+        # this process's rows of each global batch, and whether it writes
+        local = bs if mesh is None else bs // mesh.size()
+        row0 = 0 if mesh is None else mesh_shard(mesh, local).row0
+        self._rows = slice(row0, row0 + local)
+        self._writes = mesh is None or dist.get_rank() == 0
         self.device = resolve_device(device)
         self.cfg = config
         self.train_data = train_data
@@ -130,11 +146,12 @@ class Trainer:
             def make_step(with_grads=False):
                 return make_fused_ctc_train_step(
                     self.stats, mcfg.frame_len, tcfg.aug_prob,
-                    mcfg.blank_id, with_grads=with_grads, **step_kw)
+                    mcfg.blank_id, with_grads=with_grads, mesh=mesh,
+                    **step_kw)
 
             self._eval_step = make_fused_ctc_eval_step(
                 self.stats, mcfg.frame_len, mcfg.blank_id,
-                dominant_hand=mcfg.dominant_hand, qat=tcfg.qat)
+                dominant_hand=mcfg.dominant_hand, qat=tcfg.qat, mesh=mesh)
         else:
             ids = dict(pad_idx=tokenizer.pad_token,
                        eos_idx=tokenizer.eos_token)
@@ -142,17 +159,18 @@ class Trainer:
             def make_step(with_grads=False):
                 return make_fused_translation_train_step(
                     self.stats, mcfg.frame_len, tcfg.aug_prob,
-                    with_grads=with_grads, **ids)
+                    with_grads=with_grads, mesh=mesh, **ids)
 
             self._eval_step = make_fused_translation_eval_step(
-                self.stats, mcfg.frame_len, **ids)
+                self.stats, mcfg.frame_len, mesh=mesh, **ids)
         self._train_step = make_step()
         self._hist_step = make_step(with_grads=True) \
             if tcfg.histogram_every_steps > 0 else None
 
         self.workdir.mkdir(parents=True, exist_ok=True)
-        config.to_json(self.workdir / "config.json")
-        self.logger = MetricLogger(self.workdir)
+        if self._writes:
+            config.to_json(self.workdir / "config.json")
+        self.logger = MetricLogger(self.workdir if self._writes else None)
         self.ckpt = CheckpointManager(self.workdir / "ckpt")
         self.best_score = -np.inf
         self.history: list[dict] = []
@@ -191,7 +209,8 @@ class Trainer:
         losses = []
         schedule = self._epoch_indices(epoch)[start_batch:]
         batches = prefetch(
-            (self.train_data.batch(idx, self.tokenizer, max_frames=cap)
+            (self.train_data.batch(idx[self._rows], self.tokenizer,
+                                   max_frames=cap)
              for idx, cap in schedule),
             depth=2,
         )
@@ -214,7 +233,8 @@ class Trainer:
                     loss = float(metrics["loss"])
                     if np.isfinite(loss):
                         losses.append(loss)
-                        self._log_step(metrics, loss, epoch, tput)
+                        if self._writes:
+                            self._log_step(metrics, loss, epoch, tput)
                 bi += 1
         finally:
             batches.close()  # stops the prefetch thread
@@ -229,6 +249,8 @@ class Trainer:
         # and parameter histograms
         self.state, metrics = self._hist_step(self.state, batch, seed)
         grads = metrics.pop("grads")
+        if not self._writes:
+            return metrics
         step = int(self.state.step)
         self.logger.log_histograms(grads, step=step, prefix="grad")
         self.logger.log_histograms(self.state.param_dict(), step=step,
@@ -265,7 +287,9 @@ class Trainer:
             batch = self.val_data.batch(
                 indices, self.tokenizer, max_frames=self.max_raw_frames
             )
-            out = self._eval_step(self.state, batch)
+            # this process's rows in; the global batch's outputs back
+            out = self._eval_step(self.state, {
+                k: batch[k][self._rows] for k in ("raw", "lengths", "labels")})
             loss_sum += float(out["loss_per_seq"][:n_real].sum())
             loss_n += n_real
             ids = out["ids"][:n_real].cpu().numpy()
@@ -292,8 +316,7 @@ class Trainer:
 
         # preemption safety: SIGTERM writes a checkpoint before exit
         def _on_term(signum, frame):
-            self.ckpt.save(int(self.state.step), self.state,
-                           metrics=self._resume_meta(), wait=True)
+            self._save(wait=True)
             raise SystemExit(143)
 
         prev_handler = None
@@ -326,25 +349,21 @@ class Trainer:
                     rec["val_time_s"] = round(time.time() - t1, 4)
                     examples = val.pop("examples")
                     rec.update(val)
-                    for p, t in examples[:32]:
+                    for p, t in examples[:32] if self._writes else ():
                         print(f"  pred={p!r} target={t!r}")
                     if val["val_score"] > self.best_score:
                         self.best_score = val["val_score"]
                         last_improve_epoch = epoch
-                        self.ckpt.save(
-                            int(self.state.step), self.state,
-                            metrics={"val_score": val["val_score"],
-                                     **self._resume_meta()},
-                            best=True)
+                        self._save(val_score=val["val_score"], best=True)
                     elif (tcfg.early_stop_patience > 0
                           and epoch - last_improve_epoch
                           >= tcfg.early_stop_patience):
                         rec["early_stopped"] = True
                         stop_early = True
                 if (epoch + 1) % tcfg.checkpoint_every_epochs == 0:
-                    self.ckpt.save(int(self.state.step), self.state,
-                                   metrics=self._resume_meta())
-                self.logger.log(rec, step=int(self.state.step))
+                    self._save()
+                if self._writes:
+                    self.logger.log(rec, step=int(self.state.step))
                 self.history.append(rec)
                 if stop_early:
                     break
@@ -352,11 +371,24 @@ class Trainer:
                 self.restore_best()
         finally:
             # a final checkpoint is always written
-            self.ckpt.save(int(self.state.step), self.state,
-                           metrics=self._resume_meta(), wait=True)
+            self._save(wait=True)
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
         return self.history
+
+    def _save(self, wait: bool = False, best: bool = False, **metrics):
+        """A checkpoint of the state with the resume bookkeeping (and
+        ``metrics``), written by rank 0 only under a mesh."""
+        if self._writes:
+            self.ckpt.save(int(self.state.step), self.state,
+                           metrics={**metrics, **self._resume_meta()},
+                           wait=wait, best=best)
+
+    def _sync(self) -> None:
+        """Under a mesh, wait until every process (rank 0's writes
+        included) has come this far."""
+        if self.mesh is not None:
+            dist.barrier()
 
     def _resume_meta(self) -> dict:
         return {"completed_epochs": self.completed_epochs,
@@ -367,6 +399,7 @@ class Trainer:
     def restore_best(self) -> bool:
         """Load the best-validation checkpoint into ``self.state`` in place.
         Returns False when there is none yet."""
+        self._sync()
         try:
             self.state = self.ckpt.restore(self.state, best=True)
             return True
@@ -379,7 +412,9 @@ class Trainer:
         epochs, batches consumed in the epoch in flight, best validation
         score), so ``train()`` continues where the interrupted run stopped.
         The continuation skips exactly the batches already consumed, so the
-        concatenated run equals an uninterrupted one."""
+        concatenated run equals an uninterrupted one. Under a mesh every
+        process restores from rank 0's checkpoint."""
+        self._sync()
         step = self.ckpt.latest_step()
         if step is None:
             return False

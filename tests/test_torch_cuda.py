@@ -1520,3 +1520,179 @@ def test_streaming_on_the_card_matches_the_batch_causal_forward(chunk):
             collapsed.append(t)
         prev = t
     assert StreamingEncoder.collect(emitted) == collapsed
+
+
+# ---------------------------------------------------------------------------
+# The element offsets of a data-parallel rank's rows; QAT and remat steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["fast_dropout", "fast_dropout_add",
+                                    "flash_mhsa", "ffn_residual"])
+def test_offset_kernels_match_plain_and_the_full_launch(kernel, dtype):
+    """Rows [3, 7) of a batch of 7 with the offset of those rows: the
+    kernel equals the same rows of the whole batch's launch bit for bit
+    (forward and input gradients) and its plain version with the offset
+    (the dropout kernels bit for bit, the others to their kernel
+    tolerance)."""
+    _card()
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import dropout as dr
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    seed = torch.tensor([99], dtype=torch.int32, device="cuda")
+    B, T, D, r0 = 7, 21, 64, 3
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    def run(fn, inputs, dy):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, dy)
+
+    if kernel.startswith("fast_dropout"):
+        add = kernel == "fast_dropout_add"
+        w = getattr(dr, kernel)
+        x, res, dy = rand(B, T, D), rand(B, T, D), rand(B, T, D)
+        off = r0 * T * D
+
+        def fn(*t, o=0):
+            return w(t[0], t[1], seed, 0.3, o) if add else w(t[0], seed, 0.3,
+                                                            o)
+        ins = [res, x] if add else [x]
+        full, fg = run(fn, ins, dy)
+        part, pg = run(lambda *t: fn(*t, o=off), [t[r0:] for t in ins],
+                       dy[r0:])
+        plain = dr.dropout_plain(x[r0:], seed, 0.3,
+                                 res[r0:] if add else None, off)
+        assert torch.equal(part, plain)
+    elif kernel == "flash_mhsa":
+        H, Dh = 4, 16
+        q, k, v, dy = (rand(B, H, T, Dh) for _ in range(4))
+        mask = torch.ones(B, T, dtype=torch.bool, device="cuda")
+        mask[::2, T - 6:] = False
+        bias = at.mask_to_bias(mask)
+        off = r0 * H * T * T
+
+        def fn(q, k, v, o=0, b=bias):
+            return at.flash_mhsa(q, k, v, b, seed, 0.25, 0.3, offset=o)
+
+        full, fg = run(fn, [q, k, v], dy)
+        part, pg = run(lambda *t: fn(*t, o=off, b=bias[r0:]),
+                       [q[r0:], k[r0:], v[r0:]], dy[r0:])
+        po, lse = at.mhsa_forward_plain(q[r0:], k[r0:], v[r0:], bias[r0:],
+                                        seed, 0.25, 0.3, offset=off)
+        pgr = at.mhsa_backward_plain(q[r0:], k[r0:], v[r0:], bias[r0:], seed,
+                                     po, lse, dy[r0:], 0.25, 0.3, offset=off)
+        _close(part, po, tol)
+        for a, b in zip(pg, pgr):
+            _close(a, b, tol)
+    else:
+        M = 128
+        x, res, dy = rand(B, T, D), rand(B, T, D), rand(B, T, D)
+        w1 = torch.randn(D, M, generator=g, device="cuda") * D ** -0.5
+        w2 = torch.randn(M, D, generator=g, device="cuda") * M ** -0.5
+        b1 = torch.randn(M, generator=g, device="cuda") * 0.1
+        b2 = torch.randn(D, generator=g, device="cuda") * 0.1
+        seeds = torch.tensor([3, 4], dtype=torch.int32, device="cuda")
+
+        def fn(x, res, r=0):
+            return fk.ffn_residual(x, res, w1, b1, w2, b2, seeds, 0.3, 0.2, r)
+
+        full, fg = run(fn, [x, res], dy)
+        part, pg = run(lambda *t: fn(*t, r=r0 * T), [x[r0:], res[r0:]],
+                       dy[r0:])
+        n = (B - r0) * T
+        want = fk.ffn_forward_plain(
+            x[r0:].reshape(n, D), res[r0:].reshape(n, D), w1.to(dtype), b1,
+            w2.to(dtype), b2, seeds, 0.3, 0.2, row_offset=r0 * T)
+        _close(part.reshape(n, D), want, tol)
+        m1, m2 = fk.debug_masks(n, M, D, seeds, 0.3, 0.2, r0 * T)
+        c1, c2 = fk.debug_masks(n, M, D, seeds.cpu(), 0.3, 0.2, r0 * T)
+        assert torch.equal(m1.cpu(), c1) and torch.equal(m2.cpu(), c2)
+    assert torch.equal(part, full[r0:])
+    for a, b in zip(pg, fg):
+        assert torch.equal(a, b[r0:])
+
+
+def _small_step_on_card_and_cpu(qat=False, remat=False):
+    """One fused step of a small hybrid (dim 128, dropout and augmentation
+    on, f32) on the card and on the CPU from the same weights and seeds."""
+    import copy
+
+    from ishara_tpu_torch.config import TrainConfig
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.preprocess import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = EncoderConfig(variant="hybrid", dim=128, num_heads=4,
+                        num_squeeze_blocks=1, num_conform_blocks=1,
+                        frame_len=32, dropout=0.2, top_dropout=0.2,
+                        remat=remat)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cpu")
+    batch = SyntheticASLFR(num_sequences=8, seed=3).batch(
+        range(8), CTCTokenizer(), max_frames=64)
+    tx, _ = make_optimizer(TrainConfig())
+    step = make_fused_ctc_train_step(GroupStats.identity(), 32, aug_prob=0.2,
+                                     with_grads=True, qat=qat)
+    cpu = TrainState.create(copy.deepcopy(model), tx, device="cpu")
+    card = TrainState.create(copy.deepcopy(model), tx, device="cuda")
+    cpu, mc = step(cpu, batch, seed=1)
+    card, mg = step(card, batch, seed=1)
+    return (card, mg), (cpu, mc)
+
+
+def _assert_small_step_close(mg, mc):
+    # test_training_step_on_the_card_matches_the_cpu's f32 tolerances
+    assert abs(float(mg["loss"]) - float(mc["loss"])) \
+        <= 1e-6 * abs(float(mc["loss"]))
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
+        <= 1e-5 * float(mc["grad_norm"])
+    largest = max(float(g.abs().max()) for g in mc["grads"].values())
+    for name, want in mc["grads"].items():
+        err = float((mg["grads"][name].cpu() - want).abs().max())
+        assert err <= 2e-4 * max(float(want.abs().max()), 1e-3 * largest), \
+            name
+
+
+@pytest.mark.cuda
+def test_qat_step_on_the_card_matches_the_cpu():
+    """The QAT step on the kernels (the fake-quantized weights reach the
+    feed-forward and attention kernels' wrappers) against the same step on
+    the CPU's plain versions."""
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    before = fk.ffn_residual.launches
+    (_, mg), (_, mc) = _small_step_on_card_and_cpu(qat=True)
+    assert fk.ffn_residual.launches == before + 4
+    _assert_small_step_close(mg, mc)
+
+
+@pytest.mark.cuda
+def test_remat_step_on_the_card_is_the_plain_step():
+    """``remat=True`` on the card: the same step as ``remat=False`` bit for
+    bit (the recomputation launches the forward kernels again), and within
+    the CPU step's tolerances of its plain versions."""
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    (a, ma), (_, mc) = _small_step_on_card_and_cpu(remat=False)
+    before = fk.ffn_residual.launches
+    (b, mb), _ = _small_step_on_card_and_cpu(remat=True)
+    assert fk.ffn_residual.launches == before + 8
+    assert torch.equal(ma["loss"], mb["loss"])
+    assert torch.equal(a.params, b.params)
+    for x, y in zip(a.batch_stats.values(), b.batch_stats.values()):
+        assert torch.equal(x, y)
+    _assert_small_step_close(mb, mc)

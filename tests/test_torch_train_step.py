@@ -311,10 +311,19 @@ def test_same_seed_and_step_give_the_same_step_with_dropout_on():
 
 def test_options_and_eval_steps():
     _, tstate, batch, x = setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_ctc_train_step(GroupStats.identity(), FRAME_LEN, qat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_ctc_eval_step(GroupStats.identity(), FRAME_LEN, qat=True)
+    # QAT is ported: both steps build and run, the eval step's forward on
+    # the fake-quantized weights (tests/test_torch_qat.py holds them to JAX)
+    qstate, qm = make_fused_ctc_train_step(
+        GroupStats.identity(), FRAME_LEN, aug_prob=0.0, qat=True)(
+        tstate.clone(), batch, seed=0)
+    assert np.isfinite(float(qm["loss"])) and int(qstate.step) == 1
+    qev = make_fused_ctc_eval_step(GroupStats.identity(), FRAME_LEN,
+                                   qat=True)(tstate, batch)
+    assert qev["ids"].shape == (BATCH, 64)
+    # a mesh must be a DeviceMesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make_fused_ctc_train_step(GroupStats.identity(), FRAME_LEN,
+                                  mesh=object())
     with pytest.raises(RuntimeError, match="CUDA"):
         TrainState.create(tstate.model, tstate.tx)   # no card here
     step = make_fused_ctc_train_step(GroupStats.identity(), FRAME_LEN,

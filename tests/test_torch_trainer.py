@@ -136,7 +136,9 @@ def test_trainer_runs_on_cuda_by_default_and_refuses_unported_branches(
     with pytest.raises(ValueError):
         Trainer(tcfg, train, val, CTCTokenizer(), workdir=tmp_path,
                 task="segmentation", device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution"):
+    # a mesh is ported (tests/test_torch_distributed.py trains on one);
+    # anything else is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(tcfg, train, val, CTCTokenizer(), workdir=tmp_path,
                 mesh=object(), device="cpu")
 
