@@ -153,9 +153,25 @@ Phases, each of which raises on failure (the exit code is then not 0):
    rows sharing the card (``chip_smoke.py --dp-rank``) against the
    single-process batch-256 step, the replicas bit for bit; a ``Trainer``
    epoch on ``ShardedASLFR`` shards of the hard corpus.
-12. One JSON line listing every ported kernel (``offset``: whether it
-   takes a data-parallel rank's element offset), then the card's name and
-   power limit, then ``{"ok": true, "device": {...}}`` as the last line.
+12. Tensor parallelism, the native library and the CLI: the dropout kernel
+   on a tensor-parallel rank's strided slices (4 of 8 heads of the
+   attention probabilities, half the FFN hidden; f32) against its plain
+   version and against the whole tensor's launch, bit for bit; the
+   attention kernel on a rank's heads and the FFN kernel's partial sums on
+   its hidden columns at the TP step's shapes, against their plain
+   versions and the whole launches, timed; preset 4
+   (f32, batch 256, dropout 0.4) on two gloo ranks sharing the card as a
+   ``(data 1, model 2)`` mesh (``chip_smoke.py --tp-rank``), the state
+   sharded by ``shard_state_tp``: one step held to the single-process
+   step, the replicated elements bit for bit on both ranks, the launches
+   of every kernel the step takes, ms a step beside the unsharded step's;
+   the native Levenshtein library built and equal to the Python DP on
+   1000 pairs, both timed; ``python -m ishara_tpu_torch`` ``train``,
+   ``export``, ``infer`` and ``eval`` on the card with no ``--device``.
+13. One JSON line listing every ported kernel (``offset``: whether it
+   takes a data-parallel rank's element offset; the ``tp`` rows carry the
+   tensor-parallel step's launches), then the card's name and power
+   limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with a non-zero code, printing no result, when no CUDA device is
 visible or the port's package is not beside this script.
@@ -1861,16 +1877,16 @@ def plain_versions():
     from ishara_tpu_torch.ops import ffn_kernel as fk
 
     swaps = [
-        (dr, "_launch", lambda x, res, seed, rate, offset=0:
-            dr.dropout_plain(x, seed, rate, res, offset)),
-        (at, "_launch_fwd", lambda *a, offset=0:
-            at.mhsa_forward_plain(*a, offset=offset)),
-        (at, "_launch_bwd", lambda *a, offset=0:
-            at.mhsa_backward_plain(*a, offset=offset)),
-        (fk, "_launch_fwd", lambda *a, row_offset=0:
-            fk.ffn_forward_plain(*a, row_offset=row_offset)),
-        (fk, "_launch_bwd", lambda *a, row_offset=0:
-            fk.ffn_backward_plain(*a, row_offset=row_offset)),
+        (dr, "_launch", lambda x, res, seed, rate, offset=0, runs=None:
+            dr.dropout_plain(x, seed, rate, res, offset, runs)),
+        (at, "_launch_fwd", lambda *a, **kw:
+            at.mhsa_forward_plain(*a, **kw)),
+        (at, "_launch_bwd", lambda *a, **kw:
+            at.mhsa_backward_plain(*a, **kw)),
+        (fk, "_launch_fwd", lambda *a, **kw:
+            fk.ffn_forward_plain(*a, **kw)),
+        (fk, "_launch_bwd", lambda *a, **kw:
+            fk.ffn_backward_plain(*a, **kw)),
         (ck, "_launch_alpha", lambda logits, labels, blank_id, want_alpha:
             ck.ctc_forward_plain(logits, labels, blank_id)),
         (ck, "_launch_beta", lambda logits, labels, alpha, nll, dy, blank_id:
@@ -4586,6 +4602,525 @@ def sharded_trainer_phase(smi, workdir: Path):
         raise AssertionError("the Trainer on ShardedASLFR failed")
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism, the native Levenshtein library and the CLI
+# ---------------------------------------------------------------------------
+
+TP_PARTS = 2       # the model axis of the tensor-parallel phase
+# The tensor-parallel step's launches a step (forward = backward): the
+# attention kernel on the rank's 4 of 8 heads of the 8 blocks, the FFN
+# kernel's partial sums on the rank's 256 of 512 hidden columns of the 16
+# FFNs, the conv-module kernel at the 4 Squeezeformer blocks (replicated
+# weights, the whole activations after the row-parallel reduction), the
+# dropout-add of the 4 Squeezeformer attention branches and of the 8
+# Squeezeformer FFNs' reduced outputs (12: the FFN kernel's own residual
+# and output dropout are taken after the reduction), the top dropout, one
+# CTC loss.
+TP_STEP_LAUNCHES = {"flash_mhsa": 8, "ffn_residual": 16,
+                    "conv_module_residual": 4, "fast_dropout_add": 12,
+                    "fast_dropout": 1, "ctc_loss_kernel": 1,
+                    "flash_mhsa_blocked": 0}
+
+
+def tp_rank_main(rank: int, port: int, out: str) -> int:
+    """One of two gloo ranks on the one card, on a ``(data 1, model 2)``
+    mesh: the flagship batch's 256 rows on each, the state sharded by
+    ``shard_state_tp``; one counted step, then ms a step; saves the step's
+    results (the parameters whole) to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from ishara_tpu_torch.parallel import (
+        gather_params_tp,
+        make_2d_mesh,
+        shard_state_tp,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TP_PARTS, rank=rank)
+    try:
+        mesh = make_2d_mesh(1, TP_PARTS)
+        state, step = dp_state_and_step(mesh)
+        shard_state_tp(state, mesh)
+        batch = train_batch()
+        counters = train_counters()
+        for w in counters.values():
+            w.launches = w.launches_bwd = 0
+        s1, m = step(state.clone(), batch, seed=0)
+        torch.cuda.synchronize()
+        launches = {n: (w.launches, w.launches_bwd)
+                    for n, w in counters.items()}
+        full = gather_params_tp(s1)
+        local = sum(getattr(mod, "tp_parts", 1) > 1
+                    for mod in s1.model.modules())
+        result = {"loss": m["loss"].cpu(), "grad_norm": m["grad_norm"].cpu(),
+                  "params": torch.cat([v.reshape(-1) for v in
+                                       full.values()]).cpu(),
+                  "replicated": s1.params[~s1.tp.sharded].cpu(),
+                  "stats": [b.cpu() for b in s1.batch_stats.values()],
+                  "launches": launches, "sharded": len(s1.tp.dims),
+                  "gathered": len(s1.model.tp_gather), "local": local,
+                  "local_numel": s1.params.numel()}
+        group = s1.tp.group
+        del s1
+        # ms a step: both ranks step together (each product pair's
+        # all-reduce joins them), sharing the card
+        _, result["ms"] = median_step_ms(step, state, batch, runs=2)
+        # one all-reduce of a block's activations [256, 176, 256] f32 over
+        # the model group: a step takes two a sliced module (the forward's
+        # reduction, the backward's at the copy)
+        buf = torch.randn(TB, TT, TD, device=DEVICE)
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf, group=group)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        result["allreduce_ms"] = statistics.median(times)
+        torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_dropout_checks(smi, runs=20):
+    """K2 on a tensor-parallel rank's strided slices (f32, rate 0.4): the
+    attention probabilities of 4 of 8 heads ``[256, 4, 176, 176]`` and the
+    FFN hidden's half ``[256, 176, 256]`` of 512 (``runs``), the
+    compositions' masks on a slice. Forward and backward against the plain
+    version with the same runs, and against the slice of the whole
+    tensor's launch, bit for bit; the kernel timed beside the contiguous
+    launch of the same size. The tensor-parallel step itself takes the
+    attention and FFN kernels (``tp_kernel_rows``), so these forms have no
+    row of the kernels line."""
+    import torch
+
+    from ishara_tpu_torch.ops import dropout as dr
+
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    seed = torch.tensor([31337], dtype=torch.int32, device=DEVICE)
+    rate = 0.4
+    shapes = {"attention": ((TB, TH, TT, TT), 1), "ffn hidden": (
+        (TB, TT, 2 * TD), 2)}
+    for what, (shape, dim) in shapes.items():
+        x = torch.randn(shape, generator=g, device=DEVICE)
+        dy = torch.randn(shape, generator=g, device=DEVICE)
+        full = dr.fast_dropout(x, seed, rate)
+        full_dx = dr.dropout_plain(dy, seed, rate)
+        w = shape[dim] // TP_PARTS
+        inner = 1
+        for d in shape[dim + 1:]:
+            inner *= d
+        for part in range(TP_PARTS):
+            sl = [slice(None)] * len(shape)
+            sl[dim] = slice(part * w, (part + 1) * w)
+            sl = tuple(sl)
+            xs, dys = x[sl].contiguous(), dy[sl].contiguous()
+            off, runs_ = part * w * inner, (w * inner, shape[dim] * inner)
+            xr = xs.clone().requires_grad_()
+            out = dr.fast_dropout(xr, seed, rate, off, runs_)
+            dx = torch.autograd.grad(out, xr, dys)[0]
+            plain = dr.dropout_plain(xs, seed, rate, None, off, runs_)
+            plain_dx = dr.dropout_plain(dys, seed, rate, None, off, runs_)
+            if not (torch.equal(out, plain) and torch.equal(dx, plain_dx)
+                    and torch.equal(out, full[sl])
+                    and torch.equal(dx, full_dx[sl])):
+                raise AssertionError(f"strided fast_dropout {what} part "
+                                     f"{part} is not the plain version or "
+                                     f"the whole launch's slice")
+        f_ms = time_ms(lambda: dr.fast_dropout(xs, seed, rate, off, runs_),
+                       runs=runs)
+        c_ms = time_ms(lambda: dr.fast_dropout(xs, seed, rate), runs=runs)
+        log(f"kernel fast_dropout on a tensor-parallel slice ({what}, f32, "
+            f"{list(xs.shape)} of {list(shape)}, runs {runs_}), both parts, "
+            f"forward and dx: equal to the plain version and to the whole "
+            f"launch's slice bit for bit PASS; forward {f_ms:.4f} ms "
+            f"(contiguous launch of the same size {c_ms:.4f} ms) on {smi}")
+        del x, dy, full, full_dx
+    torch.cuda.empty_cache()
+
+
+def tp_kernel_rows(smi, runs=10):
+    """K3 and K4 at a tensor-parallel rank's shapes in the TP step (f32,
+    dropout 0.4, two ranks): the attention kernel on 4 of 8 heads (q, k, v
+    ``[256, 4, 176, 32]``, ``runs``) and the FFN kernel's partial sum on
+    256 of 512 hidden columns (x ``[45056, 256]``, ``hidden``, no residual,
+    no ``b2``, no output dropout). Each part's forward and gradients
+    against the plain version with the same masks, and against the whole
+    launch (the heads of the 8-head launch; the parts' partial sums plus
+    the bias against the whole FFN launch); timed beside the plain version
+    and the library call at the rank's shapes. Returns the four rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    tol, rate, rows = TRAIN_TOL["f32"], 0.4, []
+    Dh, hl = TD // TH, TH // TP_PARTS
+    scale = TD ** -0.5
+    seed = torch.tensor([4321], dtype=torch.int32, device=DEVICE)
+    lengths = torch.randint(TT // 4, TT + 1, (TB,), generator=g,
+                            device=DEVICE)
+    bias = at.mask_to_bias(torch.arange(TT, device=DEVICE)[None, :]
+                           < lengths[:, None])
+    qkv = torch.randn((TB, TT, TH, 3 * Dh), generator=g,
+                      device=DEVICE).requires_grad_()
+    d_o = torch.randn((TB, TH, TT, Dh), generator=g, device=DEVICE)
+    q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    o = at.flash_mhsa(q, k, v, bias, seed, scale, rate)
+    whole = (o.detach(),) + torch.autograd.grad(o, (q, k, v), d_o)
+    del o
+    errs = [0.0, 0.0]
+    for part in range(TP_PARTS):
+        h = slice(part * hl, (part + 1) * hl)
+        qs, ks, vs = (t.detach()[:, h].contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dos = d_o[:, h].contiguous()
+        off = part * hl * TT * TT
+        runs_ = (hl * TT * TT, TH * TT * TT)
+        os_ = at.flash_mhsa(qs, ks, vs, bias, seed, scale, rate, off, runs_)
+        grads = torch.autograd.grad(os_, (qs, ks, vs), dos,
+                                    retain_graph=True)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            ro, lse = at.mhsa_forward_plain(qs, ks, vs, bias, seed, scale,
+                                            rate, offset=off, runs=runs_)
+            rg = at.mhsa_backward_plain(qs, ks, vs, bias, seed, ro, lse, dos,
+                                        scale, rate, offset=off, runs=runs_)
+        errs[0] = max(errs[0], close(f"tp attention part {part} o", os_, ro,
+                                     tol))
+        errs[1] = max(errs[1], max(close(f"tp attention part {part} d{n}",
+                                         a, b, tol)
+                                   for n, a, b in zip("qkv", grads, rg)))
+        for n, a, b in zip(("o", "dq", "dk", "dv"), (os_,) + grads, whole):
+            close(f"tp attention part {part} {n} against the 8-head launch",
+                  a, b[:, h], tol)
+        del ro, lse, rg
+    with torch.no_grad():
+        p_f = time_ms(lambda: at.mhsa_forward_plain(
+            qs, ks, vs, bias, seed, scale, rate, offset=off, runs=runs_),
+            runs=3, warmup=1, head_start=False)
+        ro, lse = at.mhsa_forward_plain(qs, ks, vs, bias, seed, scale, rate,
+                                        offset=off, runs=runs_)
+        p_b = time_ms(lambda: at.mhsa_backward_plain(
+            qs, ks, vs, bias, seed, ro, lse, dos, scale, rate, offset=off,
+            runs=runs_), runs=3, warmup=1, head_start=False)
+        del ro, lse
+    f_ms = time_ms(lambda: at.flash_mhsa(qs, ks, vs, bias, seed, scale, rate,
+                                         off, runs_), runs=runs)
+    b_ms = time_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos,
+                                               retain_graph=True), runs=runs)
+    lq = [t.detach().clone().requires_grad_() for t in (qs, ks, vs)]
+    mask = bias[:, None, None, :]
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(*lq, attn_mask=mask,
+                                              dropout_p=rate, scale=scale)
+
+    lo = lib_fwd()
+    lf_ms = time_ms(lib_fwd, runs=runs)
+    lb_ms = time_ms(lambda: torch.autograd.grad(lo, lq, dos,
+                                                retain_graph=True),
+                    runs=runs)
+    size = TB * hl * TT * Dh * 4
+    small = bias.numel() * 4 + TB * hl * TT * 4
+    ops_f = 4 * TB * hl * TT * TT * Dh
+    tag = f"[f32 {TB}x{hl}x{TT}x{Dh} tp heads]"
+    ref = "ishara_tpu/ops/attention.py"
+    log(f"kernel flash_mhsa on a tensor-parallel rank's heads (f32, q, k, v "
+        f"[{TB}, {hl}, {TT}, {Dh}] of {TH} heads, runs {runs_}), both parts: "
+        f"equal to the plain version (o {errs[0]:.3e}, d(q|k|v) "
+        f"{errs[1]:.3e}) and to the 8-head launch's heads PASS")
+    rows.append(train_row("flash_mhsa" + tag, at.flash_mhsa, "launches",
+                          "attention.cu", f"{ref}:131", errs[0], f_ms, p_f,
+                          4 * size + small, ops_f, "f32", lf_ms, smi))
+    rows.append(train_row("flash_mhsa[bwd]" + tag, at.flash_mhsa,
+                          "launches_bwd", "attention.cu", f"{ref}:168",
+                          errs[1], b_ms, p_b, 8 * size + small,
+                          5 * ops_f // 2, "f32", lb_ms, smi))
+    del q, k, v, qkv, d_o, whole, qs, ks, vs, dos, os_, grads, lq, lo
+    torch.cuda.empty_cache()
+
+    N, ml = TB * TT, TM // TP_PARTS
+    seeds = torch.tensor([2718, 2819], dtype=torch.int32, device=DEVICE)
+
+    def rand(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device=DEVICE) * s
+
+    x = rand(N, TD).requires_grad_()
+    dy = rand(N, TD)
+    w1, b1 = rand(TD, TM, s=TD ** -0.5), rand(TM, s=0.1)
+    w2, b2 = rand(TM, TD, s=TM ** -0.5), rand(TD, s=0.1)
+    full = fk.ffn_residual(x, torch.zeros_like(x), w1, b1, w2, b2, seeds,
+                           rate, 0.0)
+    full_dx = torch.autograd.grad(full, x, dy)[0]
+    total, dx_sum, errs = b2, 0.0, [0.0, 0.0]
+    for part in range(TP_PARTS):
+        c = slice(part * ml, (part + 1) * ml)
+        p = [w1[:, c].contiguous().requires_grad_(),
+             b1[c].contiguous().requires_grad_(),
+             w2[c].contiguous().requires_grad_()]
+        hidden = (TM, part * ml)
+        out = fk.ffn_residual(x, None, *p, None, seeds, rate, 0.0, 0, hidden)
+        grads = torch.autograd.grad(out, [x] + p, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            pd = [t.detach() for t in p]
+            ref_out = fk.ffn_forward_plain(x.detach(), None, pd[0], pd[1],
+                                           pd[2], None, seeds, rate, 0.0,
+                                           hidden=hidden)
+            rg = fk.ffn_backward_plain(x.detach(), dy, pd[0], pd[1], pd[2],
+                                       seeds, rate, 0.0, hidden=hidden)[:4]
+        errs[0] = max(errs[0], close(f"tp ffn part {part} out", out,
+                                     ref_out, tol))
+        errs[1] = max(errs[1], max(close(f"tp ffn part {part} {n}", a, b,
+                                         tol) for n, a, b in
+                                   zip(("dx", "dw1", "db1", "dw2"), grads,
+                                       rg)))
+        total = total + out.detach()
+        dx_sum = dx_sum + grads[0]
+        del ref_out, rg
+    close("tp ffn partial sums plus the bias against the whole launch",
+          total, full.detach(), tol)
+    close("tp ffn dx summed against the whole launch's", dx_sum, full_dx,
+          tol)
+    del full, full_dx, total, dx_sum
+    f_ms = time_ms(lambda: fk.ffn_residual(x, None, *p, None, seeds, rate,
+                                           0.0, 0, hidden), runs=runs)
+    b_ms = time_ms(lambda: torch.autograd.grad(out, [x] + p, dy,
+                                               retain_graph=True), runs=runs)
+    with torch.no_grad():
+        xd, pd = x.detach(), [t.detach() for t in p]
+        p_f = time_ms(lambda: fk.ffn_forward_plain(
+            xd, None, pd[0], pd[1], pd[2], None, seeds, rate, 0.0,
+            hidden=hidden), runs=3, warmup=1, head_start=False)
+        p_b = time_ms(lambda: fk.ffn_backward_plain(
+            xd, dy, pd[0], pd[1], pd[2], seeds, rate, 0.0, hidden=hidden),
+            runs=3, warmup=1, head_start=False)
+    lx = x.detach().clone().requires_grad_()
+    lw = [t.detach().clone().requires_grad_() for t in p]
+
+    def lib_fwd():
+        h = F.dropout(F.silu(F.linear(lx, lw[0].t(), lw[1])), rate, True)
+        return F.linear(h, lw[2].t())
+
+    lo = lib_fwd()
+    lf_ms = time_ms(lib_fwd, runs=runs)
+    lb_ms = time_ms(lambda: torch.autograd.grad(lo, [lx] + lw, dy,
+                                                retain_graph=True),
+                    runs=runs)
+    log(f"kernel ffn_residual's partial sum on a tensor-parallel rank's "
+        f"hidden (f32, x [{N}, {TD}], hidden {ml} of {TM}), both parts: "
+        f"equal to the plain version (out {errs[0]:.3e}, gradients "
+        f"{errs[1]:.3e}); the parts' sums plus the bias and their dx equal "
+        f"the whole launch's PASS")
+    size = N * TD * 4
+    weights = 2 * TD * ml * 4 + ml * 4
+    tag = f"[f32 {N}x{TD} hidden {ml} of {TM} tp partial]"
+    ref = "ishara_tpu/ops/ffn_kernel.py"
+    rows.append(train_row("ffn_residual" + tag, fk.ffn_residual, "launches",
+                          "ffn.cu", f"{ref}:153", errs[0], f_ms, p_f,
+                          2 * size + weights, 4 * N * TD * ml, "f32", lf_ms,
+                          smi))
+    rows.append(train_row("ffn_residual[bwd]" + tag, fk.ffn_residual,
+                          "launches_bwd", "ffn.cu", f"{ref}:177", errs[1],
+                          b_ms, p_b, 3 * size + 3 * weights,
+                          10 * N * TD * ml, "f32", lb_ms, smi))
+    del x, dy, out, grads, lx, lw, lo
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_phase(smi, scratch: Path):
+    """Tensor parallelism on the one card: two gloo ranks on a ``(data 1,
+    model 2)`` mesh (``chip_smoke.py --tp-rank``), preset 4 at f32, batch
+    256, dropout 0.4; one step held to the single-process step (DP_TOL),
+    the replicated elements bit for bit on both ranks, the launches of
+    every kernel the step takes, ms a step beside the unsharded step's.
+    Returns (K3's and K4's rows at the ranks' shapes, rank 0's
+    launches)."""
+    import socket
+
+    import torch
+
+    tp_dropout_checks(smi)
+    rows = tp_kernel_rows(smi)
+    batch = train_batch()
+    ref0, step = dp_state_and_step()
+    ref, ref_m = step(ref0.clone(), batch, seed=0)
+    _, plain_ms = median_step_ms(step, ref0.clone(), batch, runs=3)
+    del ref0
+    torch.cuda.empty_cache()
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    scratch.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
+         str(port), str(scratch / f"rank{r}.pt")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(TP_PARTS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode()[-3000:])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"a tensor-parallel rank failed:\n{text}")
+    wall = time.perf_counter() - t0
+    got = [torch.load(scratch / f"rank{r}.pt", weights_only=False)
+           for r in range(TP_PARTS)]
+    same = all(torch.equal(g["replicated"], got[0]["replicated"])
+               and torch.equal(g["params"], got[0]["params"])
+               and torch.equal(g["loss"], got[0]["loss"])
+               and all(torch.equal(a, b) for a, b in
+                       zip(g["stats"], got[0]["stats"])) for g in got)
+    g0 = got[0]
+    log(f"tensor parallel, (data 1, model {TP_PARTS}) mesh of gloo ranks on "
+        f"one card (preset 4, f32, batch {TB}, dropout 0.4; {wall:.1f} s for "
+        f"both processes from start to exit): {g0['sharded']} leaves "
+        f"sharded, {g0['local']} attention / FFN modules on their slices, "
+        f"{g0['gathered']} gathered, {g0['local_numel']} of "
+        f"{ref.params.numel()} parameters a rank; replicated elements and "
+        f"the whole state bit for bit on both ranks {same}; launches a step "
+        f"{g0['launches']}; {g0['ms']:.2f} / {got[1]['ms']:.2f} ms a step "
+        f"on rank 0 / 1 (both ranks at once on the card, median of 2) "
+        f"against {plain_ms:.2f} ms for the unsharded step (f32, median of "
+        f"3, host clock); {2 * g0['local']} all-reduces of "
+        f"{TB * TT * TD * 4 / 1e6:.1f} MB a step at {g0['allreduce_ms']:.2f} "
+        f"ms each (gloo, through the host; median of 5) = "
+        f"{2 * g0['local'] * g0['allreduce_ms']:.1f} ms on {smi}")
+    if not same:
+        raise AssertionError("the tensor-parallel ranks differ")
+    for r, g in enumerate(got):
+        for name, per in TP_STEP_LAUNCHES.items():
+            if tuple(g["launches"][name]) != (per, per):
+                raise AssertionError(f"tp rank {r}: {name} launched "
+                                     f"{g['launches'][name]}, not "
+                                     f"{(per, per)}")
+    dp_compare("tensor parallel, 2 gloo ranks", g0, ref_m, ref)
+    del ref
+    torch.cuda.empty_cache()
+    launches = {(n, d): v for n, (f, b) in g0["launches"].items()
+                for d, v in (("launches", f), ("launches_bwd", b))}
+    return rows, launches
+
+
+def native_phase(smi, n=1000):
+    """The native batched Levenshtein on the card's host: it builds
+    (``available()``); on ``n`` harness-scale pairs (the synthetic
+    corpus's phrases against edited copies) its distances equal the Python
+    DP's; both timed."""
+    from ishara_tpu_torch import native
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.evaluation.metrics import levenshtein
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("the native Levenshtein library did not build")
+    rng = np.random.default_rng(0)
+    targets = list(SyntheticASLFR(num_sequences=n, seed=1).phrases)
+    chars = sorted(set("".join(targets)))
+    preds = []
+    for t in targets:
+        p = list(t)
+        for _ in range(int(rng.integers(0, 6))):
+            i = int(rng.integers(0, len(p) + 1))
+            op = rng.integers(0, 3)
+            if op == 0 and i < len(p):
+                del p[i]
+            elif op == 1 and i < len(p):
+                p[i] = chars[int(rng.integers(len(chars)))]
+            else:
+                p.insert(i, chars[int(rng.integers(len(chars)))])
+        preds.append("".join(p))
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = native.batch_levenshtein(preds, targets)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    want = [levenshtein(p, t) for p, t in zip(preds, targets)]
+    dp_ms = (time.perf_counter() - t0) * 1e3
+    if list(got) != want:
+        raise AssertionError("the native distances differ from the DP's")
+    log(f"native Levenshtein: built and loaded in {build_s:.2f} s; {n} "
+        f"pairs (phrases of {min(map(len, targets))}-"
+        f"{max(map(len, targets))} characters, up to 5 edits) equal to the "
+        f"Python DP PASS; native {statistics.median(times):.3f} ms (median "
+        f"of 5) against {dp_ms:.3f} ms for the DP (host clock, the card's "
+        f"host) on {smi}")
+
+
+def cli_phase(smi, workdir: Path):
+    """``python -m ishara_tpu_torch`` on the card, in subprocesses with no
+    ``--device``: ``train`` (hybrid 1 + 1 at dim 64, 1 epoch of 2 steps on
+    the synthetic corpus), ``export``, ``infer`` and ``eval`` (8
+    sequences), each with rc 0 and on ``cuda``."""
+    from ishara_tpu_torch.config import EncoderConfig, IsharaConfig, TrainConfig
+
+    here = Path(__file__).resolve().parent
+    workdir.mkdir(parents=True, exist_ok=True)
+    config = workdir / "small.json"
+    IsharaConfig(model=EncoderConfig(
+        dim=64, variant="hybrid", num_squeeze_blocks=1, num_conform_blocks=1,
+        num_heads=4, frame_len=64, transformer_kernel_size=7),
+        train=TrainConfig(warmup_epochs=0, validate_every_epochs=1)
+    ).to_json(config)
+    np.save(workdir / "x.npy", np.random.default_rng(0).random(
+        (80, 276)).astype(np.float32))
+    run, bundle = workdir / "run", workdir / "bundle"
+    commands = {
+        "train": ["train", "--config", str(config), "--workdir", str(run),
+                  "--epochs", "1", "--max-sequences", "16",
+                  "--batch-size", "8"],
+        "export": ["export", "--workdir", str(run), "--output", str(bundle)],
+        "infer": ["infer", "--bundle", str(bundle), "--input",
+                  str(workdir / "x.npy")],
+        "eval": ["eval", "--bundle", str(bundle), "--max-sequences", "8",
+                 "--num-sequences", "8"]}
+    said = []
+    # train, then export; infer and eval read the bundle side by side
+    for names in (["train"], ["export"], ["infer", "eval"]):
+        t0 = time.perf_counter()
+        procs = {n: subprocess.Popen(
+            [sys.executable, "-m", "ishara_tpu_torch", *commands[n]],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for n in names}
+        try:
+            outs = {n: p.communicate(timeout=300) for n, p in procs.items()}
+        finally:
+            for p in procs.values():
+                p.kill()
+        wall = time.perf_counter() - t0
+        for name, (out, err) in outs.items():
+            if procs[name].returncode != 0 \
+                    or f"ishara_tpu_torch {name}: device cuda" not in err:
+                raise AssertionError(f"cli {name}: rc "
+                                     f"{procs[name].returncode}\n"
+                                     f"{out[-2000:]}\n{err[-3000:]}")
+            last = out.strip().splitlines()[-1] if out.strip() else ""
+            said.append(f"{name} rc 0 on cuda ({'+'.join(names)} "
+                        f"{wall:.1f} s): {last[:160]}")
+    if "train_loss" not in said[0]:
+        raise AssertionError("cli train printed no train_loss")
+    log("cli (python -m ishara_tpu_torch, no --device): "
+        + "; ".join(said) + f" PASS on {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -4724,6 +5259,17 @@ def main() -> int:
         sharded_trainer_phase(smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    scratch = here / "runs" / "chip_smoke_tp"        # ignored by git
+    try:
+        tp_rows, tp_launches = tp_phase(smi, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    native_phase(smi)
+    workdir = here / "runs" / "chip_smoke_cli"
+    try:
+        cli_phase(smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     for counts in (qat_launches, dp_launches):
         for name in ("ctc_loss_kernel", "fast_dropout", "fast_dropout_add",
                      "flash_mhsa", "ffn_residual", "conv_module_residual"):
@@ -4803,9 +5349,22 @@ def main() -> int:
         row["config"] = ("preset4 causal training step (attn_context 176), "
                          "batch 256")
         line.append(row)
+    # K3 on a tensor-parallel rank's heads and K4's partial sums on its
+    # hidden columns, with the launches of the tensor-parallel step on
+    # rank 0 (all of them at these shapes)
+    for row in tp_rows:
+        wrapper, direction = row.pop("counter")
+        row["launches"] = tp_launches[(wrapper.__name__, direction)]
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched by the "
+                                 f"tensor-parallel step")
+        row["config"] = ("preset4 tensor-parallel training step, (data 1, "
+                         f"model {TP_PARTS}) mesh, batch 256, f32")
+        line.append(row)
     # which kernels take an element offset (a data-parallel rank's rows)
     for row in line:
-        row["offset"] = row["name"].split("[")[0] in (
+        wrapper = row["name"].split("[")[0]
+        row["offset"] = wrapper in (
             "fast_dropout", "fast_dropout_add", "flash_mhsa", "ffn_residual")
     log(json.dumps({"kernels": line}))
     log(smi)
@@ -4818,5 +5377,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                               sys.argv[4]))
     sys.exit(main())

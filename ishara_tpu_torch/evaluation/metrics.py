@@ -6,12 +6,15 @@ normalized-score conventions (port of ``ishara_tpu/evaluation/metrics.py``):
 * ``max_len`` -- 1 - dist / max(len(pred), len(target)).
 * ``pooled`` -- 1 - sum(dist) / sum(len(target)).
 
-Pure Python on the host. The reference's native batched distance is not
-ported yet (ROADMAP.md Queue 1: the rest); the two-row dynamic programme here
-gives identical results.
+On the host. A corpus's distances come from the native batched library
+(:mod:`ishara_tpu_torch.native`, C++ built at first use), as in the
+reference, and from the two-row dynamic programme here when it cannot
+build; the two give identical results.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 
 def levenshtein(a: str, b: str) -> int:
@@ -32,7 +35,12 @@ def levenshtein(a: str, b: str) -> int:
 
 
 def _corpus_distances(preds, targets) -> list[int]:
-    return [levenshtein(p, t) for p, t in zip(preds, targets)]
+    """The native batched library's distances when it is available
+    (:mod:`ishara_tpu_torch.native`), else the Python DP's: identical."""
+    from .. import native
+
+    return [int(d) for d in native.batch_levenshtein(list(preds),
+                                                     list(targets))]
 
 
 def normalized_levenshtein(preds: list[str], targets: list[str],
@@ -46,9 +54,10 @@ def normalized_levenshtein(preds: list[str], targets: list[str],
         den = sum(max(len(t), 1) for t in targets)
         return num / den
     if mode == "max_len":
-        scores = [1.0 - d / max(len(p), len(t), 1)
-                  for d, p, t in zip(dists, preds, targets)]
-        return float(sum(scores) / len(scores))
+        # numpy's pairwise mean, as the reference takes it (a running sum
+        # differs in the last bits)
+        return float(np.mean([1.0 - d / max(len(p), len(t), 1)
+                              for d, p, t in zip(dists, preds, targets)]))
     if mode == "pooled":
         return 1.0 - sum(dists) / max(sum(len(t) for t in targets), 1)
     raise ValueError(mode)

@@ -33,6 +33,12 @@ every dropout site offsets its mask to its rows' flat positions in the
 global tensor, and the kernel selection is keyed on the global batch -- so
 the step computes what the unsharded step computes on all rows.
 
+**Tensor parallelism.** After :func:`ishara_tpu_torch.parallel.tp.
+shard_state_tp` a :class:`MultiHeadSelfAttention` or :class:`FusedFFN` may
+hold its slice of ``tp_parts`` (its heads, its hidden columns): it runs its
+two products on the slice between the ``model`` axis's copy and reduction,
+and draws its dropout masks at the slice's positions in the global tensor.
+
 **Recomputation.** A ``remat`` block's forward runs again in the backward
 pass; within :func:`frozen_running_stats` (the recomputation's context)
 :class:`BatchNorm` leaves its running statistics where the first forward
@@ -56,8 +62,10 @@ from ..parallel.shard import (
     current_shard,
     element_offset,
     global_batch,
+    split_offset,
     sum_over_shards,
 )
+from ..parallel.tp import copy_to_model, model_axis, reduce_from_model
 
 # flax BatchNorm momentum: the decay of the running statistics.
 BN_MOMENTUM = 0.95
@@ -400,7 +408,16 @@ class MultiHeadSelfAttention(nn.Module):
     ``causal=True`` (the streaming families) lets query ``qi`` attend to the
     keys ``ki <= qi``, and with ``attn_context > 0`` only to those with
     ``qi - ki < attn_context``. It always takes the einsum path, before any
-    selection, as the reference does: neither kernel applies that mask."""
+    selection, as the reference does: neither kernel applies that mask.
+
+    With ``tp_parts`` > 1 the module holds ``num_heads / tp_parts`` heads:
+    the rows of ``qkv`` and the columns of ``proj`` of one ``model``
+    process's heads (the per-head ``[q|k|v]`` layout makes a contiguous
+    slice whole heads), and the projection's partial sums are reduced over
+    ``model``. Either path draws the unsharded step's mask at its heads'
+    positions (``runs``), so the table's choice stands."""
+
+    tp_parts = 1
 
     def __init__(self, dim: int = 256, num_heads: int = 4,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
@@ -416,10 +433,12 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x, mask=None, training: bool = False, seed=None):
         B, T, _ = x.shape
-        H = self.num_heads
-        Dh = self.dim // H
-        qkv = self.qkv(x).reshape(B, T, H, 3 * Dh).transpose(1, 2)
-        q, k, v = qkv.split(Dh, dim=-1)
+        parts = self.tp_parts
+        axis = model_axis(parts)
+        H = self.num_heads // parts
+        Dh = self.dim // self.num_heads
+        qkv = self.qkv(x if axis is None else copy_to_model(x, axis))
+        q, k, v = qkv.reshape(B, T, H, 3 * Dh).transpose(1, 2).split(Dh, -1)
         scale = self.dim ** -0.5
         rate = self.dropout if training else 0.0
         s = site_seeds(_need_seed(seed), 1, self.site) if rate > 0.0 else None
@@ -431,6 +450,9 @@ class MultiHeadSelfAttention(nn.Module):
                 if training and on_card(x) else "einsum"
             flash = self.use_flash or (path == "flash"
                                        and T <= attention.MAX_T)
+        # the mask's positions in the global [B, heads, T, T]
+        off, runs = split_offset((B, H, T, T), parts,
+                                 0 if axis is None else axis.rank, trailing=3)
         if path == "flash_blocked" and rate == 0.0:
             out = attention_blocked.flash_mhsa_blocked(
                 q, k, v, self._bias(mask, B, T, x.device), scale)
@@ -438,16 +460,17 @@ class MultiHeadSelfAttention(nn.Module):
             out = attention.flash_mhsa(q, k, v,
                                        self._bias(mask, B, T, x.device), s,
                                        scale=scale, dropout_rate=rate,
-                                       offset=element_offset(q) // Dh * T)
+                                       offset=off, runs=runs)
         else:
             attn = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
             keep = self._allowed(mask, T, x.device)
             if keep is not None:
                 attn = attn.masked_fill(~keep, torch.finfo(attn.dtype).min)
             attn = attn.softmax(dim=-1)
-            attn = fast_dropout(attn, s, rate, element_offset(attn))
+            attn = fast_dropout(attn, s, rate, off, runs)
             out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
-        return self.proj(out.transpose(1, 2).reshape(B, T, self.dim))
+        out = self.proj(out.transpose(1, 2).reshape(B, T, H * Dh))
+        return out if axis is None else reduce_from_model(out, axis)
 
     def _allowed(self, mask, T, device):
         """The keys each query may attend to, broadcastable to ``[B, H, T,
@@ -482,7 +505,16 @@ class FusedFFN(nn.Module):
     Both key the hidden's mask by the site's first seed and the output's by
     its second, so the path taken does not change what is dropped.
     ``res_rate`` is the residual branch's dropout (the Squeezeformer sites;
-    0 for the Conformer's)."""
+    0 for the Conformer's).
+
+    With ``tp_parts`` > 1 the module holds one ``model`` process's slice of
+    the hidden columns (``fc1``'s rows and bias, ``fc2``'s columns): the
+    kernel or the composition gives the slice's partial sum of ``fc2``,
+    with the unsharded step's hidden mask at its columns; the sums are
+    reduced over ``model``, then come ``fc2``'s bias, the output's dropout
+    and the residual."""
+
+    tp_parts = 1
 
     def __init__(self, dim: int, expansion_factor: int = 4,
                  dropout: float = 0.1, res_rate: float = 0.0,
@@ -496,19 +528,43 @@ class FusedFFN(nn.Module):
 
     def forward(self, res, x, training: bool = False, seed=None):
         dropping = training and (self.dropout > 0.0 or self.res_rate > 0.0)
-        if not dropping:
+        axis = model_axis(self.tp_parts)
+        if not dropping and axis is None:
             return res + self.fc2(F.silu(self.fc1(x)))
-        seeds = site_seeds(_need_seed(seed), 2, self.site)
-        if on_card(x) and selection.ffn_fused_when_dropout(
+        seeds = site_seeds(_need_seed(seed), 2, self.site) if dropping \
+            else None
+        # this process's hidden columns [col0, col0 + m) of m * parts
+        m = self.fc1.weight.shape[0]
+        col0 = 0 if axis is None else axis.rank * m
+        if axis is not None:
+            x = copy_to_model(x, axis)
+        if dropping and on_card(x) and selection.ffn_fused_when_dropout(
                 self.dim, x.shape[1], global_batch(x)):
             # the kernel's row offset: in rows of x's [N, dim] flattening
             rows = element_offset(x) // self.dim
-            return ffn_residual(x, res, self.fc1.weight.t(), self.fc1.bias,
-                                self.fc2.weight.t(), self.fc2.bias, seeds,
-                                self.dropout, self.res_rate, rows)
-        h = F.silu(self.fc1(x))
-        h = fast_dropout(h, seeds[0:1], self.dropout, element_offset(h))
-        y = self.fc2(h)
+            if axis is None:
+                return ffn_residual(x, res, self.fc1.weight.t(),
+                                    self.fc1.bias, self.fc2.weight.t(),
+                                    self.fc2.bias, seeds, self.dropout,
+                                    self.res_rate, rows)
+            y = ffn_residual(x, None, self.fc1.weight.t(), self.fc1.bias,
+                             self.fc2.weight.t(), None, seeds, self.dropout,
+                             0.0, rows, hidden=(m * self.tp_parts, col0))
+        else:
+            h = F.silu(self.fc1(x))
+            if dropping:
+                h = fast_dropout(h, seeds[0:1], self.dropout, *split_offset(
+                    h.shape, self.tp_parts, 0 if axis is None else axis.rank))
+            if axis is None:
+                y = self.fc2(h)
+            else:
+                dt = self.fc2.compute_dtype
+                y = F.linear(h.to(dt), self.fc2.weight.to(dt))
+        if axis is not None:
+            y = reduce_from_model(y, axis) \
+                + self.fc2.bias.to(self.fc2.compute_dtype)
+        if not dropping:
+            return res + y
         return fast_dropout_add(res, y, seeds[1:2], self.res_rate,
                                 element_offset(y))
 

@@ -15,8 +15,11 @@
 // keep' = keep / (1 - rate) is the Philox function of (seed, offset + flat
 // index into [B, H, T, T]) of philox.cuh, so the backward regenerates the
 // forward's mask; a process holding rows [r0, r1) of the batch passes offset
-// r0 H T T and draws the whole batch's mask there. A row whose keys are all masked averages V over its T keys; keys
-// beyond T are excluded (Tc = T).
+// r0 H T T and draws the whole batch's mask there; a tensor-parallel rank
+// holding H of a row's mask_heads heads passes mask_heads (0: H) and draws
+// the unsharded launch's mask at its heads' positions. A row whose keys are
+// all masked averages V over its T keys; keys beyond T are excluded
+// (Tc = T).
 //
 // Bound: bytes. At B 256, H 8, T 176, Dh 32 in bf16 the forward moves
 // 94 MB (0.028 ms at 3.35 TB/s) for 8 GFLOP (0.008 ms on the tensor cores)
@@ -32,7 +35,8 @@ extern "C" {
 
 // o [B, H, T, Dh] and lse [B, H, T] from q, k, v (element strides over
 // b, h, t in qs, ks, vs; unit stride over Dh), bias [B, T] f32, one int32
-// seed on the device, the mask's index offset. dtype 0 = f32, 1 = bf16.
+// seed on the device, the mask's index offset and heads a batch row
+// (mask_heads, 0: H). dtype 0 = f32, 1 = bf16.
 // threshold 0 means no dropout.
 int ishara_attention_fwd(int device, const void* q, const void* k,
                          const void* v, const long long* qs,
@@ -40,7 +44,8 @@ int ishara_attention_fwd(int device, const void* q, const void* k,
                          const void* bias, const void* seed, void* o,
                          void* lse, int B, int H, int T, int Dh, float scale,
                          unsigned int threshold, float keep_scale,
-                         unsigned long long offset, int dtype, void* stream) {
+                         unsigned long long offset, int mask_heads, int dtype,
+                         void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   tc::Params P{};
@@ -57,6 +62,8 @@ int ishara_attention_fwd(int device, const void* q, const void* k,
   P.threshold = threshold;
   P.keep_scale = keep_scale;
   P.offset = offset;
+  P.Hm = mask_heads;
+  if (mask_heads != 0 && mask_heads < H) return (int)cudaErrorInvalidValue;
   if (T > 384) return (int)cudaErrorInvalidValue;
   return tc::dispatch(P, dtype, false, stream);
 }
@@ -72,7 +79,8 @@ int ishara_attention_bwd(int device, const void* q, const void* k,
                          void* delta, void* dq, void* dk, void* dv, int B,
                          int H, int T, int Dh, float scale,
                          unsigned int threshold, float keep_scale,
-                         unsigned long long offset, int dtype, void* stream) {
+                         unsigned long long offset, int mask_heads, int dtype,
+                         void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   tc::Params P{};
@@ -92,6 +100,8 @@ int ishara_attention_bwd(int device, const void* q, const void* k,
   P.threshold = threshold;
   P.keep_scale = keep_scale;
   P.offset = offset;
+  P.Hm = mask_heads;
+  if (mask_heads != 0 && mask_heads < H) return (int)cudaErrorInvalidValue;
   if (T > 384) return (int)cudaErrorInvalidValue;
   return tc::dispatch(P, dtype, true, stream);
 }

@@ -46,7 +46,10 @@
 // Dropout (K3): keep' = keep / (1 - rate) with keep the Philox function of
 // (seed, offset + flat index into [B, H, T, T]) of philox.cuh, applied to P
 // before P.V and to dP in the backward; the row sum l is the undropped one.
-// A process holding rows [r0, r1) of a batch passes offset = r0 H T T.
+// A process holding rows [r0, r1) of a batch passes offset = r0 H T T. A
+// tensor-parallel rank holding heads [h0, h0 + H) of a batch row's Hm
+// passes Hm and offset = r0 Hm T T + h0 T T: local head (b, h) then takes the
+// mask of global head b Hm + h, the unsharded launch's there.
 
 #pragma once
 
@@ -79,6 +82,7 @@ struct Params {
   uint32_t threshold;  // 0: no dropout
   float keep_scale;
   uint64_t offset;     // added to every mask index (a batch shard's rows)
+  int Hm;              // heads a batch row of the mask's tensor (0: H)
   int vec;             // 1: rows 16-byte aligned, cp.async copies
 };
 
@@ -243,18 +247,24 @@ __device__ __forceinline__ float keep_of(uint32_t w, const Params& P) {
   return w >= P.threshold ? P.keep_scale : 0.f;
 }
 
+// The mask's head index of local head bh = b H + h: b Hm + h.
+__device__ __forceinline__ uint64_t mask_head(const Params& P, long long bh) {
+  if (P.Hm == 0 || P.Hm == P.H) return (uint64_t)bh;
+  return (uint64_t)(bh / P.H) * P.Hm + (uint64_t)(bh % P.H);
+}
+
 // keep'[n][.] in accumulator layout, rows r_g = row0 + g and r_g + 8 (the
 // flat index's major coordinate), columns col0 + 8n + 2t (+1, the minor
-// one): flat index offset + (bh * T + row) * T + col. With T % 4 == 0 (and
-// offset % 4 == 0) a thread pair shares one Philox block a row and 4
-// columns (shuffled).
+// one): flat index offset + (mask_head(bh) * T + row) * T + col. With
+// T % 4 == 0 (and offset % 4 == 0) a thread pair shares one Philox block a
+// row and 4 columns (shuffled).
 template <int NT>
 __device__ __forceinline__ void keep_rowmajor(const Params& P, uint32_t seed,
                                               long long bh, int row0,
                                               int col0, float kp[NT][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint64_t base0 =
-      P.offset + ((uint64_t)bh * P.T + row0 + g) * (uint64_t)P.T;
+      P.offset + (mask_head(P, bh) * P.T + row0 + g) * (uint64_t)P.T;
   const uint64_t base8 = base0 + 8ull * P.T;
   if ((P.T & 3) == 0 && (P.offset & 3) == 0) {
 #pragma unroll
@@ -295,7 +305,7 @@ __device__ __forceinline__ void keep_colmajor(const Params& P, uint32_t seed,
                                               long long bh, int key0, int q0,
                                               float kp[NT][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint64_t head = (uint64_t)bh * P.T;
+  const uint64_t head = mask_head(P, bh) * P.T;
   if ((P.T & 3) == 0 && (P.offset & 3) == 0) {
     const int i = g & 3, u4 = g & ~3;
 #pragma unroll

@@ -19,6 +19,13 @@
 // seeds[1] with (roff + row) * K + column; roff is 0 unless the rows are a
 // shard of a larger batch.
 //
+// A tensor-parallel rank holds hidden columns [mcol, mcol + M) of a hidden
+// of mld (w1's columns and b1, w2's rows): its hidden mask takes flat index
+// (roff + row) * mld + mcol + column, the unsharded launch's there, and it
+// passes no res and no b2 (null) and rate2 0, so that out is its partial
+// sum drop1(swish(x . w1 + b1)) . w2, to be summed over the ranks before the
+// bias, the output's dropout and the residual.
+//
 // Two sets of kernels. bf16 at widths that are multiples of 128 -- every
 // preset's training geometry -- takes the tensor cores (mma.sync m16n8k16);
 // f32, and bf16 at any other width or where shared memory is short, takes
@@ -78,18 +85,20 @@ constexpr int FWD_STAGES = 3, BWD_STAGES = 2;
 
 // keep' for the accumulator elements of rows r and r + 8, columns c, c + 1
 // (c = ... + 2t, so c and c + 1 share a Philox block): flat index row * ld
-// + column, ld % 4 == 0. Lane t & 1 == 0 computes the block of row r, its
-// partner that of row r + 8; each sends the two words the other needs.
+// + col0 + column, ld % 4 == col0 % 4 == 0. Lane t & 1 == 0 computes the
+// block of row r, its partner that of row r + 8; each sends the two words the
+// other needs.
 // All 1 when threshold is 0 (no dropout).
 __device__ __forceinline__ void keep_pair(uint32_t seed, uint64_t r, int c,
-                                          uint64_t ld, uint32_t threshold,
-                                          float scale, float kp[4]) {
+                                          uint64_t ld, uint64_t col0,
+                                          uint32_t threshold, float scale,
+                                          float kp[4]) {
   if (threshold == 0u) {
     kp[0] = kp[1] = kp[2] = kp[3] = 1.f;
     return;
   }
   const int odd = threadIdx.x & 1;  // t & 1, t = lane % 4
-  const uint64_t idx = (r + (odd ? 8 : 0)) * ld + (uint64_t)(c & ~3);
+  const uint64_t idx = (r + (odd ? 8 : 0)) * ld + col0 + (uint64_t)(c & ~3);
   const uint4 w = philox::block(seed, idx >> 2);
   const uint32_t s0 = odd ? w.x : w.z, s1 = odd ? w.y : w.w;
   const uint32_t r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
@@ -124,7 +133,7 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
                const bf16* __restrict__ w2, const float* __restrict__ b2,
                const int* __restrict__ seeds, bf16* __restrict__ out, int K,
                int M, uint32_t thr1, float sc1, uint32_t thr2, float sc2,
-               long long roff) {
+               long long roff, long long mld, long long mcol) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int ldx = K + PAD, ldh = M + PAD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -180,7 +189,8 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
         const int c = col0 + j * 8 + 2 * t;
         float kp[4];
         if (first) {
-          keep_pair(seed1, (uint64_t)(roff + row0 + r), c, M, thr1, sc1, kp);
+          keep_pair(seed1, (uint64_t)(roff + row0 + r), c, mld, mcol, thr1,
+                    sc1, kp);
           float v[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -192,14 +202,16 @@ ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
           *reinterpret_cast<uint32_t*>(hs + (r + 8) * ldh + c) =
               tc::pack_bf16(v[2], v[3]);
         } else {
-          keep_pair(seed2, (uint64_t)(roff + row0 + r), c, K, thr2, sc2, kp);
+          keep_pair(seed2, (uint64_t)(roff + row0 + r), c, K, 0, thr2, sc2,
+                    kp);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const size_t at = (size_t)(row0 + r + 8 * h) * K + c;
             const __nv_bfloat162 rv =
-                *reinterpret_cast<const __nv_bfloat162*>(res + at);
-            const float y0 = acc[a][j][2 * h] + b2[c];
-            const float y1 = acc[a][j][2 * h + 1] + b2[c + 1];
+                res ? *reinterpret_cast<const __nv_bfloat162*>(res + at)
+                    : __floats2bfloat162_rn(0.f, 0.f);
+            const float y0 = acc[a][j][2 * h] + (b2 ? b2[c] : 0.f);
+            const float y1 = acc[a][j][2 * h + 1] + (b2 ? b2[c + 1] : 0.f);
             *reinterpret_cast<uint32_t*>(out + at) = tc::pack_bf16(
                 __fadd_rn(__low2float(rv), __fmul_rn(y0, kp[2 * h])),
                 __fadd_rn(__high2float(rv), __fmul_rn(y1, kp[2 * h + 1])));
@@ -226,7 +238,8 @@ ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                     bf16* __restrict__ dh_g, bf16* __restrict__ g_g,
                     float* __restrict__ db1_part, float* __restrict__ db2_part,
                     int K, int M, uint32_t thr1, float sc1, uint32_t thr2,
-                    float sc2, long long roff) {
+                    float sc2, long long roff, long long mld,
+                    long long mcol) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int ldx = K + PAD, ldh = M + PAD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -351,7 +364,8 @@ ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       for (int j = 0; j < 4; ++j) {
         const int c = col0 + j * 8 + 2 * t;
         float kp[4], d[4], dh[4];
-        keep_pair(seed1, (uint64_t)(roff + row0 + r), c, M, thr1, sc1, kp);
+        keep_pair(seed1, (uint64_t)(roff + row0 + r), c, mld, mcol, thr1, sc1,
+                  kp);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float h = acc_h[a][j][e] + b1[c + (e & 1)];
@@ -448,7 +462,8 @@ ffn_fwd_general_kernel(const T* __restrict__ x, const T* __restrict__ res,
                        const T* __restrict__ w2, const float* __restrict__ b2,
                        const int* __restrict__ seeds, T* __restrict__ out,
                        int K, int M, uint32_t thr1, float sc1, uint32_t thr2,
-                       float sc2, long long roff) {
+                       float sc2, long long roff, long long mld,
+                       long long mcol) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);
   float* hs = xs + GR * K;
@@ -474,14 +489,14 @@ ffn_fwd_general_kernel(const T* __restrict__ x, const T* __restrict__ res,
     for (int r = 0; r < GR; ++r) {
       const float h = acc[r] + bias;
       const float sig = 1.f / (1.f + expf(-h));
-      const float keep =
-          keep1(seed1, (uint64_t)(roff + row0 + r) * M + c, thr1, sc1);
+      const float keep = keep1(
+          seed1, (uint64_t)(roff + row0 + r) * mld + mcol + c, thr1, sc1);
       hs[r * M + c] = widen(narrow<T>(__fmul_rn(__fmul_rn(h, sig), keep)));
     }
   }
   __syncthreads();
 
-  // out = res + (hidden . w2 + b2) * keep2'
+  // out = res + (hidden . w2 + b2) * keep2' (no res, no b2: null)
   for (int c = threadIdx.x; c < K; c += THREADS) {
     float acc[GR];
 #pragma unroll
@@ -491,14 +506,15 @@ ffn_fwd_general_kernel(const T* __restrict__ x, const T* __restrict__ res,
 #pragma unroll
       for (int r = 0; r < GR; ++r) acc[r] = fmaf(hs[r * M + m], w, acc[r]);
     }
-    const float bias = b2[c];
+    const float bias = b2 ? b2[c] : 0.f;
 #pragma unroll
     for (int r = 0; r < GR; ++r) {
       const size_t at = (size_t)(row0 + r) * K + c;
       const float y = acc[r] + bias;
       const float keep =
           keep1(seed2, (uint64_t)(at + (size_t)roff * K), thr2, sc2);
-      out[at] = narrow<T>(__fadd_rn(widen(res[at]), __fmul_rn(y, keep)));
+      out[at] = narrow<T>(
+          __fadd_rn(res ? widen(res[at]) : 0.f, __fmul_rn(y, keep)));
     }
   }
 }
@@ -518,7 +534,8 @@ ffn_bwd_rows_general_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                             T* __restrict__ g_g, float* __restrict__ db1_part,
                             float* __restrict__ db2_part, int K, int M,
                             uint32_t thr1, float sc1, uint32_t thr2,
-                            float sc2, long long roff) {
+                            float sc2, long long roff, long long mld,
+                            long long mcol) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);
   float* gs = xs + GR * K;
@@ -565,8 +582,8 @@ ffn_bwd_rows_general_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
     for (int r = 0; r < GR; ++r) {
       const size_t at = (size_t)(row0 + r) * M + c;
-      const float keep =
-          keep1(seed1, (uint64_t)(at + (size_t)roff * M), thr1, sc1);
+      const float keep = keep1(
+          seed1, (uint64_t)(roff + row0 + r) * mld + mcol + c, thr1, sc1);
       const float h = acc_h[r] + bias;
       const float sig = 1.f / (1.f + expf(-h));
       const float hsw = __fmul_rn(h, sig);
@@ -625,6 +642,14 @@ bool shape_ok(int N, int K, int M) {
   return N > 0 && N % R == 0 && K > 0 && M > 0;
 }
 
+// A slice [mcol, mcol + M) of a hidden of mld; a slice (not the whole
+// hidden) starts and ends on a Philox block of 4 columns, as the tensor
+// cores' keep words come.
+bool hidden_ok(int M, long long mld, long long mcol) {
+  if (mld == M) return mcol == 0;
+  return mcol >= 0 && mcol + M <= mld && mld % 4 == 0 && mcol % 4 == 0;
+}
+
 // bf16 at widths that are multiples of 128 takes the tensor-core kernels.
 bool tensor_cores(int dtype, int K, int M) {
   return dtype == 1 && K % 128 == 0 && M % 128 == 0 &&
@@ -636,7 +661,8 @@ cudaError_t fwd_general(const void* x, const void* res, const void* w1,
                         const void* b1, const void* w2, const void* b2,
                         const void* seeds, void* out, int N, int K, int M,
                         uint32_t thr1, float sc1, uint32_t thr2, float sc2,
-                        long long roff, cudaStream_t s) {
+                        long long roff, long long mld, long long mcol,
+                        cudaStream_t s) {
   const size_t smem = fwd_general_smem(K, M);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(ffn_fwd_general_kernel<T>, smem);
@@ -644,7 +670,7 @@ cudaError_t fwd_general(const void* x, const void* res, const void* w1,
   ffn_fwd_general_kernel<T><<<N / GR, THREADS, smem, s>>>(
       (const T*)x, (const T*)res, (const T*)w1, (const float*)b1,
       (const T*)w2, (const float*)b2, (const int*)seeds, (T*)out, K, M, thr1,
-      sc1, thr2, sc2, roff);
+      sc1, thr2, sc2, roff, mld, mcol);
   return cudaGetLastError();
 }
 
@@ -656,7 +682,8 @@ cudaError_t bwd_general(const void* x, const void* dy, const void* w1,
                         void* dx, void* d_g, void* dh_g, void* g_g, void* wt,
                         float* db1_part, float* db2_part, int N, int K, int M,
                         uint32_t thr1, float sc1, uint32_t thr2, float sc2,
-                        long long roff, cudaStream_t s) {
+                        long long roff, long long mld, long long mcol,
+                        cudaStream_t s) {
   const size_t smem = bwd_general_smem(K, M);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(ffn_bwd_rows_general_kernel<T>, smem);
@@ -669,7 +696,7 @@ cudaError_t bwd_general(const void* x, const void* dy, const void* w1,
   ffn_bwd_rows_general_kernel<T><<<N / GR, THREADS, smem, s>>>(
       (const T*)x, (const T*)dy, (const T*)w1, (const float*)b1, w2t, w1t,
       (const int*)seeds, (T*)dx, (T*)d_g, (T*)dh_g, (T*)g_g, db1_part,
-      db2_part, K, M, thr1, sc1, thr2, sc2, roff);
+      db2_part, K, M, thr1, sc1, thr2, sc2, roff, mld, mcol);
   return cudaGetLastError();
 }
 
@@ -694,23 +721,29 @@ extern "C" {
 // f32, 1 = bf16 (x, res, w1, w2, out). N must be a multiple of 64. seeds
 // points at two int32 on the device; thr = uint32(rate * 2^32) (0: no
 // dropout), sc = 1 / (1 - rate). Row r takes the mask words of row roff + r:
-// a process holding rows [r0, r1) of the whole batch's N rows passes r0.
+// a process holding rows [r0, r1) of the whole batch's N rows passes r0. The
+// hidden's row r, column c takes word (roff + r) * mld + mcol + c (mld 0: M,
+// mcol 0); res and b2 may be null (no residual, no bias).
 int ishara_ffn_fwd(int device, int dtype, const void* x, const void* res,
                    const void* w1, const void* b1, const void* w2,
                    const void* b2, const void* seeds, void* out, int N, int K,
                    int M, unsigned int thr1, float sc1, unsigned int thr2,
-                   float sc2, long long roff, void* stream) {
+                   float sc2, long long roff, long long mld, long long mcol,
+                   void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (!shape_ok(N, K, M) || dtype < 0 || dtype > 1)
+  if (mld == 0) mld = M;
+  if (!shape_ok(N, K, M) || !hidden_ok(M, mld, mcol) || dtype < 0 ||
+      dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!tensor_cores(dtype, K, M)) {
     if (dtype == 0)
       return (int)fwd_general<float>(x, res, w1, b1, w2, b2, seeds, out, N, K,
-                                     M, thr1, sc1, thr2, sc2, roff, s);
+                                     M, thr1, sc1, thr2, sc2, roff, mld,
+                                     mcol, s);
     return (int)fwd_general<bf16>(x, res, w1, b1, w2, b2, seeds, out, N, K, M,
-                                  thr1, sc1, thr2, sc2, roff, s);
+                                  thr1, sc1, thr2, sc2, roff, mld, mcol, s);
   }
   const size_t smem = fwd_smem(K, M);
   e = allow_smem(ffn_fwd_kernel, smem);
@@ -718,7 +751,7 @@ int ishara_ffn_fwd(int device, int dtype, const void* x, const void* res,
   ffn_fwd_kernel<<<N / R, THREADS, smem, s>>>(
       (const bf16*)x, (const bf16*)res, (const bf16*)w1, (const float*)b1,
       (const bf16*)w2, (const float*)b2, (const int*)seeds, (bf16*)out, K, M,
-      thr1, sc1, thr2, sc2, roff);
+      thr1, sc1, thr2, sc2, roff, mld, mcol);
   return (int)cudaGetLastError();
 }
 
@@ -734,7 +767,7 @@ int ishara_ffn_bwd_rows(int dtype, int K, int M) {
 // dh_g [N, M], g_g [N, K] and wt [2, K * M] in the compute type; db1_part
 // [N / rows, M] and db2_part [N / rows, K] f32, rows = ishara_ffn_bwd_rows;
 // dw1_part and dw2_part [S, K * M] f32, S the number of row splits of the
-// weight products.
+// weight products. mld and mcol as for the forward.
 int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
                    const void* w1, const void* b1, const void* w2,
                    const void* seeds, void* dx, void* d_g, void* dh_g,
@@ -742,10 +775,13 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
                    void* dw1_part, void* dw2_part, void* dw1, void* db1,
                    void* dw2, void* db2, int N, int K, int M, int S,
                    unsigned int thr1, float sc1, unsigned int thr2, float sc2,
-                   long long roff, void* stream) {
+                   long long roff, long long mld, long long mcol,
+                   void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (!shape_ok(N, K, M) || S < 1 || dtype < 0 || dtype > 1)
+  if (mld == 0) mld = M;
+  if (!shape_ok(N, K, M) || !hidden_ok(M, mld, mcol) || S < 1 || dtype < 0 ||
+      dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = ishara_ffn_bwd_rows(dtype, K, M);
@@ -753,11 +789,11 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
     if (dtype == 0)
       e = bwd_general<float>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
                              (float*)db1_part, (float*)db2_part, N, K, M, thr1,
-                             sc1, thr2, sc2, roff, s);
+                             sc1, thr2, sc2, roff, mld, mcol, s);
     else
       e = bwd_general<bf16>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
                             (float*)db1_part, (float*)db2_part, N, K, M, thr1,
-                            sc1, thr2, sc2, roff, s);
+                            sc1, thr2, sc2, roff, mld, mcol, s);
   } else {
     const size_t smem = bwd_smem(K, M);
     e = allow_smem(ffn_bwd_rows_kernel, smem);
@@ -766,7 +802,7 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
         (const bf16*)x, (const bf16*)dy, (const bf16*)w1, (const float*)b1,
         (const bf16*)w2, (const int*)seeds, (bf16*)dx, (bf16*)d_g,
         (bf16*)dh_g, (bf16*)g_g, (float*)db1_part, (float*)db2_part, K, M,
-        thr1, sc1, thr2, sc2, roff);
+        thr1, sc1, thr2, sc2, roff, mld, mcol);
     e = cudaGetLastError();
   }
   if (e != cudaSuccess) return (int)e;

@@ -24,6 +24,10 @@ with their plain versions element for element with dropout active.
 process that holds rows ``[r0, r1)`` of a batch passes ``r0`` times the
 elements a row and draws, element for element, what the whole batch's call
 draws on those rows. It is 0 unless the batch is split across processes.
+A tensor-parallel rank's slice of a site (its heads, its hidden columns)
+is strided in the global tensor: ``runs = (width, stride)`` says that its
+elements come in runs of ``width``, each ``stride`` global elements after
+the one before (:func:`ishara_tpu_torch.parallel.shard.split_offset`).
 
 **Seeds.** A step's randomness is a pure function of (base seed, step):
 :func:`step_seeds` gives the step's dropout and augmentation seeds,
@@ -99,15 +103,23 @@ def threshold_of(rate: float) -> int:
 
 
 def keep_mask(seed: torch.Tensor, shape, rate: float,
-              start: int = 0) -> torch.Tensor:
+              start: int = 0, runs=None) -> torch.Tensor:
     """Boolean keep mask of ``shape`` for ``seed``: element at flat index
     ``i`` is kept when ``philox_bits(seed)[start + i] >=
-    threshold_of(rate)``."""
+    threshold_of(rate)``; with ``runs = (width, stride)`` element ``i``
+    takes global index ``start + (i // width) * stride + i % width``."""
     n = 1
     for d in shape:
         n *= int(d)
-    return (philox_bits(seed, n, int(start)) >= threshold_of(rate)) \
-        .reshape(tuple(shape))
+    if runs is None or runs[0] == runs[1]:
+        bits = philox_bits(seed, n, int(start))
+    else:
+        width, stride = (int(v) for v in runs)
+        i = torch.arange(n, dtype=torch.int64, device=seed.device)
+        idx = int(start) + (i // width) * stride + i % width
+        words = philox_block(seed.reshape(()), idx >> 2)
+        bits = words.gather(-1, (idx & 3)[:, None])[:, 0]
+    return (bits >= threshold_of(rate)).reshape(tuple(shape))
 
 
 def step_seeds(base_seed: int, step: torch.Tensor) -> torch.Tensor:
@@ -150,13 +162,13 @@ def site_seeds(table: torch.Tensor, n: int = 1, site: int = 0) -> torch.Tensor:
 
 def dropout_plain(x: torch.Tensor, seed: torch.Tensor, rate: float,
                   res: torch.Tensor | None = None,
-                  offset: int = 0) -> torch.Tensor:
+                  offset: int = 0, runs=None) -> torch.Tensor:
     """``[res +] x * keep / (1 - rate)`` with the Philox mask from flat
-    index ``offset`` on: f32 arithmetic, one rounding to ``x``'s dtype (the
-    kernel's semantics)."""
+    index ``offset`` on (in ``runs``, see :func:`keep_mask`): f32
+    arithmetic, one rounding to ``x``'s dtype (the kernel's semantics)."""
     if rate <= 0.0:
         return x if res is None else res + x
-    keep = keep_mask(seed, x.shape, rate, offset).to(torch.float32)
+    keep = keep_mask(seed, x.shape, rate, offset, runs).to(torch.float32)
     y = x.to(torch.float32) * (keep * (1.0 / (1.0 - rate)))
     if res is not None:
         y = res.to(torch.float32) + y
@@ -166,7 +178,7 @@ def dropout_plain(x: torch.Tensor, seed: torch.Tensor, rate: float,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(x, res, seed, rate, offset=0):
+def _launch(x, res, seed, rate, offset=0, runs=None):
     """Run ``csrc/dropout.cu`` on contiguous CUDA tensors."""
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"the dropout kernel takes f32 or bf16, got "
@@ -177,76 +189,87 @@ def _launch(x, res, seed, rate, offset=0):
     if res is not None and (res.shape != x.shape or res.dtype != x.dtype
                             or res.device != x.device):
         raise ValueError("res must match x in shape, dtype and device")
+    width, stride = (x.numel(), x.numel()) if runs is None else runs
+    if x.numel() and (width <= 0 or stride < width or x.numel() % width):
+        raise ValueError(f"runs {runs} do not tile {x.numel()} values")
     x = x.contiguous()
     res = None if res is None else res.contiguous()
     out = torch.empty_like(x)
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = _build.function("dropout", "ishara_dropout", [
-        I, P, P, P, ctypes.c_longlong, ctypes.c_ulonglong, P, ctypes.c_uint,
+        I, P, P, P, L, ctypes.c_ulonglong, L, L, P, ctypes.c_uint,
         ctypes.c_float, I, P])
     rc = fn(_build.device_index(x), x.data_ptr(),
             None if res is None else res.data_ptr(), out.data_ptr(),
-            x.numel(), int(offset), seed.data_ptr(), threshold_of(rate),
-            1.0 / (1.0 - rate), _DTYPE_CODE[x.dtype], _build.stream_of(x))
+            x.numel(), int(offset), max(int(width), 1), max(int(stride), 1),
+            seed.data_ptr(), threshold_of(rate), 1.0 / (1.0 - rate),
+            _DTYPE_CODE[x.dtype], _build.stream_of(x))
     _build.check("dropout", rc, "dropout kernel")
     return out
 
 
-def _apply(x, res, seed, rate, offset, counter, direction):
+def _apply(x, res, seed, rate, offset, runs, counter, direction):
     if x.device.type == "cpu":
-        return dropout_plain(x, seed, rate, res, offset)
-    out = _launch(x, res, seed, rate, offset)
+        return dropout_plain(x, seed, rate, res, offset, runs)
+    out = _launch(x, res, seed, rate, offset, runs)
     setattr(counter, direction, getattr(counter, direction) + 1)
     return out
 
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, rate, offset):
+    def forward(ctx, x, seed, rate, offset, runs):
         ctx.save_for_backward(seed)
-        ctx.rate, ctx.offset = rate, offset
-        return _apply(x, None, seed, rate, offset, fast_dropout, "launches")
-
-    @staticmethod
-    def backward(ctx, dy):
-        (seed,) = ctx.saved_tensors
-        return _apply(dy, None, seed, ctx.rate, ctx.offset, fast_dropout,
-                      "launches_bwd"), None, None, None
-
-
-class _DropoutAdd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, res, x, seed, rate, offset):
-        ctx.save_for_backward(seed)
-        ctx.rate, ctx.offset = rate, offset
-        return _apply(x, res, seed, rate, offset, fast_dropout_add,
+        ctx.rate, ctx.offset, ctx.runs = rate, offset, runs
+        return _apply(x, None, seed, rate, offset, runs, fast_dropout,
                       "launches")
 
     @staticmethod
     def backward(ctx, dy):
         (seed,) = ctx.saved_tensors
-        return dy, _apply(dy, None, seed, ctx.rate, ctx.offset,
-                          fast_dropout_add, "launches_bwd"), None, None, None
+        return _apply(dy, None, seed, ctx.rate, ctx.offset, ctx.runs,
+                      fast_dropout, "launches_bwd"), None, None, None, None
+
+
+class _DropoutAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, res, x, seed, rate, offset, runs):
+        ctx.save_for_backward(seed)
+        ctx.rate, ctx.offset, ctx.runs = rate, offset, runs
+        return _apply(x, res, seed, rate, offset, runs, fast_dropout_add,
+                      "launches")
+
+    @staticmethod
+    def backward(ctx, dy):
+        (seed,) = ctx.saved_tensors
+        return dy, _apply(dy, None, seed, ctx.rate, ctx.offset, ctx.runs,
+                          fast_dropout_add, "launches_bwd"), None, None, \
+            None, None
+
+
+def _runs(runs):
+    return None if runs is None else (int(runs[0]), int(runs[1]))
 
 
 def fast_dropout(x: torch.Tensor, seed: torch.Tensor, rate: float,
-                 offset: int = 0):
+                 offset: int = 0, runs=None):
     """Inverted dropout of ``x`` (any shape, f32 or bf16) at static ``rate``
     with the mask of ``seed`` (int32 ``[1]`` on ``x``'s device, fresh per
-    site and step) from flat index ``offset`` on. Replaces
-    ``ishara_tpu.ops.dropout.tpu_dropout``."""
+    site and step) from flat index ``offset`` on, in ``runs`` (see
+    :func:`keep_mask`). Replaces ``ishara_tpu.ops.dropout.tpu_dropout``."""
     if rate <= 0.0:
         return x
-    return _Dropout.apply(x, seed, float(rate), int(offset))
+    return _Dropout.apply(x, seed, float(rate), int(offset), _runs(runs))
 
 
 def fast_dropout_add(res: torch.Tensor, x: torch.Tensor, seed: torch.Tensor,
-                     rate: float, offset: int = 0):
+                     rate: float, offset: int = 0, runs=None):
     """``res + dropout(x)`` in one pass. Replaces
     ``ishara_tpu.ops.dropout.tpu_dropout_add``."""
     if rate <= 0.0:
         return res + x
-    return _DropoutAdd.apply(res, x, seed, float(rate), int(offset))
+    return _DropoutAdd.apply(res, x, seed, float(rate), int(offset),
+                             _runs(runs))
 
 
 # kernel launches of the forward pass and of the backward pass

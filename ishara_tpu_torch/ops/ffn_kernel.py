@@ -20,6 +20,14 @@ holding rows ``[r0, r1)`` of the batch's ``[N, K]`` rows passes ``r0`` and
 draws the whole batch's masks there. :func:`debug_masks` exposes them; a
 test may instead pass explicit keep masks to the plain versions.
 
+**A slice of the hidden.** A tensor-parallel rank holds hidden columns
+``[col0, col0 + M)`` of a hidden of ``width`` (``hidden = (width, col0)``):
+its hidden mask is the unsharded launch's at those columns, and it passes no
+residual, no ``b2`` and no output dropout, so that the kernel gives its
+partial sum ``drop1(swish(x . w1 + b1)) . w2``; the caller sums the ranks'
+partial sums and adds the bias, the output's dropout and the residual
+(:class:`ishara_tpu_torch.models.layers.FusedFFN`).
+
 The weight gradients are per-block f32 partial sums added in a fixed order
 (no atomics), so they are the same from run to run.
 """
@@ -47,15 +55,19 @@ def wgrad_splits(n: int, p: int, q: int) -> int:
     return max(1, min(-(-n // _WGRAD_STEP), _SPLIT_BLOCKS // tiles))
 
 
-def _scaled_keep(seeds, which, shape, rate, keep, device, row_offset=0):
+def _scaled_keep(seeds, which, shape, rate, keep, device, row_offset=0,
+                 hidden=None):
     """f32 ``keep / (1 - rate)`` of ``shape`` ``[n, w]``, or None at rate 0;
     ``keep`` (bool or 0/1) overrides the Philox mask of ``seeds[which]``
-    (from row ``row_offset`` on)."""
+    (from row ``row_offset`` on; columns ``[col0, col0 + w)`` of rows of
+    ``width`` with ``hidden = (width, col0)``)."""
     if rate <= 0.0:
         return None
     if keep is None:
+        width, col0 = (shape[1], 0) if hidden is None else hidden
         keep = keep_mask(seeds[which:which + 1], shape, rate,
-                         row_offset * shape[1])
+                         row_offset * width + col0,
+                         None if width == shape[1] else (shape[1], width))
     return keep.to(device=device, dtype=torch.float32).reshape(shape) \
         * (1.0 / (1.0 - rate))
 
@@ -70,33 +82,37 @@ def _dot(a, b):
 
 
 def ffn_forward_plain(x2, res2, w1, b1, w2, b2, seeds, rate1, rate2,
-                      keep1=None, keep2=None, row_offset=0):
+                      keep1=None, keep2=None, row_offset=0, hidden=None):
     """Plain version of the forward kernel on ``[N, K]`` rows; ``w1``
     ``[K, M]`` and ``w2`` ``[M, K]`` already in ``x2``'s dtype, biases
-    f32."""
+    f32; ``res2`` and ``b2`` may be None (none added)."""
     n, k = x2.shape
     m = w1.shape[1]
     cd = x2.dtype
-    k1 = _scaled_keep(seeds, 0, (n, m), rate1, keep1, x2.device, row_offset)
+    k1 = _scaled_keep(seeds, 0, (n, m), rate1, keep1, x2.device, row_offset,
+                      hidden)
     k2 = _scaled_keep(seeds, 1, (n, k), rate2, keep2, x2.device, row_offset)
     h = _dot(x2, w1) + b1
     a = h * torch.sigmoid(h)
     if k1 is not None:
         a = a * k1
-    y = _dot(a.to(cd), w2) + b2
+    y = _dot(a.to(cd), w2)
+    if b2 is not None:
+        y = y + b2
     if k2 is not None:
         y = y * k2
-    return (res2.to(torch.float32) + y).to(cd)
+    return (y if res2 is None else res2.to(torch.float32) + y).to(cd)
 
 
 def ffn_backward_plain(x2, dy2, w1, b1, w2, seeds, rate1, rate2,
-                       keep1=None, keep2=None, row_offset=0):
+                       keep1=None, keep2=None, row_offset=0, hidden=None):
     """Plain version of the backward kernels: (dx ``[N, K]`` in ``x2``'s
     dtype, dw1 ``[K, M]``, db1 ``[M]``, dw2 ``[M, K]``, db2 ``[K]`` f32)."""
     n, k = x2.shape
     m = w1.shape[1]
     cd = x2.dtype
-    k1 = _scaled_keep(seeds, 0, (n, m), rate1, keep1, x2.device, row_offset)
+    k1 = _scaled_keep(seeds, 0, (n, m), rate1, keep1, x2.device, row_offset,
+                      hidden)
     k2 = _scaled_keep(seeds, 1, (n, k), rate2, keep2, x2.device, row_offset)
     g = dy2.to(torch.float32)
     if k2 is not None:
@@ -141,26 +157,35 @@ def _rates(rate1, rate2):
             threshold_of(rate2), 1.0 / (1.0 - rate2))
 
 
-def _launch_fwd(x2, res2, w1, b1, w2, b2, seeds, rate1, rate2, row_offset=0):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(x2, res2, w1, b1, w2, b2, seeds, rate1, rate2, row_offset=0,
+                hidden=None):
     _check_cuda(x2, w1, seeds)
     n, k = x2.shape
     m = w1.shape[1]
     n_pad = -(-n // _ROWS) * _ROWS
-    xp, rp = _pad_rows(x2, n_pad), _pad_rows(res2, n_pad)
+    xp = _pad_rows(x2, n_pad)
+    rp = None if res2 is None else _pad_rows(res2, n_pad)
     out = torch.empty_like(xp)
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    L = ctypes.c_longlong
     fn = _build.function("ffn", "ishara_ffn_fwd",
                          [I, I, P, P, P, P, P, P, P, P, I, I, I, U, F, U, F,
-                          ctypes.c_longlong, P])
+                          L, L, L, P])
     rc = fn(_build.device_index(x2), _DTYPE_CODE[x2.dtype], xp.data_ptr(),
-            rp.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), seeds.data_ptr(), out.data_ptr(), n_pad, k, m,
-            *_rates(rate1, rate2), int(row_offset), _build.stream_of(x2))
+            _ptr(rp), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), _ptr(b2),
+            seeds.data_ptr(), out.data_ptr(), n_pad, k, m,
+            *_rates(rate1, rate2), int(row_offset), *(hidden or (0, 0)),
+            _build.stream_of(x2))
     _build.check("ffn", rc, "FFN forward kernel")
     return out[:n]
 
 
-def _launch_bwd(x2, dy2, w1, b1, w2, seeds, rate1, rate2, row_offset=0):
+def _launch_bwd(x2, dy2, w1, b1, w2, seeds, rate1, rate2, row_offset=0,
+                hidden=None):
     _check_cuda(x2, w1, seeds)
     n, k = x2.shape
     m = w1.shape[1]
@@ -186,8 +211,8 @@ def _launch_bwd(x2, dy2, w1, b1, w2, seeds, rate1, rate2, row_offset=0):
     dw1, db1, dw2, db2 = f32(k, m), f32(m), f32(m, k), f32(k)
     P, U, F = ctypes.c_void_p, ctypes.c_uint, ctypes.c_float
     fn = _build.function("ffn", "ishara_ffn_bwd",
-                         [I, I] + [P] * 19 + [I, I, I, I, U, F, U, F,
-                                                ctypes.c_longlong, P])
+                         [I, I] + [P] * 19 + [I, I, I, I, U, F, U, F]
+                         + [ctypes.c_longlong] * 3 + [P])
     rc = fn(_build.device_index(x2), code, xp.data_ptr(), dyp.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), seeds.data_ptr(),
             dx.data_ptr(), d_g.data_ptr(), dh_g.data_ptr(), g_g.data_ptr(),
@@ -195,7 +220,7 @@ def _launch_bwd(x2, dy2, w1, b1, w2, seeds, rate1, rate2, row_offset=0):
             dw1_part.data_ptr(), dw2_part.data_ptr(), dw1.data_ptr(),
             db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n_pad, k, m,
             splits, *_rates(rate1, rate2), int(row_offset),
-            _build.stream_of(x2))
+            *(hidden or (0, 0)), _build.stream_of(x2))
     _build.check("ffn", rc, "FFN backward kernels")
     return dx[:n], dw1, db1, dw2, db2
 
@@ -203,24 +228,27 @@ def _launch_bwd(x2, dy2, w1, b1, w2, seeds, rate1, rate2, row_offset=0):
 class _FfnResidual(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, res, w1, b1, w2, b2, seeds, rate1, rate2,
-                row_offset):
+                row_offset, hidden):
         cd = x.dtype
         k = x.shape[-1]
         x2 = x.reshape(-1, k).contiguous()
-        res2 = res.reshape(-1, k).contiguous()
+        res2 = None if res is None else res.reshape(-1, k).contiguous()
         w1c, w2c = w1.to(cd).contiguous(), w2.to(cd).contiguous()
         b1f = b1.to(torch.float32).contiguous()
-        b2f = b2.to(torch.float32).contiguous()
+        b2f = None if b2 is None else b2.to(torch.float32).contiguous()
         if x.device.type == "cpu":
             out = ffn_forward_plain(x2, res2, w1c, b1f, w2c, b2f, seeds,
-                                    rate1, rate2, row_offset=row_offset)
+                                    rate1, rate2, row_offset=row_offset,
+                                    hidden=hidden)
         else:
             out = _launch_fwd(x2, res2, w1c, b1f, w2c, b2f, seeds, rate1,
-                              rate2, row_offset=row_offset)
+                              rate2, row_offset=row_offset, hidden=hidden)
             ffn_residual.launches += 1
         ctx.save_for_backward(x2, w1c, b1f, w2c, seeds)
         ctx.rates, ctx.row_offset = (rate1, rate2), row_offset
-        ctx.dtypes = (w1.dtype, b1.dtype, w2.dtype, b2.dtype)
+        ctx.hidden, ctx.has = hidden, (res is not None, b2 is not None)
+        ctx.dtypes = (w1.dtype, b1.dtype, w2.dtype,
+                      None if b2 is None else b2.dtype)
         return out.reshape(x.shape)
 
     @staticmethod
@@ -229,36 +257,54 @@ class _FfnResidual(torch.autograd.Function):
         dy2 = dy.reshape(x2.shape).to(x2.dtype).contiguous()
         if dy.device.type == "cpu":
             grads = ffn_backward_plain(x2, dy2, w1c, b1f, w2c, seeds,
-                                       *ctx.rates, row_offset=ctx.row_offset)
+                                       *ctx.rates, row_offset=ctx.row_offset,
+                                       hidden=ctx.hidden)
         else:
             grads = _launch_bwd(x2, dy2, w1c, b1f, w2c, seeds, *ctx.rates,
-                                row_offset=ctx.row_offset)
+                                row_offset=ctx.row_offset, hidden=ctx.hidden)
             ffn_residual.launches_bwd += 1
         dx, dw1, db1, dw2, db2 = grads
         tw1, tb1, tw2, tb2 = ctx.dtypes
-        return (dx.reshape(dy.shape), dy, dw1.to(tw1), db1.to(tb1),
-                dw2.to(tw2), db2.to(tb2), None, None, None, None)
+        has_res, has_b2 = ctx.has
+        return (dx.reshape(dy.shape), dy if has_res else None, dw1.to(tw1),
+                db1.to(tb1), dw2.to(tw2), db2.to(tb2) if has_b2 else None,
+                None, None, None, None, None)
 
 
-def ffn_residual(x: torch.Tensor, res: torch.Tensor, w1: torch.Tensor,
-                 b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                 seeds: torch.Tensor, rate1: float, rate2: float,
-                 row_offset: int = 0):
+def ffn_residual(x: torch.Tensor, res: torch.Tensor | None,
+                 w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                 b2: torch.Tensor | None, seeds: torch.Tensor, rate1: float,
+                 rate2: float, row_offset: int = 0, hidden=None):
     """``res + drop2(Dense2(drop1(swish(Dense1(x)))))`` as one kernel.
 
     ``x``/``res``: ``[..., K]``; ``w1`` ``[K, M]``, ``w2`` ``[M, K]`` (cast to
     ``x``'s dtype); biases ``[M]``/``[K]``; ``seeds`` int32 ``[2]``, one per
     dropout site; ``row_offset``: the index, among the ``[N, K]`` rows of the
     whole batch, of ``x``'s first row (0 unless the batch is split across
-    processes). Gradient flows to ``x``, ``res`` and the four parameter
-    tensors. Replaces ``ishara_tpu.ops.ffn_kernel.ffn_residual``."""
+    processes). ``hidden = (width, col0)``: ``w1``'s columns are a slice of
+    a hidden of ``width`` from column ``col0`` (a tensor-parallel rank's),
+    and ``res``, ``b2`` are None and ``rate2`` is 0: the result is the
+    slice's partial sum (see the module's docstring). Gradient flows to
+    ``x``, ``res`` and the parameter tensors. Replaces
+    ``ishara_tpu.ops.ffn_kernel.ffn_residual``."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the FFN kernel runs on CUDA or CPU tensors, not "
                          f"{x.device}")
-    if res.shape != x.shape or res.dtype != x.dtype:
+    if res is not None and (res.shape != x.shape or res.dtype != x.dtype):
         raise ValueError("res must match x in shape and dtype")
+    if hidden is not None:
+        width, col0 = (int(v) for v in hidden)
+        m = w1.shape[1]
+        if res is not None or b2 is not None or rate2 != 0.0:
+            raise ValueError("a slice of the hidden gives a partial sum: "
+                             "no res, no b2, rate2 0")
+        if not (0 <= col0 and col0 + m <= width and width % 4 == 0
+                and col0 % 4 == 0):
+            raise ValueError(f"hidden {hidden} does not hold {m} columns "
+                             f"on Philox blocks of 4")
+        hidden = (width, col0)
     return _FfnResidual.apply(x, res, w1, b1, w2, b2, seeds, float(rate1),
-                              float(rate2), int(row_offset))
+                              float(rate2), int(row_offset), hidden)
 
 
 # launches of the forward kernel and of the backward kernels (one count for

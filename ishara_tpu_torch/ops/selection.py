@@ -54,6 +54,14 @@ times (``conv_module_kernel_rows``, ``ffn_selection_times``; NVIDIA H100
   T 512. The kernel still loses; both rows keep it until its re-port is
   done (ROADMAP.md Queue 2: a row keeps the kernel until then).
 
+**Tensor parallelism** (the layer runs its slice of the heads or of the
+hidden columns, :mod:`ishara_tpu_torch.parallel.tp`) reads the same rows:
+the attention kernel takes a rank's heads with the unsharded step's mask at
+their positions, and the FFN kernel a rank's hidden columns, giving the
+partial sum that the layer reduces before the bias, the output's dropout
+and the residual. The conv-module kernel sees the whole activations after
+the row-parallel reduction (its weights are replicated).
+
 ``translation_decode_fused(dim, T)`` has its own table, one anchor, the
 translation model's reference geometry ``(dim 208, T 176)``: whether the
 batch-1 decode loop runs as one launch of the decode kernel

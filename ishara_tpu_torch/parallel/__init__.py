@@ -1,7 +1,8 @@
-"""Data parallelism over a device mesh (port of ``ishara_tpu/parallel/``,
-without its 2-D tensor-parallel rules): meshes and batch placements
-(:mod:`.mesh`), multi-process set-up and feeding (:mod:`.distributed`),
-and the batch shard the layers read (:mod:`.shard`)."""
+"""Data and tensor parallelism over a device mesh (port of
+``ishara_tpu/parallel/``): meshes and batch placements (:mod:`.mesh`),
+multi-process set-up and feeding (:mod:`.distributed`), the batch shard the
+layers read (:mod:`.shard`), and the tensor-parallel rules and operators
+over a ``(data, model)`` mesh (:mod:`.tp`)."""
 
 from .distributed import (
     host_local_to_global,
@@ -11,30 +12,45 @@ from .distributed import (
 from .mesh import (
     DATA_AXIS,
     DCN_AXIS,
+    MODEL_AXIS,
     batch_shard_of,
     batch_sharding,
     make_mesh,
     make_multislice_mesh,
     multislice_batch_sharding,
     replicated,
+    row_shards,
     shard_batch,
 )
-from .shard import BatchShard, batch_shard, current_shard
+from .shard import BatchShard, ModelAxis, batch_shard, current_shard
+from .tp import (
+    gather_params_tp,
+    make_2d_mesh,
+    shard_state_tp,
+    tp_param_shardings,
+)
 
 __all__ = [
     "BatchShard",
     "DATA_AXIS",
     "DCN_AXIS",
+    "MODEL_AXIS",
+    "ModelAxis",
     "batch_shard",
     "batch_shard_of",
     "batch_sharding",
     "current_shard",
+    "gather_params_tp",
     "host_local_to_global",
     "initialize_distributed",
+    "make_2d_mesh",
     "make_mesh",
     "make_multislice_mesh",
     "multislice_batch_sharding",
     "process_shard",
     "replicated",
+    "row_shards",
     "shard_batch",
+    "shard_state_tp",
+    "tp_param_shardings",
 ]

@@ -84,8 +84,8 @@ def process_shard() -> tuple[int, int]:
 
 def host_local_to_global(batch: dict, mesh, axis=None) -> dict:
     """Each process's rows ``[B_local, ...]`` -> one DTensor ``[B, ...]``
-    with the batch sharded over ``axis`` of ``mesh`` (default: every axis,
-    host-major). In a single process this is
+    with the batch sharded over ``axis`` of ``mesh`` (default: every axis
+    but ``model``, host-major). In a single process this is
     :func:`~ishara_tpu_torch.parallel.mesh.shard_batch`. Entries that are
     not tensors or arrays pass as they are."""
     from torch.distributed.tensor import DTensor

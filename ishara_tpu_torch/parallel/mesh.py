@@ -5,7 +5,9 @@ A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over the
 process group, one process a card: the counterpart of ``jax.sharding.Mesh``.
 Data parallelism is a 1-D ``data`` mesh, or a 2-D ``(dcn, data)`` one whose
 rows are hosts, so that the gradient's all-reduce runs within a host first
-and across hosts once. The placements returned by :func:`batch_sharding`,
+and across hosts once. A ``model`` axis (:func:`~.tp.make_2d_mesh`) holds
+tensor-parallel slices: a batch's rows are sharded over every other axis
+and replicated over it. The placements returned by :func:`batch_sharding`,
 :func:`multislice_batch_sharding` and :func:`replicated` are DTensor
 placements, the counterpart of a ``NamedSharding``'s ``PartitionSpec``;
 :func:`shard_batch` distributes a batch with them.
@@ -19,10 +21,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .shard import BatchShard
+from .shard import BatchShard, ModelAxis
 
 DATA_AXIS = "data"
 DCN_AXIS = "dcn"
+MODEL_AXIS = "model"
 
 
 def _ensure_group() -> None:
@@ -96,8 +99,8 @@ def make_multislice_mesh(num_slices: int = -1, devices=None,
 
 def _axes(mesh, axis) -> tuple[str, ...]:
     names = mesh.mesh_dim_names
-    if axis is None:
-        return tuple(names)
+    if axis is None:        # every axis a batch's rows shard over
+        return tuple(n for n in names if n != MODEL_AXIS)
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
@@ -112,8 +115,8 @@ def batch_sharding(mesh, axis=DATA_AXIS) -> list:
 
 
 def multislice_batch_sharding(mesh) -> list:
-    """The batch dim sharded over every mesh axis: each process holds
-    ``B / mesh.size()`` rows, host-major."""
+    """The batch dim sharded over every mesh axis but ``model``: each
+    process holds ``B / row_shards(mesh)`` rows, host-major."""
     return batch_sharding(mesh, None)
 
 
@@ -134,17 +137,37 @@ def shard_batch(batch, mesh, axis=DATA_AXIS):
             for k, v in batch.items()}
 
 
+def row_shards(mesh) -> int:
+    """How many shards a batch's rows take on ``mesh``: the product of its
+    axes but ``model``."""
+    names = mesh.mesh_dim_names or ()
+    n = 1
+    for d, size in enumerate(mesh.shape):
+        if d >= len(names) or names[d] != MODEL_AXIS:
+            n *= size
+    return n
+
+
 def batch_shard_of(mesh, local_rows: int) -> BatchShard:
     """This process's :class:`~.shard.BatchShard` of a batch sharded over
-    every axis of ``mesh`` (host-major), ``local_rows`` rows a process:
-    its first row, the global batch, and the mesh's groups innermost first
-    (``data``, then ``dcn``), the order the sums run in."""
+    every axis of ``mesh`` but ``model`` (host-major), ``local_rows`` rows
+    a process: its first row, the global batch, and those axes' groups
+    innermost first (``data``, then ``dcn``), the order the sums run in;
+    and the ``model`` axis, when the mesh has one."""
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError("this process is not in the mesh")
+    names = mesh.mesh_dim_names or ()
+    dims = [d for d in range(mesh.ndim)
+            if d >= len(names) or names[d] != MODEL_AXIS]
     flat = 0
-    for c, n in zip(coord, mesh.shape):
-        flat = flat * n + c
-    groups = tuple(mesh.get_group(d) for d in reversed(range(mesh.ndim)))
+    for d in dims:
+        flat = flat * mesh.shape[d] + coord[d]
+    groups = tuple(mesh.get_group(d) for d in reversed(dims))
+    model = None
+    if MODEL_AXIS in names:
+        d = names.index(MODEL_AXIS)
+        model = ModelAxis(mesh.get_group(d), coord[d], mesh.shape[d])
     return BatchShard(row0=flat * local_rows, local=local_rows,
-                      rows=local_rows * mesh.size(), groups=groups)
+                      rows=local_rows * row_shards(mesh), groups=groups,
+                      model=model)

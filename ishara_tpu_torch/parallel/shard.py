@@ -16,6 +16,13 @@ computes on all ``B`` rows:
 * **kernel selection** (:mod:`ishara_tpu_torch.ops.selection`) is keyed on
   the global batch, :func:`global_batch`.
 
+Under tensor parallelism (a ``(data, model)`` mesh, :mod:`.tp`) the rows
+are sharded over ``data`` only, and the shard also names the ``model``
+axis (:class:`ModelAxis`): the group whose processes hold the slices of
+one layer's weights and run its products on their own heads or hidden
+columns. A dropout site on such a slice takes its mask from the global
+tensor's positions with :func:`split_offset`.
+
 The step says which rows it holds with :func:`batch_shard` around its
 forward *and* backward pass; outside it (the default) the local batch is
 the whole batch. The setting is a module global rather than a thread-local
@@ -33,15 +40,28 @@ import torch.distributed as dist
 
 
 @dataclass(frozen=True)
+class ModelAxis:
+    """The ``model`` axis of a ``(data, model)`` mesh as one process sees
+    it: the group of the processes that hold the other slices of its
+    weights, its place ``rank`` among them, and their number ``size``."""
+
+    group: object
+    rank: int
+    size: int
+
+
+@dataclass(frozen=True)
 class BatchShard:
     """``rows`` ``[row0, row0 + local)`` of a batch of ``rows`` rows;
     summing over each process group of ``groups`` in turn sums over every
-    process that holds a shard of it."""
+    process that holds a shard of it. ``model``: the mesh's ``model`` axis,
+    whose processes hold the same rows (None without one)."""
 
     row0: int = 0
     local: int | None = None
     rows: int | None = None
     groups: tuple = ()
+    model: ModelAxis | None = None
 
 
 _WHOLE = BatchShard()
@@ -82,6 +102,37 @@ def element_offset(x: torch.Tensor) -> int:
             f"a dropout site's tensor must lead with the batch's "
             f"{sh.local} rows, got shape {tuple(x.shape)}")
     return sh.row0 * (x.numel() // x.shape[0])
+
+
+def split_offset(shape, parts: int = 1, part: int = 0,
+                 trailing: int = 1) -> tuple[int, tuple[int, int] | None]:
+    """(``offset``, ``runs``) of a dropout site's tensor of ``shape`` for
+    the mask functions of :mod:`ishara_tpu_torch.ops.dropout`, when it holds
+    this process's rows and, in its ``trailing`` dims, slice ``part`` of
+    ``parts`` equal slices of the global tensor's (a rank's heads of ``[B,
+    H, T, T]``: ``trailing=3``; its hidden columns of ``[B, T, 4 dim]``:
+    ``trailing=1``). Each run of ``w`` elements (the slice) then starts
+    ``parts * w`` global elements after the one before: ``runs = (w, parts
+    * w)``, or None when ``parts`` is 1 (the elements are contiguous, and
+    ``offset`` is :func:`element_offset`'s)."""
+    shape = tuple(int(d) for d in shape)
+    w = 1
+    for d in shape[len(shape) - trailing:]:
+        w *= d
+    n = 1
+    for d in shape:
+        n *= d
+    sh = _current
+    row0 = 0
+    if sh.local is not None:
+        if shape[0] != sh.local:
+            raise ValueError(
+                f"a dropout site's tensor must lead with the batch's "
+                f"{sh.local} rows, got shape {shape}")
+        row0 = sh.row0
+    runs_a_row = n // (w * shape[0])
+    return (row0 * runs_a_row * parts * w + part * w,
+            None if parts == 1 else (w, parts * w))
 
 
 def reduce_sum_(t: torch.Tensor, groups) -> torch.Tensor:

@@ -33,6 +33,14 @@ averages the flat gradient with the loss, so the loss, the gradient norm,
 the non-finite guard and Lookahead see the global values and every replica
 stays the same bit for bit. On a 2-D ``(dcn, data)`` mesh the sums run
 within ``data`` first, then across ``dcn``.
+
+**Tensor parallelism** (a ``(data, model)`` mesh,
+:func:`ishara_tpu_torch.parallel.tp.make_2d_mesh`): the rows are sharded
+over ``data`` and replicated over ``model``. A state left replicated runs
+as under data parallelism; one placed by
+:func:`~ishara_tpu_torch.parallel.tp.shard_state_tp` holds its slices of
+the ruled leaves (``state.tp``), its layers run their products on them,
+and the global norm takes the slices' squares summed over ``model``.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from ..device import resolve_device
 from ..ops.ctc import ctc_loss
 from ..ops.dropout import step_seeds
 from ..parallel.shard import batch_shard, gather_rows, reduce_sum_
+from ..parallel.tp import gathered_weights, tp_global_norm
 from ..preprocess.augment import augment, draws_from_seed
 from ..preprocess.pipeline import GroupStats, preprocess
 from .optim import global_norm
@@ -74,17 +83,20 @@ def _flatten_parameters(model) -> tuple[torch.Tensor, dict[str, slice]]:
 class TrainState:
     """``step``, the fast parameters (``params``, flat), the Lookahead
     ``slow_params``, the batch statistics (the model's BatchNorm buffers),
-    the optimizer state and ``nonfinite_count``, all on one device."""
+    the optimizer state and ``nonfinite_count``, all on one device.
+    ``tp``: the layout of a state sharded over a ``model`` axis
+    (:class:`ishara_tpu_torch.parallel.tp.TPLayout`), else None."""
 
     def __init__(self, model, tx, params, slices, slow_params, opt_state,
                  step, nonfinite_count, lookahead_sync_period: int = 5,
-                 lookahead_alpha: float = 0.5):
+                 lookahead_alpha: float = 0.5, tp=None):
         self.model, self.tx = model, tx
         self.params, self.slices = params, slices
         self.slow_params, self.opt_state = slow_params, opt_state
         self.step, self.nonfinite_count = step, nonfinite_count
         self.lookahead_sync_period = lookahead_sync_period
         self.lookahead_alpha = lookahead_alpha
+        self.tp = tp
 
     @classmethod
     def create(cls, model, tx, device=None, **kw) -> "TrainState":
@@ -135,7 +147,7 @@ class TrainState:
             model, self.tx, params, slices, self.slow_params.clone(),
             {k: v.clone() for k, v in self.opt_state.items()},
             self.step.clone(), self.nonfinite_count.clone(),
-            self.lookahead_sync_period, self.lookahead_alpha)
+            self.lookahead_sync_period, self.lookahead_alpha, self.tp)
 
 
 def _local(v):
@@ -225,7 +237,10 @@ def _loss_and_grads(state: TrainState, x, labels, seed, blank_id,
     recomputation must see the same weights)."""
     old_stats = [b.clone() for b in state.batch_stats.values()]
     params = list(state.model.parameters())
-    with qat_weights(state.model, qat):
+    if qat and state.tp is not None:
+        raise ValueError("QAT's per-channel scales need the whole leaf: it "
+                         "does not run on a tensor-parallel state")
+    with gathered_weights(state.model), qat_weights(state.model, qat):
         logits = state.model(x, training=True, seed=seed)
         loss = ctc_loss(logits, labels, blank_id=blank_id)
         grads = _flat_grads(state, loss, params)
@@ -238,7 +253,8 @@ def _finish_step(state: TrainState, loss, grads, old_stats):
     and translation train steps. A non-finite loss or gradient leaves every leaf of the
     state unchanged but ``step`` and ``nonfinite_count``; the decision is a
     ``where`` on the device."""
-    grad_norm = global_norm(grads)
+    grad_norm = global_norm(grads) if state.tp is None \
+        else tp_global_norm(grads, state.tp)
     updates, new_opt = state.tx.update(grads, state.opt_state, state.params,
                                        grad_norm=grad_norm)
     fast = state.params + updates
@@ -266,14 +282,19 @@ def _finish_step(state: TrainState, loss, grads, old_stats):
 
 
 def ctc_train_step(state: TrainState, batch: dict, seed: int = 0,
-                   blank_id: int = 59) -> tuple[TrainState, dict]:
+                   blank_id: int = 59, mesh=None) -> tuple[TrainState, dict]:
     """One CTC training step. ``batch``: x ``[B, T, F]`` float32 (already
-    preprocessed), labels ``[B, U]``. Returns (state, {"loss",
-    "grad_norm"}), both 0-d tensors on the device."""
+    preprocessed), labels ``[B, U]`` -- this process's rows of the global
+    batch with ``mesh``. Returns (state, {"loss", "grad_norm"}), both 0-d
+    tensors on the device."""
+    check_mesh(mesh)
     batch = _on(batch, state.device)
     dropout_seed = step_seeds(seed, state.step)[0:1]
-    loss, grads, old = _loss_and_grads(state, batch["x"], batch["labels"],
-                                       dropout_seed, blank_id)
+    shard = mesh_shard(mesh, batch["x"].shape[0])
+    with batch_shard(shard):
+        loss, grads, old = _loss_and_grads(state, batch["x"], batch["labels"],
+                                           dropout_seed, blank_id)
+    grads, loss = _mean_over_shards(grads, loss, shard)
     return _finish_step(state, loss, grads, old)
 
 
@@ -335,7 +356,10 @@ def make_fused_ctc_eval_step(stats: GroupStats, frame_len: int,
         shard = mesh_shard(mesh, batch["raw"].shape[0])
         x = _preprocess_batch(batch["raw"], batch["lengths"], stats,
                               frame_len, dominant_hand)
-        with qat_weights(state.model, qat):
+        if qat and state.tp is not None:
+            raise ValueError("QAT does not run on a tensor-parallel state")
+        with batch_shard(shard), gathered_weights(state.model), \
+                qat_weights(state.model, qat):
             logits = state.model(x, training=False)
         per_seq = ctc_loss(logits, batch["labels"], blank_id=blank_id,
                            reduction="none")
@@ -350,8 +374,14 @@ def make_fused_ctc_eval_step(stats: GroupStats, frame_len: int,
 
 
 @torch.no_grad()
-def ctc_eval_step(state: TrainState, batch: dict, blank_id: int = 59) -> dict:
+def ctc_eval_step(state: TrainState, batch: dict, blank_id: int = 59,
+                  mesh=None) -> dict:
+    """The loss and logits of ``batch`` (``x``, ``labels``): with ``mesh``,
+    of this process's rows."""
+    check_mesh(mesh)
     batch = _on(batch, state.device)
-    logits = state.model(batch["x"], training=False)
+    with batch_shard(mesh_shard(mesh, batch["x"].shape[0])), \
+            gathered_weights(state.model):
+        logits = state.model(batch["x"], training=False)
     return {"loss": ctc_loss(logits, batch["labels"], blank_id=blank_id),
             "logits": logits}

@@ -19,10 +19,12 @@ of ``ishara_tpu/train/trainer.py``).
   SIGTERM;
 * with ``mesh`` (a ``DeviceMesh``, :mod:`ishara_tpu_torch.parallel`) data
   parallelism, one process a card: every process draws the same global
-  batch order and keeps its rows (``batch_size / mesh.size()``), the steps
-  compute the unsharded step's function, validation scores the global
-  batch, and only rank 0 writes logs, histograms and checkpoints, which
-  every rank restores from.
+  batch order and keeps its rows (``batch_size`` over the mesh's axes but
+  ``model``), the steps compute the unsharded step's function, validation
+  scores the global batch, and only rank 0 writes logs, histograms and
+  checkpoints, which every rank restores from. On a ``(data, model)`` mesh
+  the rows are sharded over ``data`` and the state is replicated, as the
+  reference's ``Trainer`` places it.
 
 Where it differs from the reference: the state lives on ``device`` (default
 ``cuda``; raises when no card is visible); the step's randomness is the
@@ -48,6 +50,7 @@ from ..device import resolve_device
 from ..evaluation.metrics import normalized_levenshtein
 from ..models.encoder import build_model
 from ..models.seq2seq import ASLTranslationModel
+from ..parallel.mesh import row_shards
 from ..preprocess.pipeline import GroupStats
 from ..utils.logging import MetricLogger
 from ..utils.prefetch import prefetch
@@ -85,12 +88,13 @@ class Trainer:
             raise ValueError(task)
         check_mesh(mesh)
         bs = config.train.batch_size
-        if mesh is not None and bs % mesh.size():
+        shards = 1 if mesh is None else row_shards(mesh)
+        if bs % shards:
             raise ValueError(f"batch_size {bs} is not divisible by the "
-                             f"mesh's {mesh.size()} processes")
+                             f"mesh's {shards} row shards")
         self.mesh = mesh
         # this process's rows of each global batch, and whether it writes
-        local = bs if mesh is None else bs // mesh.size()
+        local = bs // shards
         row0 = 0 if mesh is None else mesh_shard(mesh, local).row0
         self._rows = slice(row0, row0 + local)
         self._writes = mesh is None or dist.get_rank() == 0

@@ -14,7 +14,7 @@ seeds are :func:`ishara_tpu_torch.ops.dropout.step_seeds` of (``seed``,
 ``state.step``), so the same (seed, step) gives the same masks and
 augmentations.
 
-**Data parallelism** (``mesh=``) follows the CTC steps: each process takes
+**Data and tensor parallelism** (``mesh=``) follow the CTC steps: each process takes
 its rows of the global batch and the step computes the unsharded step's
 function. The cross-entropy is a mean over the global batch's non-pad
 tokens, so each process divides its token sum by the global count (times
@@ -30,6 +30,7 @@ from ..models.seq2seq import translation_loss
 from ..ops.dropout import step_seeds
 from ..ops.levenshtein import normalized_similarity
 from ..parallel.shard import batch_shard, gather_rows, reduce_sum_
+from ..parallel.tp import gathered_weights
 from ..preprocess.augment import augment, draws_from_seed
 from ..preprocess.pipeline import GroupStats, frame_mask
 from .state import (
@@ -90,7 +91,9 @@ def make_translation_train_step(pad_idx: int = 0, eos_idx: int = 2,
         shard = mesh_shard(mesh, tokens.shape[0])
         tgt_in, tgt_out = tokens[:, :-1], tokens[:, 1:]
         old_stats = [b.clone() for b in state.batch_stats.values()]
-        with batch_shard(shard):
+        # the Parameters, taken before any is swapped for its gathered value
+        params = list(state.model.parameters())
+        with batch_shard(shard), gathered_weights(state.model):
             pred, confidence = state.model(
                 batch["x"], batch.get("mask"), tgt_in, training=True,
                 seed=dropout_seed)
@@ -104,7 +107,7 @@ def make_translation_train_step(pad_idx: int = 0, eos_idx: int = 2,
                 pred, tgt_out, confidence, sim, pad_idx=pad_idx,
                 conf_weight=conf_weight,
                 ce_denominator=_ce_denominator(tgt_out, pad_idx, shard))
-            grads = _flat_grads(state, loss)
+            grads = _flat_grads(state, loss, params)
         grads, loss = _mean_over_shards(grads, loss.detach(), shard)
         state, metrics = _finish_step(state, loss, grads, old_stats)
         conf = confidence.detach()
@@ -171,11 +174,12 @@ def make_fused_translation_eval_step(stats: GroupStats, frame_len: int,
         model = state.model
         x, mask = _grouped(_preprocess_batch(
             batch["raw"], batch["lengths"], stats, frame_len, False))
-        memory, confidence = model.encode(x, mask)
-        tokens = greedy_from_memory(model, memory, mask, max_len,
-                                    eos=eos_idx, pad=pad_idx)
         labels = batch["labels"]
-        pred = model.decode(labels[:, :-1], memory, mask)
+        with batch_shard(shard), gathered_weights(model):
+            memory, confidence = model.encode(x, mask)
+            tokens = greedy_from_memory(model, memory, mask, max_len,
+                                        eos=eos_idx, pad=pad_idx)
+            pred = model.decode(labels[:, :-1], memory, mask)
         tgt_out = labels[:, 1:]
         valid = (tgt_out != pad_idx).to(torch.float32)
         logp = torch.log_softmax(pred, dim=-1)

@@ -355,6 +355,52 @@ def test_dropout_kernels_equal_plain(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,dim", [((5, 4, 7, 7), 1), ((3, 9, 24), 2),
+                                       ((3, 9, 22), 2)])
+def test_dropout_kernel_on_a_strided_slice(shape, dim, dtype):
+    """A tensor-parallel rank's slice (heads of ``[B, H, T, T]``, hidden
+    columns of ``[B, T, K]``; runs of 98 and 11 values take the scalar
+    path) with ``runs``: the kernel equals the plain version and the whole
+    launch's slice, forward, add form and backward, rows offset too."""
+    _card()
+    from ishara_tpu_torch.ops import dropout as dr
+    from ishara_tpu_torch.parallel.shard import (
+        BatchShard,
+        batch_shard,
+        split_offset,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    seed = torch.tensor([777], dtype=torch.int32, device="cuda")
+    full, full_dx = dr.fast_dropout(x, seed, 0.3), dr.fast_dropout(dy, seed,
+                                                                   0.3)
+    w, r0 = shape[dim] // 2, 1
+    for part in range(2):
+        sl = [slice(r0, None)] + [slice(None)] * (len(shape) - 1)
+        sl[dim] = slice(part * w, (part + 1) * w)
+        sl = tuple(sl)
+        xs, dys = x[sl].contiguous(), dy[sl].contiguous()
+        with batch_shard(BatchShard(row0=r0, local=shape[0] - r0,
+                                    rows=shape[0])):
+            off, runs = split_offset(xs.shape, 2, part, len(shape) - dim)
+        xr = xs.clone().requires_grad_()
+        out = dr.fast_dropout(xr, seed, 0.3, off, runs)
+        (dx,) = torch.autograd.grad(out, xr, dys)
+        assert torch.equal(out, full[sl])
+        assert torch.equal(out, dr.dropout_plain(xs, seed, 0.3, None, off,
+                                                 runs))
+        assert torch.equal(dx, full_dx[sl])
+        assert torch.equal(dr.fast_dropout_add(dys, xs, seed, 0.3, off,
+                                               runs),
+                           dr.dropout_plain(xs, seed, 0.3, dys, off, runs))
+    with pytest.raises(ValueError, match="runs"):
+        dr.fast_dropout(xs, seed, 0.3, 0, (7, 5))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,Dh", [(23, 16), (24, 8), (200, 32), (384, 16),
@@ -391,6 +437,60 @@ def test_attention_kernels_match_plain(T, Dh, rate, dtype, tol):
     _close(o, ro, tol)
     for a, b in zip(grads, rgrads):
         _close(a, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T", [176, 23])
+def test_attention_kernel_on_a_rank_s_heads(T, dtype, tol):
+    """A tensor-parallel rank's heads (``runs``, rows offset too): the
+    kernel equals the plain version with the same runs, and the whole
+    launch's heads, forward and dq, dk, dv."""
+    _card()
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.parallel.shard import (
+        BatchShard,
+        batch_shard,
+        split_offset,
+    )
+
+    B, H, Dh, parts, r0 = 3, 4, 16, 2, 1
+    g = torch.Generator(device="cuda").manual_seed(T)
+    qkv = torch.randn((B, T, H, 3 * Dh), generator=g, device="cuda").to(
+        dtype).requires_grad_()
+    d_o = torch.randn((B, H, T, Dh), generator=g, device="cuda").to(dtype)
+    bias = at.mask_to_bias(torch.rand((B, T), generator=g, device="cuda")
+                           > 0.2)
+    seed = torch.tensor([56], dtype=torch.int32, device="cuda")
+    scale = (H * Dh) ** -0.5
+    q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    o = at.flash_mhsa(q, k, v, bias, seed, scale, 0.3)
+    full = torch.autograd.grad(o, (q, k, v), d_o)
+    hl = H // parts
+    for part in range(parts):
+        sl = (slice(r0, None), slice(part * hl, (part + 1) * hl))
+        qs, ks, vs = (t.detach()[sl].clone().requires_grad_()
+                      for t in (q, k, v))
+        with batch_shard(BatchShard(row0=r0, local=B - r0, rows=B)):
+            off, runs = split_offset((B - r0, hl, T, T), parts, part, 3)
+        os_ = at.flash_mhsa(qs, ks, vs, bias[r0:], seed, scale, 0.3, off,
+                            runs)
+        grads = torch.autograd.grad(os_, (qs, ks, vs), d_o[sl])
+        with torch.no_grad():
+            ro, lse = at.mhsa_forward_plain(qs, ks, vs, bias[r0:], seed,
+                                            scale, 0.3, offset=off,
+                                            runs=runs)
+            rgrads = at.mhsa_backward_plain(qs, ks, vs, bias[r0:], seed, ro,
+                                            lse, d_o[sl], scale, 0.3,
+                                            offset=off, runs=runs)
+        _close(os_, ro, tol)
+        _close(os_, o[sl], tol)
+        for a, b, c in zip(grads, rgrads, full):
+            _close(a, b, tol)
+            _close(a, c[sl], tol)
+    with pytest.raises(ValueError, match="whole heads"):
+        at.flash_mhsa(qs, ks, vs, bias[r0:], seed, scale, 0.3, 0, (7, 9))
 
 
 @pytest.mark.cuda
@@ -496,6 +596,63 @@ def test_ffn_backward_gives_the_same_bits_twice(dtype):
     first, second = run(), run()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,k,m", [
+    (torch.bfloat16, 100, 128, 256), (torch.float32, 100, 128, 256),
+    (torch.float32, 77, 20, 40)])
+def test_ffn_kernel_on_a_slice_of_the_hidden(dtype, n, k, m):
+    """A tensor-parallel rank's hidden columns (``hidden``, no residual, no
+    ``b2``, rows offset): the partial sums equal the plain version's, and
+    summed over the ranks with the bias they are the whole launch's
+    branch, forward and every gradient."""
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    g = torch.Generator(device="cuda").manual_seed(n)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    x = rand(n, k).to(dtype).requires_grad_()
+    dy = rand(n, k).to(dtype)
+    w1, b1 = rand(k, m, scale=k ** -0.5), rand(m, scale=0.1)
+    w2, b2 = rand(m, k, scale=m ** -0.5), rand(k, scale=0.1)
+    seeds = torch.tensor([9, 10], dtype=torch.int32, device="cuda")
+    roff, parts, ml = 5, 2, m // 2
+    zero = torch.zeros_like(x)
+    full = fk.ffn_residual(x, zero, w1, b1, w2, b2, seeds, 0.3, 0.0, roff)
+    fdx = torch.autograd.grad(full, x, dy)[0]
+    total, dx_sum = 0.0, 0.0
+    for part in range(parts):
+        cols = slice(part * ml, (part + 1) * ml)
+        p = [w1[:, cols].clone().requires_grad_(),
+             b1[cols].clone().requires_grad_(),
+             w2[cols].clone().requires_grad_()]
+        hidden = (m, part * ml)
+        out = fk.ffn_residual(x, None, p[0], p[1], p[2], None, seeds, 0.3,
+                              0.0, roff, hidden)
+        grads = torch.autograd.grad(out, [x] + p, dy)
+        xd = x.detach()
+        w1c, w2c = p[0].detach().to(dtype), p[2].detach().to(dtype)
+        want = fk.ffn_forward_plain(xd, None, w1c, p[1].detach(), w2c, None,
+                                    seeds, 0.3, 0.0, row_offset=roff,
+                                    hidden=hidden)
+        rdx, rdw1, rdb1, rdw2, _ = fk.ffn_backward_plain(
+            xd, dy, w1c, p[1].detach(), w2c, seeds, 0.3, 0.0,
+            row_offset=roff, hidden=hidden)
+        _close(out, want, tol)
+        for a, b in zip(grads, (rdx, rdw1, rdb1, rdw2)):
+            _close(a, b, tol)
+        total = total + out.float()
+        dx_sum = dx_sum + grads[0].float()
+    _close(total + b2, full.float(), tol)
+    _close(dx_sum, fdx.float(), tol)
+    with pytest.raises(ValueError, match="partial sum"):
+        fk.ffn_residual(x, zero, w1, b1, w2, b2, seeds, 0.3, 0.0, 0,
+                        (2 * m, 0))
 
 
 @pytest.mark.cuda

@@ -34,7 +34,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "             'preprocess.augment', 'serve.engine', 'bridge',\n"
         "             'models.squeezeformer_unet', 'serve.streaming',\n"
         "             'train.qat', 'parallel.mesh', 'parallel.distributed',\n"
-        "             'parallel.shard', 'data.dataset', 'data.cache'):\n"
+        "             'parallel.shard', 'data.dataset', 'data.cache',\n"
+        "             'parallel.tp', 'native', '__main__'):\n"
         "    assert 'ishara_tpu_torch.' + want in names, want\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -5,9 +5,10 @@ runs on one torch thread.
 ``python torch_dist_worker.py RANK WORLD PORT SPEC OUT`` joins the group on
 ``tcp://127.0.0.1:PORT``; for each run of the spec it builds the mesh the
 run names (``"1d"``: a ``data`` mesh over every rank; ``"2x2"``: a ``(dcn,
-data)`` mesh of two rows) and runs the run's cases on its rows of each
-global batch, then the spec's ``Trainer`` (on a ``data`` mesh), and saves
-what each gives to ``OUT/rank{RANK}.pt``. The test runs the same
+data)`` mesh of two rows; ``"tp2x2"``: a ``(data, model)`` mesh of 2 x 2
+with the state placed by ``shard_state_tp``) and runs the run's cases on
+its rows of each global batch, then the spec's ``Trainer`` (on a ``data``
+mesh), and saves what each gives to ``OUT/rank{RANK}.pt``. The test runs the same
 cases in one process on the whole batch (:func:`run_case` with
 ``mesh=None``) and compares.
 """
@@ -23,6 +24,7 @@ import torch.distributed as dist
 from ishara_tpu_torch import config as tconfig
 from ishara_tpu_torch.data.synthetic import SyntheticASLFR
 from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+from ishara_tpu_torch.models import layers
 from ishara_tpu_torch.models.encoder import build_model
 from ishara_tpu_torch.models.seq2seq import ASLTranslationModel
 from ishara_tpu_torch.parallel import (
@@ -31,15 +33,20 @@ from ishara_tpu_torch.parallel import (
     initialize_distributed,
     make_mesh,
     make_multislice_mesh,
+    gather_params_tp,
+    make_2d_mesh,
     multislice_batch_sharding,
     process_shard,
     replicated,
+    row_shards,
     shard_batch,
+    shard_state_tp,
 )
 from ishara_tpu_torch.preprocess import GroupStats
 from ishara_tpu_torch.train import (
     Trainer,
     TrainState,
+    ctc_train_step,
     make_fused_ctc_eval_step,
     make_fused_ctc_train_step,
     make_fused_translation_eval_step,
@@ -59,23 +66,60 @@ def _rows(batch: dict, mesh) -> dict:
     """This process's rows of the global batch."""
     if mesh is None:
         return batch
-    local = len(batch["raw"]) // mesh.size()
+    local = len(next(iter(batch.values()))) // row_shards(mesh)
     r0 = batch_shard_of(mesh, local).row0
     return {k: v[r0:r0 + local] for k, v in batch.items()}
 
 
-def run_case(case: dict, mesh=None) -> dict:
-    """``case["steps"]`` fused train steps (dropout, augmentation and
-    BatchNorm as the case sets them), then the eval step, on this process's
-    rows (the whole batch without ``mesh``): the step's metrics and the
-    state's tensors."""
+def run_case(case: dict, mesh=None, tp: bool = False) -> dict:
+    """``case["steps"]`` train steps (dropout, augmentation and BatchNorm
+    as the case sets them; task ``"ctc_x"``: ``ctc_train_step`` on a
+    preprocessed batch, the others the fused steps), then the fused eval
+    step, on this process's rows (the whole batch without ``mesh``): the
+    step's metrics and the state's tensors. With ``tp`` the state is
+    sharded by ``shard_state_tp`` and its tensors are given whole (the
+    slices gathered), beside this process's replicated elements. With
+    ``case["kernels"]`` the layers take the kernel paths (each wrapper's
+    plain version on the CPU), and ``kernel_calls`` counts the attention
+    and FFN wrappers' calls."""
+    if not case.get("kernels"):
+        return _run_case(case, mesh, tp)
+    calls = {"flash_mhsa": 0, "ffn_residual": 0}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    saved = (layers.on_card, layers.attention.flash_mhsa,
+             layers.ffn_residual)
+    layers.on_card = lambda x: True
+    layers.attention.flash_mhsa = counted("flash_mhsa", saved[1])
+    layers.ffn_residual = counted("ffn_residual", saved[2])
+    try:
+        out = _run_case(case, mesh, tp)
+    finally:
+        (layers.on_card, layers.attention.flash_mhsa,
+         layers.ffn_residual) = saved
+    out["kernel_calls"] = calls
+    return out
+
+
+def _run_case(case: dict, mesh, tp: bool) -> dict:
     model = _model(case)
     model.load_state_dict(case["state_dict"])
     tx, _ = make_optimizer(tconfig.TrainConfig(**case["tcfg"]))
     state = TrainState.create(model, tx, device="cpu",
                               lookahead_sync_period=case["lookahead"])
+    if tp:
+        shard_state_tp(state, mesh)
     stats, T = GroupStats.identity(), case["frame_len"]
-    if case["task"] == "ctc":
+    evaluate = None
+    if case["task"] == "ctc_x":
+        def step(state, batch, seed):
+            return ctc_train_step(state, batch, seed, mesh=mesh)
+    elif case["task"] == "ctc":
         step = make_fused_ctc_train_step(stats, T, case["aug_prob"],
                                          mesh=mesh)
         evaluate = make_fused_ctc_eval_step(stats, T, mesh=mesh)
@@ -92,13 +136,24 @@ def run_case(case: dict, mesh=None) -> dict:
         state, m = step(state, batch, seed=case["seed"])
         out["loss"].append(m["loss"].clone())
         out["grad_norm"].append(m["grad_norm"].clone())
-    ev = evaluate(state, _rows(case["batch"], mesh))
-    mu, nu = state.moment_dicts()
-    out.update(params=state.params.clone(), slow=state.slow_params.clone(),
+    ev = {} if evaluate is None else evaluate(state,
+                                              _rows(case["batch"], mesh))
+
+    def whole(flat):
+        if not tp:
+            return flat.clone()
+        return torch.cat([v.reshape(-1) for v in
+                          gather_params_tp(state, flat).values()])
+
+    out.update(params=whole(state.params), slow=whole(state.slow_params),
                stats={k: v.clone() for k, v in state.batch_stats.items()},
-               mu=torch.cat([v.reshape(-1) for v in mu.values()]),
-               nu=torch.cat([v.reshape(-1) for v in nu.values()]),
+               mu=whole(state.opt_state["mu"]),
+               nu=whole(state.opt_state["nu"]),
                eval={k: v.clone() for k, v in ev.items()})
+    if tp:
+        out["replicated"] = state.params[~state.tp.sharded].clone()
+        out["tp_dims"] = dict(state.tp.dims)
+        out["tp_gather"] = model.tp_gather
     return out
 
 
@@ -155,6 +210,15 @@ def main(rank: int, world: int, port: int, spec_path: str, out: str):
         results = {"initialized": initialize_distributed(),
                    "process_shard": process_shard()}
         for layout, cases in spec["runs"]:
+            if layout == "tp2x2":
+                mesh = make_2d_mesh(2, 2)
+                results[layout] = {
+                    "mesh": (tuple(mesh.shape), tuple(mesh.mesh_dim_names)),
+                    "coordinate": tuple(mesh.get_coordinate())}
+                for case in cases:
+                    results[layout][case["name"]] = run_case(case, mesh,
+                                                             tp=True)
+                continue
             mesh = make_mesh() if layout == "1d" else make_multislice_mesh(2)
             rows = torch.arange(24).reshape(8, 3)
             results[layout] = {

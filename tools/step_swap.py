@@ -44,8 +44,10 @@ def swaps():
             (ab, "_launch_bwd", lambda q, k, v, bias, o, lse, d_o, scale:
              ab.blocked_attention_backward_plain(q, k, v, bias, o, lse, d_o,
                                                  scale))],
-        "dropout": [(dr, "_launch", lambda x, res, seed, rate, offset=0:
-                     dr.dropout_plain(x, seed, rate, res, offset))],
+        "dropout": [(dr, "_launch",
+                     lambda x, res, seed, rate, offset=0, runs=None:
+                     dr.dropout_plain(x, seed, rate, res, offset,
+                                      runs))],
     }
 
 
