@@ -1697,6 +1697,86 @@ def attention_kernel_rows(smi, runs):
     return rows
 
 
+# K4 shapes whose plans are held to the C rule: the flagship and the card
+# tests' shapes, 384 / 768, off-grid widths and a rank's half of a hidden
+K4_PLAN_SHAPES = ((256, 512), (128, 256), (128, 128), (64, 128), (192, 512),
+                  (256, 256), (256, 1024), (384, 384), (256, 768),
+                  (768, 256), (384, 768), (20, 36), (70, 100), (36, 20),
+                  (256, 1536), (320, 512))
+
+
+def k4_plan_and_instructions():
+    """K4's plan: ``ffn_plan`` against csrc/ffn.cu's own rule at every
+    shape of ``K4_PLAN_SHAPES``; ptxas's report of the wgmma design's
+    kernels (at most 255 registers a thread, no stack frame, no spills);
+    and Hopper's own instructions in the built library: HGMMA in the wgmma
+    design's forward and row kernels, TMA (cp.async.bulk.tensor) for their
+    tiles."""
+    import torch
+
+    from ishara_tpu_torch.ops import _build
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for k, m in K4_PLAN_SHAPES:
+            py, c = fk.ffn_plan(dtype, k, m), fk.c_plan(dtype, k, m)
+            if py != c:
+                raise AssertionError(f"ffn_plan({dtype}, {k}, {m}) = {py}, "
+                                     f"the C plan {c}")
+    flagship = fk.ffn_plan(torch.bfloat16, TD, TM)
+    log(f"K4 plan: ffn_plan equals the C plan at {len(K4_PLAN_SHAPES)} "
+        f"shapes x 2 dtypes; the flagship ({TD}, {TM}) takes "
+        f"{flagship.design}: {flagship.tile_rows}-row tiles, "
+        f"{flagship.fwd_slots} / {flagship.bwd_slots} weight slots, "
+        f"{flagship.fwd_smem} / {flagship.bwd_smem} bytes of shared memory, "
+        f"{flagship.acc_regs} accumulator registers a thread of "
+        f"{flagship.reg_limit} PASS")
+    build_log = _build.build_log("ffn")
+    serialised = [line for line in build_log.splitlines()
+                  if "C7512" in line and "_wg_kernel" in line]
+    regs = {}
+    for entry in build_log.split("Function properties for ")[1:]:
+        name = entry.split(maxsplit=1)[0]
+        if "_wg_kernel" in name:
+            used = re.search(r"Used (\d+) registers", entry)
+            spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                               r"stores, (\d+) bytes spill loads", entry)
+            regs[name] = (int(used.group(1)) if used else None,
+                          tuple(int(v) for v in spills.groups())
+                          if spills else None)
+    fit = len(regs) == 8 and not serialised and all(
+        r is not None and r <= 255 and sp == (0, 0, 0)
+        for r, sp in regs.values())
+    log(f"K4 registers (ptxas -v, the {len(regs)} wgmma kernel instances): "
+        f"used {sorted({r for r, _ in regs.values()}, key=str)} a thread at "
+        f"launch, stack / spill stores / spill loads "
+        f"{sorted({sp for _, sp in regs.values()}, key=str)} bytes, "
+        f"{len(serialised)} serialised (C7512) {'PASS' if fit else 'FAIL'}")
+    if not fit:
+        raise AssertionError(f"the wgmma kernels spill, serialise wgmma or "
+                             f"exceed 255 registers: {regs} {serialised}")
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(_build.build()["ffn"])], capture_output=True,
+                          text=True, check=True).stdout
+    hgmma = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(maxsplit=1)[0]
+        for kernel in ("ffn_fwd_wg_kernel", "ffn_bwd_wg_kernel"):
+            if f"{len(kernel)}{kernel}" in name:  # as the name is mangled
+                hgmma[kernel] = hgmma.get(kernel, 0) + section.count("HGMMA")
+    src = _build.SRC_DIR
+    tma = "cp.async.bulk.tensor" in (src / "hopper.cuh").read_text() \
+        and "tma_load(" in (src / "ffn.cu").read_text()
+    ok = hgmma.get("ffn_fwd_wg_kernel", 0) > 0 \
+        and hgmma.get("ffn_bwd_wg_kernel", 0) > 0 and tma
+    log(f"K4 instructions (cuobjdump --dump-sass of the ffn library): HGMMA "
+        f"in each kernel {hgmma}; weight tiles by TMA "
+        f"(cp.async.bulk.tensor) {tma} {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the wgmma design's kernels lack HGMMA or TMA")
+
+
 def ffn_kernel_rows(smi, runs):
     """K4: forward and all seven gradients against the plain version with
     the same Philox masks, at the Squeezeformer sites' rates (0.4, 0.4), the
@@ -1724,6 +1804,7 @@ def ffn_kernel_rows(smi, runs):
         p.requires_grad_()
     w1, b1, w2, b2 = params
 
+    k4_plan_and_instructions()
     k1, k2 = fk.debug_masks(N, TM, TD, seeds, 0.4, 0.4)
     same = bool(torch.equal(k1.bool(), keep_mask(seeds[0:1], (N, TM), 0.4))) \
         and bool(torch.equal(k2.bool(), keep_mask(seeds[1:2], (N, TD), 0.4)))
@@ -1911,6 +1992,41 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
+def zero_k4_designs():
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    for counts in (fk.ffn_residual.launches_by_design,
+                   fk.ffn_residual.launches_bwd_by_design):
+        for design in counts:
+            counts[design] = 0
+
+
+def log_k4_designs(label, steps, require=None):
+    """Logs K4's launches by design (``ffn_plan``) since
+    :func:`zero_k4_designs`; ``require``: the counts they must equal."""
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    got = {"forward": {d: n for d, n in
+                       fk.ffn_residual.launches_by_design.items() if n},
+           "backward": {d: n for d, n in
+                        fk.ffn_residual.launches_bwd_by_design.items() if n}}
+    ok = require is None or got == require
+    log(f"{label}: K4 launches by design over {steps} step(s): forward "
+        f"{got['forward'] or 'none'}, backward {got['backward'] or 'none'}"
+        + ("" if require is None else " PASS" if ok else
+           f" FAIL (expected {require})"))
+    if not ok:
+        raise AssertionError(f"{label}: K4's launches took other designs "
+                             f"than {require}: {got}")
+
+
+def wgmma_k4(steps):
+    """Every one of a flagship-width step's 16 + 16 K4 launches on the
+    wgmma design."""
+    return {"forward": {"wgmma": 16 * steps},
+            "backward": {"wgmma": 16 * steps}}
+
+
 def train_counters():
     from ishara_tpu_torch.ops import attention as at
     from ishara_tpu_torch.ops import attention_blocked as ab
@@ -2054,6 +2170,7 @@ def run_counted(step, state, batch, steps):
     counters = train_counters()
     for w in counters.values():
         w.launches = w.launches_bwd = 0
+    zero_k4_designs()
     losses = []
     for _ in range(steps):
         state, m = step(state, batch, seed=0)
@@ -2110,6 +2227,7 @@ def train_phase(smi, steps: int = 20):
     log(f"train: {steps} steps of make_fused_ctc_train_step, loss "
         + " ".join(f"{v:.3f}" for v in losses))
     log(f"train: kernel launches over the run {launches}")
+    log_k4_designs("train", steps, wgmma_k4(steps))
     for (name, direction), n in launches.items():
         if n != steps * STEP_LAUNCHES.get(name, 0):
             raise AssertionError(
@@ -2766,6 +2884,7 @@ def long_train_phase(smi, steps: int = 10):
     torch.cuda.reset_peak_memory_stats()
     for w in counters.values():
         w.launches = w.launches_bwd = 0
+    zero_k4_designs()
     losses = []
     for _ in range(steps):
         state, m = step(state, batch, seed=0)
@@ -2778,6 +2897,7 @@ def long_train_phase(smi, steps: int = 10):
     log(f"long train: {steps} steps, loss "
         + " ".join(f"{v:.3f}" for v in losses))
     log(f"long train: kernel launches over the run {launches}")
+    log_k4_designs("long train", steps, {"forward": {}, "backward": {}})
     for (name, direction), n in launches.items():
         if n != steps * LONG_STEP_LAUNCHES[name]:
             raise AssertionError(
@@ -3775,6 +3895,7 @@ def causal_train_phase(smi, steps: int = 10):
     log(f"causal train: {steps} steps, loss "
         + " ".join(f"{v:.3f}" for v in losses))
     log(f"causal train: kernel launches over the run {launches}")
+    log_k4_designs("causal train", steps, wgmma_k4(steps))
     for (name, direction), n in launches.items():
         if n != steps * CAUSAL_STEP_LAUNCHES[name]:
             raise AssertionError(
@@ -4255,6 +4376,7 @@ def qat_phase(smi, steps: int = 10):
     pstep = make_fused_ctc_train_step(stats, cfg.frame_len, **kw)
     step_against_plain("qat", qstep, state0, batch)
     state, losses, launches = run_counted(qstep, state0.clone(), batch, steps)
+    log_k4_designs("qat", steps)
     for (name, direction), n in launches.items():
         if n != steps * STEP_LAUNCHES.get(name, 0):
             raise AssertionError(f"qat: {name}.{direction} = {n} over "
@@ -4346,8 +4468,10 @@ def remat_phase(smi):
         model.load_state_dict(base.state_dict())
         states[remat] = TrainState.create(model, tx, device=DEVICE)
     for remat, s in states.items():
+        zero_k4_designs()
         s, m = step(s.clone(), batch, seed=0)
         torch.cuda.synchronize()
+        log_k4_designs(f"remat={remat}", 1)
         out[remat] = (s, m)
     (a, ma), (b, mb) = out[False], out[True]
     same = (torch.equal(ma["loss"], mb["loss"])
@@ -4501,6 +4625,7 @@ def dp_phase(smi, scratch: Path):
             f"against {plain_ms:.2f} ms for the step without a mesh (f32, "
             f"median of 3 each, host clock) on {smi}")
         _, losses, launches = run_counted(mstep, state.clone(), batch, 3)
+        log_k4_designs("data parallel, 1-rank NCCL mesh", 3)
         for (name, direction), n in launches.items():
             if n != 3 * STEP_LAUNCHES.get(name, 0):
                 raise AssertionError(f"dp: {name}.{direction} = {n}")

@@ -26,42 +26,41 @@
 // sum drop1(swish(x . w1 + b1)) . w2, to be summed over the ranks before the
 // bias, the output's dropout and the residual.
 //
-// Two sets of kernels. bf16 at widths that are multiples of 128 -- every
-// preset's training geometry -- takes the tensor cores (mma.sync m16n8k16);
-// f32, and bf16 at any other width or where shared memory is short, takes
-// the general kernels further down, the same three steps with the row
-// products as f32 FMAs on the CUDA cores (the weight products take
-// wgrad.cuh's kernels by its own rule).
+// Two designs, chosen by a rule on (dtype, K, M) alone (plan() below,
+// mirrored by ffn_plan in ops/ffn_kernel.py; a launch the chosen design
+// refuses fails, nothing falls back):
+// - wgmma: bf16, K a multiple of 64 up to 256, M a multiple of 64 -- every
+//   preset's training geometry, the flagship (K 256, M 512) included.
+//   Hopper's warpgroup products fed by TMA through mbarrier rings, the
+//   hidden kept in registers (see "The wgmma design" below, hopper.cuh);
+// - general: f32, and bf16 at any other width, the row products as f32
+//   FMAs on the CUDA cores.
 //
-// Design of the tensor-core set. A block of 8 warps owns 64 rows (a warp a
-// 32 x 32 patch of each 64 x 128 product tile). Forward: the x tile and
-// then the 64 x M hidden stay in shared memory between the two products;
-// the weights stream as [64][128] k-tiles through a 3-stage cp.async ring,
-// one pipeline over the W1 tiles of every hidden chunk and then the W2 tiles
-// of every output chunk, so each weight byte read from L2 serves 64 rows;
-// the epilogues work on the accumulator registers: bias, swish, the Philox
-// keep words (one block of 4 words a (row, 4 columns), computed by one lane
-// of a pair and traded by a shuffle, as attention_tc.cuh does for K3) and
-// the residual. Backward, three steps: (1) a row kernel of the same
-// structure recomputes h = x . w1 and dd = g . w2^T chunk by chunk in one
-// pipeline (a double-buffered stage holds a W1 k-tile and a W2^T tile), so
-// neither is held at f32 for the whole row tile; it writes dx = dh . w1^T, and leaves bf16
-// d = a * keep1', dh and g in global scratch with fixed-order column sums
-// for db1 and db2, one partial row for each 32 rows; (2) the weight products
-// of wgrad.cuh form dw2 = d^T . g and dw1 = x^T . dh as split sums over row
-// ranges; (3) the partial sums are added in a fixed order. No atomics: every
-// gradient is the same from run to run. Launches: 1 forward; 1 + 2 + 4
-// backward.
+// Both take the backward in three steps: (1) a row kernel recomputes h =
+// x . w1 and dd = g . w2^T chunk by chunk, writes dx = dh . w1^T and leaves
+// d = a * keep1', dh and g (in the compute type) in global scratch with
+// fixed-order column sums of dh and g as partial rows of db1 and db2; (2)
+// the weight products of wgrad.cuh form dw2 = d^T . g and dw1 = x^T . dh as
+// split sums over row ranges; (3) the partial sums are added in a fixed
+// order. No atomics: every gradient is the same from run to run. Launches
+// of the wgmma design: 1 forward; 1 + 2 + 6 backward (its db sums take two
+// passes).
 //
 // Bound: operations (12 N K M for forward and backward together, 71 GFLOP
 // at N 45056, K 256, M 512, against 115 MB of x, res, dy, out, dx); the
 // backward's scratch (d, dh and g in bf16, ~115 MB written and read once)
-// is what the split into a row kernel and weight products costs.
+// is what the split into a row kernel and weight products costs. In
+// practice the wgmma design is bound by neither: its epilogues' CUDA-core
+// work (a Philox block of ~40 integer operations for every 4 elements of
+// the hidden and of the output, the swish's two MUFU operations an element)
+// takes longer than the tensor cores' products, so its pipelines are built
+// to run that work while products are in flight (PERF.md, section 6).
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include "hopper.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 #include "wgrad.cuh"
@@ -70,43 +69,49 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int R = 64;      // rows a block owns
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;     // bf16 elements of padding per shared-memory row
-constexpr int NCH = 128;   // columns of a product tile
-constexpr int KT = 64;     // depth of a streamed weight tile
-constexpr int KN_LD = NCH + PAD;   // a [KT][NCH] tile's row stride
-constexpr int NK_LD = KT + PAD;    // a [NCH][KT] tile's row stride
-constexpr int KN_TILE = KT * KN_LD, NK_TILE = NCH * NK_LD;
-// Pipeline stages (64-deep tiles with a stage fewer ran 10-15% faster than
-// 32-deep ones on the H100).
-constexpr int FWD_STAGES = 3, BWD_STAGES = 2;
-
-// keep' for the accumulator elements of rows r and r + 8, columns c, c + 1
-// (c = ... + 2t, so c and c + 1 share a Philox block): flat index row * ld
-// + col0 + column, ld % 4 == col0 % 4 == 0. Lane t & 1 == 0 computes the
-// block of row r, its partner that of row r + 8; each sends the two words the
-// other needs.
-// All 1 when threshold is 0 (no dropout).
-__device__ __forceinline__ void keep_pair(uint32_t seed, uint64_t r, int c,
-                                          uint64_t ld, uint64_t col0,
-                                          uint32_t threshold, float scale,
-                                          float kp[4]) {
-  if (threshold == 0u) {
-    kp[0] = kp[1] = kp[2] = kp[3] = 1.f;
-    return;
-  }
+// The Philox words of the accumulator elements of rows r and r + 8,
+// columns c, c + 1 (c = ... + 2t, so c and c + 1 share a Philox block): flat
+// index row * ld + col0 + column, ld % 4 == col0 % 4 == 0. Lane t & 1 == 0
+// computes the block of row r, its partner that of row r + 8; each sends the
+// two words the other needs. k[e]: e 0, 1 row r; e 2, 3 row r + 8.
+__device__ __forceinline__ void keep_words(uint32_t seed, uint64_t r, int c,
+                                           uint64_t ld, uint64_t col0,
+                                           uint32_t k[4]) {
   const int odd = threadIdx.x & 1;  // t & 1, t = lane % 4
   const uint64_t idx = (r + (odd ? 8 : 0)) * ld + col0 + (uint64_t)(c & ~3);
   const uint4 w = philox::block(seed, idx >> 2);
   const uint32_t s0 = odd ? w.x : w.z, s1 = odd ? w.y : w.w;
   const uint32_t r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
   const uint32_t r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-  const uint32_t k[4] = {odd ? r0 : w.x, odd ? r1 : w.y, odd ? w.z : r0,
-                         odd ? w.w : r1};
+  k[0] = odd ? r0 : w.x;
+  k[1] = odd ? r1 : w.y;
+  k[2] = odd ? w.z : r0;
+  k[3] = odd ? w.w : r1;
+}
+
+// The keep decisions of a thread's 32 accumulator elements of a 64-column
+// block from column c0 (bit 4 j + e: 8-column block j, element e as in
+// keep_words), all ones when threshold is 0. Drawn while products are in
+// flight, they keep the Philox rounds off the epilogue.
+__device__ __forceinline__ uint32_t keep_bits(uint32_t seed, uint64_t r,
+                                              int c0, uint64_t ld,
+                                              uint64_t col0,
+                                              uint32_t threshold) {
+  if (threshold == 0u) return 0xFFFFFFFFu;
+  uint32_t bits = 0u;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) kp[e] = k[e] >= threshold ? scale : 0.f;
+  for (int j = 0; j < 8; ++j) {
+    uint32_t k[4];
+    keep_words(seed, r, c0 + 8 * j + 2 * (threadIdx.x & 3), ld, col0, k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      bits |= (uint32_t)(k[e] >= threshold) << (4 * j + e);
+  }
+  return bits;
+}
+
+__device__ __forceinline__ float keep_of(uint32_t bits, int i, float scale) {
+  return (bits >> i) & 1u ? scale : 0.f;
 }
 
 // The fast exponential and division (within a few ulp of f32), as in
@@ -116,294 +121,544 @@ __device__ __forceinline__ float sigmoid(float h) {
   return __fdividef(1.f, 1.f + __expf(-h));
 }
 
-// rows [row0, row0 + R) of src [.., K] -> dst [R][K + PAD], by cp.async.
-__device__ __forceinline__ void load_rows(const bf16* src, bf16* dst, int row0,
-                                          int K) {
-  tc::load_tile<bf16>(dst, K + PAD, src + (size_t)row0 * K, K, R, K, R, K,
-                      true, threadIdx.x, THREADS);
+// ---------------------------------------------------------------------------
+// The wgmma design: bf16, K = 64 KD (KD 1 to 4), M a multiple of 64.
+//
+// A block of three warpgroups owns a tile of 128 rows: warpgroup 0 is the
+// producer (one thread issues every TMA copy), warpgroups 1 and 2 each
+// multiply 64 of the rows, so each weight byte brought from L2 serves 128
+// rows. Shared memory: the x tiles of the two consumers ([64][K] each, as
+// KD boxes of [64][64]), in the backward also their g tiles, then a ring of
+// S slots of K * 128 bytes. The hidden is walked in chunks of 64 columns;
+// per chunk the producer fills two slots, W1[:, chunk] (one box [K][64]) and
+// W2[chunk, :] (KD boxes [64][64]), each slot under a full and an empty
+// mbarrier. Both slots serve both products that read them: wgmma's
+// transpose bit reads a tile MN-major (forward) or K-major (backward), so
+// no transposed copy of a weight is made.
+//
+// Forward, per chunk c of a consumer: h = x . W1[:, c] (16 products
+// m64n64k16 at K 256, A = its x tile), then bias, swish and keep1' on the
+// accumulators, rounded to bf16 straight into A fragments, and y += a .
+// W2[c, :] with A from registers: the hidden never leaves the registers.
+// The A fragments are double-buffered so that h of chunk c + 1 is issued
+// ahead of y of chunk c, and the Philox keep bits of chunk c + 1 (and, at
+// the first K / 64 chunks, those of one 64-column box of the output) are
+// drawn while both products are in flight; the epilogue then waits only
+// for h. The output's residual words are loaded a 64-column box ahead.
+// Backward, per chunk: h = x . W1[:, c] and dd = g . W2[c, :]^T as one
+// group, their epilogue forms d and dh in registers (d, dh to scratch for
+// the weight products, the column sums of dh into db1), and dx += dh .
+// W1[:, c]^T takes dh as register A; the next chunk's products and keep
+// bits follow at once. g = dy * keep2' is formed in the consumer's own
+// tile (four rows of dy in flight a lane) while its first h product runs.
+// db1 and db2 are partial rows of 16 rows (a warp's), added later in a
+// fixed order, in two passes.
+//
+// Registers: a consumer thread holds y (or dx), 64 x K f32 over 128
+// threads: K / 2 registers; a 64 x 64 f32 chunk, 32; a chunk's bf16 A
+// fragments, 16. The forward holds y, h and two sets of fragments (192 at
+// K 256), the backward dx, h, dd and one set (208), which is why the
+// producer warpgroup gives up its registers (setmaxnreg 24) for the
+// consumers' 240.
+//
+// Rows past N read as zeros (TMA) and are never stored, so N needs no
+// padding. The launch gives each block one tile, yet the producer and the
+// consumers walk tiles blockIdx.x, + gridDim.x, ... (one pass here), as
+// FlashAttention-3's single-tile scheduler does: written as straight-line
+// code for one tile, the consumers' wgmma were serialised by ptxas for
+// want of registers (CUDA 12.8, C7512) and up to 968 bytes spilled at
+// K 256; inside the loop neither happens (PERF.md, section 6).
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int ROWS = 128;          // rows of a tile
+constexpr int THREADS = 384;       // producer warpgroup + two consumers
+constexpr int MC = 64;             // hidden columns of a chunk
+constexpr int BOX = 64 * 64 * 2;   // bytes of a [64][64] bf16 box
+constexpr int PART = 16;           // rows of a partial db row
+constexpr int CONSUMER_WARPS = 8;  // arrivals that free a slot
+// registers a thread (setmaxnreg) of the producer and of a consumer
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
 }
 
-// Forward. Shared memory: xs [R][K + PAD] | hs [R][M + PAD] | ring
-// [STAGES][KT][KN_LD], all bf16. Pipeline step i < n1 = (M / NCH) (K / KT):
-// W1 tile (k-tile i % (K / KT), hidden chunk i / (K / KT)); then step n1 + i
-// is W2 tile (k-tile i % (M / KT), output chunk i / (M / KT)).
-__global__ void __launch_bounds__(THREADS)
-ffn_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
-               const bf16* __restrict__ w1, const float* __restrict__ b1,
-               const bf16* __restrict__ w2, const float* __restrict__ b2,
-               const int* __restrict__ seeds, bf16* __restrict__ out, int K,
-               int M, uint32_t thr1, float sc1, uint32_t thr2, float sc2,
-               long long roff, long long mld, long long mcol) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldx = K + PAD, ldh = M + PAD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;  // rows 32 wm.., columns 32 wn..
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* hs = xs + R * ldx;
-  bf16* ring = hs + R * ldh;
-  const int row0 = blockIdx.x * R;
-  const uint32_t seed1 = (uint32_t)seeds[0], seed2 = (uint32_t)seeds[1];
-  const int kt1 = K / KT, kt2 = M / KT;
-  const int n1 = (M / NCH) * kt1, n = n1 + (K / NCH) * kt2;
+struct Ring {
+  unsigned char* tiles;   // [fixed][KD * BOX]: x (and g) tiles
+  unsigned char* slots;   // [S][KD * BOX]
+  uint64_t *full, *empty, *xfull, *xempty;
+};
 
-  auto issue = [&](int i) {
-    bf16* dst = ring + (i % FWD_STAGES) * KN_TILE;
-    if (i < n1)
-      tc::load_tile<bf16>(dst, KN_LD, w1 + (size_t)(i % kt1) * KT * M +
-                          (i / kt1) * NCH, M, KT, NCH, KT, NCH, true,
-                          threadIdx.x, THREADS);
-    else
-      tc::load_tile<bf16>(dst, KN_LD, w2 + (size_t)((i - n1) % kt2) * KT * K
-                          + ((i - n1) / kt2) * NCH, K, KT, NCH, KT, NCH,
-                          true, threadIdx.x, THREADS);
-  };
-  load_rows(x, xs, row0, K);
-#pragma unroll
-  for (int i = 0; i < FWD_STAGES - 1; ++i) {
-    if (i < n) issue(i);
-    tc::cp_async_commit();
+// Carves shared memory and (thread 0) initialises the barriers.
+__device__ __forceinline__ Ring carve(unsigned char* raw, int fixed, int tile,
+                                      int S) {
+  Ring r;
+  r.tiles = align1024(raw);
+  r.slots = r.tiles + (size_t)fixed * tile;
+  r.full = reinterpret_cast<uint64_t*>(r.slots + (size_t)S * tile);
+  r.empty = r.full + S;
+  r.xfull = r.empty + S;
+  r.xempty = r.xfull + 2;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      bar_init(&r.full[s], 1);
+      bar_init(&r.empty[s], CONSUMER_WARPS);
+    }
+    for (int w = 0; w < 2; ++w) {
+      bar_init(&r.xfull[w], 1);
+      bar_init(&r.xempty[w], CONSUMER_WARPS / 2);
+    }
+    bar_init_fence();
   }
-  float acc[2][4][4];
-  tc::zero_acc(acc);
-  for (int i = 0; i < n; ++i) {
-    tc::cp_async_wait<FWD_STAGES - 2>();
-    __syncthreads();
-    if (i + FWD_STAGES - 1 < n) issue(i + FWD_STAGES - 1);
-    tc::cp_async_commit();
-    const bf16* Bt = ring + (i % FWD_STAGES) * KN_TILE + wn * 32;
-    const bool first = i < n1;
-    const int kt = first ? i % kt1 : (i - n1) % kt2;
-    const bf16* A = (first ? xs + wm * 32 * ldx : hs + wm * 32 * ldh) +
-                    kt * KT;
-    tc::warp_mma<2, 4, false, true>(acc, A, first ? ldx : ldh, 16, Bt, KN_LD,
-                                    KT);
-    if (kt + 1 < (first ? kt1 : kt2)) continue;
-    // the chunk is done: epilogue on the accumulators
-    const int col0 = (first ? i / kt1 : (i - n1) / kt2) * NCH + wn * 32;
+  __syncthreads();
+  return r;
+}
+
+// The producer (one thread): per tile the two x tiles, then per chunk
+// W1[:, c] and W2[c, :] (W2 first with W2_FIRST), load L into slot L % S at
+// round L / S. The forward holds up to 4 slots at once (W2 of chunk c - 1,
+// W1 and W2 of c, W1 of c + 1), the backward 3 (W1 of c, both of c + 1),
+// which is why it takes W2 first: W2 of c is freed as soon as dd is formed.
+template <int KD, bool W2_FIRST>
+__device__ __forceinline__ void produce(const CUtensorMap* tx,
+                                        const CUtensorMap* tw1,
+                                        const CUtensorMap* tw2,
+                                        const Ring& r, int S, int nc,
+                                        int ntiles) {
+  constexpr int TILE = KD * BOX;
+  int L = 0, it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    for (int w = 0; w < 2; ++w) {
+      bar_wait(&r.xempty[w], (it & 1) ^ 1);
+      bar_expect(&r.xfull[w], TILE);
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = wm * 32 + a * 16 + g;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = col0 + j * 8 + 2 * t;
-        float kp[4];
-        if (first) {
-          keep_pair(seed1, (uint64_t)(roff + row0 + r), c, mld, mcol, thr1,
-                    sc1, kp);
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float h = acc[a][j][e] + b1[c + (e & 1)];
-            v[e] = __fmul_rn(__fmul_rn(h, sigmoid(h)), kp[e]);
-          }
-          *reinterpret_cast<uint32_t*>(hs + r * ldh + c) =
-              tc::pack_bf16(v[0], v[1]);
-          *reinterpret_cast<uint32_t*>(hs + (r + 8) * ldh + c) =
-              tc::pack_bf16(v[2], v[3]);
+      for (int b = 0; b < KD; ++b)
+        tma_load(r.tiles + w * TILE + b * BOX, tx, &r.xfull[w], 64 * b,
+                 tile * ROWS + 64 * w);
+    }
+    for (int c = 0; c < nc; ++c)
+      for (int part = 0; part < 2; ++part, ++L) {
+        const int s = L % S;
+        bar_wait(&r.empty[s], ((L / S) & 1) ^ 1);
+        bar_expect(&r.full[s], TILE);
+        unsigned char* dst = r.slots + (size_t)s * TILE;
+        if ((part == 0) != W2_FIRST) {
+          tma_load(dst, tw1, &r.full[s], MC * c, 0);
         } else {
-          keep_pair(seed2, (uint64_t)(roff + row0 + r), c, K, 0, thr2, sc2,
-                    kp);
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const size_t at = (size_t)(row0 + r + 8 * h) * K + c;
-            const __nv_bfloat162 rv =
-                res ? *reinterpret_cast<const __nv_bfloat162*>(res + at)
-                    : __floats2bfloat162_rn(0.f, 0.f);
-            const float y0 = acc[a][j][2 * h] + (b2 ? b2[c] : 0.f);
-            const float y1 = acc[a][j][2 * h + 1] + (b2 ? b2[c + 1] : 0.f);
-            *reinterpret_cast<uint32_t*>(out + at) = tc::pack_bf16(
-                __fadd_rn(__low2float(rv), __fmul_rn(y0, kp[2 * h])),
-                __fadd_rn(__high2float(rv), __fmul_rn(y1, kp[2 * h + 1])));
-          }
+          for (int b = 0; b < KD; ++b)
+            tma_load(dst + b * BOX, tw2, &r.full[s], 64 * b, MC * c);
         }
       }
-    }
-    tc::zero_acc(acc);
   }
 }
 
-// Backward, step 1. Shared memory: xs [R][K + PAD] | gs [R][K + PAD] | dhs
-// [R][M + PAD] | ring [STAGES][KN_TILE + NK_TILE], all bf16. Pipeline step
-// i < n1 = (M / NCH) (K / KT): the W1 tile [KT][NCH] (k-tile i % (K / KT),
-// hidden chunk i / (K / KT)) and the W2^T tile [NCH][KT] (W2's rows of that
-// chunk, columns of that k-tile); then step n1 + i is the W1^T tile
-// [NCH][KT] (W1's rows of output chunk i / (M / KT), columns of k-tile
-// i % (M / KT)).
-__global__ void __launch_bounds__(THREADS)
-ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                    const bf16* __restrict__ w1, const float* __restrict__ b1,
-                    const bf16* __restrict__ w2, const int* __restrict__ seeds,
-                    bf16* __restrict__ dx, bf16* __restrict__ d_g,
-                    bf16* __restrict__ dh_g, bf16* __restrict__ g_g,
-                    float* __restrict__ db1_part, float* __restrict__ db2_part,
-                    int K, int M, uint32_t thr1, float sc1, uint32_t thr2,
-                    float sc2, long long roff, long long mld,
-                    long long mcol) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldx = K + PAD, ldh = M + PAD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* gs = xs + R * ldx;
-  bf16* dhs = gs + R * ldx;
-  bf16* ring = dhs + R * ldh;
-  float* red = reinterpret_cast<float*>(ring);  // [4][K], the prologue only
-  const int row0 = blockIdx.x * R;
+// Descriptor offsets (16-byte units) of k16 step ks in a tile of KD boxes:
+// K-major along the boxes' rows, MN-major down them.
+__device__ __forceinline__ uint64_t kstep(int ks) {
+  return (uint64_t)(((ks >> 2) * BOX + (ks & 3) * 32) >> 4);
+}
+__device__ __forceinline__ uint64_t mnstep(int ks) {
+  return (uint64_t)((ks * 2048) >> 4);
+}
+
+template <int KD>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_fwd_wg_kernel(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tw1,
+                  const __grid_constant__ CUtensorMap tw2,
+                  const bf16* __restrict__ res, const float* __restrict__ b1,
+                  const float* __restrict__ b2, const int* __restrict__ seeds,
+                  bf16* __restrict__ out, int N, int M, int S, uint32_t thr1,
+                  float sc1, uint32_t thr2, float sc2, long long roff,
+                  long long mld, long long mcol) {
+  constexpr int K = 64 * KD, TILE = KD * BOX;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = carve(smem_raw, 2, TILE, S);
+  const int nc = M / MC, ntiles = (N + ROWS - 1) / ROWS;
+  if (threadIdx.x < 128) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      produce<KD, false>(&tx, &tw1, &tw2, r, S, nc, ntiles);
+    return;
+  }
+  regs_inc<CONSUMER_REGS>();
+  const int w = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const uint32_t seed1 = (uint32_t)seeds[0], seed2 = (uint32_t)seeds[1];
-  const int kt1 = K / KT, kt2 = M / KT;
-  const int n1 = (M / NCH) * kt1, n = n1 + (K / NCH) * kt2;
-  constexpr int STAGE = KN_TILE + NK_TILE;
+  const uint64_t dxs = desc(r.tiles + w * TILE);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const long long row = (long long)tile * ROWS + 64 * w + 16 * warp + g;
+    const int L0 = it * 2 * nc;
+    // accumulators start at the first product (scale_d 0): a store of zeros
+    // in flight of another product would serialise the pipeline
+    float y[KD][32], h[32];
+    uint32_t a0[4][4], a1[4][4];
+    bar_wait(&r.xfull[w], it & 1);
 
-  // g = dy * keep2' (f32, rounded to gs and g_g): a thread owns 4 columns
-  // of 16 rows; the column sums over each 32 rows (db2) in a fixed order
-  for (int q = threadIdx.x; q < (K / 4) * 4; q += THREADS) {
-    const int c = (q % (K / 4)) * 4, rg = q / (K / 4);
-    float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int lr = rg * 16; lr < rg * 16 + 16; ++lr) {
-      const size_t at = (size_t)(row0 + lr) * K + c;
-      float kp[4] = {1.f, 1.f, 1.f, 1.f};
-      if (thr2)
-        philox::keep4(seed2, (uint64_t)(at + (size_t)roff * K), thr2, sc2,
-                      kp);
-      const uint2 raw = *reinterpret_cast<const uint2*>(dy + at);
-      const bf16* dv = reinterpret_cast<const bf16*>(&raw);
-      float v[4];
+    // h = x . W1[:, c], one group
+    auto issue_h = [&](int c) {
+      const int L = L0 + 2 * c, s = L % S;
+      bar_wait(&r.full[s], (L / S) & 1);
+      const uint64_t dw = desc(r.slots + (size_t)s * TILE);
+      fence_regs(h);
+      wg_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        v[e] = __fmul_rn(__bfloat162float(dv[e]), kp[e]);
-        sum[e] += v[e];
+      for (int ks = 0; ks < K / 16; ++ks)
+        mma_ss<1>(h, dxs + kstep(ks), dw + mnstep(ks), ks > 0);
+      wg_commit();
+    };
+    // h of chunk c has landed: free W1[:, c] (and x after the last chunk),
+    // a = drop1(swish(h + b1)) rounded into bf16 A fragments
+    auto epilogue = [&](int c, uint32_t (&a)[4][4], uint32_t bits) {
+      fence_regs(h);
+      if (lane == 0) {
+        bar_arrive(&r.empty[(L0 + 2 * c) % S]);
+        if (c == nc - 1) bar_arrive(&r.xempty[w]);
       }
-      const uint2 packed = make_uint2(tc::pack_bf16(v[0], v[1]),
-                                      tc::pack_bf16(v[2], v[3]));
-      *reinterpret_cast<uint2*>(gs + lr * ldx + c) = packed;
-      *reinterpret_cast<uint2*>(g_g + at) = packed;
-    }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) red[rg * K + c + e] = sum[e];
-  }
-  load_rows(x, xs, row0, K);
-  __syncthreads();
-  for (int c = threadIdx.x; c < K; c += THREADS) {
-    db2_part[(size_t)(2 * blockIdx.x) * K + c] = red[c] + red[K + c];
-    db2_part[(size_t)(2 * blockIdx.x + 1) * K + c] =
-        red[2 * K + c] + red[3 * K + c];
-  }
-  __syncthreads();  // red lives in the ring
-
-  auto issue = [&](int i) {
-    bf16* dst = ring + (i % BWD_STAGES) * STAGE;
-    if (i < n1) {
-      const int kt = i % kt1, ch = i / kt1;
-      tc::load_tile<bf16>(dst, KN_LD, w1 + (size_t)kt * KT * M + ch * NCH, M,
-                          KT, NCH, KT, NCH, true, threadIdx.x, THREADS);
-      tc::load_tile<bf16>(dst + KN_TILE, NK_LD,
-                          w2 + (size_t)ch * NCH * K + kt * KT, K, NCH, KT,
-                          NCH, KT, true, threadIdx.x, THREADS);
-    } else {
-      const int kt = (i - n1) % kt2, ch = (i - n1) / kt2;
-      tc::load_tile<bf16>(dst, NK_LD, w1 + (size_t)ch * NCH * M + kt * KT, M,
-                          NCH, KT, NCH, KT, true, threadIdx.x, THREADS);
-    }
-  };
-#pragma unroll
-  for (int i = 0; i < BWD_STAGES - 1; ++i) {
-    if (i < n) issue(i);
-    tc::cp_async_commit();
-  }
-  float acc_h[2][4][4], acc_d[2][4][4];
-  tc::zero_acc(acc_h);
-  tc::zero_acc(acc_d);
-  for (int i = 0; i < n; ++i) {
-    tc::cp_async_wait<BWD_STAGES - 2>();
-    __syncthreads();
-    if (i + BWD_STAGES - 1 < n) issue(i + BWD_STAGES - 1);
-    tc::cp_async_commit();
-    const bf16* st = ring + (i % BWD_STAGES) * STAGE;
-    if (i >= n1) {
-      // dx = dh . w1^T
-      const int kt = (i - n1) % kt2;
-      tc::warp_mma<2, 4, false, false>(acc_h, dhs + wm * 32 * ldh + kt * KT,
-                                       ldh, 16, st + wn * 32 * NK_LD, NK_LD,
-                                       KT);
-      if (kt + 1 < kt2) continue;
-      const int col0 = ((i - n1) / kt2) * NCH + wn * 32;
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const size_t at =
-                (size_t)(row0 + wm * 32 + a * 16 + g + 8 * h) * K + col0 +
-                j * 8 + 2 * t;
-            *reinterpret_cast<uint32_t*>(dx + at) = tc::pack_bf16(
-                acc_h[a][j][2 * h], acc_h[a][j][2 * h + 1]);
-          }
-      tc::zero_acc(acc_h);
-      continue;
-    }
-    // h = x . w1 and dd = g . w2^T for one hidden chunk
-    const int kt = i % kt1;
-    tc::warp_mma<2, 4, false, true>(acc_h, xs + wm * 32 * ldx + kt * KT, ldx,
-                                    16, st + wn * 32, KN_LD, KT);
-    tc::warp_mma<2, 4, false, false>(acc_d, gs + wm * 32 * ldx + kt * KT,
-                                     ldx, 16, st + KN_TILE + wn * 32 * NK_LD,
-                                     NK_LD, KT);
-    if (kt + 1 < kt1) continue;
-    const int col0 = (i / kt1) * NCH + wn * 32;
-    float colsum[4][2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) colsum[j][0] = colsum[j][1] = 0.f;
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = wm * 32 + a * 16 + g;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = col0 + j * 8 + 2 * t;
-        float kp[4], d[4], dh[4];
-        keep_pair(seed1, (uint64_t)(roff + row0 + r), c, mld, mcol, thr1, sc1,
-                  kp);
+      for (int j = 0; j < 8; ++j) {
+        const int col = c * MC + 8 * j + 2 * t;
+        const float bb[2] = {b1[col], b1[col + 1]};
+        float v[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float h = acc_h[a][j][e] + b1[c + (e & 1)];
-          const float sig = sigmoid(h);
-          const float hsw = __fmul_rn(h, sig);
-          d[e] = __fmul_rn(hsw, kp[e]);
-          const float da = __fmul_rn(acc_d[a][j][e], kp[e]);
-          dh[e] = da * (sig + hsw * (1.f - sig));
-          colsum[j][e & 1] += dh[e];
+          const float hv = h[4 * j + e] + bb[e & 1];
+          v[e] = __fmul_rn(__fmul_rn(hv, sigmoid(hv)),
+                           keep_of(bits, 4 * j + e, sc1));
         }
+        a[j >> 1][(j & 1) * 2] = tc::pack_bf16(v[0], v[1]);
+        a[j >> 1][(j & 1) * 2 + 1] = tc::pack_bf16(v[2], v[3]);
+      }
+    };
+    // y += a . W2[c, :], A from registers, one group
+    auto issue_y = [&](int c, uint32_t (&a)[4][4]) {
+      const int L = L0 + 2 * c + 1, s = L % S;
+      bar_wait(&r.full[s], (L / S) & 1);
+      const uint64_t dw = desc(r.slots + (size_t)s * TILE);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const size_t at = (size_t)(row0 + r + 8 * h) * M + c;
-          *reinterpret_cast<uint32_t*>(d_g + at) =
-              tc::pack_bf16(d[2 * h], d[2 * h + 1]);
-          const uint32_t dhp = tc::pack_bf16(dh[2 * h], dh[2 * h + 1]);
-          *reinterpret_cast<uint32_t*>(dh_g + at) = dhp;
-          *reinterpret_cast<uint32_t*>(dhs + (r + 8 * h) * ldh + c) = dhp;
+      for (int nb = 0; nb < KD; ++nb) fence_regs(y[nb]);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) fence_regs(a[ks]);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int nb = 0; nb < KD; ++nb)
+          mma_rs<1>(y[nb], a[ks], dw + (uint64_t)(nb * BOX >> 4) + mnstep(ks),
+                    c > 0 || ks > 0);
+      wg_commit();
+    };
+    // the output's keep bits of columns [64 nb, 64 nb + 64), formed at
+    // chunk nb (the rest, when there are fewer chunks, after the last)
+    uint32_t ob[KD];
+    auto out_bits = [&](int c) {
+#pragma unroll
+      for (int nb = 0; nb < KD; ++nb)
+        if (nb == c)
+          ob[nb] = keep_bits(seed2, (uint64_t)(roff + row), nb * 64, K, 0,
+                             thr2);
+    };
+    // Chunk c's A fragments in a, the next chunk's go to b: h of c + 1 is
+    // issued ahead of y of c, and the Philox words of c + 1 are drawn while
+    // both are in flight, so that c + 1's epilogue waits only for h.
+    auto step = [&](int c, uint32_t (&a)[4][4], uint32_t (&b)[4][4]) {
+      if (c + 1 < nc) issue_h(c + 1);
+      issue_y(c, a);
+      out_bits(c);
+      if (c + 1 < nc) {
+        const uint32_t bits =
+            keep_bits(seed1, (uint64_t)(roff + row), (c + 1) * MC, mld, mcol,
+                      thr1);
+        wg_wait<1>();  // h of c + 1, y of c - 1
+        if (lane == 0 && c > 0) bar_arrive(&r.empty[(L0 + 2 * c - 1) % S]);
+        epilogue(c + 1, b, bits);
+      }
+    };
+
+    issue_h(0);
+    {
+      const uint32_t bits =
+          keep_bits(seed1, (uint64_t)(roff + row), 0, mld, mcol, thr1);
+      wg_wait<0>();
+      epilogue(0, a0, bits);
+    }
+    for (int c = 0; c < nc; c += 2) {
+      step(c, a0, a1);
+      if (c + 1 < nc) step(c + 1, a1, a0);
+    }
+#pragma unroll
+    for (int nb = 0; nb < KD; ++nb)
+      if (nb >= nc)
+        ob[nb] = keep_bits(seed2, (uint64_t)(roff + row), nb * 64, K, 0,
+                           thr2);
+    // out = res + (y + b2) * keep2', a box of 64 columns at a time with
+    // the next box's residual words already on their way (the loads, not
+    // the arithmetic, are what this epilogue waits for)
+    uint32_t rv[2][8][2];
+    auto load_res = [&](int nb, uint32_t (&v)[8][2]) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long rr = row + 8 * hh;
+          v[j][hh] = res && rr < N
+                         ? *reinterpret_cast<const uint32_t*>(
+                               res + (size_t)rr * K + nb * 64 + 8 * j + 2 * t)
+                         : 0u;
+        }
+    };
+    load_res(0, rv[0]);
+    wg_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < KD; ++nb) fence_regs(y[nb]);
+    if (lane == 0) {
+      if (nc > 1) bar_arrive(&r.empty[(L0 + 2 * nc - 3) % S]);
+      bar_arrive(&r.empty[(L0 + 2 * nc - 1) % S]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < KD; ++nb) {
+      if (nb + 1 < KD) load_res(nb + 1, rv[(nb + 1) & 1]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = nb * 64 + 8 * j + 2 * t;
+        const float bb[2] = {b2 ? b2[col] : 0.f, b2 ? b2[col + 1] : 0.f};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const long long rr = row + 8 * hh;
+          if (rr >= N) continue;
+          const __nv_bfloat162 r2 =
+              *reinterpret_cast<const __nv_bfloat162*>(&rv[nb & 1][j][hh]);
+          *reinterpret_cast<uint32_t*>(out + (size_t)rr * K + col) =
+              tc::pack_bf16(
+                  __fadd_rn(__low2float(r2),
+                            __fmul_rn(y[nb][4 * j + 2 * hh] + bb[0],
+                                      keep_of(ob[nb], 4 * j + 2 * hh, sc2))),
+                  __fadd_rn(__high2float(r2),
+                            __fmul_rn(y[nb][4 * j + 2 * hh + 1] + bb[1],
+                                      keep_of(ob[nb], 4 * j + 2 * hh + 1,
+                                              sc2))));
         }
       }
     }
-    // the warp's 32 rows of db1: lanes of one t summed over g in a fixed
-    // order; one partial row for each (block, wm)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float v = colsum[j][e];
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (g == 0)
-          db1_part[(size_t)(2 * blockIdx.x + wm) * M + col0 + j * 8 + 2 * t +
-                   e] = v;
-      }
-    tc::zero_acc(acc_h);
-    tc::zero_acc(acc_d);
   }
 }
+
+// Backward, step 1 (the weight products and the sums as the other designs).
+template <int KD>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_bwd_wg_kernel(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tw1,
+                  const __grid_constant__ CUtensorMap tw2,
+                  const bf16* __restrict__ dy, const float* __restrict__ b1,
+                  const int* __restrict__ seeds, bf16* __restrict__ dx,
+                  bf16* __restrict__ d_g, bf16* __restrict__ dh_g,
+                  bf16* __restrict__ g_g, float* __restrict__ db1_part,
+                  float* __restrict__ db2_part, int N, int M, int S,
+                  uint32_t thr1, float sc1, uint32_t thr2, float sc2,
+                  long long roff, long long mld, long long mcol) {
+  constexpr int K = 64 * KD, TILE = KD * BOX;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = carve(smem_raw, 4, TILE, S);
+  const int nc = M / MC, ntiles = (N + ROWS - 1) / ROWS;
+  if (threadIdx.x < 128) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      produce<KD, true>(&tx, &tw1, &tw2, r, S, nc, ntiles);
+    return;
+  }
+  regs_inc<CONSUMER_REGS>();
+  const int w = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t seed1 = (uint32_t)seeds[0], seed2 = (uint32_t)seeds[1];
+  unsigned char* gs = r.tiles + (2 + w) * TILE;
+  const uint64_t dxs = desc(r.tiles + w * TILE), dgs = desc(gs);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const long long row0 = (long long)tile * ROWS + 64 * w;
+    const long long row = row0 + 16 * warp + g;
+    const size_t prow = (size_t)tile * (ROWS / PART) + 4 * w + warp;
+    const int L0 = it * 2 * nc;
+    float acc[KD][32], hh[32], hd[32];
+    uint32_t a[4][4];
+    bar_wait(&r.xfull[w], it & 1);
+
+    // W2 of chunk c is load L0 + 2c, W1 of chunk c load L0 + 2c + 1
+    auto issue_h = [&](int c) {
+      const int L = L0 + 2 * c + 1, s = L % S;
+      bar_wait(&r.full[s], (L / S) & 1);
+      const uint64_t dw = desc(r.slots + (size_t)s * TILE);
+      fence_regs(hh);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < K / 16; ++ks)
+        mma_ss<1>(hh, dxs + kstep(ks), dw + mnstep(ks), ks > 0);
+    };
+    auto issue_dd = [&](int c) {
+      const int L = L0 + 2 * c, s = L % S;
+      bar_wait(&r.full[s], (L / S) & 1);
+      const uint64_t dw = desc(r.slots + (size_t)s * TILE);
+      fence_regs(hd);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < K / 16; ++ks)
+        mma_ss<0>(hd, dgs + kstep(ks), dw + kstep(ks), ks > 0);
+    };
+
+    issue_h(0);
+    wg_commit();
+    // g = dy * keep2' for the warp's 16 rows, a lane 8 columns: to the g
+    // tile (swizzled as TMA would), to scratch, and summed for db2
+    if (lane < K / 8) {
+      const int col = lane * 8;
+      float sum[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum[e] = 0.f;
+      for (int lr0 = 16 * warp; lr0 < 16 * warp + 16; lr0 += 4) {
+        uint4 raw[4];  // four rows' loads in flight at once
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const long long rr = row0 + lr0 + q;
+          raw[q] = rr < N ? *reinterpret_cast<const uint4*>(
+                                dy + (size_t)rr * K + col)
+                          : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int lr = lr0 + q;
+          const long long rr = row0 + lr;
+          const bf16* dv = reinterpret_cast<const bf16*>(&raw[q]);
+          float kp[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+          if (thr2) {
+            const uint64_t idx = (uint64_t)(roff + rr) * K + col;
+            philox::keep4(seed2, idx, thr2, sc2, kp);
+            philox::keep4(seed2, idx + 4, thr2, sc2, kp + 4);
+          }
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            v[e] = __fmul_rn(__bfloat162float(dv[e]), kp[e]);
+            sum[e] += v[e];
+          }
+          const uint4 packed = make_uint4(
+              tc::pack_bf16(v[0], v[1]), tc::pack_bf16(v[2], v[3]),
+              tc::pack_bf16(v[4], v[5]), tc::pack_bf16(v[6], v[7]));
+          *reinterpret_cast<uint4*>(gs + (lane >> 3) * BOX + lr * 128 +
+                                    (((lane & 7) ^ (lr & 7)) << 4)) = packed;
+          if (rr < N)
+            *reinterpret_cast<uint4*>(g_g + (size_t)rr * K + col) = packed;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) db2_part[prow * K + col + e] = sum[e];
+    }
+    fence_async_smem();
+    named_sync(1 + w, 128);
+    issue_dd(0);
+    wg_commit();
+    // the hidden's keep bits of the chunk whose products are in flight
+    uint32_t bits =
+        keep_bits(seed1, (uint64_t)(roff + row), 0, mld, mcol, thr1);
+
+    for (int c = 0; c < nc; ++c) {
+      wg_wait<0>();
+      fence_regs(hh);
+      fence_regs(hd);
+      if (lane == 0) {
+        bar_arrive(&r.empty[(L0 + 2 * c) % S]);
+        if (c > 0) bar_arrive(&r.empty[(L0 + 2 * c - 1) % S]);
+        if (c == nc - 1) bar_arrive(&r.xempty[w]);
+      }
+      // d = swish(h) * keep1', dh = dd * keep1' * swish'(h); the warp's 16
+      // rows of db1 summed over g in a fixed order
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = c * MC + 8 * j + 2 * t;
+        float kp[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) kp[e] = keep_of(bits, 4 * j + e, sc1);
+        const float bb[2] = {b1[col], b1[col + 1]};
+        float d[4], dh[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float hv = hh[4 * j + e] + bb[e & 1];
+          const float sig = sigmoid(hv);
+          const float hsw = __fmul_rn(hv, sig);
+          d[e] = __fmul_rn(hsw, kp[e]);
+          const float da = __fmul_rn(hd[4 * j + e], kp[e]);
+          dh[e] = da * (sig + hsw * (1.f - sig));
+        }
+        a[j >> 1][(j & 1) * 2] = tc::pack_bf16(dh[0], dh[1]);
+        a[j >> 1][(j & 1) * 2 + 1] = tc::pack_bf16(dh[2], dh[3]);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const long long rr = row + 8 * h2;
+          if (rr >= N) continue;
+          const size_t at = (size_t)rr * M + col;
+          *reinterpret_cast<uint32_t*>(d_g + at) =
+              tc::pack_bf16(d[2 * h2], d[2 * h2 + 1]);
+          *reinterpret_cast<uint32_t*>(dh_g + at) = a[j >> 1][(j & 1) * 2 + h2];
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = dh[e] + dh[e + 2];
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, o);
+          if (g == 0) db1_part[prow * M + col + e] = v;
+        }
+      }
+      // dx += dh . W1[:, c]^T (W1's slot is still held)
+      const uint64_t dw1 =
+          desc(r.slots + (size_t)((L0 + 2 * c + 1) % S) * TILE);
+#pragma unroll
+      for (int nb = 0; nb < KD; ++nb) fence_regs(acc[nb]);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) fence_regs(a[ks]);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int nb = 0; nb < KD; ++nb)
+          mma_rs<0>(acc[nb], a[ks],
+                    dw1 + (uint64_t)(nb * BOX >> 4) + (uint64_t)(ks * 2),
+                    c > 0 || ks > 0);
+      wg_commit();
+      if (c + 1 < nc) {
+        issue_h(c + 1);
+        issue_dd(c + 1);
+        wg_commit();
+        bits = keep_bits(seed1, (uint64_t)(roff + row), (c + 1) * MC, mld,
+                         mcol, thr1);
+      }
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < KD; ++nb) fence_regs(acc[nb]);
+    if (lane == 0) bar_arrive(&r.empty[(L0 + 2 * nc - 1) % S]);
+#pragma unroll
+    for (int nb = 0; nb < KD; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const long long rr = row + 8 * h2;
+          if (rr >= N) continue;
+          *reinterpret_cast<uint32_t*>(dx + (size_t)rr * K + nb * 64 + 8 * j +
+                                       2 * t) =
+              tc::pack_bf16(acc[nb][4 * j + 2 * h2],
+                            acc[nb][4 * j + 2 * h2 + 1]);
+        }
+  }
+}
+
+}  // namespace wg
 
 // k1 [n, m] and k2 [n, k]: 1 where the kernels keep an element, else 0.
 __global__ void ffn_masks_kernel(const int* __restrict__ seeds,
@@ -423,16 +678,18 @@ __global__ void ffn_masks_kernel(const int* __restrict__ seeds,
 }
 
 // ---------------------------------------------------------------------------
-// The general kernels: compute type T = float or bf16, any widths. The same
-// three backward steps and the same rounding points as above; the products
-// are f32 FMAs. A block owns GR rows, which it holds widened to f32 in shared
-// memory; a thread owns a column of the result for all GR rows, so that every
-// weight it reads (coalesced across the block) is used GR times. The
-// backward reads w2 and w1 through transposed copies (made by
+// The general kernels: compute type T = float or bf16, any widths. The
+// same three backward steps and the same rounding points as above; the
+// products are f32 FMAs. A block owns GR rows, which it holds widened to
+// f32 in shared memory; a thread owns a column of the result for all GR
+// rows, so that every weight it reads (coalesced across the block) is used
+// GR times. The backward reads w2 and w1 through transposed copies (made by
 // ffn_transpose_kernel into scratch) so that those reads coalesce as well.
 // ---------------------------------------------------------------------------
 
-constexpr int GR = 8;
+constexpr int GR = 8;         // rows a block owns
+constexpr int THREADS = 256;
+constexpr int PAD_ROWS = 64;  // N is padded to a multiple of this
 
 using wgrad::narrow;
 using wgrad::widen;
@@ -615,16 +872,6 @@ ffn_bwd_rows_general_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-size_t fwd_smem(int K, int M) {
-  return (size_t)R * (K + PAD) * 2 + (size_t)R * (M + PAD) * 2 +
-         (size_t)FWD_STAGES * KN_TILE * 2;
-}
-
-size_t bwd_smem(int K, int M) {
-  return 2 * (size_t)R * (K + PAD) * 2 + (size_t)R * (M + PAD) * 2 +
-         (size_t)BWD_STAGES * (KN_TILE + NK_TILE) * 2;
-}
-
 size_t fwd_general_smem(int K, int M) { return (size_t)GR * (K + M) * 4; }
 
 size_t bwd_general_smem(int K, int M) { return (size_t)GR * (2 * K + M) * 4; }
@@ -638,10 +885,6 @@ cudaError_t allow_smem(Kern kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-bool shape_ok(int N, int K, int M) {
-  return N > 0 && N % R == 0 && K > 0 && M > 0;
-}
-
 // A slice [mcol, mcol + M) of a hidden of mld; a slice (not the whole
 // hidden) starts and ends on a Philox block of 4 columns, as the tensor
 // cores' keep words come.
@@ -650,10 +893,130 @@ bool hidden_ok(int M, long long mld, long long mcol) {
   return mcol >= 0 && mcol + M <= mld && mld % 4 == 0 && mcol % 4 == 0;
 }
 
-// bf16 at widths that are multiples of 128 takes the tensor-core kernels.
-bool tensor_cores(int dtype, int K, int M) {
-  return dtype == 1 && K % 128 == 0 && M % 128 == 0 &&
-         bwd_smem(K, M) <= SMEM_LIMIT;
+// Which kernels take a shape, a rule on (dtype, K, M) alone, mirrored by
+// ffn_plan in ops/ffn_kernel.py:
+// - WGMMA: bf16, K a multiple of 64 up to 256 (the output accumulators, 64
+//   x K f32, fit a consumer thread's registers beside two hidden chunks),
+//   M a multiple of 64;
+// - GENERAL: everything else.
+enum Design { GENERAL = 0, WGMMA = 1 };
+
+struct Plan {
+  int design;
+  int pad_rows;    // N is padded to a multiple of this
+  int tile_rows;   // rows a block tile holds
+  int part_rows;   // rows a partial db row sums over
+  int fwd_slots, bwd_slots;  // WGMMA: weight slots of the forward's and
+                             // backward's rings
+  size_t fwd_smem, bwd_smem;
+  int acc_regs;    // WGMMA: the accumulator and A-fragment registers a
+                   // consumer thread holds at most (the backward's dx, h,
+                   // dd and one set of fragments)
+  int reg_limit;   // WGMMA: the registers a consumer thread may hold
+};
+
+constexpr size_t WG_EXTRA = 2048;  // alignment to 1024 and the barriers
+constexpr int WG_MAX_SLOTS = 8;
+
+// Ring slots beside `fixed` tiles of [64][K] (2 forward: x; 4 backward: x
+// and g), a slot being one such tile.
+int wg_slots(int K, int fixed) {
+  const size_t tile = (size_t)(K / 64) * wg::BOX;
+  const long long s = ((long long)SMEM_LIMIT - (long long)WG_EXTRA -
+                       (long long)(fixed * tile)) / (long long)tile;
+  return (int)(s < WG_MAX_SLOTS ? s : WG_MAX_SLOTS);
+}
+
+Plan plan(int dtype, int K, int M) {
+  Plan p{};
+  if (dtype == 1 && K % 64 == 0 && K >= 64 && K <= 256 && M % 64 == 0 &&
+      M > 0) {
+    const size_t tile = (size_t)(K / 64) * wg::BOX;
+    p.design = WGMMA;
+    p.pad_rows = 1;
+    p.tile_rows = wg::ROWS;
+    p.part_rows = wg::PART;
+    p.fwd_slots = wg_slots(K, 2);
+    p.bwd_slots = wg_slots(K, 4);
+    p.fwd_smem = WG_EXTRA + (2 + p.fwd_slots) * tile;
+    p.bwd_smem = WG_EXTRA + (4 + p.bwd_slots) * tile;
+    p.acc_regs = K / 2 + 2 * 32 + 16;
+    p.reg_limit = wg::CONSUMER_REGS;
+    return p;
+  }
+  p.design = GENERAL;
+  p.pad_rows = PAD_ROWS;
+  p.tile_rows = GR;
+  p.part_rows = GR;
+  p.fwd_smem = fwd_general_smem(K, M);
+  p.bwd_smem = bwd_general_smem(K, M);
+  return p;
+}
+
+bool shape_ok(const Plan& p, int N, int K, int M) {
+  return N > 0 && N % p.pad_rows == 0 && K > 0 && M > 0;
+}
+
+// Partial db rows a backward pass writes.
+long long parts_of(const Plan& p, int N) {
+  return (long long)((N + p.tile_rows - 1) / p.tile_rows) *
+         (p.tile_rows / p.part_rows);
+}
+
+// Blocks of a WGMMA launch: one a tile.
+int wg_grid(int N) { return (N + wg::ROWS - 1) / wg::ROWS; }
+
+// x [N, K] in boxes of [64][64], W1 [K, M] in boxes of [K][64] (a chunk's
+// columns), W2 [M, K] in boxes of [64][64].
+cudaError_t wg_maps(const void* x, const void* w1, const void* w2, int N,
+                    int K, int M, CUtensorMap* tx, CUtensorMap* tw1,
+                    CUtensorMap* tw2) {
+  cudaError_t e = hopper::tensor_map(tx, x, N, K, 64, 64);
+  if (e != cudaSuccess) return e;
+  e = hopper::tensor_map(tw1, w1, K, M, K, 64);
+  if (e != cudaSuccess) return e;
+  return hopper::tensor_map(tw2, w2, M, K, 64, 64);
+}
+
+template <int KD>
+cudaError_t fwd_wg(const Plan& p, const void* x, const void* res,
+                   const void* w1, const void* b1, const void* w2,
+                   const void* b2, const void* seeds, void* out, int N,
+                   int M, uint32_t thr1, float sc1, uint32_t thr2, float sc2,
+                   long long roff, long long mld, long long mcol,
+                   cudaStream_t s) {
+  CUtensorMap tx, tw1, tw2;
+  cudaError_t e = wg_maps(x, w1, w2, N, 64 * KD, M, &tx, &tw1, &tw2);
+  if (e != cudaSuccess) return e;
+  e = allow_smem(wg::ffn_fwd_wg_kernel<KD>, p.fwd_smem);
+  if (e != cudaSuccess) return e;
+  wg::ffn_fwd_wg_kernel<KD>
+      <<<wg_grid(N), wg::THREADS, p.fwd_smem, s>>>(
+          tx, tw1, tw2, (const bf16*)res, (const float*)b1,
+          (const float*)b2, (const int*)seeds, (bf16*)out, N, M, p.fwd_slots,
+          thr1, sc1, thr2, sc2, roff, mld, mcol);
+  return cudaGetLastError();
+}
+
+template <int KD>
+cudaError_t bwd_wg(const Plan& p, const void* x, const void* dy,
+                   const void* w1, const void* b1, const void* w2,
+                   const void* seeds, void* dx, void* d_g, void* dh_g,
+                   void* g_g, float* db1_part, float* db2_part, int N, int M,
+                   uint32_t thr1, float sc1, uint32_t thr2, float sc2,
+                   long long roff, long long mld, long long mcol,
+                   cudaStream_t s) {
+  CUtensorMap tx, tw1, tw2;
+  cudaError_t e = wg_maps(x, w1, w2, N, 64 * KD, M, &tx, &tw1, &tw2);
+  if (e != cudaSuccess) return e;
+  e = allow_smem(wg::ffn_bwd_wg_kernel<KD>, p.bwd_smem);
+  if (e != cudaSuccess) return e;
+  wg::ffn_bwd_wg_kernel<KD>
+      <<<wg_grid(N), wg::THREADS, p.bwd_smem, s>>>(
+          tx, tw1, tw2, (const bf16*)dy, (const float*)b1, (const int*)seeds,
+          (bf16*)dx, (bf16*)d_g, (bf16*)dh_g, (bf16*)g_g, db1_part, db2_part,
+          N, M, p.bwd_slots, thr1, sc1, thr2, sc2, roff, mld, mcol);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -713,17 +1076,47 @@ cudaError_t bwd_weights(const void* x, const void* d_g, const void* dh_g,
                            s);
 }
 
+// out [n] = the sum of part's `parts` rows in a fixed order. The wgmma
+// design's partial rows (8 a tile, 2816 at the flagship) would leave the
+// one-pass sum to a few blocks, so it first adds them `first` at a time
+// (rows r, r + parts / first, ..; first the largest of 64, 32, 16, 8 that
+// divides parts) into tmp, then tmp's rows.
+cudaError_t sum_db(const Plan& p, const float* part, float* tmp, float* out,
+                   long long parts, int n, cudaStream_t s) {
+  if (p.design != WGMMA)
+    return wgrad::sum_parts(part, out, (int)parts, n, s);
+  int first = 64;  // parts is a multiple of 8
+  while (parts % first) first /= 2;
+  const long long rows = parts / first;
+  const cudaError_t e = wgrad::sum_parts(part, tmp, first, rows * n, s);
+  if (e != cudaSuccess) return e;
+  return wgrad::sum_parts(tmp, out, (int)rows, n, s);
+}
+
 }  // namespace
 
 extern "C" {
 
+// The plan of (dtype, K, M) into out[0..9]: design (0 general, 1 wgmma),
+// pad_rows, tile_rows, part_rows, fwd_slots, bwd_slots, fwd_smem, bwd_smem
+// (bytes), acc_regs, reg_limit. ops/ffn_kernel.py's ffn_plan gives the same.
+int ishara_ffn_plan(int dtype, int K, int M, long long* out) {
+  const Plan p = plan(dtype, K, M);
+  const long long v[10] = {p.design,    p.pad_rows,  p.tile_rows,
+                           p.part_rows, p.fwd_slots, p.bwd_slots,
+                           (long long)p.fwd_smem, (long long)p.bwd_smem,
+                           p.acc_regs,  p.reg_limit};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  return 0;
+}
+
 // out [N, K] = res + drop2(drop1(swish(x . w1 + b1)) . w2 + b2). dtype 0 =
-// f32, 1 = bf16 (x, res, w1, w2, out). N must be a multiple of 64. seeds
-// points at two int32 on the device; thr = uint32(rate * 2^32) (0: no
-// dropout), sc = 1 / (1 - rate). Row r takes the mask words of row roff + r:
-// a process holding rows [r0, r1) of the whole batch's N rows passes r0. The
-// hidden's row r, column c takes word (roff + r) * mld + mcol + c (mld 0: M,
-// mcol 0); res and b2 may be null (no residual, no bias).
+// f32, 1 = bf16 (x, res, w1, w2, out). N must be a multiple of the plan's
+// pad_rows. seeds points at two int32 on the device; thr = uint32(rate *
+// 2^32) (0: no dropout), sc = 1 / (1 - rate). Row r takes the mask words of
+// row roff + r: a process holding rows [r0, r1) of the whole batch's N rows
+// passes r0. The hidden's row r, column c takes word (roff + r) * mld + mcol
+// + c (mld 0: M, mcol 0); res and b2 may be null (no residual, no bias).
 int ishara_ffn_fwd(int device, int dtype, const void* x, const void* res,
                    const void* w1, const void* b1, const void* w2,
                    const void* b2, const void* seeds, void* out, int N, int K,
@@ -733,77 +1126,78 @@ int ishara_ffn_fwd(int device, int dtype, const void* x, const void* res,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (mld == 0) mld = M;
-  if (!shape_ok(N, K, M) || !hidden_ok(M, mld, mcol) || dtype < 0 ||
-      dtype > 1)
+  if (dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(dtype, K, M);
+  if (!shape_ok(p, N, K, M) || !hidden_ok(M, mld, mcol))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!tensor_cores(dtype, K, M)) {
-    if (dtype == 0)
-      return (int)fwd_general<float>(x, res, w1, b1, w2, b2, seeds, out, N, K,
-                                     M, thr1, sc1, thr2, sc2, roff, mld,
-                                     mcol, s);
-    return (int)fwd_general<bf16>(x, res, w1, b1, w2, b2, seeds, out, N, K, M,
-                                  thr1, sc1, thr2, sc2, roff, mld, mcol, s);
+  if (p.design == WGMMA) {
+    switch (K / 64) {
+#define FWD_WG(KD)                                                           \
+  case KD:                                                                   \
+    return (int)fwd_wg<KD>(p, x, res, w1, b1, w2, b2, seeds, out, N, M,      \
+                           thr1, sc1, thr2, sc2, roff, mld, mcol, s);
+      FWD_WG(1) FWD_WG(2) FWD_WG(3) FWD_WG(4)
+#undef FWD_WG
+    }
+    return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = fwd_smem(K, M);
-  e = allow_smem(ffn_fwd_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  ffn_fwd_kernel<<<N / R, THREADS, smem, s>>>(
-      (const bf16*)x, (const bf16*)res, (const bf16*)w1, (const float*)b1,
-      (const bf16*)w2, (const float*)b2, (const int*)seeds, (bf16*)out, K, M,
-      thr1, sc1, thr2, sc2, roff, mld, mcol);
-  return (int)cudaGetLastError();
-}
-
-// Rows that one partial row of the backward's step 1 sums over at this type
-// and these widths: the number of rows of db1_part and db2_part is N over
-// this.
-int ishara_ffn_bwd_rows(int dtype, int K, int M) {
-  return tensor_cores(dtype, K, M) ? R / 2 : GR;
+  if (dtype == 0)
+    return (int)fwd_general<float>(x, res, w1, b1, w2, b2, seeds, out, N, K,
+                                   M, thr1, sc1, thr2, sc2, roff, mld, mcol,
+                                   s);
+  return (int)fwd_general<bf16>(x, res, w1, b1, w2, b2, seeds, out, N, K, M,
+                                thr1, sc1, thr2, sc2, roff, mld, mcol, s);
 }
 
 // dx [N, K] and dw1 [K, M], db1 [M], dw2 [M, K], db2 [K] f32 from x, dy and
 // the forward's weights and seeds. Scratch, all given by the caller: d_g,
-// dh_g [N, M], g_g [N, K] and wt [2, K * M] in the compute type; db1_part
-// [N / rows, M] and db2_part [N / rows, K] f32, rows = ishara_ffn_bwd_rows;
-// dw1_part and dw2_part [S, K * M] f32, S the number of row splits of the
-// weight products. mld and mcol as for the forward.
+// dh_g [N, M], g_g [N, K] in the compute type; wt [2, K * M] in the compute
+// type for the general design (else unused, may be null); db1_part [parts,
+// M] and db2_part [parts, K] f32, parts the plan's N / part_rows (whole
+// tiles); db_tmp [parts / 8, max(K, M)] f32 for the wgmma design (else may
+// be null); dw1_part and dw2_part [S, K * M] f32, S the number of row splits
+// of the weight products. mld and mcol as for the forward.
 int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
                    const void* w1, const void* b1, const void* w2,
                    const void* seeds, void* dx, void* d_g, void* dh_g,
                    void* g_g, void* wt, void* db1_part, void* db2_part,
-                   void* dw1_part, void* dw2_part, void* dw1, void* db1,
+                   void* db_tmp, void* dw1_part, void* dw2_part, void* dw1,
+                   void* db1,
                    void* dw2, void* db2, int N, int K, int M, int S,
-                   unsigned int thr1, float sc1, unsigned int thr2, float sc2,
-                   long long roff, long long mld, long long mcol,
-                   void* stream) {
+                   long long parts, unsigned int thr1, float sc1,
+                   unsigned int thr2, float sc2, long long roff,
+                   long long mld, long long mcol, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (mld == 0) mld = M;
-  if (!shape_ok(N, K, M) || !hidden_ok(M, mld, mcol) || S < 1 || dtype < 0 ||
-      dtype > 1)
+  if (dtype < 0 || dtype > 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(dtype, K, M);
+  if (!shape_ok(p, N, K, M) || !hidden_ok(M, mld, mcol) ||
+      parts != parts_of(p, N))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = ishara_ffn_bwd_rows(dtype, K, M);
-  if (!tensor_cores(dtype, K, M)) {
-    if (dtype == 0)
-      e = bwd_general<float>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
-                             (float*)db1_part, (float*)db2_part, N, K, M, thr1,
-                             sc1, thr2, sc2, roff, mld, mcol, s);
-    else
-      e = bwd_general<bf16>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
-                            (float*)db1_part, (float*)db2_part, N, K, M, thr1,
-                            sc1, thr2, sc2, roff, mld, mcol, s);
+  if (p.design == WGMMA) {
+    switch (K / 64) {
+#define BWD_WG(KD)                                                           \
+  case KD:                                                                   \
+    e = bwd_wg<KD>(p, x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g,          \
+                   (float*)db1_part, (float*)db2_part, N, M, thr1, sc1, thr2, \
+                   sc2, roff, mld, mcol, s);                                 \
+    break;
+      BWD_WG(1) BWD_WG(2) BWD_WG(3) BWD_WG(4)
+#undef BWD_WG
+      default:
+        e = cudaErrorInvalidValue;
+    }
+  } else if (dtype == 0) {
+    e = bwd_general<float>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
+                           (float*)db1_part, (float*)db2_part, N, K, M, thr1,
+                           sc1, thr2, sc2, roff, mld, mcol, s);
   } else {
-    const size_t smem = bwd_smem(K, M);
-    e = allow_smem(ffn_bwd_rows_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    ffn_bwd_rows_kernel<<<N / R, THREADS, smem, s>>>(
-        (const bf16*)x, (const bf16*)dy, (const bf16*)w1, (const float*)b1,
-        (const bf16*)w2, (const int*)seeds, (bf16*)dx, (bf16*)d_g,
-        (bf16*)dh_g, (bf16*)g_g, (float*)db1_part, (float*)db2_part, K, M,
-        thr1, sc1, thr2, sc2, roff, mld, mcol);
-    e = cudaGetLastError();
+    e = bwd_general<bf16>(x, dy, w1, b1, w2, seeds, dx, d_g, dh_g, g_g, wt,
+                          (float*)db1_part, (float*)db2_part, N, K, M, thr1,
+                          sc1, thr2, sc2, roff, mld, mcol, s);
   }
   if (e != cudaSuccess) return (int)e;
   e = dtype == 0 ? bwd_weights<float>(x, d_g, dh_g, g_g, (float*)dw1_part,
@@ -816,10 +1210,11 @@ int ishara_ffn_bwd(int device, int dtype, const void* x, const void* dy,
   if (e != cudaSuccess) return (int)e;
   e = wgrad::sum_parts((const float*)dw2_part, (float*)dw2, S, KM, s);
   if (e != cudaSuccess) return (int)e;
-  e = wgrad::sum_parts((const float*)db1_part, (float*)db1, N / rows, M, s);
+  e = sum_db(p, (const float*)db1_part, (float*)db_tmp, (float*)db1, parts,
+             M, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)wgrad::sum_parts((const float*)db2_part, (float*)db2, N / rows,
-                               K, s);
+  return (int)sum_db(p, (const float*)db2_part, (float*)db_tmp, (float*)db2,
+                     parts, K, s);
 }
 
 // The keep masks the kernels draw for an [n, k] input with hidden width m:

@@ -4,9 +4,9 @@
 :func:`ffn_residual` replaces the Pallas ``ffn_residual``:
 ``res + drop2(Dense2(drop1(swish(Dense1(x)))))`` with both dropout masks
 regenerated in the backward pass and the hidden recomputed there. On a CUDA
-tensor it launches ``csrc/ffn.cu`` (bf16 or f32 activations, any widths: the
-tensor cores at bf16 and widths that are multiples of 128, f32 FMAs otherwise)
-or raises; on a CPU tensor it runs the plain version beside it (:func:`ffn_forward_plain`,
+tensor it launches ``csrc/ffn.cu`` (bf16 or f32 activations, any widths;
+:func:`ffn_plan` names the design that takes a shape) or raises; on a CPU
+tensor it runs the plain version beside it (:func:`ffn_forward_plain`,
 :func:`ffn_backward_plain`), which repeats the kernels' arithmetic and
 rounding points: operands in ``x``'s dtype with f32 accumulation, the hidden
 rounded to that dtype before the second product; in the backward ``g``,
@@ -35,13 +35,13 @@ The weight gradients are per-block f32 partial sums added in a fixed order
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 from .dropout import keep_mask, threshold_of
 
-_ROWS = 64      # the most rows a block of csrc/ffn.cu owns
 _SPLIT_BLOCKS = 264   # blocks the weight-gradient products aim for: 2 an SM
 _WGRAD_TILE, _WGRAD_STEP = 128, 32   # csrc/wgrad.cuh's output tile, row step
 
@@ -53,6 +53,77 @@ def wgrad_splits(n: int, p: int, q: int) -> int:
     more than one split a 32-row step."""
     tiles = -(-p // _WGRAD_TILE) * -(-q // _WGRAD_TILE)
     return max(1, min(-(-n // _WGRAD_STEP), _SPLIT_BLOCKS // tiles))
+
+
+# csrc/ffn.cu's designs and the rule that picks one, mirrored from its plan()
+DESIGNS = ("general", "wgmma")
+_SMEM_LIMIT = 227 * 1024      # shared memory a block can use on the H100
+_GENERAL_ROWS, _GENERAL_PAD = 8, 64
+_WG_ROWS, _WG_PART, _WG_BOX = 128, 16, 64 * 64 * 2
+_WG_EXTRA, _WG_MAX_SLOTS = 2048, 8
+_WG_REG_LIMIT = 240           # setmaxnreg of a consumer warpgroup
+
+
+class FfnPlan(NamedTuple):
+    """What :func:`ffn_plan` gives for a shape."""
+    design: str       # "wgmma" or "general"
+    pad_rows: int     # N is padded to a multiple of this (1: no padding)
+    tile_rows: int    # rows a block tile holds
+    part_rows: int    # rows a partial db row of the backward sums over
+    fwd_slots: int    # wgmma: weight slots of the forward's ring
+    bwd_slots: int    # ... and of the backward's
+    fwd_smem: int     # shared memory of a forward block, bytes
+    bwd_smem: int     # ... and of a backward row-kernel block
+    acc_regs: int     # wgmma: accumulator and A-fragment registers a
+    #                   consumer thread holds at most (the backward's dx
+    #                   64 x K f32, h and dd 64 x 64 f32, a bf16 chunk as
+    #                   A); 0 for the general design
+    reg_limit: int    # wgmma: the registers a consumer thread may hold
+
+    def parts(self, n_pad: int) -> int:
+        """Partial db rows of a backward pass over ``n_pad`` rows."""
+        return -(-n_pad // self.tile_rows) * (self.tile_rows
+                                             // self.part_rows)
+
+
+def ffn_plan(dtype, k: int, m: int) -> FfnPlan:
+    """Which of ``csrc/ffn.cu``'s kernels take ``[N, k]`` rows with a hidden
+    of ``m`` in ``dtype``: a rule on the shape alone, the same as the C
+    ``plan`` (``ishara_ffn_plan``).
+
+    * ``"wgmma"``: bf16, ``k`` a multiple of 64 up to 256, ``m`` a multiple
+      of 64 -- warpgroup products, TMA weight rings, the hidden kept in
+      registers; the output's 64 x ``k`` f32 accumulators are why ``k``
+      stops at 256;
+    * ``"general"``: everything else (f32 FMAs)."""
+    if dtype == torch.bfloat16 and k % 64 == 0 and 64 <= k <= 256 \
+            and m % 64 == 0 and m > 0:
+        tile = (k // 64) * _WG_BOX
+
+        def slots(fixed):
+            return min(_WG_MAX_SLOTS,
+                       (_SMEM_LIMIT - _WG_EXTRA - fixed * tile) // tile)
+
+        fs, bs = slots(2), slots(4)
+        return FfnPlan("wgmma", 1, _WG_ROWS, _WG_PART, fs, bs,
+                       _WG_EXTRA + (2 + fs) * tile,
+                       _WG_EXTRA + (4 + bs) * tile,
+                       k // 2 + 2 * 32 + 16, _WG_REG_LIMIT)
+    gr = _GENERAL_ROWS
+    return FfnPlan("general", _GENERAL_PAD, gr, gr, 0, 0, gr * (k + m) * 4,
+                   gr * (2 * k + m) * 4, 0, 0)
+
+
+def c_plan(dtype, k: int, m: int) -> FfnPlan:
+    """``csrc/ffn.cu``'s own plan of the shape (needs the built library),
+    for holding :func:`ffn_plan` to it."""
+    out = (ctypes.c_longlong * 10)()
+    fn = _build.function("ffn", "ishara_ffn_plan",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+    _build.check("ffn", fn(_DTYPE_CODE[dtype], k, m, ctypes.addressof(out)),
+                 "FFN plan")
+    return FfnPlan(DESIGNS[out[0]], *(int(v) for v in out[1:]))
 
 
 def _scaled_keep(seeds, which, shape, rate, keep, device, row_offset=0,
@@ -166,7 +237,8 @@ def _launch_fwd(x2, res2, w1, b1, w2, b2, seeds, rate1, rate2, row_offset=0,
     _check_cuda(x2, w1, seeds)
     n, k = x2.shape
     m = w1.shape[1]
-    n_pad = -(-n // _ROWS) * _ROWS
+    plan = ffn_plan(x2.dtype, k, m)
+    n_pad = -(-n // plan.pad_rows) * plan.pad_rows
     xp = _pad_rows(x2, n_pad)
     rp = None if res2 is None else _pad_rows(res2, n_pad)
     out = torch.empty_like(xp)
@@ -189,13 +261,11 @@ def _launch_bwd(x2, dy2, w1, b1, w2, seeds, rate1, rate2, row_offset=0,
     _check_cuda(x2, w1, seeds)
     n, k = x2.shape
     m = w1.shape[1]
-    n_pad = -(-n // _ROWS) * _ROWS
-    xp, dyp = _pad_rows(x2, n_pad), _pad_rows(dy2, n_pad)
     dev, cd = x2.device, x2.dtype
-    code = _DTYPE_CODE[cd]
-    I = ctypes.c_int
-    blocks = n_pad // _build.function("ffn", "ishara_ffn_bwd_rows",
-                                      [I, I, I])(code, k, m)
+    plan = ffn_plan(cd, k, m)
+    n_pad = -(-n // plan.pad_rows) * plan.pad_rows
+    xp, dyp = _pad_rows(x2, n_pad), _pad_rows(dy2, n_pad)
+    parts = plan.parts(n_pad)
     splits = wgrad_splits(n_pad, k, m)
 
     def f32(*shape):
@@ -205,22 +275,28 @@ def _launch_bwd(x2, dy2, w1, b1, w2, seeds, rate1, rate2, row_offset=0,
     d_g = torch.empty((n_pad, m), dtype=cd, device=dev)
     dh_g = torch.empty_like(d_g)
     g_g = torch.empty_like(xp)
-    wt = torch.empty((2, k * m), dtype=cd, device=dev)
-    db1_part, db2_part = f32(blocks, m), f32(blocks, k)
+    # the general design reads the weights through transposed copies
+    wt = torch.empty((2, k * m), dtype=cd, device=dev) \
+        if plan.design == "general" else None
+    db1_part, db2_part = f32(parts, m), f32(parts, k)
+    # the wgmma design adds its partial db rows in two passes
+    db_tmp = f32(parts // 8, max(k, m)) if plan.design == "wgmma" else None
     dw1_part, dw2_part = f32(splits, k * m), f32(splits, k * m)
     dw1, db1, dw2, db2 = f32(k, m), f32(m), f32(m, k), f32(k)
-    P, U, F = ctypes.c_void_p, ctypes.c_uint, ctypes.c_float
+    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    L = ctypes.c_longlong
     fn = _build.function("ffn", "ishara_ffn_bwd",
-                         [I, I] + [P] * 19 + [I, I, I, I, U, F, U, F]
-                         + [ctypes.c_longlong] * 3 + [P])
-    rc = fn(_build.device_index(x2), code, xp.data_ptr(), dyp.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), seeds.data_ptr(),
-            dx.data_ptr(), d_g.data_ptr(), dh_g.data_ptr(), g_g.data_ptr(),
-            wt.data_ptr(), db1_part.data_ptr(), db2_part.data_ptr(),
-            dw1_part.data_ptr(), dw2_part.data_ptr(), dw1.data_ptr(),
-            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n_pad, k, m,
-            splits, *_rates(rate1, rate2), int(row_offset),
-            *(hidden or (0, 0)), _build.stream_of(x2))
+                         [I, I] + [P] * 20 + [I, I, I, I, L, U, F, U, F]
+                         + [L] * 3 + [P])
+    rc = fn(_build.device_index(x2), _DTYPE_CODE[cd], xp.data_ptr(),
+            dyp.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            seeds.data_ptr(), dx.data_ptr(), d_g.data_ptr(), dh_g.data_ptr(),
+            g_g.data_ptr(), _ptr(wt), db1_part.data_ptr(),
+            db2_part.data_ptr(), _ptr(db_tmp), dw1_part.data_ptr(),
+            dw2_part.data_ptr(),
+            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            n_pad, k, m, splits, parts, *_rates(rate1, rate2),
+            int(row_offset), *(hidden or (0, 0)), _build.stream_of(x2))
     _build.check("ffn", rc, "FFN backward kernels")
     return dx[:n], dw1, db1, dw2, db2
 
@@ -244,6 +320,8 @@ class _FfnResidual(torch.autograd.Function):
             out = _launch_fwd(x2, res2, w1c, b1f, w2c, b2f, seeds, rate1,
                               rate2, row_offset=row_offset, hidden=hidden)
             ffn_residual.launches += 1
+            ffn_residual.launches_by_design[
+                ffn_plan(cd, k, w1c.shape[1]).design] += 1
         ctx.save_for_backward(x2, w1c, b1f, w2c, seeds)
         ctx.rates, ctx.row_offset = (rate1, rate2), row_offset
         ctx.hidden, ctx.has = hidden, (res is not None, b2 is not None)
@@ -263,6 +341,8 @@ class _FfnResidual(torch.autograd.Function):
             grads = _launch_bwd(x2, dy2, w1c, b1f, w2c, seeds, *ctx.rates,
                                 row_offset=ctx.row_offset, hidden=ctx.hidden)
             ffn_residual.launches_bwd += 1
+            ffn_residual.launches_bwd_by_design[
+                ffn_plan(x2.dtype, *w1c.shape).design] += 1
         dx, dw1, db1, dw2, db2 = grads
         tw1, tb1, tw2, tb2 = ctx.dtypes
         has_res, has_b2 = ctx.has
@@ -308,9 +388,12 @@ def ffn_residual(x: torch.Tensor, res: torch.Tensor | None,
 
 
 # launches of the forward kernel and of the backward kernels (one count for
-# the row, weight and reduction kernels of one backward pass)
+# the row, weight and reduction kernels of one backward pass), in all and by
+# the design (ffn_plan) that took them
 ffn_residual.launches = 0
 ffn_residual.launches_bwd = 0
+ffn_residual.launches_by_design = dict.fromkeys(DESIGNS, 0)
+ffn_residual.launches_bwd_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def debug_masks(n: int, m: int, k: int, seeds: torch.Tensor, rate1: float,

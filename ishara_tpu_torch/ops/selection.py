@@ -49,10 +49,10 @@ times (``conv_module_kernel_rows``, ``ffn_selection_times``; NVIDIA H100
 * ``conv_module_fused``: the kernel (time tiles with a halo) 3.4413 against
   the composition's 3.9721 at T 176 -- True, flipped from False; 8.8953
   against 9.6932 at T 512 -- True;
-* ``ffn_dropout_kernel`` (hidden 512, rates 0.4 / 0.4): the kernel 0.8889
-  against the composition's 0.5671 at T 176 and 2.3298 against 1.3423 at
-  T 512. The kernel still loses; both rows keep it until its re-port is
-  done (ROADMAP.md Queue 2: a row keeps the kernel until then).
+* ``ffn_dropout_kernel`` (hidden 512, rates 0.4 / 0.4): the kernel (its
+  ``wgmma`` design) 0.5291 against the composition's 0.5722 at T 176 and
+  1.2684 against 1.3707 at T 512 -- True at both (the earlier ``mma.sync``
+  kernels lost, 0.8889 against 0.5671 and 2.3298 against 1.3423).
 
 **Tensor parallelism** (the layer runs its slice of the heads or of the
 hidden columns, :mod:`ishara_tpu_torch.parallel.tp`) reads the same rows:

@@ -24,6 +24,7 @@ dequantized weights), the JAX package's own tolerance for its fused forward.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -653,6 +654,162 @@ def test_ffn_kernel_on_a_slice_of_the_hidden(dtype, n, k, m):
     with pytest.raises(ValueError, match="partial sum"):
         fk.ffn_residual(x, zero, w1, b1, w2, b2, seeds, 0.3, 0.0, 0,
                         (2 * m, 0))
+
+
+def _k4_by_design(fk):
+    return (dict(fk.ffn_residual.launches_by_design),
+            dict(fk.ffn_residual.launches_bwd_by_design))
+
+
+def _k4_took(fk, before, design):
+    """The launches since ``before`` were one forward and one backward, both
+    on ``design``."""
+    after = _k4_by_design(fk)
+    for b, a in zip(before, after):
+        assert {d: a[d] - b[d] for d in a} == {
+            d: int(d == design) for d in a}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [45056, 100, 515, 45056 - 37])
+def test_ffn_wgmma_design_matches_plain(n):
+    """K4's wgmma design at the flagship's widths (bf16, K 256, hidden 512,
+    rates 0.4 / 0.4): the flagship step's 45056 rows and row counts off the
+    128-row tile (TMA reads the rows past N as zeros; nothing is padded);
+    forward and every gradient against the plain version, a second launch
+    bit for bit, and both launches on the wgmma design."""
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    k, m, tol = 256, 512, 2e-2
+    assert fk.ffn_plan(torch.bfloat16, k, m).design == "wgmma"
+    g = torch.Generator(device="cuda").manual_seed(n)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    x = rand(n, k).to(torch.bfloat16).requires_grad_()
+    res = rand(n, k).to(torch.bfloat16).requires_grad_()
+    dy = rand(n, k).to(torch.bfloat16)
+    params = [rand(k, m, scale=k ** -0.5), rand(m, scale=0.1),
+              rand(m, k, scale=m ** -0.5), rand(k, scale=0.1)]
+    for p in params:
+        p.requires_grad_()
+    seeds = torch.tensor([11, 12], dtype=torch.int32, device="cuda")
+    before = _k4_by_design(fk)
+    out = fk.ffn_residual(x, res, *params, seeds, 0.4, 0.4)
+    grads = torch.autograd.grad(out, [x, res] + params, dy)
+    torch.cuda.synchronize()
+    _k4_took(fk, before, "wgmma")
+    w1, b1, w2, b2 = (p.detach() for p in params)
+    w1c, w2c = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    want = fk.ffn_forward_plain(x.detach(), res.detach(), w1c, b1, w2c, b2,
+                                seeds, 0.4, 0.4)
+    rdx, rdw1, rdb1, rdw2, rdb2 = fk.ffn_backward_plain(
+        x.detach(), dy, w1c, b1, w2c, seeds, 0.4, 0.4)
+    _close(out, want, tol)
+    for a, b in zip(grads, (rdx, dy, rdw1, rdb1, rdw2, rdb2)):
+        _close(a, b, tol)
+    out2 = fk.ffn_residual(x, res, *params, seeds, 0.4, 0.4)
+    again = torch.autograd.grad(out2, [x] + params, dy)
+    assert torch.equal(out, out2)
+    for a, b in zip(again, (grads[0],) + grads[2:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ffn_wgmma_design_on_a_slice_of_the_hidden():
+    """A tensor-parallel rank's half of the flagship's hidden (256 of 512
+    columns, bf16, rows offset) on the wgmma design: the partial sums equal
+    the plain version's, and summed over the ranks with the bias they are
+    the whole launch's branch, forward and dx."""
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    n, k, m, tol, roff = 300, 256, 512, 2e-2, 37
+    assert fk.ffn_plan(torch.bfloat16, k, m // 2).design == "wgmma"
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    x = rand(n, k).to(torch.bfloat16).requires_grad_()
+    dy = rand(n, k).to(torch.bfloat16)
+    w1, b1 = rand(k, m, scale=k ** -0.5), rand(m, scale=0.1)
+    w2, b2 = rand(m, k, scale=m ** -0.5), rand(k, scale=0.1)
+    seeds = torch.tensor([9, 10], dtype=torch.int32, device="cuda")
+    zero = torch.zeros_like(x)
+    full = fk.ffn_residual(x, zero, w1, b1, w2, b2, seeds, 0.3, 0.0, roff)
+    fdx = torch.autograd.grad(full, x, dy)[0]
+    total, dx_sum = 0.0, 0.0
+    for part in range(2):
+        cols = slice(part * m // 2, (part + 1) * m // 2)
+        p = [w1[:, cols].clone().requires_grad_(),
+             b1[cols].clone().requires_grad_(),
+             w2[cols].clone().requires_grad_()]
+        hidden = (m, part * m // 2)
+        before = _k4_by_design(fk)
+        out = fk.ffn_residual(x, None, p[0], p[1], p[2], None, seeds, 0.3,
+                              0.0, roff, hidden)
+        grads = torch.autograd.grad(out, [x] + p, dy)
+        torch.cuda.synchronize()
+        _k4_took(fk, before, "wgmma")
+        xd = x.detach()
+        w1c, w2c = p[0].detach().to(torch.bfloat16), \
+            p[2].detach().to(torch.bfloat16)
+        want = fk.ffn_forward_plain(xd, None, w1c, p[1].detach(), w2c, None,
+                                    seeds, 0.3, 0.0, row_offset=roff,
+                                    hidden=hidden)
+        rdx, rdw1, rdb1, rdw2, _ = fk.ffn_backward_plain(
+            xd, dy, w1c, p[1].detach(), w2c, seeds, 0.3, 0.0,
+            row_offset=roff, hidden=hidden)
+        _close(out, want, tol)
+        for a, b in zip(grads, (rdx, rdw1, rdb1, rdw2)):
+            _close(a, b, tol)
+        total = total + out.float()
+        dx_sum = dx_sum + grads[0].float()
+    _close(total + b2, full.float(), tol)
+    _close(dx_sum, fdx.float(), tol)
+
+
+@pytest.mark.cuda
+def test_ffn_plan_matches_the_c_plan():
+    """``ffn_plan`` mirrors csrc/ffn.cu's own rule (``ishara_ffn_plan``)
+    at every shape of the CPU tests' table."""
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for k in (20, 36, 64, 70, 128, 192, 256, 320, 384, 512, 768):
+            for m in (36, 64, 96, 100, 128, 256, 512, 768, 1024):
+                assert fk.ffn_plan(dtype, k, m) == fk.c_plan(dtype, k, m)
+
+
+@pytest.mark.cuda
+def test_ffn_wgmma_kernels_fit_their_registers():
+    """ptxas's own report (``-Xptxas -v``, kept in the build's log) of every
+    instance of the wgmma design's two kernels: at most 255 registers a
+    thread, no stack frame, no spills and no serialised wgmma (C7512), so
+    the accumulators that ``ffn_plan``'s ``acc_regs`` counts stay in the
+    registers setmaxnreg gives a consumer."""
+    _card()
+    from ishara_tpu_torch.ops import _build
+
+    _build.build()
+    log = _build.build_log("ffn")
+    assert not [line for line in log.splitlines()
+                if "C7512" in line and "_wg_kernel" in line]
+    reports = {}
+    for entry in log.split("Function properties for ")[1:]:
+        name = entry.split(maxsplit=1)[0]
+        if "ffn_fwd_wg_kernel" in name or "ffn_bwd_wg_kernel" in name:
+            reports[name] = entry.split("Compile time")[0]
+    assert len(reports) == 8   # two kernels at K 64, 128, 192 and 256
+    for name, report in reports.items():
+        assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill " \
+            "loads" in report, (name, report)
+        regs = int(re.search(r"Used (\d+) registers", report).group(1))
+        assert regs <= 255, (name, report)
 
 
 @pytest.mark.cuda
