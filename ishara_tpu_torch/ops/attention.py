@@ -9,15 +9,21 @@ says); padding is an additive
 normalised weights with the row sum taken from the undropped ones; the
 forward saves the row logsumexp and the backward recomputes the
 probabilities from it (``dS = P * (keep' * dP - delta)``) instead of
-storing them. On a CUDA tensor it launches ``csrc/attention.cu`` (on the
-tensor-core core of ``csrc/attention_tc.cuh``) or raises; on a CPU tensor
-it runs the plain version beside it (:func:`mhsa_forward_plain`,
-:func:`mhsa_backward_plain`): the same arithmetic, f32 on values widened
-from ``q``'s dtype, one rounding on the way out.
+storing them. On a CUDA tensor it launches ``csrc/attention.cu`` or
+raises; on a CPU tensor it runs the plain version beside it
+(:func:`mhsa_forward_plain`, :func:`mhsa_backward_plain`): the same
+arithmetic, f32 on values widened from ``q``'s dtype, one rounding on the
+way out. The forward runs on the tensor-core core of
+``csrc/attention_tc.cuh``; the backward takes the design that
+:func:`attention_plan` names: ``"wgmma"`` (bf16 heads of 32 and 64 whose
+q, k, v TMA can read: one pass of ``csrc/attention_bwd.cuh`` on the keep
+bits that the forward then also writes, :func:`unpack_keep_bits`) or
+``"general"`` (the two passes of the core, which regenerate the mask).
 
 The dropout mask is the Philox function of :mod:`.dropout` under the site's
 ``seed``, with the flat index into ``[B, H, T, T]`` as the counter: every
-(batch, head, query, key) has its own word, and the backward regenerates it.
+(batch, head, query, key) has its own word, and the backward regenerates it
+(the wgmma design's backward reads the forward's bits instead).
 ``offset`` is added to every index: a process holding rows ``[r0, r1)`` of
 the batch passes ``r0 * H * T * T`` and draws the whole batch's mask there.
 A tensor-parallel rank holds some of each row's heads, a strided slice of
@@ -42,6 +48,85 @@ NEG = -1e30
 MAX_T = 384          # the reference's routing to this kernel
 HEAD_CHUNK = 256     # heads wider than this run in chunks of this width
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the backward's designs and the rule that picks one, mirrored from
+# csrc/attention_bwd.cuh's k3wg::plan (which alone owns the wgmma design's
+# layout: its consumers, key-tile groups, shared memory and registers)
+DESIGNS = ("general", "wgmma")
+_WG_HEADS = (32, 64)           # head widths of the wgmma design
+
+
+def attention_plan(dtype, T: int, Dh: int, aligned: bool) -> str:
+    """Which backward design ``csrc/attention.cu`` runs for ``[B, H, T,
+    Dh]`` heads of ``dtype``: a rule on these alone, the same as the C
+    ``k3wg::plan`` (``ishara_attention_plan``). ``aligned``: q, k, v start
+    on 16 bytes and their strides over b, h, t are multiples of 8 elements
+    (:func:`tma_aligned`).
+
+    * ``"wgmma"``: bf16, ``Dh`` 32 or 64, ``1 <= T <= 384``, aligned -- one
+      block a head, on the forward's keep bits;
+    * ``"general"``: everything else (the two mma.sync passes)."""
+    if dtype == torch.bfloat16 and Dh in _WG_HEADS and 1 <= T <= MAX_T \
+            and aligned:
+        return "wgmma"
+    return "general"
+
+
+def c_plan(dtype, T: int, Dh: int, aligned: bool) -> dict:
+    """``csrc/attention.cu``'s own plan (needs the built library): its
+    ``design`` (as :func:`attention_plan` names it) and, for the wgmma
+    design, ``consumers`` (warpgroups of 64 keys), ``groups`` (key-tile
+    groups a block walks), ``stages``, ``ds_bufs``, ``smem`` (bytes a
+    block) and ``reg_limit`` (setmaxnreg of a consumer thread)."""
+    out = (ctypes.c_longlong * 7)()
+    fn = _build.function("attention", "ishara_attention_plan",
+                         [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    _build.check("attention", fn(_DTYPE_CODE.get(dtype, 2), T, Dh,
+                                 int(aligned), ctypes.addressof(out)),
+                 "attention plan")
+    keys = ("consumers", "groups", "stages", "ds_bufs", "smem", "reg_limit")
+    return {"design": DESIGNS[out[0]],
+            **{key: int(v) for key, v in zip(keys, out[1:])}}
+
+
+def tma_aligned(*tensors) -> bool:
+    """Whether each ``[B, H, T, Dh]`` tensor starts on 16 bytes with strides
+    over b, h, t of 16-byte multiples, so that TMA can read its rows."""
+    for t in tensors:
+        if t.data_ptr() % 16 or t.stride(3) != 1 or any(
+                t.stride(i) * t.element_size() % 16 for i in range(3)):
+            return False
+    return True
+
+
+def keep_words(T: int) -> int:
+    """32-bit words a query row of the keep bits holds: ``ceil(T / 32)``."""
+    return -(-T // 32)
+
+
+def pack_keep_bits(keep: torch.Tensor) -> torch.Tensor:
+    """Bool ``[..., T, T]`` keep mask -> int32 ``[..., T, ceil(T / 32)]``
+    words in the layout the forward kernel writes: word ``c`` of query row
+    ``r`` holds keys ``32 c .. 32 c + 31``, key ``k`` at bit ``k % 32``;
+    the bits past ``T`` are 0."""
+    T = keep.shape[-1]
+    W = keep_words(T)
+    padded = torch.zeros((*keep.shape[:-1], W * 32), dtype=torch.int64,
+                         device=keep.device)
+    padded[..., :T] = keep.to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=keep.device) \
+        << torch.arange(32, device=keep.device)
+    words = (padded.reshape(*keep.shape[:-1], W, 32) * weights).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def unpack_keep_bits(bits: torch.Tensor, T: int) -> torch.Tensor:
+    """The keep mask, bool ``[..., T, T]``, of words in
+    :func:`pack_keep_bits`'s layout (the forward kernel's)."""
+    words = bits.to(torch.int64) & 0xFFFFFFFF
+    keep = (words[..., None] >> torch.arange(32, device=bits.device)) & 1
+    return keep.reshape(*bits.shape[:-1], -1)[..., :T].bool()
 
 
 def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -159,7 +244,18 @@ def _mask_heads(shape, runs) -> int:
     return stride // (T * T)
 
 
+def backward_plan(q, k, v) -> str:
+    """:func:`attention_plan` of a call on these q, k, v (as the launches
+    take them: unit stride over the head dimension)."""
+    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    return attention_plan(q.dtype, q.shape[2], q.shape[3],
+                          tma_aligned(q, k, v))
+
+
 def _launch_fwd(q, k, v, bias, seed, scale, rate, offset=0, runs=None):
+    """(o, lse, bits): bits are the keep decisions, int32 ``[B, H, T,
+    ceil(T / 32)]``, where the backward's plan is the wgmma design and
+    ``rate > 0``, else None."""
     _check_cuda(q, k, v, bias, seed)
     heads = _mask_heads(q.shape, runs)
     B, H, T, Dh = q.shape
@@ -167,41 +263,53 @@ def _launch_fwd(q, k, v, bias, seed, scale, rate, offset=0, runs=None):
     bias = bias.contiguous()
     o = torch.empty((B, H, T, Dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    bits = None
+    if rate > 0.0 and backward_plan(q, k, v) == "wgmma":
+        bits = torch.empty((B, H, T, keep_words(T)), dtype=torch.int32,
+                           device=q.device)
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     S3 = ctypes.POINTER(ctypes.c_longlong)
     fn = _build.function("attention", "ishara_attention_fwd", [
-        I, P, P, P, S3, S3, S3, P, P, P, P, I, I, I, I, F, U, F,
+        I, P, P, P, S3, S3, S3, P, P, P, P, P, I, I, I, I, F, U, F,
         ctypes.c_ulonglong, I, I, P])
     rc = fn(_build.device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _strides3(q), _strides3(k), _strides3(v), bias.data_ptr(),
-            seed.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, T, Dh,
+            seed.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            None if bits is None else bits.data_ptr(), B, H, T, Dh,
             scale, threshold_of(rate), 1.0 / (1.0 - rate), int(offset),
             heads, _DTYPE_CODE[q.dtype], _build.stream_of(q))
     _build.check("attention", rc, "attention forward kernel")
-    return o, lse
+    return o, lse, bits
 
 
 def _launch_bwd(q, k, v, bias, seed, o, lse, d_o, scale, rate, offset=0,
-                runs=None):
+                runs=None, bits=None):
+    """(dq, dk, dv) by the plan's design; the wgmma design reads ``bits``,
+    the forward's (None when ``rate`` is 0)."""
     B, H, T, Dh = q.shape
     heads = _mask_heads(q.shape, runs)
     q, k, v, d_o = (_unit_last(t) for t in (q, k, v, d_o))
     d_o = d_o.to(q.dtype)
+    wgmma = backward_plan(q, k, v) == "wgmma"
+    if wgmma and not tma_aligned(d_o):
+        d_o = d_o.contiguous()
     dq, dk, dv = (torch.empty((B, H, T, Dh), dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    delta = None if wgmma else torch.empty((B, H, T), dtype=torch.float32,
+                                           device=q.device)
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     S3 = ctypes.POINTER(ctypes.c_longlong)
     fn = _build.function("attention", "ishara_attention_bwd", [
-        I, P, P, P, P, S3, S3, S3, S3, P, P, P, P, P, P, P, P, I, I, I, I, F,
-        U, F, ctypes.c_ulonglong, I, I, P])
+        I, P, P, P, P, S3, S3, S3, S3, P, P, P, P, P, P, P, P, P, I, I, I, I,
+        F, U, F, ctypes.c_ulonglong, I, I, P])
     rc = fn(_build.device_index(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             d_o.data_ptr(), _strides3(q), _strides3(k), _strides3(v),
             _strides3(d_o), bias.data_ptr(), seed.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, T, Dh, scale, threshold_of(rate),
-            1.0 / (1.0 - rate), int(offset), heads, _DTYPE_CODE[q.dtype],
-            _build.stream_of(q))
+            lse.data_ptr(), None if bits is None else bits.data_ptr(),
+            None if delta is None else delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, T, Dh, scale,
+            threshold_of(rate), 1.0 / (1.0 - rate), int(offset), heads,
+            _DTYPE_CODE[q.dtype], _build.stream_of(q))
     _build.check("attention", rc, "attention backward kernel")
     return dq, dk, dv
 
@@ -209,21 +317,22 @@ def _launch_bwd(q, k, v, bias, seed, o, lse, d_o, scale, rate, offset=0,
 class _FlashMhsa(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, rate, offset, runs):
+        bits = None
         if q.device.type == "cpu":
             o, lse = mhsa_forward_plain(q, k, v, bias, seed, scale, rate,
                                         offset=offset, runs=runs)
         else:
-            o, lse = _launch_fwd(q, k, v, bias, seed, scale, rate,
-                                 offset=offset, runs=runs)
+            o, lse, bits = _launch_fwd(q, k, v, bias, seed, scale, rate,
+                                       offset=offset, runs=runs)
             flash_mhsa.launches += 1
-        ctx.save_for_backward(q, k, v, bias, seed, o, lse)
+        ctx.save_for_backward(q, k, v, bias, seed, o, lse, bits)
         ctx.scale, ctx.rate = scale, rate
         ctx.offset, ctx.runs = offset, runs
         return o
 
     @staticmethod
     def backward(ctx, d_o):
-        q, k, v, bias, seed, o, lse = ctx.saved_tensors
+        q, k, v, bias, seed, o, lse, bits = ctx.saved_tensors
         if q.device.type == "cpu":
             grads = mhsa_backward_plain(q, k, v, bias, seed, o, lse, d_o,
                                         ctx.scale, ctx.rate,
@@ -231,8 +340,10 @@ class _FlashMhsa(torch.autograd.Function):
         else:
             grads = _launch_bwd(q, k, v, bias.contiguous(), seed, o, lse,
                                 d_o, ctx.scale, ctx.rate, offset=ctx.offset,
-                                runs=ctx.runs)
+                                runs=ctx.runs, bits=bits)
             flash_mhsa.launches_bwd += 1
+            flash_mhsa.launches_bwd_by_design[
+                backward_plan(q, k, v)] += 1
         return (*grads, None, None, None, None, None, None)
 
 
@@ -262,6 +373,9 @@ def flash_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             float(dropout_rate), int(offset), runs)
 
 
-# launches of the forward and of the backward kernel
+# launches of the forward and of the backward kernels (one count for the
+# two passes of the general design), in all and, for the backward, by the
+# design (attention_plan) that took them
 flash_mhsa.launches = 0
 flash_mhsa.launches_bwd = 0
+flash_mhsa.launches_bwd_by_design = dict.fromkeys(DESIGNS, 0)

@@ -22,30 +22,65 @@
 // (Tc = T).
 //
 // Bound: bytes. At B 256, H 8, T 176, Dh 32 in bf16 the forward moves
-// 94 MB (0.028 ms at 3.35 TB/s) for 8 GFLOP (0.008 ms on the tensor cores)
-// and the backward 186 MB for 20 GFLOP. Design: the tensor-core core of
-// attention_tc.cuh (64-query tiles of 4 warps, 64-key tiles by cp.async,
-// mma.sync bf16 / 3xTF32, the softmax and P in registers); the Philox words
-// are computed once per 4 weights and shared by shuffles, since at T 176
-// they cost about as many instructions as the products.
+// 94 MB (0.028 ms at 3.35 TB/s; 103 MB with the keep bits) for 8 GFLOP
+// (0.008 ms on the tensor cores) and the backward 186 MB for 20 GFLOP.
+// Design: the forward on the tensor-core core of attention_tc.cuh (64-query
+// tiles of 4 warps, 64-key tiles by cp.async, mma.sync bf16 / 3xTF32, the
+// softmax and P in registers; the Philox words computed once per 4 weights
+// and shared by shuffles). The backward takes one of two designs by a rule
+// on (dtype, T, Dh, whether TMA can read q, k, v) alone, k3wg::plan,
+// mirrored by attention_plan in ops/attention.py:
+// - wgmma (bf16, heads of 32 and 64): one pass of attention_bwd.cuh on the
+//   keep bits the forward then also writes (the caller passes their
+//   buffer to both launches);
+// - general (everything else): the two passes of attention_tc.cuh, which
+//   regenerate the Philox mask.
+// A launch whose bits do not suit its design is refused; nothing falls
+// back.
 
 #include "attention_tc.cuh"
+#include "attention_bwd.cuh"
+
+namespace {
+
+bool qkv_tma_ok(const void* q, const void* k, const void* v,
+                const long long* qs, const long long* ks,
+                const long long* vs) {
+  return k3wg::tma_ok(q, qs) && k3wg::tma_ok(k, ks) && k3wg::tma_ok(v, vs);
+}
+
+}  // namespace
 
 extern "C" {
+
+// The backward's plan of (dtype, T, Dh, aligned) into out[0..6]: design
+// (0 general, 1 wgmma), consumers, groups, stages, ds_bufs, smem (bytes),
+// reg_limit. ops/attention.py's attention_plan gives the same design; the
+// layout is this plan's alone.
+int ishara_attention_plan(int dtype, int T, int Dh, int aligned,
+                          long long* out) {
+  const k3wg::Plan p = k3wg::plan(dtype, T, Dh, aligned);
+  const long long v[7] = {p.design, p.consumers, p.groups, p.stages,
+                          p.ds_bufs, (long long)p.smem, p.reg_limit};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
 
 // o [B, H, T, Dh] and lse [B, H, T] from q, k, v (element strides over
 // b, h, t in qs, ks, vs; unit stride over Dh), bias [B, T] f32, one int32
 // seed on the device, the mask's index offset and heads a batch row
 // (mask_heads, 0: H). dtype 0 = f32, 1 = bf16.
-// threshold 0 means no dropout.
+// threshold 0 means no dropout. bits: null, or (where the plan takes the
+// wgmma backward and threshold > 0) uint32 [B, H, T, ceil(T / 32)] that
+// receives the keep decisions (attention_bwd.cuh's layout).
 int ishara_attention_fwd(int device, const void* q, const void* k,
                          const void* v, const long long* qs,
                          const long long* ks, const long long* vs,
                          const void* bias, const void* seed, void* o,
-                         void* lse, int B, int H, int T, int Dh, float scale,
-                         unsigned int threshold, float keep_scale,
-                         unsigned long long offset, int mask_heads, int dtype,
-                         void* stream) {
+                         void* lse, void* bits, int B, int H, int T, int Dh,
+                         float scale, unsigned int threshold,
+                         float keep_scale, unsigned long long offset,
+                         int mask_heads, int dtype, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   tc::Params P{};
@@ -65,24 +100,60 @@ int ishara_attention_fwd(int device, const void* q, const void* k,
   P.Hm = mask_heads;
   if (mask_heads != 0 && mask_heads < H) return (int)cudaErrorInvalidValue;
   if (T > 384) return (int)cudaErrorInvalidValue;
+  if (bits) {
+    const k3wg::Plan p =
+        k3wg::plan(dtype, T, Dh, qkv_tma_ok(q, k, v, qs, ks, vs));
+    if (p.design != k3wg::WGMMA || threshold == 0u)
+      return (int)cudaErrorInvalidValue;
+    P.bits = (uint32_t*)bits;
+  }
   return tc::dispatch(P, dtype, false, stream);
 }
 
 // dq, dk, dv [B, H, T, Dh] contiguous from the forward's inputs, its o and
-// lse, and d_o (strides dos); delta is f32 scratch [B, H, T] that the dQ
-// launch fills and the dK / dV launch reads.
+// lse, and d_o (strides dos). On the general design delta is f32 scratch
+// [B, H, T] that the dQ launch fills and the dK / dV launch reads, and bits
+// must be null; on the wgmma design (k3wg::plan) delta is unused, bits are
+// the forward's (null exactly when threshold is 0) and d_o's rows must be
+// on 16 bytes as q's.
 int ishara_attention_bwd(int device, const void* q, const void* k,
                          const void* v, const void* d_o, const long long* qs,
                          const long long* ks, const long long* vs,
                          const long long* dos, const void* bias,
                          const void* seed, const void* o, const void* lse,
-                         void* delta, void* dq, void* dk, void* dv, int B,
-                         int H, int T, int Dh, float scale,
+                         const void* bits, void* delta, void* dq, void* dk,
+                         void* dv, int B, int H, int T, int Dh, float scale,
                          unsigned int threshold, float keep_scale,
                          unsigned long long offset, int mask_heads, int dtype,
                          void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  const k3wg::Plan p =
+      k3wg::plan(dtype, T, Dh, qkv_tma_ok(q, k, v, qs, ks, vs));
+  if (p.design == k3wg::WGMMA) {
+    if ((bits != nullptr) != (threshold != 0u) || !k3wg::tma_ok(d_o, dos) ||
+        (long long)B * H >= (1LL << 31) || B <= 0 || H <= 0)
+      return (int)cudaErrorInvalidValue;
+    k3wg::Args a{};
+    a.o = (const __nv_bfloat16*)o;
+    a.d_o = (const __nv_bfloat16*)d_o;
+    tc::set_strides(a.dos, dos);
+    a.bias = (const float*)bias;
+    a.lse = (const float*)lse;
+    a.bits = (const uint32_t*)bits;
+    a.dq = (__nv_bfloat16*)dq;
+    a.dk = (__nv_bfloat16*)dk;
+    a.dv = (__nv_bfloat16*)dv;
+    a.H = H, a.T = T;
+    a.scale = scale;
+    a.keep_scale = keep_scale;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return (int)(Dh == 32 ? k3wg::launch<32>(p, q, k, v, d_o, qs, ks, vs,
+                                             dos, a, B, s)
+                          : k3wg::launch<64>(p, q, k, v, d_o, qs, ks, vs,
+                                             dos, a, B, s));
+  }
+  if (bits) return (int)cudaErrorInvalidValue;
   tc::Params P{};
   P.q = q, P.k = k, P.v = v, P.d_o = d_o;
   tc::set_strides(P.qs, qs);

@@ -19,7 +19,11 @@
 // - MN-major (the contraction runs down the rows; transpose bit set): a k16
 //   step starts 16 rows (2048 bytes) further on.
 // With N = 64 an operand is one swizzle atom wide, so the descriptors need
-// only the 8-row stride (1024 bytes).
+// only the 8-row stride (1024 bytes). Tiles of [rows][32] bf16 (64-byte
+// rows, the attention backward's heads of 32) use the 64-byte swizzle the
+// same way: chunk q of row r at q ^ ((r / 2) % 4), 8-row groups 512 bytes
+// apart, a K-major k16 step 32 bytes into the row, an MN-major one 16 rows
+// (1024 bytes) on, and an MN-major operand of N = 32 is one atom wide.
 
 #pragma once
 
@@ -120,12 +124,31 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box at (c0 innermost, c1, c2, c3) of a 4-D `map`, as tma_load.
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---- wgmma ----------------------------------------------------------------
 
 // A descriptor of a 128-byte-swizzled operand at p (see the header note).
 __device__ __forceinline__ uint64_t desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// The same for a 64-byte-swizzled operand (64-byte rows, 8-row groups 512
+// bytes apart; swizzle mode 2).
+__device__ __forceinline__ uint64_t desc64(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -147,14 +170,19 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+__device__ __forceinline__ void fence_regs(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d (+)= A . B for a 64 x 64 tile, k 16: A [64][16] and B from shared
-// memory; TB 1: B is MN-major (transposed). scale_d 0 overwrites d.
-template <int TB>
+// memory; TB 1: B is MN-major (transposed), TA 1: A is. scale_d 0
+// overwrites d.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t desc_a,
                                        uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -162,7 +190,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t desc_a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n\t}\n"
+      "%29, %30, %31}, %32, %33, p, 1, 1, %36, %35;\n\t}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -170,7 +198,23 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB), "n"(TA));
+}
+
+// The same for a 64 x 32 tile (m64n32k16, 16 accumulators).
+template <int TB, int TA = 0>
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t desc_a,
+                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %18, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, %20, %19;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // The same with A from registers: the m16n8k16 A fragment of each warp's
@@ -192,6 +236,23 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TB));
+}
+
+// The same for a 64 x 32 tile (m64n32k16, 16 accumulators).
+template <int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %21, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(TB));
 }
@@ -240,6 +301,32 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
                         const_cast<void*>(base), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 tensor of 4 dimensions (dims[0] innermost and dense; strides[i]:
+// the byte stride of dims[i + 1], each a multiple of 16) at base, read in
+// boxes of [box_rows][box_cols] over its two inner dimensions with the
+// 128-byte (box_cols * 2 = 128) or 64-byte (= 64) swizzle; box_cols may
+// exceed dims[0] and reads past any edge give zeros.
+inline cudaError_t tensor_map4(CUtensorMap* map, const void* base,
+                               const uint64_t dims[4],
+                               const uint64_t strides[3], uint32_t box_rows,
+                               uint32_t box_cols) {
+  EncodeTiled fn;
+  const cudaError_t e = encode_fn(&fn);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t box[4] = {box_cols, box_rows, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), d, st, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

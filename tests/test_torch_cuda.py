@@ -407,15 +407,27 @@ def test_dropout_kernel_on_a_strided_slice(shape, dim, dtype):
 @pytest.mark.parametrize("T,Dh", [(23, 16), (24, 8), (200, 32), (384, 16),
                                   (176, 64), (301, 64), (384, 64),
                                   (176, 128), (384, 128), (45, 256),
-                                  (33, 12)])
+                                  (33, 12), (176, 48), (1, 32), (1, 64),
+                                  (23, 32), (23, 64), (64, 32), (64, 64),
+                                  (176, 32), (193, 32), (193, 64),
+                                  (384, 32)])
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 def test_attention_kernels_match_plain(T, Dh, rate, dtype, tol):
     """T not a multiple of 4 (masks straddle Philox blocks), one to six
     64-key tiles, heads of 8 to 256 (each zero-padded to 32, 64, 128 or
     256; 12 takes the narrow copy path), a fully masked row; forward and
-    dq, dk, dv."""
+    dq, dk, dv. The backward takes the wgmma design (csrc/attention_bwd.cuh:
+    one to three key-tile groups from T 1 to 384) at bf16 heads of 32 and
+    64, there on the keep bits that the forward wrote (bit for bit
+    ``keep_mask``'s, zero past T), and the general passes otherwise (f32;
+    bf16 48 pads to 64 there). At T 1 the softmax over one key has no
+    gradient: dq and dk are 0 up to the rounding of ``delta = dO . O``
+    against ``dP``, so there both are held within the tolerance of the
+    size of those terms, max |dO . O| * max |k| * scale, instead of to each
+    other's residue."""
     _card()
     from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops.dropout import keep_mask
 
     B, H = 2, 3
     g = torch.Generator(device="cuda").manual_seed(T)
@@ -428,14 +440,33 @@ def test_attention_kernels_match_plain(T, Dh, rate, dtype, tol):
     seed = torch.tensor([55], dtype=torch.int32, device="cuda")
     scale = (H * Dh) ** -0.5
     q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    design = "wgmma" if dtype == torch.bfloat16 and Dh in (32, 64) \
+        else "general"
+    assert at.backward_plan(q, k, v) == design
+    before = dict(at.flash_mhsa.launches_bwd_by_design)
     o = at.flash_mhsa(q, k, v, bias, seed, scale, rate)
     grads = torch.autograd.grad(o, (q, k, v), d_o)
     torch.cuda.synchronize()
+    assert at.flash_mhsa.launches_bwd_by_design == dict(
+        before, **{design: before[design] + 1})
     with torch.no_grad():
+        _, _, bits = at._launch_fwd(q, k, v, bias, seed, scale, rate)
         ro, lse = at.mhsa_forward_plain(q, k, v, bias, seed, scale, rate)
         rgrads = at.mhsa_backward_plain(q, k, v, bias, seed, ro, lse, d_o,
                                         scale, rate)
+    if design == "wgmma" and rate > 0.0:
+        assert torch.equal(bits, at.pack_keep_bits(
+            keep_mask(seed, (B, H, T, T), rate)))
+    else:
+        assert bits is None
     _close(o, ro, tol)
+    if T == 1:
+        terms = float((d_o.float() * ro.float()).sum(-1).abs().max()
+                      * k.detach().float().abs().max()) * scale
+        for a, b in zip(grads[:2], rgrads[:2]):
+            assert float(a.float().abs().max()) <= tol * terms
+            assert float(b.float().abs().max()) <= tol * terms
+        grads, rgrads = grads[2:], rgrads[2:]
     for a, b in zip(grads, rgrads):
         _close(a, b, tol)
 
@@ -445,9 +476,17 @@ def test_attention_kernels_match_plain(T, Dh, rate, dtype, tol):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T", [176, 23])
 def test_attention_kernel_on_a_rank_s_heads(T, dtype, tol):
-    """A tensor-parallel rank's heads (``runs``, rows offset too): the
-    kernel equals the plain version with the same runs, and the whole
-    launch's heads, forward and dq, dk, dv."""
+    """A tensor-parallel rank's heads (``runs``, rows offset too) and a
+    data-parallel shard's rows (an offset alone): the kernel equals the
+    plain version with the same offset and runs, and the whole launch's
+    rows and heads, forward and dq, dk, dv; heads of 16 (the general
+    backward) and of 32 (in bf16 the wgmma backward, on the bits that the
+    forward drew at those offsets)."""
+    for Dh in (16, 32):
+        _rank_s_heads(T, Dh, dtype, tol)
+
+
+def _rank_s_heads(T, Dh, dtype, tol):
     _card()
     from ishara_tpu_torch.ops import attention as at
     from ishara_tpu_torch.parallel.shard import (
@@ -456,7 +495,8 @@ def test_attention_kernel_on_a_rank_s_heads(T, dtype, tol):
         split_offset,
     )
 
-    B, H, Dh, parts, r0 = 3, 4, 16, 2, 1
+    B, H, parts, r0 = 3, 4, 2, 1
+    design = "wgmma" if dtype == torch.bfloat16 and Dh == 32 else "general"
     g = torch.Generator(device="cuda").manual_seed(T)
     qkv = torch.randn((B, T, H, 3 * Dh), generator=g, device="cuda").to(
         dtype).requires_grad_()
@@ -469,15 +509,20 @@ def test_attention_kernel_on_a_rank_s_heads(T, dtype, tol):
     o = at.flash_mhsa(q, k, v, bias, seed, scale, 0.3)
     full = torch.autograd.grad(o, (q, k, v), d_o)
     hl = H // parts
+    shards = [((slice(r0, None), slice(None)), r0 * H * T * T, None)]
     for part in range(parts):
-        sl = (slice(r0, None), slice(part * hl, (part + 1) * hl))
-        qs, ks, vs = (t.detach()[sl].clone().requires_grad_()
-                      for t in (q, k, v))
         with batch_shard(BatchShard(row0=r0, local=B - r0, rows=B)):
             off, runs = split_offset((B - r0, hl, T, T), parts, part, 3)
+        shards.append(((slice(r0, None), slice(part * hl, (part + 1) * hl)),
+                       off, runs))
+    for sl, off, runs in shards:
+        qs, ks, vs = (t.detach()[sl].clone().requires_grad_()
+                      for t in (q, k, v))
+        before = at.flash_mhsa.launches_bwd_by_design[design]
         os_ = at.flash_mhsa(qs, ks, vs, bias[r0:], seed, scale, 0.3, off,
                             runs)
         grads = torch.autograd.grad(os_, (qs, ks, vs), d_o[sl])
+        assert at.flash_mhsa.launches_bwd_by_design[design] == before + 1
         with torch.no_grad():
             ro, lse = at.mhsa_forward_plain(qs, ks, vs, bias[r0:], seed,
                                             scale, 0.3, offset=off,
@@ -492,6 +537,60 @@ def test_attention_kernel_on_a_rank_s_heads(T, dtype, tol):
             _close(a, c[sl], tol)
     with pytest.raises(ValueError, match="whole heads"):
         at.flash_mhsa(qs, ks, vs, bias[r0:], seed, scale, 0.3, 0, (7, 9))
+
+
+@pytest.mark.cuda
+def test_attention_plan_matches_the_c_plan():
+    """``attention_plan`` mirrors csrc/attention_bwd.cuh's own rule
+    (``ishara_attention_plan``) at every T of K3's range and the widths
+    around the wgmma design's; the C plan's wgmma layout covers every key
+    tile, fits a block's shared memory, and its registers (setmaxnreg) fit
+    a thread."""
+    _card()
+    from ishara_tpu_torch.ops import attention as at
+
+    last = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for Dh in (16, 32, 48, 64, 128):
+            for T in range(1, 386):
+                for aligned in (True, False):
+                    c = at.c_plan(dtype, T, Dh, aligned)
+                    assert at.attention_plan(dtype, T, Dh, aligned) \
+                        == c["design"], (dtype, T, Dh)
+                    if c["design"] != "wgmma":
+                        continue
+                    keys = c["groups"] * c["consumers"] * 64
+                    assert keys >= T > keys - c["consumers"] * 64, c
+                    assert last.get(Dh, 0) <= c["smem"] <= 227 * 1024, c
+                    assert c["reg_limit"] <= 255, c
+                    last[Dh] = c["smem"]
+
+
+@pytest.mark.cuda
+def test_attention_wgmma_kernels_fit_their_registers():
+    """ptxas's own report (``-Xptxas -v``, kept in the build's log) of the
+    wgmma backward's instances (heads of 32 and 64): at most 255 registers
+    a thread, no stack frame, no spills and no serialised wgmma (C7515,
+    C7512)."""
+    _card()
+    from ishara_tpu_torch.ops import _build
+
+    _build.build()
+    log = _build.build_log("attention")
+    assert not [line for line in log.splitlines()
+                if ("C7512" in line or "C7515" in line)
+                and "bwd_wg_kernel" in line]
+    reports = {}
+    for entry in log.split("Function properties for ")[1:]:
+        name = entry.split(maxsplit=1)[0]
+        if "bwd_wg_kernel" in name:
+            reports[name] = entry.split("Compile time")[0]
+    assert len(reports) == 2
+    for name, report in reports.items():
+        assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill " \
+            "loads" in report, (name, report)
+        regs = int(re.search(r"Used (\d+) registers", report).group(1))
+        assert regs <= 255, (name, report)
 
 
 @pytest.mark.cuda
@@ -946,30 +1045,34 @@ def test_wide_head_attention_kernels_match_plain(kernel, rate, Dh, dtype,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_backward_gives_the_same_bits_twice(kernel, dtype):
     """No atomics: a second backward (and a second forward) of K3 (dropout
-    on) and K8 on the same inputs equal the first bit for bit."""
+    on; heads of 64 and 32, which take the wgmma backward in bf16, dQ
+    summed over the key tiles in a fixed order) and K8 on the same inputs
+    equal the first bit for bit."""
     _card()
     from ishara_tpu_torch.ops import attention as at
     from ishara_tpu_torch.ops import attention_blocked as ab
 
-    B, H, T, Dh = 3, 2, 176, 64
-    g = torch.Generator(device="cuda").manual_seed(7)
-    qkv = torch.randn((B, T, H, 3 * Dh), generator=g, device="cuda").to(
-        dtype).requires_grad_()
-    d_o = torch.randn((B, H, T, Dh), generator=g, device="cuda").to(dtype)
-    bias = at.mask_to_bias(torch.rand((B, T), generator=g, device="cuda")
-                           > 0.2)
-    seed = torch.tensor([31], dtype=torch.int32, device="cuda")
+    for Dh in ((64, 32) if kernel == "flash_mhsa" else (64,)):
+        B, H, T = 3, 2, 176
+        g = torch.Generator(device="cuda").manual_seed(7)
+        qkv = torch.randn((B, T, H, 3 * Dh), generator=g, device="cuda").to(
+            dtype).requires_grad_()
+        d_o = torch.randn((B, H, T, Dh), generator=g, device="cuda").to(
+            dtype)
+        bias = at.mask_to_bias(torch.rand((B, T), generator=g,
+                                          device="cuda") > 0.2)
+        seed = torch.tensor([31], dtype=torch.int32, device="cuda")
 
-    def run():
-        q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
-        o = at.flash_mhsa(q, k, v, bias, seed, 0.1, 0.3) \
-            if kernel == "flash_mhsa" \
-            else ab.flash_mhsa_blocked(q, k, v, bias, 0.1, 64, 64)
-        return (o, *torch.autograd.grad(o, (q, k, v), d_o))
+        def run():
+            q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+            o = at.flash_mhsa(q, k, v, bias, seed, 0.1, 0.3) \
+                if kernel == "flash_mhsa" \
+                else ab.flash_mhsa_blocked(q, k, v, bias, 0.1, 64, 64)
+            return (o, *torch.autograd.grad(o, (q, k, v), d_o))
 
-    first, second = run(), run()
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+        first, second = run(), run()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def _conv_case(B, T, D, E, K, r, dtype, g):

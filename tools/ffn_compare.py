@@ -88,9 +88,10 @@ def step_ms(step, state, batch):
     return statistics.median(times)
 
 
-def step_device_ms(step, state, batch, n=5):
-    """The device's busy time a step and K4's own kernels' (``ffn_``) time a
-    step, over ``n`` steps under the profiler."""
+def step_device_ms(step, state, batch, n=5, names=("ffn_",)):
+    """The device's busy time a step and the time a step of the kernels
+    whose name holds one of ``names`` (K4's own, ``ffn_``, by default), over
+    ``n`` steps under the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -105,8 +106,8 @@ def step_device_ms(step, state, batch, n=5):
     busy = sum(t for _, t in rows) / n / 1e3
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
-    k4 = sum(t for key, t in rows if "ffn_" in key) / n / 1e3
-    return busy, k4
+    own = sum(t for key, t in rows if any(m in key for m in names)) / n / 1e3
+    return busy, own
 
 
 def close(what, got, ref, tol):
@@ -177,28 +178,24 @@ def kernel_times(fk, T, card, out):
           f"(tol {TOL}); {card}", flush=True)
 
 
-def time_root(root, first_build, card):
-    import torch
+# the training steps measured: (tag, frame_len, config changes, frames per
+# character and most frames of the synthetic batch)
+STEPS = (("flagship_step", 176, {}, 8, 96),
+         ("long_step", 512, {"dropout": 0.0}, 80, 768),
+         ("causal_step", 176, {"causal": True, "attn_context": 176}, 8, 96))
 
+
+def load_root(root, first_build):
+    """Imports ``ishara_tpu_torch`` from the checkout at ``root`` (dropping
+    any other checkout's modules), copies the libraries of ``first_build``
+    whose source is unchanged, builds the rest; returns its ``_build``."""
     for name in [m for m in sys.modules if m.startswith("ishara_tpu_torch")]:
         del sys.modules[name]
     sys.path.insert(0, root)
     try:
-        from ishara_tpu_torch.config import TrainConfig, baseline_config
-        from ishara_tpu_torch.data.synthetic import SyntheticASLFR
-        from ishara_tpu_torch.data.tokenizer import CTCTokenizer
-        from ishara_tpu_torch.models.encoder import build_model
         from ishara_tpu_torch.ops import _build
-        from ishara_tpu_torch.ops import ffn_kernel as fk
-        from ishara_tpu_torch.preprocess.pipeline import GroupStats
-        from ishara_tpu_torch.train import (
-            TrainState,
-            make_fused_ctc_train_step,
-            make_optimizer,
-        )
     finally:
         sys.path.remove(root)
-
     if first_build is not None:  # the same source and flags, the same name
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for lib in Path(first_build).glob("lib*.so"):
@@ -206,31 +203,58 @@ def time_root(root, first_build, card):
                 if f.exists() and not (_build.BUILD_DIR / f.name).exists():
                     shutil.copy(f, _build.BUILD_DIR / f.name)
     _build.build()
+    return _build
+
+
+def train_step_case(frame_len, extra, fpc, max_frames):
+    """(step, state, batch): ``make_fused_ctc_train_step`` of
+    ``baseline_config(4)`` at batch B (bf16, the recipe's ``TrainConfig()``)
+    with ``frame_len`` and ``extra`` changed, on a synthetic batch, from the
+    checkout that :func:`load_root` imported."""
+    import torch
+
+    from ishara_tpu_torch.config import TrainConfig, baseline_config
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.preprocess.pipeline import GroupStats
+    from ishara_tpu_torch.train import (
+        TrainState,
+        make_fused_ctc_train_step,
+        make_optimizer,
+    )
+
+    cfg = dataclasses.replace(baseline_config(4).model, frame_len=frame_len,
+                              **extra)
+    torch.manual_seed(4)
+    model = build_model(cfg, device="cuda")
+    host = SyntheticASLFR(num_sequences=B, frames_per_char=fpc,
+                          seed=3).batch(range(B), CTCTokenizer(),
+                                        max_frames=max_frames)
+    batch = {k: torch.from_numpy(host[k]).cuda()
+             for k in ("raw", "lengths", "labels")}
+    tx, _ = make_optimizer(TrainConfig())
+    state = TrainState.create(model, tx, device="cuda")
+    step = make_fused_ctc_train_step(GroupStats.identity(), cfg.frame_len,
+                                     aug_prob=TrainConfig().aug_prob,
+                                     blank_id=cfg.blank_id)
+    return step, state, batch
+
+
+def time_root(root, first_build, card):
+    import torch
+
+    _build = load_root(root, first_build)
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
     out = {"root": root, "card": card}
     for T in (176, 512):
         kernel_times(fk, T, card, out)
         torch.cuda.empty_cache()
 
-    for tag, frame_len, extra, fpc, max_frames in (
-            ("flagship_step", 176, {}, 8, 96),
-            ("long_step", 512, {"dropout": 0.0}, 80, 768),
-            ("causal_step", 176, {"causal": True, "attn_context": 176}, 8,
-             96)):
-        cfg = dataclasses.replace(baseline_config(4).model,
-                                  frame_len=frame_len, **extra)
-        torch.manual_seed(4)
-        model = build_model(cfg, device="cuda")
-        host = SyntheticASLFR(num_sequences=B, frames_per_char=fpc,
-                              seed=3).batch(range(B), CTCTokenizer(),
-                                            max_frames=max_frames)
-        batch = {k: torch.from_numpy(host[k]).cuda()
-                 for k in ("raw", "lengths", "labels")}
-        tx, _ = make_optimizer(TrainConfig())
-        state = TrainState.create(model, tx, device="cuda")
-        step = make_fused_ctc_train_step(GroupStats.identity(),
-                                         cfg.frame_len,
-                                         aug_prob=TrainConfig().aug_prob,
-                                         blank_id=cfg.blank_id)
+    for tag, frame_len, extra, fpc, max_frames in STEPS:
+        step, state, batch = train_step_case(frame_len, extra, fpc,
+                                             max_frames)
         before = (fk.ffn_residual.launches, fk.ffn_residual.launches_bwd)
         state, _ = step(state, batch, seed=0)
         launches = (fk.ffn_residual.launches - before[0],
@@ -246,7 +270,7 @@ def time_root(root, first_build, card):
               f"kernels {k4:.3f} ms a step (profiler, 5 steps); K4 "
               f"{launches[0]} + {launches[1]} launches a step; {card}",
               flush=True)
-        del model, state, step, batch
+        del state, step, batch
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return str(_build.BUILD_DIR)
