@@ -75,7 +75,10 @@ Phases, each of which raises on failure (the exit code is then not 0):
    ``flash_mhsa_blocked``) at its q, k, v ``[256, 8, 512, 32]`` in bf16 and
    f32, with 4 heads of 64, 2 of 128, 1 of 256 and 8 of 12 at T 512, and
    at T 200 (blocks of 128, 64 and 16) with a sequence whose keys are all
-   masked, a second backward bit for bit; K7 (the conv-module
+   masked, a second backward bit for bit, each launch's design
+   (``blocked_plan``: bf16 heads of 32 and 64 on the wgmma forward and, up
+   to T 640 / 384, the one-pass wgmma backward) asserted and equal to the
+   C plan; K7 (the conv-module
    branch, ``conv_module_residual``) at x ``[256, 512, 256]`` in bf16 and
    f32 and at the flagship's ``[256, 176, 256]``, there also with 33 and 63
    depthwise taps (tile and general paths; ``conv_kernel.tile_smem`` held
@@ -86,8 +89,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
    ``frame_len=512`` and ``dropout=0.0`` (batch 256, bf16,
    ``TrainConfig()``) on raw sequences mostly longer than 384 frames: one
    step on the kernels against the plain versions, the same (seed, step)
-   bit for bit, 10 steps with the launch counts (K7 4 + 4, K8 8 + 8, K1
-   1 + 1, the top dropout 1 + 1, none of K3, K4 and the dropout-add), a
+   bit for bit, 10 steps with the launch counts (K7 4 + 4, K8 8 + 8, all
+   on the wgmma designs, K1 1 + 1, the top dropout 1 + 1, none of K3, K4
+   and the dropout-add), a
    finite falling loss, ms a step, sequences/s, the peak of allocated
    memory and the device's busy share and time by kernel. Then one step of
    a narrow hybrid at T 400 (``tests/test_torch_cuda.py::test_long_sequence
@@ -202,6 +206,9 @@ import numpy as np
 # weights multiply f32 activations: no tensor-core type takes that pair, so
 # the bf16 rate (dequantize, then bf16 mma) is the card's best for them.
 HBM_BYTES_PER_S = 3.35e12
+# exponentials a second: 16 a clock an SM (the multi-function unit), 132
+# SMs at 1.98 GHz, the floor under an attention kernel's softmax
+MUFU_PER_S = 16 * 132 * 1.98e9
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 989e12}
 L2_BYTES = 50 * 2 ** 20
 # Tolerances of kernel against plain version, per element:
@@ -1677,7 +1684,9 @@ def attention_kernel_rows(smi, runs):
             f"{p_f:.4f} / {p_b:.4f} ms; F.scaled_dot_product_attention "
             f"{lf_ms:.4f} / {lb_ms:.4f} ms: the kernel's forward "
             f"{f_ms / lf_ms:.3f}x, backward {b_ms / lb_ms:.3f}x the "
-            f"library's on {smi}")
+            f"library's; {TB * TH * TT * TT} exponentials a direction, "
+            f"{TB * TH * TT * TT / MUFU_PER_S * 1e3:.4f} ms at 16 a clock an "
+            f"SM on {smi}")
         if tag != "bf16":
             continue
         if not b_ms < lb_ms:
@@ -2073,6 +2082,34 @@ def log_k4_designs(label, steps, require=None):
                              f"than {require}: {got}")
 
 
+def zero_k8_designs():
+    from ishara_tpu_torch.ops import attention_blocked as ab
+
+    for counts in (ab.flash_mhsa_blocked.launches_by_design,
+                   ab.flash_mhsa_blocked.launches_bwd_by_design):
+        for design in counts:
+            counts[design] = 0
+
+
+def log_k8_designs(label, steps, require):
+    """Logs K8's launches by design (``blocked_plan``) since
+    :func:`zero_k8_designs`; raises unless they equal ``require``."""
+    from ishara_tpu_torch.ops import attention_blocked as ab
+
+    got = {"forward": {d: n for d, n in
+                       ab.flash_mhsa_blocked.launches_by_design.items() if n},
+           "backward": {d: n for d, n in
+                        ab.flash_mhsa_blocked.launches_bwd_by_design.items()
+                        if n}}
+    ok = got == require
+    log(f"{label}: K8 launches by design over {steps} step(s): forward "
+        f"{got['forward'] or 'none'}, backward {got['backward'] or 'none'}"
+        + (" PASS" if ok else f" FAIL (expected {require})"))
+    if not ok:
+        raise AssertionError(f"{label}: K8's launches took other designs "
+                             f"than {require}: {got}")
+
+
 def zero_k3_designs():
     from ishara_tpu_torch.ops import attention as at
 
@@ -2418,14 +2455,35 @@ def blocked_attention_kernel_rows(smi, runs):
     and f32, at the long step's shape (8 heads of 32, T 512), with 4 heads
     of 64, 2 of 128, 1 of 256 and 8 of 12 at T 512, and at T 200 (padded
     to 256 or 208) with masked keys and one sequence with every key masked
-    at blocks of 128, 64 and 16; the same bits on a second backward; timed
-    beside the plain version, F.scaled_dot_product_attention (the additive
-    mask and the scale) and the layer's einsum composition."""
+    at blocks of 128, 64 and 16; the same bits on a second backward; each
+    launch's design (``blocked_plan``, equal to the C plan) asserted and
+    logged; timed beside the plain version, F.scaled_dot_product_attention
+    (the additive mask and the scale) and the layer's einsum composition."""
     import torch
     import torch.nn.functional as F
 
     from ishara_tpu_torch.ops import attention as at
     from ishara_tpu_torch.ops import attention_blocked as ab
+
+    def took(q, k, v, launch):
+        """Runs ``launch`` (one forward, two backwards); raises unless each
+        took the design ``plan_of`` names and the C plan names the same."""
+        plan = ab.plan_of(q, k, v)
+        c = ab.c_plan(q.dtype, q.shape[2], q.shape[3],
+                      at.tma_aligned(*(ab._unit_last(t) for t in (q, k, v))))
+        if (c["forward"], c["backward"]) != tuple(plan):
+            raise AssertionError(f"blocked_plan {plan} is not the C plan {c}")
+        before = (dict(ab.flash_mhsa_blocked.launches_by_design),
+                  dict(ab.flash_mhsa_blocked.launches_bwd_by_design))
+        result = launch()
+        got = tuple({d: n - b[d] for d, n in now.items() if n != b[d]}
+                    for now, b in zip(
+                        (ab.flash_mhsa_blocked.launches_by_design,
+                         ab.flash_mhsa_blocked.launches_bwd_by_design),
+                        before))
+        if got != ({plan.forward: 1}, {plan.backward: 2}):
+            raise AssertionError(f"K8 took {got}, expected {plan}")
+        return plan, result
 
     g = torch.Generator(device=DEVICE).manual_seed(15)
     scale = TD ** -0.5
@@ -2447,10 +2505,15 @@ def blocked_attention_kernel_rows(smi, runs):
                           device=DEVICE).to(dt).requires_grad_()
         d_o = torch.randn((TB, H, T, Dh), generator=g, device=DEVICE).to(dt)
         q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
-        o = ab.flash_mhsa_blocked(q, k, v, bias, scale, *blocks)
-        grads = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
-        again = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
-        torch.cuda.synchronize()
+
+        def run():
+            o = ab.flash_mhsa_blocked(q, k, v, bias, scale, *blocks)
+            grads = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+            again = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+            torch.cuda.synchronize()
+            return o, grads, again
+
+        plan, (o, grads, again) = took(q, k, v, run)
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError(f"blocked attention [{tag}] H {H} Dh {Dh} "
                                  f"T {T}: a second backward gave other bits")
@@ -2474,9 +2537,10 @@ def blocked_attention_kernel_rows(smi, runs):
                 raise AssertionError(f"{what}: the all-masked lse differs")
         log(f"kernel flash_mhsa_blocked [{tag}] q, k, v [{TB}, {H}, {T}, "
             f"{Dh}] blocks {blocks}"
-            f"{' with sequence 0 all masked' if all_masked else ''}: "
-            f"o max_abs_err {e_o:.3e}, d(q|k|v) {e_g:.3e} (tol {tol}); the "
-            f"same bits on a second backward PASS")
+            f"{' with sequence 0 all masked' if all_masked else ''} "
+            f"(forward {plan.forward}, backward {plan.backward}, the C "
+            f"plan's): o max_abs_err {e_o:.3e}, d(q|k|v) {e_g:.3e} (tol "
+            f"{tol}); the same bits on a second backward PASS")
         del ro, lse, rgrads, klse, grads, again
         return (q, k, v), d_o, bias, o, (e_o, e_g)
 
@@ -2513,6 +2577,9 @@ def blocked_attention_kernel_rows(smi, runs):
                       device=DEVICE).to(dt).requires_grad_()
     d_o = torch.randn((TB, TH, LT, Dh), generator=g, device=DEVICE).to(dt)
     q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    plan = ab.plan_of(q, k, v)
+    if plan != ("wgmma", "wgmma"):
+        raise AssertionError(f"the long step's K8 takes {plan}, not wgmma")
     o = ab.flash_mhsa_blocked(q, k, v, bias, scale)
     f_ms = time_ms(lambda: ab.flash_mhsa_blocked(q, k, v, bias, scale),
                    runs=runs)
@@ -2550,24 +2617,28 @@ def blocked_attention_kernel_rows(smi, runs):
         p_b = time_ms(lambda: ab.blocked_attention_backward_plain(
             qd, kd, vd, bias, ro, lse, d_o, scale), runs=3, warmup=1,
             head_start=False)
-    log(f"kernel flash_mhsa_blocked [bf16] q, k, v [{TB}, {TH}, {LT}, {Dh}]: "
-        f"forward {f_ms:.4f} ms backward {b_ms:.4f} ms; plain {p_f:.4f} / "
+    exps = TB * TH * LT * LT          # one exponential a score, each way
+    log(f"kernel flash_mhsa_blocked [bf16] q, k, v [{TB}, {TH}, {LT}, {Dh}] "
+        f"(forward {plan.forward}, backward {plan.backward}): forward "
+        f"{f_ms:.4f} ms backward {b_ms:.4f} ms; plain {p_f:.4f} / "
         f"{p_b:.4f} ms; F.scaled_dot_product_attention {lf_ms:.4f} / "
         f"{lb_ms:.4f} ms ({f_ms / lf_ms:.2f}x / {b_ms / lb_ms:.2f}x); "
-        f"einsum composition {ef_ms:.4f} / {eb_ms:.4f} ms on {smi}")
+        f"einsum composition {ef_ms:.4f} / {eb_ms:.4f} ms; {exps} "
+        f"exponentials a direction, {exps / MUFU_PER_S * 1e3:.4f} ms at 16 a "
+        f"clock an SM on {smi}")
     size = TB * TH * LT * Dh * 2
     small = bias.numel() * 4 + TB * TH * LT * 4       # bias and lse
     product = 2 * TB * TH * LT * LT * Dh              # one [T, T] product
     rows.append(train_row(
         "flash_mhsa_blocked", ab.flash_mhsa_blocked, "launches",
-        "attention_blocked.cu", f"{BLOCKED_REF}:145", errs["bf16"][0], f_ms,
+        "attention_fwd_wg.cuh", f"{BLOCKED_REF}:145", errs["bf16"][0], f_ms,
         p_f, 4 * size + small, 2 * product, "bf16", lf_ms, smi))
     # q, k, v, o, dO read, dq, dk, dv written, lse and delta read; the
-    # function needs 5 products (S recomputed, dP, dV, dQ, dK) -- the kernel
-    # does 7, as its dK/dV pass recomputes S and dP a second time
+    # function needs 5 products (S recomputed, dP, dV, dQ, dK), as many as
+    # the wgmma backward does
     rows.append(train_row(
         "flash_mhsa_blocked[bwd]", ab.flash_mhsa_blocked, "launches_bwd",
-        "attention_blocked.cu", f"{BLOCKED_REF}:208", errs["bf16"][1], b_ms,
+        "attention_bwd.cuh", f"{BLOCKED_REF}:208", errs["bf16"][1], b_ms,
         p_b, 8 * size + 2 * small, 5 * product, "bf16", lb_ms, smi))
     return rows
 
@@ -2964,6 +3035,7 @@ def long_train_phase(smi, steps: int = 10):
     for w in counters.values():
         w.launches = w.launches_bwd = 0
     zero_k4_designs()
+    zero_k8_designs()
     losses = []
     for _ in range(steps):
         state, m = step(state, batch, seed=0)
@@ -2977,6 +3049,8 @@ def long_train_phase(smi, steps: int = 10):
         + " ".join(f"{v:.3f}" for v in losses))
     log(f"long train: kernel launches over the run {launches}")
     log_k4_designs("long train", steps, {"forward": {}, "backward": {}})
+    log_k8_designs("long train", steps, {"forward": {"wgmma": 8 * steps},
+                                         "backward": {"wgmma": 8 * steps}})
     for (name, direction), n in launches.items():
         if n != steps * LONG_STEP_LAUNCHES[name]:
             raise AssertionError(

@@ -8,9 +8,9 @@ online-softmax recurrence, so it takes any ``T`` and any head width.
 There is no dropout inside: the layer takes it only with the attention
 dropout off. ``bias`` is the additive ``[B, T]`` key bias of
 :func:`.attention.mask_to_bias` (0 valid / -1e30 masked). The forward saves
-the row logsumexp; the backward is a dQ pass and a dK/dV pass that both
-recompute the probabilities from it, with ``delta = rowsum(dO * O)`` taken
-in the dQ pass's prologue (the reference takes it outside its kernels).
+the row logsumexp; the backward recomputes the probabilities from it, with
+``delta = rowsum(dO * O)`` taken in its own prologue (the reference takes
+it outside its kernels).
 
 **Padding**, as the reference: ``T`` is padded to a multiple of
 ``lcm(block_q, block_k)`` (128 by default), and padded keys get the bias
@@ -20,24 +20,88 @@ included (the einsum composition, which masks with ``finfo.min``, averages
 over ``T``). In the backward, padded queries and keys add exact zeros to
 the gradients that are kept, so the backward's plain version works on ``T``.
 
-On a CUDA tensor the wrapper launches ``csrc/attention_blocked.cu`` (one
-launch forward, two backward) or raises; on a CPU tensor it runs the plain
-versions beside it (:func:`blocked_attention_forward_plain`,
+On a CUDA tensor the wrapper launches ``csrc/attention_blocked.cu`` or
+raises; on a CPU tensor it runs the plain versions beside it
+(:func:`blocked_attention_forward_plain`,
 :func:`blocked_attention_backward_plain`): the reference's recurrence in
 f32 on values widened from ``q``'s dtype, one rounding on the way out.
+Each direction takes the design that :func:`blocked_plan` names, a rule on
+(dtype, T, Dh, whether TMA can read q, k, v) alone: ``"wgmma"`` (bf16 heads
+of 32 and 64: the forward of ``csrc/attention_fwd_wg.cuh`` on a TMA
+key / value ring, one launch; the backward in one launch of
+``csrc/attention_bwd.cuh``'s five-product pass with no keep bits, where its
+shared memory holds T) or ``"general"`` (the tensor-core core of
+``csrc/attention_tc.cuh``: one forward launch, a dQ and a dK / dV pass).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import NEG
+from .attention import NEG, tma_aligned
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the designs and the rule that picks one for each direction, the same as
+# csrc/attention_fwd_wg.cuh's k8wg::plan (which owns the kernels' layouts)
+DESIGNS = ("general", "wgmma")
+# head width -> the longest T whose wgmma backward (k3wg::layout_of: the f32
+# partial dQ sums grow with T) fits a block's shared memory
+_WG_BWD_T_MAX = {32: 640, 64: 384}
+
+
+class BlockedPlan(NamedTuple):
+    forward: str
+    backward: str
+
+
+def blocked_plan(dtype, T: int, Dh: int, aligned: bool) -> BlockedPlan:
+    """The designs ``csrc/attention_blocked.cu`` runs for ``[B, H, T, Dh]``
+    heads of ``dtype``: a rule on these alone, the same as the C
+    ``k8wg::plan`` (``ishara_blocked_attention_plan``). ``aligned``: q, k, v
+    start on 16 bytes with strides over b, h, t of 16-byte multiples
+    (:func:`.attention.tma_aligned`).
+
+    * forward ``"wgmma"``: bf16, ``Dh`` 32 or 64, aligned, any ``T``;
+    * backward ``"wgmma"``: the same, up to the T its shared memory holds
+      (heads of 32 up to T 640, of 64 up to T 384);
+    * ``"general"`` otherwise (the mma.sync core)."""
+    if dtype != torch.bfloat16 or Dh not in _WG_BWD_T_MAX or T < 1 \
+            or not aligned:
+        return BlockedPlan("general", "general")
+    return BlockedPlan("wgmma", "wgmma" if T <= _WG_BWD_T_MAX[Dh]
+                       else "general")
+
+
+def plan_of(q, k, v) -> BlockedPlan:
+    """:func:`blocked_plan` of a call on these q, k, v (as the launches take
+    them: unit stride over the head dimension)."""
+    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    return blocked_plan(q.dtype, q.shape[2], q.shape[3],
+                        tma_aligned(q, k, v))
+
+
+def c_plan(dtype, T: int, Dh: int, aligned: bool) -> dict:
+    """``csrc/attention_blocked.cu``'s own plan (needs the built library):
+    ``forward`` and ``backward`` (designs as :func:`blocked_plan` names
+    them), ``fwd_smem`` and, for the wgmma backward, ``consumers``,
+    ``groups``, ``stages``, ``ds_bufs``, ``smem`` and ``reg_limit``."""
+    out = (ctypes.c_longlong * 9)()
+    fn = _build.function("attention_blocked", "ishara_blocked_attention_plan",
+                         [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    _build.check("attention_blocked",
+                 fn(_DTYPE_CODE.get(dtype, 2), T, Dh, int(aligned),
+                    ctypes.addressof(out)), "blocked attention plan")
+    keys = ("consumers", "groups", "stages", "ds_bufs", "smem", "reg_limit")
+    return {"forward": DESIGNS[out[0]], "fwd_smem": int(out[1]),
+            "backward": DESIGNS[out[2]],
+            **{key: int(v) for key, v in zip(keys, out[3:])}}
 
 
 def padded_length(T: int, block_q: int = 128, block_k: int = 128) -> int:
@@ -145,7 +209,11 @@ def _launch_bwd(q, k, v, bias, o, lse, d_o, scale):
     B, H, T, Dh = q.shape
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
     d_o = _unit_last(d_o.to(q.dtype))
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    wgmma = plan_of(q, k, v).backward == "wgmma"
+    if wgmma and not tma_aligned(d_o):
+        d_o = d_o.contiguous()
+    delta = None if wgmma else torch.empty((B, H, T), dtype=torch.float32,
+                                           device=q.device)
     dq, dk, dv = (torch.empty((B, H, T, Dh), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     fn = _build.function(
@@ -156,22 +224,31 @@ def _launch_bwd(q, k, v, bias, o, lse, d_o, scale):
             d_o.data_ptr(), _strides3(q), _strides3(k), _strides3(v),
             _strides3(d_o), bias.contiguous().data_ptr(),
             o.contiguous().data_ptr(), lse.contiguous().data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-            H, T, Dh, scale, _DTYPE_CODE[q.dtype], _build.stream_of(q))
+            None if delta is None else delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, T, Dh, scale,
+            _DTYPE_CODE[q.dtype], _build.stream_of(q))
     _build.check("attention_blocked", rc, "blocked attention backward kernels")
     return dq, dk, dv
+
+
+def _runs_plain(q) -> bool:
+    """Whether a call runs the plain versions: exactly when ``q`` lies on
+    the CPU."""
+    return q.device.type == "cpu"
 
 
 class _FlashMhsaBlocked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, block_q, block_k):
-        if q.device.type == "cpu":
+        if _runs_plain(q):
             o, lse = blocked_attention_forward_plain(q, k, v, bias, scale,
                                                      block_q, block_k)
         else:
             o, lse = _launch_fwd(q, k, v, bias, scale,
                                  padded_length(q.shape[2], block_q, block_k))
             flash_mhsa_blocked.launches += 1
+            flash_mhsa_blocked.launches_by_design[plan_of(q, k, v)
+                                                  .forward] += 1
         ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.scale = scale
         return o
@@ -179,12 +256,14 @@ class _FlashMhsaBlocked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_o):
         q, k, v, bias, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
+        if _runs_plain(q):
             grads = blocked_attention_backward_plain(q, k, v, bias, o, lse,
                                                      d_o, ctx.scale)
         else:
             grads = _launch_bwd(q, k, v, bias, o, lse, d_o, ctx.scale)
             flash_mhsa_blocked.launches_bwd += 1
+            flash_mhsa_blocked.launches_bwd_by_design[plan_of(q, k, v)
+                                                      .backward] += 1
         return (*grads, None, None, None, None)
 
 
@@ -206,6 +285,10 @@ def flash_mhsa_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    int(block_k))
 
 
-# launches of the forward kernel and of the backward pair
+# launches of the forward and of the backward (one count for the two passes
+# of the general design), in all and by the design (blocked_plan) that took
+# them
 flash_mhsa_blocked.launches = 0
 flash_mhsa_blocked.launches_bwd = 0
+flash_mhsa_blocked.launches_by_design = dict.fromkeys(DESIGNS, 0)
+flash_mhsa_blocked.launches_bwd_by_design = dict.fromkeys(DESIGNS, 0)

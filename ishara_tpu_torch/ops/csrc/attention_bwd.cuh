@@ -1,12 +1,18 @@
-// K3's backward on Hopper (sm_90a), bf16 heads of 32 and 64: one launch, one
-// block a (batch, head), five wgmma products a pair of 64-row tiles, on the
-// keep bits its forward saved. Included by attention.cu.
+// The attention backward on Hopper (sm_90a), bf16 heads of 32 and 64: one
+// launch, one block a (batch, head), five wgmma products a pair of 64-row
+// tiles; for K3 on the keep bits its forward saved, for K8 with no dropout
+// (no bits). Included by attention.cu and attention_blocked.cu.
 //
 // Replaces the Pallas kernel _bwd_kernel of ishara_tpu/ops/attention.py
 // (:84, its pallas_call :168, behind flash_mhsa) where plan() below takes
 // the call: bf16, a head dimension of 32 or 64, T <= 384, q, k, v rows that
-// TMA can read (16-byte strides and bases). Every other call keeps the two
-// passes of attention_tc.cuh (dq_kernel, dkv_kernel and the wide kernels).
+// TMA can read (16-byte strides and bases); and, where k8wg::plan
+// (attention_fwd_wg.cuh) takes it, _dq_kernel and _dkv_kernel of
+// ishara_tpu/ops/attention_blocked.py (:73, :96; pallas_call :208, :223,
+// behind flash_mhsa_blocked): the same shapes at any T whose layout fits a
+// block's shared memory (heads of 32 up to T 640, of 64 up to T 384).
+// Every other call keeps the two passes of attention_tc.cuh (dq_kernel,
+// dkv_kernel and the wide kernels).
 //
 // It computes what _bwd_kernel computes, as mhsa_backward_plain in
 // ops/attention.py writes it: P = exp(S - lse) with S = q.k * scale + bias,
@@ -20,6 +26,9 @@
 // 5 [T, T] products of 2 T^2 Dh each, 20.3 GFLOP, 0.0205 ms at 989 TFLOP/s.
 // The keep bits it also reads (8.65 MB, 0.0026 ms) are this design's choice
 // (the mask can be drawn again from the seed), so the bound leaves them out.
+// K8 at the long step's shape ([256, 8, 512, 32], no dropout): 5 products of
+// 171.8 GFLOP bind it (0.1737 ms); its B H T T = 537 M exponentials take
+// 0.128 ms at 16 a clock an SM.
 //
 // What bounded the old design (PERF.md, section 6: a clock64 timeline of
 // dq_kernel and dkv_kernel at that shape, taken in a debug copy): drawing the
@@ -54,11 +63,17 @@
 //   once;
 // - delta and lse for the whole head are staged in shared memory by the
 //   consumers before the loop (delta from o and dO, f32), with the keep
-//   bits: no second kernel, no scratch tensor;
+//   bits (none without dropout, null bits: keep' = 1, and their room in
+//   the layout stays unused): no second kernel, no scratch tensor;
 // - above NW key tiles (T > 192 at heads of 32, > 128 at 64) the block
 //   walks key-tile groups in turn: dK and dV of a group are final after its
 //   pass, dQ_i's partial sum waits in an f32 shared tile and the next group
-//   adds to it, again in a fixed order;
+//   adds to it, again in a fixed order. These partial sums, T Dh 4 bytes,
+//   and the keep bits' room, T^2 / 8 bytes, bound T by shared memory: at
+//   heads of 32 and T 512 a block holds 189 KB (dQ sums 64, K / V tiles 24,
+//   the ring 16, dS^T tiles 48, lse and delta 4, the bits 32, which K8
+//   leaves unused), at T 640 224 KB; heads of 64 past T 384 would take
+//   more than 227 KB;
 // - rows past T arrive as zeros (TMA); keys >= T weigh exactly 0 (bias
 //   -inf) and queries >= T have lse +inf, so P is 0 there; a row whose keys
 //   are all masked (bias -1e30) computes P as the forward's arithmetic
@@ -93,7 +108,7 @@ using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 constexpr int ROWS = 64;        // rows of a query or key tile
-constexpr int T_MAX = 384;      // the longest T (K3's range)
+constexpr int K3_T_MAX = 384;   // K3's longest T (the caller's range)
 constexpr int STAGES = 2;       // Q_i / dO_i ring slots
 constexpr int DS_BUFS = 2;      // dS^T tiles a consumer, in turns
 constexpr int DS_TILE = ROWS * ROWS * 2;
@@ -168,7 +183,10 @@ __device__ __forceinline__ uint64_t mn16() {
 __device__ __forceinline__ uint64_t k16(int ks) { return (uint64_t)(2 * ks); }
 
 // ---------------------------------------------------------------------------
-// The kernel. Grid: one block a (b, h); (NW + 1) warpgroups.
+// The kernel. Grid: one block a (b, h); (NW + 1) warpgroups. Null bits: no
+// dropout, no keep bits staged or read (K3 at rate 0, and K8: an instance
+// compiled for no bits at all, its bits' room gone, had ptxas serialise its
+// products, C7520).
 // ---------------------------------------------------------------------------
 
 template <int DH>
@@ -478,7 +496,7 @@ struct Plan {
 
 inline Plan plan(int dtype, int T, int Dh, int aligned) {
   Plan p{};
-  if (dtype == 1 && (Dh == 32 || Dh == 64) && T >= 1 && T <= T_MAX &&
+  if (dtype == 1 && (Dh == 32 || Dh == 64) && T >= 1 && T <= K3_T_MAX &&
       aligned) {
     const Layout l = layout_of(T, Dh);
     p.design = WGMMA;

@@ -1,6 +1,7 @@
 // The tensor-core attention core shared by attention.cu (K3, one [T, T]
 // block, dropout) and attention_blocked.cu (K8, any T, no dropout): the
-// forward, a dQ pass and a dK / dV pass, on Hopper (sm_90a).
+// forward, a dQ pass and a dK / dV pass, on Hopper (sm_90a). K3's forward
+// runs here always; K8's bf16 heads of 32 and 64 have left it (below).
 //
 // Replaces the CUDA-core tiles that both kernels had before: the [T, T]
 // products of ishara_tpu/ops/attention.py (_fwd_kernel, _bwd_kernel behind
@@ -38,11 +39,14 @@
 //   the dQ pass (S, dP, dQ: 3 products, and delta = rowsum(dO * O) in its
 //   prologue) and the dK / dV pass (S^T, dP^T, dV, dK: 4 products). The
 //   function needs 5; the two recomputed ones cost less than the f32
-//   partial-dQ traffic a one-pass split would move. K3's bf16 backward at
-//   heads of 32 and 64 has left this core: it runs in one pass of five
-//   wgmma products a head (attention_bwd.cuh) on keep bits that the forward
-//   below writes (store_keep_bits); the two passes here serve the rest of
-//   K3 (f32, other widths, strides TMA cannot read) and all of K8.
+//   partial-dQ traffic a one-pass split would move. The bf16 heads of 32
+//   and 64 have left this core where TMA can read q, k, v: K3's backward
+//   runs in one pass of five wgmma products a head (attention_bwd.cuh) on
+//   keep bits that the forward below writes (store_keep_bits); K8's forward
+//   on a TMA key / value ring (attention_fwd_wg.cuh) and its backward in
+//   the same one pass without keep bits (heads of 32 to T 640, of 64 to T
+//   384). The kernels here serve the rest: K3's forward, f32, other widths,
+//   strides TMA cannot read, and K8's backward past those T.
 //
 // Keys: key j < T has the caller's bias, T <= j < Tc has the bias -1e30
 // (K8's padded keys, k = v = 0, which count in an all-masked row's

@@ -993,6 +993,120 @@ def test_blocked_attention_kernel_refuses_what_it_cannot_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,Dh,blocks", [
+    (256, 8, 512, 32, (128, 128)),      # the long step's shape
+    (4, 4, 512, 64, (128, 128)),        # heads of 64: the general backward
+    (4, 4, 384, 64, (128, 128)), (3, 2, 640, 32, (128, 128)),
+    (3, 2, 1, 32, (128, 128)), (3, 2, 65, 32, (128, 128)),
+    (3, 2, 1, 64, (16, 16)), (3, 2, 65, 64, (64, 64)),
+    (3, 4, 200, 32, (128, 128)), (3, 4, 200, 32, (64, 64)),
+    (3, 4, 200, 32, (16, 16)), (3, 4, 200, 64, (16, 16))])
+def test_blocked_attention_wgmma_designs_match_plain(B, H, T, Dh, blocks):
+    """K8's wgmma designs (csrc/attention_fwd_wg.cuh's forward, the one-pass
+    backward of csrc/attention_bwd.cuh without keep bits) on bf16 views of
+    one projection, each launch counted under ``blocked_plan``'s design:
+    o, lse and dq, dk, dv against the plain versions (chip_smoke.py's
+    tolerances: 2e-2 of the largest element, lse 1e-5), a sequence with
+    every key masked (its lse -1e30 bit for bit, V averaged over the Tp
+    keys), padded lengths the 64-key tile does not divide (blocks of 16:
+    Tp 16, 80, 208), and a second backward bit for bit."""
+    _card()
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops import attention_blocked as ab
+
+    g = torch.Generator(device="cuda").manual_seed(T + Dh)
+    qkv = torch.randn((B, T, H, 3 * Dh), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    d_o = torch.randn((B, H, T, Dh), generator=g, device="cuda").to(
+        torch.bfloat16)
+    mask = torch.rand((B, T), generator=g, device="cuda") > 0.2
+    mask[1] = False
+    bias = at.mask_to_bias(mask)
+    scale = (H * Dh) ** -0.5
+    q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    plan = ab.plan_of(q, k, v)
+    assert plan == ("wgmma", "general" if Dh == 64 and T > 384 else "wgmma")
+    fwd = dict(ab.flash_mhsa_blocked.launches_by_design)
+    bwd = dict(ab.flash_mhsa_blocked.launches_bwd_by_design)
+    o = ab.flash_mhsa_blocked(q, k, v, bias, scale, *blocks)
+    grads = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+    again = torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+    torch.cuda.synchronize()
+    assert ab.flash_mhsa_blocked.launches_by_design == dict(
+        fwd, wgmma=fwd["wgmma"] + 1)
+    assert ab.flash_mhsa_blocked.launches_bwd_by_design == dict(
+        bwd, **{plan.backward: bwd[plan.backward] + 2})
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        ro, lse = ab.blocked_attention_forward_plain(q, k, v, bias, scale,
+                                                     *blocks)
+        rgrads = ab.blocked_attention_backward_plain(q, k, v, bias, ro, lse,
+                                                     d_o, scale)
+        _, klse = ab._launch_fwd(q, k, v, bias, scale,
+                                 ab.padded_length(T, *blocks))
+    _close(o, ro, 2e-2)
+    live = mask.any(1)                       # rows with a key not masked
+    _close(klse[live], lse[live], 1e-5)
+    assert torch.equal(klse[1], lse[1])      # all masked: -1e30 exactly
+    assert bool((klse[1] == -1e30).all())
+    for a, b in zip(grads, rgrads):
+        _close(a, b, 2e-2)
+
+
+@pytest.mark.cuda
+def test_blocked_plan_matches_the_c_plan():
+    """``blocked_plan`` mirrors csrc/attention_fwd_wg.cuh's own rule
+    (``ishara_blocked_attention_plan``) for both directions over T 1 to
+    1100 and the widths around the wgmma designs', and the C layouts of
+    the designs it takes fit a block's shared memory."""
+    _card()
+    from ishara_tpu_torch.ops import attention_blocked as ab
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for Dh in (12, 16, 32, 48, 64, 128):
+            for T in range(1, 1101):
+                for aligned in (True, False):
+                    c = ab.c_plan(dtype, T, Dh, aligned)
+                    assert ab.blocked_plan(dtype, T, Dh, aligned) \
+                        == (c["forward"], c["backward"]), (dtype, T, Dh)
+                    if c["forward"] == "wgmma":
+                        assert 0 < c["fwd_smem"] <= 232448, c
+                    if c["backward"] == "wgmma":
+                        assert 0 < c["smem"] <= 232448, c
+                        keys = c["groups"] * c["consumers"] * 64
+                        assert keys >= T > keys - c["consumers"] * 64, c
+                        assert c["reg_limit"] <= 255, c
+
+
+@pytest.mark.cuda
+def test_blocked_attention_wgmma_kernels_fit_their_registers():
+    """ptxas's own report (``-Xptxas -v``, kept in the build's log) of K8's
+    wgmma instances (the forward and the backward without keep bits, heads
+    of 32 and 64): at most 255 registers a thread, no stack frame, no
+    spills and no serialised wgmma (C7512, C7513, C7515, C7520)."""
+    _card()
+    from ishara_tpu_torch.ops import _build
+
+    _build.build()
+    log = _build.build_log("attention_blocked")
+    assert not [line for line in log.splitlines()
+                if re.search(r"\(C75(12|13|15|20)\)", line)
+                and "wg_kernel" in line]
+    reports = {}
+    for entry in log.split("Function properties for ")[1:]:
+        name = entry.split(maxsplit=1)[0]
+        if "wg_kernel" in name:
+            reports[name] = entry.split("Compile time")[0]
+    assert len(reports) == 4
+    for name, report in reports.items():
+        assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill " \
+            "loads" in report, (name, report)
+        regs = int(re.search(r"Used (\d+) registers", report).group(1))
+        assert regs <= 255, (name, report)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("Dh", [257, 320, 512])

@@ -19,16 +19,19 @@ build; ``tools/ffn_compare.py``'s helpers). Then:
   events, each after a ~2 ms device spin (device time only);
 - ``F.scaled_dot_product_attention`` (additive mask, the same dropout rate
   and scale) forward and backward on the same inputs, timed the same way;
-- K8 at ``[256, 8, 512, 32]`` (no dropout), forward and backward, timed so;
+- K8 at ``[256, 8, 512, 32]`` (no dropout), forward and backward, held
+  against the plain version, with each direction's design where the
+  checkout names one, timed so beside ``F.scaled_dot_product_attention``;
 - one step of ``baseline_config(4)`` at batch 256 (bf16, the recipe's
   ``TrainConfig()``): the flagship step (T 176), the long step (T 512,
   dropout 0) and the causal flagship step; the median of 10 steps by the
   host clock, each ending in a synchronize, with K3's launches a step; then
   5 steps under ``torch.profiler``: the device's busy time a step and K3's
   own kernels' time a step (``tc::fwd_kernel``, ``tc::dq_kernel``,
-  ``tc::dkv_kernel``, ``k3wg::bwd_wg_kernel``; on the long step these names
-  are K8's, which shares the core). Compare steps by the busy time: the
-  host's clock varies from call to call far more.
+  ``tc::dkv_kernel``, ``k3wg::bwd_wg_kernel``, ``k8wg::fwd_wg_kernel``; on
+  the long step these names are K8's, which shares the core and the
+  backward). Compare steps by the busy time: the host's clock varies from
+  call to call far more.
 
 Prints one line a measurement and a JSON object a checkout, each with the
 card's name and power limit. Give the roots as parent, change, change,
@@ -55,7 +58,7 @@ B, H, DH = 256, 8, 32
 RATE = 0.4
 TOL = 0.02   # chip_smoke.py's TRAIN_TOL["bf16"]
 K3_KERNELS = ("tc::fwd_kernel<", "tc::dq_kernel<", "tc::dkv_kernel<",
-              "k3wg::bwd_wg_kernel<")
+              "k3wg::bwd_wg_kernel<", "k8wg::fwd_wg_kernel<")
 
 
 def k3_times(at, T, card, out):
@@ -119,6 +122,7 @@ def k3_times(at, T, card, out):
 
 def k8_times(ab, card, out, T=512):
     import torch
+    import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(T)
     qkv = torch.randn((B, T, H, 3 * DH), generator=g, device="cuda").to(
@@ -134,14 +138,44 @@ def k8_times(ab, card, out, T=512):
     def fwd():
         return ab.flash_mhsa_blocked(q, k, v, bias, scale)
 
+    def bwd():
+        return torch.autograd.grad(o, (q, k, v), d_o, retain_graph=True)
+
     o = fwd()
-    rows = {"fwd_ms": device_ms(fwd),
-            "bwd_ms": device_ms(lambda: torch.autograd.grad(
-                o, (q, k, v), d_o, retain_graph=True))}
+    grads = bwd()
+    with torch.no_grad():
+        ro, lse = ab.blocked_attention_forward_plain(q, k, v, bias, scale)
+        rgrads = ab.blocked_attention_backward_plain(q, k, v, bias, ro, lse,
+                                                     d_o, scale)
+    err = max([close(f"K8 T {T} o", o, ro, TOL)]
+              + [close(f"K8 T {T} d{n}", a, b, TOL)
+                 for n, a, b in zip("qkv", grads, rgrads)])
+    del ro, lse, rgrads, grads
+    design = tuple(ab.plan_of(q, k, v)) if hasattr(ab, "plan_of") \
+        else ("general", "general")
+    mask = bias[:, None, None, :].to(torch.bfloat16)
+    lq = qkv.detach().clone().requires_grad_()
+
+    def lib_fwd():
+        a, b, c = lq.transpose(1, 2).split(DH, dim=-1)
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                              scale=scale)
+
+    lo = lib_fwd()
+    rows = {"design": design, "max_abs_err": err,
+            "fwd_ms": device_ms(fwd), "bwd_ms": device_ms(bwd),
+            "sdpa_fwd_ms": device_ms(lib_fwd),
+            "sdpa_bwd_ms": device_ms(lambda: torch.autograd.grad(
+                lo, lq, d_o, retain_graph=True))}
     out[f"k8_T{T}"] = rows
-    print(f"{out['root']} K8 q, k, v [{B}, {H}, {T}, {DH}] bf16: forward "
+    fx = rows["fwd_ms"] / rows["sdpa_fwd_ms"]
+    bx = rows["bwd_ms"] / rows["sdpa_bwd_ms"]
+    print(f"{out['root']} K8 q, k, v [{B}, {H}, {T}, {DH}] bf16 (forward "
+          f"{design[0]}, backward {design[1]}): forward "
           f"{rows['fwd_ms']:.4f} ms, backward {rows['bwd_ms']:.4f} ms; "
-          f"{card}", flush=True)
+          f"F.scaled_dot_product_attention {rows['sdpa_fwd_ms']:.4f} / "
+          f"{rows['sdpa_bwd_ms']:.4f} ms ({fx:.3f}x / {bx:.3f}x); "
+          f"max_abs_err {err:.3e} (tol {TOL}); {card}", flush=True)
 
 
 def time_root(root, first_build, card):
