@@ -79,10 +79,12 @@ Phases, each of which raises on failure (the exit code is then not 0):
    (``blocked_plan``: bf16 heads of 32 and 64 on the wgmma forward and, up
    to T 640 / 384, the one-pass wgmma backward) asserted and equal to the
    C plan; K7 (the conv-module
-   branch, ``conv_module_residual``) at x ``[256, 512, 256]`` in bf16 and
-   f32 and at the flagship's ``[256, 176, 256]``, there also with 33 and 63
-   depthwise taps (tile and general paths; ``conv_kernel.tile_smem`` held
-   to the C side's for every configuration); each forward and every
+   branch, ``conv_module_residual``) at x ``[256, 512, 256]`` in bf16 (its
+   wgmma design) and f32 (the tile kernels) and at the flagship's ``[256,
+   176, 256]``, there also with 33 and 63 depthwise taps (tile and general
+   paths; ``conv_kernel.tile_smem`` and ``conv_plan`` held to the C side's
+   for every configuration; each launch's design asserted, the backward's
+   kernels free of a forward tile kernel); each forward and every
    gradient against its plain version, timed beside it, the bound and
    ``F.scaled_dot_product_attention`` with the einsum composition (K8) or
    the port's composition (K7). Then ``baseline_config(4)`` at
@@ -363,12 +365,13 @@ def host_ms(fn, runs: int = 50) -> float:
 def device_kernels(fn) -> dict:
     """{kernel: launches} of the port's libraries (their names carry the
     anonymous namespace of csrc/*.cu) in one call of ``fn``, by
-    torch.profiler: the second of two profiled calls (a cold profiler can
-    miss a call's first launches)."""
+    torch.profiler: the first profiled call after the first that records
+    any (a cold profiler can miss a call's launches, at times all of them),
+    of at most four."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for i in range(4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -377,6 +380,8 @@ def device_kernels(fn) -> dict:
                 for e in prof.key_averages()
                 if "anonymous namespace" in e.key
                 and re.search(r"\w+_kernel", e.key)}
+        if i and seen:
+            break
     return seen
 
 
@@ -2040,9 +2045,9 @@ def plain_versions():
             ab.blocked_attention_backward_plain(q, k, v, bias, o, lse, d_o,
                                                 scale)),
         (cm, "_launch_fwd", lambda x, args:
-            cm.conv_module_forward_plain(x, *args)),
-        (cm, "_launch_bwd", lambda x, dy, args:
-            cm.conv_module_backward_plain(x, args[0], dy, *args[1:])),
+            cm.conv_module_forward_plain(x, *args, with_p=True)),
+        (cm, "_launch_bwd", lambda x, dy, args, p:
+            cm.conv_module_backward_plain(x, args[0], dy, *args[1:], p=p)),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -2134,6 +2139,42 @@ def log_k3_designs(label, steps, require=None):
                              f"designs than {require}: {got}")
 
 
+def zero_k7_designs():
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    for counts in (ck.conv_module_residual.launches_by_design,
+                   ck.conv_module_residual.launches_bwd_by_design):
+        for design in counts:
+            counts[design] = 0
+
+
+def log_k7_designs(label, steps, require):
+    """Logs K7's launches by design (``conv_plan``) since
+    :func:`zero_k7_designs`; raises unless they equal ``require``."""
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    got = {"forward": {d: n for d, n in
+                       ck.conv_module_residual.launches_by_design.items()
+                       if n},
+           "backward": {d: n for d, n in
+                        ck.conv_module_residual.launches_bwd_by_design.items()
+                        if n}}
+    ok = got == require
+    log(f"{label}: K7 launches by design over {steps} step(s): forward "
+        f"{got['forward'] or 'none'}, backward {got['backward'] or 'none'}"
+        + (" PASS" if ok else f" FAIL (expected {require})"))
+    if not ok:
+        raise AssertionError(f"{label}: K7's launches took other designs "
+                             f"than {require}: {got}")
+
+
+def wgmma_k7(steps):
+    """Every one of a flagship-width step's 4 + 4 K7 launches on the wgmma
+    design."""
+    return {"forward": {"wgmma": 4 * steps},
+            "backward": {"wgmma": 4 * steps}}
+
+
 def wgmma_k4(steps):
     """Every one of a flagship-width step's 16 + 16 K4 launches on the
     wgmma design."""
@@ -2167,6 +2208,9 @@ def train_counters():
 STEP_LAUNCHES = {"ffn_residual": 16, "flash_mhsa": 8, "fast_dropout_add": 4,
                  "conv_module_residual": 4, "fast_dropout": 1,
                  "ctc_loss_kernel": 1}
+# The same step at f32 (the data-parallel phase): the selection table sends
+# the conv module to its composition there, where the kernel lost to it.
+DP_STEP_LAUNCHES = dict(STEP_LAUNCHES, conv_module_residual=0)
 
 
 def step_against_plain(label, step, state0, batch):
@@ -2286,6 +2330,8 @@ def run_counted(step, state, batch, steps):
         w.launches = w.launches_bwd = 0
     zero_k4_designs()
     zero_k3_designs()
+    zero_k7_designs()
+    torch.cuda.reset_peak_memory_stats()
     losses = []
     for _ in range(steps):
         state, m = step(state, batch, seed=0)
@@ -2341,9 +2387,12 @@ def train_phase(smi, steps: int = 20):
     state, losses, launches = run_counted(step, state0.clone(), batch, steps)
     log(f"train: {steps} steps of make_fused_ctc_train_step, loss "
         + " ".join(f"{v:.3f}" for v in losses))
-    log(f"train: kernel launches over the run {launches}")
+    log(f"train: kernel launches over the run {launches}; "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     log_k4_designs("train", steps, wgmma_k4(steps))
     log_k3_designs("train", steps, {"wgmma": 8 * steps})
+    log_k7_designs("train", steps, wgmma_k7(steps))
     for (name, direction), n in launches.items():
         if n != steps * STEP_LAUNCHES.get(name, 0):
             raise AssertionError(
@@ -2669,14 +2718,29 @@ def conv_plan_mirror_check():
                                 f"tile_smem {dt} backward={backward} config "
                                 f"{cfg} D {D} K {K}: Python {py}, C {c}")
                         n += 1
-    paths = {(K, tag, d): ("tile" if ck.tile_plan(TT, TD, K, dt, d) else
-                           "general")
-             for K in WIDE_KS for tag, dt in (("bf16", torch.bfloat16),
-                                              ("f32", torch.float32))
+    plans = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for D in (64, 128, 144, 192, 256, 320, 512):
+            for E in (64, 128, 256, 512, 1024):
+                for K in (1, 3, 15, 16, 17, 33):
+                    py = ck.conv_plan(dt, D, E, K)
+                    c = ck.c_plan(dt, D, E, K)
+                    if py != c["design"] or c["design"] == "wgmma" and max(
+                            c["fwd_smem"], c["bwd_smem"]) > ck.SMEM_LIMIT:
+                        raise AssertionError(
+                            f"conv_plan {dt} D {D} E {E} K {K}: Python {py}, "
+                            f"C {c}")
+                    plans += 1
+    x = torch.zeros((TB, TT, TD), dtype=torch.bfloat16)
+    paths = {(K, tag, d): ck.design_of(x.to(dt), 2 * TD, K, d)
+             for K in (15,) + WIDE_KS
+             for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32))
              for d in (False, True)}
     log(f"conv_kernel.tile_smem equals csrc/conv_module.cu's at {n} "
-        f"(dtype, direction, config, D, K) PASS; at [{TB}, {TT}, {TD}] the "
-        f"wide kernels take " + ", ".join(
+        f"(dtype, direction, config, D, K), conv_kernel.conv_plan's design "
+        f"the C ishara_conv_plan's at {plans} (dtype, D, E, K), whose wgmma "
+        f"layouts fit in {ck.SMEM_LIMIT} bytes PASS; at [{TB}, {TT}, "
+        f"{TD}] the designs: " + ", ".join(
             f"K {K} {tag} {'bwd' if d else 'fwd'} {p}"
             for (K, tag, d), p in paths.items()))
 
@@ -2684,10 +2748,11 @@ def conv_plan_mirror_check():
 def conv_module_kernel_rows(smi, runs):
     """K7: forward and all twelve gradients against the plain version at
     the long step's shape [256, 512, 256] (E 512, K 15, r 32) and at the
-    flagship's [256, 176, 256], bf16 and f32, there also with 33 and 63
-    depthwise taps (on the tile path and on the general path); timed beside
-    the plain version and the port's composition (no one PyTorch call
-    computes the branch)."""
+    flagship's [256, 176, 256], bf16 (the wgmma design) and f32 (the tile
+    kernels), there also with 33 and 63 depthwise taps (on the tile path
+    and on the general path); the design each direction took, by the
+    counters; timed beside the plain version and the port's composition (no
+    one PyTorch call computes the branch)."""
     import torch
 
     from ishara_tpu_torch.models.layers import SqueezeformerConvModule
@@ -2714,8 +2779,23 @@ def conv_module_kernel_rows(smi, runs):
         mask = torch.arange(T, device=DEVICE)[None, :] < lengths[:, None]
         args = module.kernel_args(x, mask)
         params = list(module.parameters())
+        zero_k7_designs()
         out = ck.conv_module_residual(x, *args)
         grads = torch.autograd.grad(out, [x] + params, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        design = {d: n for d, n in
+                  ck.conv_module_residual.launches_by_design.items() if n}
+        design_b = {d: n for d, n in
+                    ck.conv_module_residual.launches_bwd_by_design.items()
+                    if n}
+        want = {ck.design_of(x, 2 * TD, K, False): 1}, \
+            {ck.design_of(x, 2 * TD, K, True): 1}
+        if (design, design_b) != want or (
+                tag == "bf16" and K == 15 and want != ({"wgmma": 1},
+                                                       {"wgmma": 1})):
+            raise AssertionError(f"K7 [{tag}] T {T} K {K} took the designs "
+                                 f"{design} / {design_b}, expected {want}")
+        dname, dname_b = next(iter(design)), next(iter(design_b))
         again = torch.autograd.grad(out, [x] + params, dy, retain_graph=True)
         torch.cuda.synchronize()
         with torch.no_grad():
@@ -2735,7 +2815,8 @@ def conv_module_kernel_rows(smi, runs):
         if not all(torch.equal(a, b) for a, b in zip(grads, again)):
             raise AssertionError(f"{what}: gradients differ from run to run")
         log(f"kernel conv_module_residual [{tag}] x [{TB}, {T}, {TD}] E "
-            f"{2 * TD} K {K} r {r}, sequence 0 empty: out max_abs_err "
+            f"{2 * TD} K {K} r {r}, design {dname} / {dname_b} (forward / "
+            f"backward), sequence 0 empty: out max_abs_err "
             f"{e_o:.3e}; gradients " + ", ".join(
                 f"{n} {e:.2e}" for n, e in e_g.items())
             + f" (tol {tol}); the same bits on a second backward PASS")
@@ -2768,6 +2849,13 @@ def conv_module_kernel_rows(smi, runs):
             log(f"  one call on the card (torch.profiler): "
                 f"{sum(n_f.values())} kernels forward {n_f}, "
                 f"{sum(n_b.values())} backward {n_b}")
+            again_fwd = [k for k in n_b if "fwd_tile_kernel" in k
+                         or "fwd_wg_kernel" in k]
+            if again_fwd or (dname_b == "wgmma"
+                             and "bwd_wg_kernel" not in n_b):
+                raise AssertionError(f"K7's backward ran a forward tile "
+                                     f"kernel again, or the profile missed "
+                                     f"its own: {n_b}")
         wide = K in WIDE_KS and tag == "bf16"
         if (T, tag, K) == (LT, "bf16", 15) or wide:
             name = "conv_module_residual" + (f"[K{K}]" if wide else "")
@@ -2776,21 +2864,30 @@ def conv_module_kernel_rows(smi, runs):
                                          + E + r) * 4
             product = 2 * N * TD * E
             dw = 2 * N * E * K
+            src = {"wgmma": "conv_wg.cuh"}
+            # x and the mask read, out written, the weights read; two
+            # products and the conv. The kept p is the design's own traffic
+            # (the backward could rebuild it): logged beside, not counted
             rows.append(train_row(
                 name, ck.conv_module_residual, "launches",
-                "conv_module.cu", f"{CONV_REF}:297", e_o, f_ms, p_f,
-                2 * N * TD * es + N * 4 + weights, 2 * product + dw, tag,
-                None, smi))
-            # x, dy and the mask read, dx written, the weights read and
-            # their f32 gradients written; the recomputed forward's two
-            # products and conv, and four more products and two convs
+                src.get(dname, "conv_module.cu"), f"{CONV_REF}:297", e_o,
+                f_ms, p_f, 2 * N * TD * es + N * 4 + weights,
+                2 * product + dw, tag, None, smi))
+            log(f"  {name}: the forward's kept p ({N * TD * 4} bytes, "
+                f"{N * TD * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory "
+                f"rate, written by the forward besides the bound's bytes, "
+                f"read by the backward within its own)")
+            # x, dy, the kept p and the mask read, dx written, the weights
+            # read and their f32 gradients written; u recomputed, ds, dxn,
+            # dw1 and dw2, and the conv, its transpose and dwdw
             rows.append(train_row(
                 name.replace("[", "[bwd,") if wide else name + "[bwd]",
                 ck.conv_module_residual,
-                "launches_bwd", "conv_module.cu", f"{CONV_REF}:331",
-                max(e_g.values()), b_ms, p_b,
-                3 * N * TD * es + N * 4 + 2 * weights, 6 * product + 3 * dw,
-                tag, None, smi))
+                "launches_bwd", src.get(dname_b, "conv_module.cu"),
+                f"{CONV_REF}:331", max(e_g.values()), b_ms, p_b,
+                3 * N * TD * es + N * TD * 4 + N * 4 + 2 * weights,
+                5 * product + 3 * dw, tag, None, smi))
+            rows[-2]["design"], rows[-1]["design"] = dname, dname_b
             if wide:  # launches: the wide-kernel training run's
                 rows[-2]["run"] = rows[-1]["run"] = K
         del module, x, dy, out, grads, co, pa, args, params
@@ -3036,6 +3133,7 @@ def long_train_phase(smi, steps: int = 10):
         w.launches = w.launches_bwd = 0
     zero_k4_designs()
     zero_k8_designs()
+    zero_k7_designs()
     losses = []
     for _ in range(steps):
         state, m = step(state, batch, seed=0)
@@ -3051,6 +3149,7 @@ def long_train_phase(smi, steps: int = 10):
     log_k4_designs("long train", steps, {"forward": {}, "backward": {}})
     log_k8_designs("long train", steps, {"forward": {"wgmma": 8 * steps},
                                          "backward": {"wgmma": 8 * steps}})
+    log_k7_designs("long train", steps, wgmma_k7(steps))
     for (name, direction), n in launches.items():
         if n != steps * LONG_STEP_LAUNCHES[name]:
             raise AssertionError(
@@ -3925,15 +4024,18 @@ LONG_CPU_TOL = {"loss": 1e-6, "grad_norm": 1e-4, "grad": 1e-3}
 
 def long_step_against_cpu_phase(smi):
     """One fused step of a narrow long-sequence hybrid (dim 64, T 400,
-    attention dropout 0: the tiled attention, the conv-module kernel and
-    K1 on the card) on the card and on this machine's CPU, from the same
-    weights and seeds, at f32."""
+    attention dropout 0: the tiled attention, the conv-module kernel -- its
+    f32 tile kernels, forced with ``fused=True`` since the table sends f32
+    to the composition -- and K1 on the card) on the card and on this
+    machine's CPU, from the same weights and seeds, at f32."""
     import torch
 
     from ishara_tpu_torch.config import EncoderConfig, TrainConfig
     from ishara_tpu_torch.data.synthetic import SyntheticASLFR
     from ishara_tpu_torch.data.tokenizer import CTCTokenizer
     from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.models.layers import SqueezeformerConvModule
+    from ishara_tpu_torch.ops import conv_kernel as cm
     from ishara_tpu_torch.ops import ctc_kernel as ck
     from ishara_tpu_torch.preprocess.pipeline import GroupStats
     from ishara_tpu_torch.train import (
@@ -3947,6 +4049,9 @@ def long_step_against_cpu_phase(smi):
                         frame_len=400, dropout=0.0, top_dropout=0.2)
     torch.manual_seed(0)
     model = build_model(cfg, device="cpu")
+    for m in model.modules():
+        if isinstance(m, SqueezeformerConvModule):
+            m.fused = True
     batch = SyntheticASLFR(num_sequences=4, frames_per_char=16,
                            seed=3).batch(range(4), CTCTokenizer(),
                                          max_frames=600)
@@ -3955,7 +4060,8 @@ def long_step_against_cpu_phase(smi):
                                      aug_prob=0.2, with_grads=True)
     cpu = TrainState.create(copy.deepcopy(model), tx, device="cpu")
     card = TrainState.create(copy.deepcopy(model), tx, device=DEVICE)
-    before = ck.ctc_loss_kernel.launches_bwd
+    before = (ck.ctc_loss_kernel.launches_bwd,
+              cm.conv_module_residual.launches_bwd)
     _, mc = step(cpu, batch, seed=1)
     _, mg = step(card, batch, seed=1)
     torch.cuda.synchronize()
@@ -3967,7 +4073,8 @@ def long_step_against_cpu_phase(smi):
     d_grad = max(float((mg["grads"][n].cpu() - g).abs().max())
                  / max(float(g.abs().max()), 1e-3 * largest)
                  for n, g in mc["grads"].items())
-    ok = (ck.ctc_loss_kernel.launches_bwd == before + 1
+    ok = (ck.ctc_loss_kernel.launches_bwd == before[0] + 1
+          and cm.conv_module_residual.launches_bwd == before[1] + 1
           and d_loss <= LONG_CPU_TOL["loss"]
           and d_norm <= LONG_CPU_TOL["grad_norm"]
           and d_grad <= LONG_CPU_TOL["grad"])
@@ -4301,10 +4408,15 @@ def families_phase(smi, reqs, steps: int = 3):
         log(f"{name} train: {steps} steps, loss "
             + " ".join(f"{v:.3f}" for v in losses)
             + f"; launches {launches} "
-            + ("PASS" if not bad else f"FAIL {bad}"))
+            + ("PASS" if not bad else f"FAIL {bad}")
+            + f"; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if bad:
             raise AssertionError(f"{name}: launches off the expected "
                                  f"{want} a step: {bad}")
+        log_k7_designs(f"{name} train", steps,
+                       wgmma_k7(steps) if want["conv_module_residual"]
+                       else {"forward": {}, "backward": {}})
         time_steps(f"{name} train", step, state, batch, smi, top=8)
         del state0
 
@@ -4814,8 +4926,10 @@ def dp_phase(smi, scratch: Path):
             f"median of 3 each, host clock) on {smi}")
         _, losses, launches = run_counted(mstep, state.clone(), batch, 3)
         log_k4_designs("data parallel, 1-rank NCCL mesh", 3)
+        log_k7_designs("data parallel, 1-rank NCCL mesh", 3,
+                       {"forward": {}, "backward": {}})
         for (name, direction), n in launches.items():
-            if n != 3 * STEP_LAUNCHES.get(name, 0):
+            if n != 3 * DP_STEP_LAUNCHES.get(name, 0):
                 raise AssertionError(f"dp: {name}.{direction} = {n}")
         log(f"data parallel, 1-rank NCCL mesh: 3 steps, loss "
             + " ".join(f"{v:.3f}" for v in losses)
@@ -4856,7 +4970,7 @@ def dp_phase(smi, scratch: Path):
     if not same:
         raise AssertionError("the two replicas differ")
     for r in range(2):
-        for name, per in STEP_LAUNCHES.items():
+        for name, per in DP_STEP_LAUNCHES.items():
             if tuple(got[r]["launches"][name]) != (per, per):
                 raise AssertionError(f"rank {r}: {name} launched "
                                      f"{got[r]['launches'][name]}")
@@ -4923,14 +5037,14 @@ TP_PARTS = 2       # the model axis of the tensor-parallel phase
 # The tensor-parallel step's launches a step (forward = backward): the
 # attention kernel on the rank's 4 of 8 heads of the 8 blocks, the FFN
 # kernel's partial sums on the rank's 256 of 512 hidden columns of the 16
-# FFNs, the conv-module kernel at the 4 Squeezeformer blocks (replicated
-# weights, the whole activations after the row-parallel reduction), the
-# dropout-add of the 4 Squeezeformer attention branches and of the 8
-# Squeezeformer FFNs' reduced outputs (12: the FFN kernel's own residual
+# FFNs, none of the conv-module kernel (the step is f32, where the table
+# sends the conv module to its composition), the dropout-add of the 4
+# Squeezeformer attention branches and of the 8 Squeezeformer FFNs' reduced
+# outputs (12: the FFN kernel's own residual
 # and output dropout are taken after the reduction), the top dropout, one
 # CTC loss.
 TP_STEP_LAUNCHES = {"flash_mhsa": 8, "ffn_residual": 16,
-                    "conv_module_residual": 4, "fast_dropout_add": 12,
+                    "conv_module_residual": 0, "fast_dropout_add": 12,
                     "fast_dropout": 1, "ctc_loss_kernel": 1,
                     "flash_mhsa_blocked": 0}
 
@@ -5583,9 +5697,13 @@ def main() -> int:
         cli_phase(smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for counts in (qat_launches, dp_launches):
-        for name in ("ctc_loss_kernel", "fast_dropout", "fast_dropout_add",
-                     "flash_mhsa", "ffn_residual", "conv_module_residual"):
+    for counts, names in ((qat_launches, (
+            "ctc_loss_kernel", "fast_dropout", "fast_dropout_add",
+            "flash_mhsa", "ffn_residual", "conv_module_residual")),
+            (dp_launches, ("ctc_loss_kernel", "fast_dropout",
+                           "fast_dropout_add", "flash_mhsa",
+                           "ffn_residual"))):   # f32: no conv-module kernel
+        for name in names:
             if counts[(name, "launches")] <= 0:
                 raise AssertionError(f"{name} was not launched by the QAT "
                                      f"or the data-parallel step")

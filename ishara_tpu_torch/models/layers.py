@@ -574,10 +574,11 @@ class SqueezeformerConvModule(nn.Module):
     -> +residual.
 
     In training on a CUDA device, where ``fused`` is on (``None`` reads
-    ``selection.conv_module_fused`` for the geometry), the whole branch with
-    its residual is one kernel,
+    ``selection.conv_module_fused`` for the geometry and dtype: f32 takes
+    the composition), the whole branch with its residual is one kernel,
     :func:`ishara_tpu_torch.ops.conv_kernel.conv_module_residual`, whose
-    backward recomputes the branch from ``x``; it reads the module's own
+    backward recomputes the branch from ``x`` and the ``p`` its forward
+    kept; it reads the module's own
     parameters in the reference's layouts (:meth:`kernel_args`). Otherwise,
     and always in eval, it is the composition. ``causal_se=True`` gates
     with the running mean (causal :class:`SqueezeExcite`) and always takes
@@ -613,7 +614,7 @@ class SqueezeformerConvModule(nn.Module):
     def forward(self, x, mask=None, training: bool = False):
         if training and on_card(x) and not self.causal_se and (
                 selection.conv_module_fused(self.dim, x.shape[1],
-                                            global_batch(x))
+                                            global_batch(x), x.dtype)
                 if self.fused is None else self.fused):
             return conv_kernel.conv_module_residual(
                 x, *self.kernel_args(x, mask))

@@ -4,23 +4,33 @@ kernel, forward and backward (port of ``ishara_tpu/ops/conv_kernel.py``).
 :func:`conv_module_residual` replaces the Pallas ``conv_module_residual``:
 ``x + SE(pw2(swish(causal_dw(swish(pw1(LN(x)))))))`` with the masked SE
 pool, no dropout inside the branch, and a backward that recomputes the
-branch from ``x`` instead of saving it. Precision as the reference: the two
-pointwise products take operands of ``x``'s dtype and accumulate in f32;
-LN (eps 1e-6), the swishes, the causal depthwise conv and the SE run in f32,
-and so do the depthwise taps, the SE weights and the biases;
-``msum = max(sum mask, 1)``, so an all-masked sequence pools to 0. dx comes
+branch from ``x`` (all but ``p``, which the forward keeps). Precision as
+the reference: the two pointwise products take operands of ``x``'s dtype
+and accumulate in f32; LN (eps 1e-6), the swishes, the causal depthwise
+conv and the SE run in f32, and so do the depthwise taps, the SE weights
+and the biases; ``msum = max(sum mask, 1)``, so an all-masked sequence
+pools to 0. dx comes
 back in ``x``'s dtype, every weight gradient is summed in f32 and cast to
 its parameter's dtype, and the mask gets none.
 
-On a CUDA tensor the wrapper launches ``csrc/conv_module.cu`` -- time tiles
-with a halo, 3 kernels forward and 11 backward, behind one C call each way
-(the file says how the TPU kernel's whole-sequence slab becomes tiles of
-16 to 64 rows; :func:`tile_plan` picks the tile) -- or raises; on a CPU
-tensor it runs the plain versions beside it
-(:func:`conv_module_forward_plain`, :func:`conv_module_backward_plain`),
-which repeat the reference's arithmetic and rounding points. The weight
-gradients are partial sums added in a fixed order (no atomics), so they are
-the same from run to run.
+On a CUDA tensor the wrapper launches ``csrc/conv_module.cu`` behind one C
+call each way, or raises; on a CPU tensor it runs the plain versions beside
+it (:func:`conv_module_forward_plain`, :func:`conv_module_backward_plain`),
+which repeat the reference's arithmetic and rounding points. The design is
+chosen by :func:`conv_plan` (mirrored by the C ``ishara_conv_plan``):
+
+* ``"wgmma"``: bf16, D a multiple of 64 up to 256, E a multiple of 64, at
+  most 16 taps -- every preset's training geometry. Warpgroup products fed
+  by TMA weight rings (``csrc/hopper.cuh``), time tiles whose conv halo is
+  recomputed; 3 kernels forward, 10 backward;
+* ``"tile"``: the other shapes a tile holds (:func:`tile_plan`): time tiles
+  with a halo on ``mma.sync``, 3 kernels forward and 10 backward;
+* ``"general"``: the rest, a chain of row kernels (6 forward, 19 backward).
+
+The forward keeps ``p = pw2(...) + b2`` (f32) for the backward, which takes
+the SE gate and its backward from it instead of running the forward again.
+The weight gradients are partial sums added in a fixed order (no atomics),
+so they are the same from run to run.
 """
 
 from __future__ import annotations
@@ -31,6 +41,8 @@ import torch
 
 from . import _build
 from .ffn_kernel import wgrad_splits
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 LN_EPS = 1e-6
 SMEM_LIMIT = 232448      # bytes of shared memory a block may take (H100)
@@ -111,6 +123,50 @@ def tile_plan(T: int, D: int, K: int, dtype: torch.dtype,
     return None
 
 
+DESIGNS = ("tile", "wgmma")
+
+
+def conv_plan(dtype, D: int, E: int, K: int) -> str:
+    """Which design of ``csrc/conv_module.cu`` takes a branch of width
+    ``D``, hidden ``E`` and ``K`` depthwise taps in ``dtype``: a rule on the
+    shape alone, the same as the C ``plan`` (``ishara_conv_plan``), which
+    alone owns the wgmma design's layout.
+
+    * ``"wgmma"``: bf16, ``D`` a multiple of 64 up to 256 (a warpgroup's
+      [64, D] f32 accumulator of p or dxn in its registers), ``E`` a multiple
+      of 64, ``K`` up to 16 (a halo of one 16-row band);
+    * ``"tile"``: everything else, which :func:`tile_plan` cuts into time
+      tiles (or, where none fits, the general path)."""
+    if dtype == torch.bfloat16 and D % 64 == 0 and 64 <= D <= 256 \
+            and E % 64 == 0 and E > 0 and 1 <= K <= 16:
+        return "wgmma"
+    return "tile"
+
+
+def c_plan(dtype, D: int, E: int, K: int) -> dict:
+    """``csrc/conv_module.cu``'s own plan of the shape (needs the built
+    library): ``design``, then for the wgmma design its forward and
+    backward own rows a tile, channels a chunk, ring slots and shared memory
+    (bytes), else zeros."""
+    out = (ctypes.c_longlong * 9)()
+    fn = _build.function("conv_module", "ishara_conv_plan",
+                         [_I, _I, _I, _I, ctypes.c_void_p])
+    _build.check("conv_module", fn(_DTYPE_CODE.get(dtype, -1), D, E, K,
+                                   ctypes.addressof(out)), "conv-module plan")
+    names = ("fwd_rows", "bwd_rows", "fwd_chunk", "bwd_chunk", "fwd_slots",
+             "bwd_slots", "fwd_smem", "bwd_smem")
+    return {"design": DESIGNS[out[0]],
+            **{n: int(v) for n, v in zip(names, out[1:])}}
+
+
+def design_of(x, E: int, K: int, backward: bool) -> str:
+    """The design a launch on ``x`` ``[B, T, D]`` takes in one direction:
+    "wgmma", "tile" or "general"."""
+    if conv_plan(x.dtype, x.shape[2], E, K) == "wgmma":
+        return "wgmma"
+    return "general" if _configs(x, K, backward)[0] < 0 else "tile"
+
+
 def _configs(x, K, backward):
     """The C calls' (cfg_f, cfg_b): the plans' indices, -1 for the
     general path (both, in the backward, unless both plans exist)."""
@@ -165,16 +221,18 @@ def _dswish(h, sig):
     return sig + h * sig * (1.0 - sig)
 
 
-def _branch(xn, m, cd, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2):
+def _branch(xn, m, cd, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2, p=None):
     """The forward recompute shared by both plain versions; every
-    intermediate the backward needs."""
+    intermediate the backward needs. ``p``: the forward's own ``p`` where
+    the caller kept it (the product is then not taken again)."""
     u = _dot(xn.to(cd), w1) + b1
     sig_u = torch.sigmoid(u)
     a = u * sig_u
     c = _causal_dw(a, wdw)
     sig_c = torch.sigmoid(c)
     s = c * sig_c
-    p = _dot(s.to(cd), w2) + b2
+    if p is None:
+        p = _dot(s.to(cd), w2) + b2
     msum = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)        # [B, 1]
     pool = (p * m[..., None]).sum(dim=1) / msum                      # [B, D]
     z1 = pool @ wf1 + bf1
@@ -186,24 +244,28 @@ def _branch(xn, m, cd, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2):
 
 
 def conv_module_forward_plain(x, mask, gamma, beta, w1, b1, wdw, w2, b2, wf1,
-                              bf1, wf2, bf2):
+                              bf1, wf2, bf2, with_p: bool = False):
     """Plain version of the forward kernels: ``[B, T, D]`` in ``x``'s
-    dtype. Operands as :func:`_prep` gives them."""
+    dtype. Operands as :func:`_prep` gives them. ``with_p``: also return
+    ``p = pw2(...) + b2`` (f32 ``[B, T, D]``), which the backward takes."""
     xf = x.to(torch.float32)
     _, _, xn = _ln(xf, gamma, beta)
     r = _branch(xn, mask, x.dtype, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2)
-    return (r["p"] * r["g"][:, None, :] + xf).to(x.dtype)
+    out = (r["p"] * r["g"][:, None, :] + xf).to(x.dtype)
+    return (out, r["p"]) if with_p else out
 
 
 def conv_module_backward_plain(x, mask, dy, gamma, beta, w1, b1, wdw, w2, b2,
-                               wf1, bf1, wf2, bf2):
+                               wf1, bf1, wf2, bf2, p=None):
     """Plain version of the backward kernels: (dx in ``x``'s dtype, then
     dgamma, dbeta, dw1, db1, dwdw, dw2, db2, dwf1, dbf1, dwf2, dbf2 in f32),
-    recomputing the branch from ``x`` as the reference does."""
+    recomputing the branch from ``x`` as the reference does; ``p``, the
+    forward's (``conv_module_forward_plain(..., with_p=True)``), is taken
+    as it is where given, with the same result."""
     cd = x.dtype
     xf = x.to(torch.float32)
     xh, rstd, xn = _ln(xf, gamma, beta)
-    r = _branch(xn, mask, cd, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2)
+    r = _branch(xn, mask, cd, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2, p)
     B, T, D = x.shape
     E = w1.shape[1]
     do = dy.to(torch.float32)
@@ -267,7 +329,11 @@ def _check_cuda(x, args):
                              f"got {list(t.shape)} on {t.device}")
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+def _check_aligned(name, t):
+    """The kernels read and write x, dy and out in 16-byte vectors."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"the conv-module kernel takes {name} on 16 bytes, "
+                         f"got an address {t.data_ptr() % 16} bytes past")
 
 
 def _workspace(x, E, K, r, backward, splits, cfgs):
@@ -279,24 +345,29 @@ def _workspace(x, E, K, r, backward, splits, cfgs):
 
 
 def _launch_fwd(x, args):
+    """out, and the forward's p (f32 [B, T, D])."""
     _check_cuda(x, args)
     x = x.contiguous()
+    _check_aligned("x", x)
     B, T, D = x.shape
     E, K, r = args[3].shape[1], args[5].shape[0], args[8].shape[1]
     out = torch.empty_like(x)
+    p = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
     cfgs = _configs(x, K, False)
     work = _workspace(x, E, K, r, False, 1, cfgs)
     fn = _build.function("conv_module", "ishara_conv_fwd",
-                         [_I, _I] + [_P] * 15 + [_I] * 7 + [_P])
+                         [_I, _I] + [_P] * 16 + [_I] * 7 + [_P])
     rc = fn(_build.device_index(x), _DTYPE_CODE[x.dtype], x.data_ptr(),
-            *(t.data_ptr() for t in args), out.data_ptr(), work.data_ptr(),
-            B, T, D, E, K, r, cfgs[0], _build.stream_of(x))
+            *(t.data_ptr() for t in args), out.data_ptr(), p.data_ptr(),
+            work.data_ptr(), B, T, D, E, K, r, cfgs[0], _build.stream_of(x))
     _build.check("conv_module", rc, "conv-module forward kernels")
-    return out
+    return out, p
 
 
-def _launch_bwd(x, dy, args):
+def _launch_bwd(x, dy, args, p):
     x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
+    _check_aligned("x", x)
+    _check_aligned("dy", dy)
     B, T, D = x.shape
     E, K, r = args[3].shape[1], args[5].shape[0], args[8].shape[1]
     splits = wgrad_splits(B * T, D, E)
@@ -307,11 +378,12 @@ def _launch_bwd(x, dy, args):
     work = _workspace(x, E, K, r, True, splits, cfgs)
     mask, *params = args
     fn = _build.function("conv_module", "ishara_conv_bwd",
-                         [_I, _I] + [_P] * 17 + [_I] * 9 + [_P])
+                         [_I, _I] + [_P] * 18 + [_I] * 9 + [_P])
     rc = fn(_build.device_index(x), _DTYPE_CODE[x.dtype], x.data_ptr(),
             mask.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in params),
-            dx.data_ptr(), grads.data_ptr(), work.data_ptr(), B, T, D, E, K,
-            r, splits, *cfgs, _build.stream_of(x))
+            p.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+            work.data_ptr(), B, T, D, E, K, r, splits, *cfgs,
+            _build.stream_of(x))
     _build.check("conv_module", rc, "conv-module backward kernels")
     shapes = ((D,), (D,), (D, E), (E,), (K, E), (E, D), (D,), (D, r), (r,),
               (r, D), (D,))
@@ -324,22 +396,26 @@ class _ConvModuleResidual(torch.autograd.Function):
     def forward(ctx, x, *params):
         args = _prep(x, *params)
         if x.device.type == "cpu":
-            out = conv_module_forward_plain(x, *args)
+            out, p = conv_module_forward_plain(x, *args, with_p=True)
         else:
-            out = _launch_fwd(x, args)
+            out, p = _launch_fwd(x, args)    # checks x first
+            design = design_of(x, args[3].shape[1], args[5].shape[0], False)
             conv_module_residual.launches += 1
-        ctx.save_for_backward(x, *args)
-        ctx.dtypes = tuple(p.dtype for p in params[1:])
+            conv_module_residual.launches_by_design[design] += 1
+        ctx.save_for_backward(x, p, *args)
+        ctx.dtypes = tuple(q.dtype for q in params[1:])
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, *args = ctx.saved_tensors
+        x, p, *args = ctx.saved_tensors
         if x.device.type == "cpu":
-            grads = conv_module_backward_plain(x, args[0], dy, *args[1:])
+            grads = conv_module_backward_plain(x, args[0], dy, *args[1:], p=p)
         else:
-            grads = _launch_bwd(x, dy, args)
+            grads = _launch_bwd(x, dy, args, p)
+            design = design_of(x, args[3].shape[1], args[5].shape[0], True)
             conv_module_residual.launches_bwd += 1
+            conv_module_residual.launches_bwd_by_design[design] += 1
         dx, *dparams = grads
         return (dx, None,
                 *(g.to(t) for g, t in zip(dparams, ctx.dtypes)))
@@ -371,9 +447,13 @@ def conv_module_residual(x: torch.Tensor, mask: torch.Tensor,
 
 
 # launches of the forward kernels and of the backward kernels (one count for
-# each C call, whatever number of kernels it runs)
+# each C call, whatever number of kernels it runs), in all and by design
 conv_module_residual.launches = 0
 conv_module_residual.launches_bwd = 0
+conv_module_residual.launches_by_design = {
+    "wgmma": 0, "tile": 0, "general": 0}
+conv_module_residual.launches_bwd_by_design = {
+    "wgmma": 0, "tile": 0, "general": 0}
 
 
 def c_tile_smem(dtype: torch.dtype, backward: bool, config: int, D: int,

@@ -20,6 +20,16 @@
 // swish'(u) (f32, summed into db1) is rounded for dw1 = xn^T du and dxn =
 // du w1^T; LN's backward and dx = dy + dx_ln are f32, rounded once.
 //
+// Three designs, the first chosen by a rule on the shape (cwg::plan,
+// mirrored by conv_kernel.conv_plan; a launch it refuses fails, nothing
+// falls back): bf16 with D a multiple of 64 up to 256, E a multiple of 64
+// and at most 16 taps -- every preset's training geometry -- takes the
+// wgmma design of conv_wg.cuh (warpgroup products fed by TMA weight rings);
+// every other shape takes the tile kernels below, or the general path
+// where no tile fits. The forward keeps p = pw2(...) + b2 (f32, the
+// caller's tensor), and the backward takes the SE gate and its backward
+// from it instead of running the forward again.
+//
 // Design: time tiles with a halo. The TPU kernel holds a whole [T, E] slab
 // of a sequence in VMEM; an SM cannot (1 MB at T 512, E 512 in f32). Only
 // the SE pool and the causal conv couple time across a sequence, and the
@@ -33,22 +43,24 @@
 //   w1[:, chunk] + b1 on the tensor cores, a = swish(u) (f32, shared), c =
 //   the causal conv over the tile's rows, s = swish(c) rounded, and p += s
 //   w2[chunk, :] accumulated in registers across the chunks; epilogue p + b2,
-//   written once (f32), with its masked pool partials for each (tile,
-//   channel); (2) the SE gate, one block a sequence, from the partials
-//   summed in tile order; (3) out = p * g + x.
-//   backward, 3 launches before the weight products: (1) the tile kernel
-//   again, p not written, with the partials of sum m * p and sum dy * p;
-//   (2) the SE backward per sequence (dgate, dpool, what the SE weight
-//   gradients need); (3) the backward tile kernel, a halo on both sides: LN
-//   of [t0 - H, t0 + TT + H), dp of [t0, t0 + TT + H) (needs no recomputed
-//   p); for each chunk: u and a over all its rows, ds = dp w2^T, dc = ds
-//   swish'(c), s of its own rows, da by the anticausal conv, du = da
-//   swish'(u), and dxn += du w1^T in registers; then LN's backward with dx =
+//   written once (f32, kept for the backward), with its masked pool
+//   partials for each (tile, channel); (2) the SE gate, one block a
+//   sequence, from the partials summed in tile order; (3) out = p * g + x.
+//   backward, 2 launches before the weight products: (1) the SE gate and
+//   its backward per sequence (pool and dgate = the sums over the forward's
+//   tiles, in order, of each tile's sums of m p and dy p over its rows, one
+//   pass over the kept p; dpool, what the SE weight gradients need); (2)
+//   the backward tile kernel, a halo on both sides: LN of [t0 - H, t0 + TT
+//   + H), dp of [t0, t0 + TT + H) (needs no recomputed p); for each
+//   chunk: u and a over all its rows, ds = dp w2^T, dc = ds swish'(c), s of
+//   its own rows, da by the anticausal conv, du = da swish'(u), and dxn +=
+//   du w1^T in registers; then LN's backward with dx =
 //   dy + dx_ln written once, and per-tile partials of db1, db2, dwdw, dgamma
 //   and dbeta. It writes xn, dp, s and du in the compute type for the weight
-//   products. Then (4) dw1 = xn^T du and dw2 = s^T dp (wgrad.cuh), the SE
-//   weight gradients, and five fixed-order sums of the partials: 11
-//   launches in all. No atomics: every gradient is the same from run to run.
+//   products. Then (3) dw1 = xn^T du and dw2 = s^T dp (wgrad.cuh), the SE
+//   weight gradients, and five fixed-order sums of the partials: 10
+//   launches in all (the wgmma design's backward the same, its tile kernel
+//   conv_wg.cuh's). No atomics: every gradient is the same from run to run.
 // The weight chunks stream by cp.async into shared memory while the other
 // operand's products run (w1's chunks double-buffered in the backward); the
 // products are mma.sync m16n8k16 bf16, or 3xTF32 m16n8k8 at f32
@@ -59,15 +71,17 @@
 // shared memory. A width that fits in none (D beyond ~500 at f32, ~600 at
 // bf16) takes the general path at the end of this file: the same function
 // as a chain of row-tiled kernels passing sequence-sized f32 intermediates
-// through device memory (6 launches forward, 20 backward).
+// through device memory (6 launches forward, 19 backward, which takes the
+// forward's p and so skips its second product).
 // Any number of depthwise taps: a halo above 32 rows takes its u and ds
 // products in passes of a warp's m-tiles and its taps 16 at a time, and a
 // K whose halo no tile holds takes the general path as well.
 //
 // Bound: operations. At B 256, T 512, D 256, E 512, K 15 in bf16 the
-// products are 69 GFLOP forward (77 with the halo recomputed) and 206
+// products are 69 GFLOP forward (77 with the halo recomputed) and 172
 // backward. Bytes at that shape: ~0.5 GB forward (x, p written and read
-// once in f32, out); ~1.6 GB backward (x and dy read again for the halos
+// once in f32, out); ~1.6 GB backward (the kept p read once, x and dy read
+// again for the halos
 // and LN's backward, dx, the four compute-type operands of the weight
 // products written and read once, the dwdw partials), against ~2.5 GB of
 // f32 intermediates in the chain.
@@ -79,6 +93,7 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "conv_wg.cuh"
 #include "mma.cuh"
 #include "wgrad.cuh"
 
@@ -134,7 +149,7 @@ struct TileArgs {
   const void *x, *dy, *w1, *w2;  // compute type
   const float *mask, *gamma, *beta, *b1, *wdw, *b2;
   float* p;                      // forward: p = pw2(...) + b2 [B, T, D]
-  float *part_mp, *part_dyp;     // [B, tiles, D]: sum m * p, sum dy * p
+  float* part_mp;                // [B, tiles, D]: sum m * p
   const float *gate, *dpool, *msum;  // [B, D], [B, D], [B]
   void *dx, *xn_g, *dp_g, *s_g, *du_g;  // compute type
   float *part_ln, *part_e, *part_db2;   // [B, tiles] x [2D], [E + KE], [D]
@@ -462,8 +477,6 @@ __device__ void conv_du_n(const TileArgs& P, const float* ach,
 // accumulates p's columns [w * 8 NTP, (w + 1) * 8 NTP) for all TT rows, so
 // Dk <= 64 NTP. The u product: warp (mg, ng) owns 16 channels ng * 16 .. of
 // the chunk and the m-tiles mg, mg + MG, ... of the R = TT + H rows.
-// With dy (the backward's first pass) p is not written and the partials of
-// sum dy * p come beside those of sum m * p.
 template <typename T, int MTP, int NTP, int EC>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_tile_kernel(const TileArgs P) {
@@ -543,15 +556,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     tc::cp_async_commit();
   }
 
-  // p = acc + b2: written (forward), and the tile's partial sums over its
+  // p = acc + b2: written, and the tile's partial sums of m p over its
   // rows, each lane's rows in order, then across g by a fixed butterfly
-  const T* dy = (const T*)P.dy;
   const float* m = P.mask + (long long)b * P.T;
   const long long part = ((long long)b * P.tiles + tile) * P.D;
 #pragma unroll
   for (int j = 0; j < NTP; ++j) {
     const int col = warp * NTP * 8 + j * 8 + 2 * t;
-    float smp[2] = {0.f, 0.f}, sdp[2] = {0.f, 0.f};
+    float smp[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < MTP; ++i)
 #pragma unroll
@@ -564,22 +576,16 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int d = col + e2;
           if (d >= P.D) continue;
           const float pv = acc[i][j][2 * h + e2] + P.b2[d];
-          if (P.p) P.p[at + d] = pv;
+          P.p[at + d] = pv;
           smp[e2] += m[tg] * pv;
-          if (dy) sdp[e2] += widen(dy[at + d]) * pv;
         }
       }
 #pragma unroll
     for (int e2 = 0; e2 < 2; ++e2) {
 #pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
+      for (int o = 4; o < 32; o <<= 1)
         smp[e2] += __shfl_xor_sync(0xffffffffu, smp[e2], o);
-        sdp[e2] += __shfl_xor_sync(0xffffffffu, sdp[e2], o);
-      }
-      if (g == 0 && col + e2 < P.D) {
-        P.part_mp[part + col + e2] = smp[e2];
-        if (dy) P.part_dyp[part + col + e2] = sdp[e2];
-      }
+      if (g == 0 && col + e2 < P.D) P.part_mp[part + col + e2] = smp[e2];
     }
   }
 }
@@ -813,17 +819,23 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// The SE gate of sequence b (one block) from the tile partials: msum =
-// max(sum mask, 1); pool = (sum over tiles of the partials of m p) / msum;
-// z1 = pool wf1 + bf1; g1 = swish(z1); g = sigmoid(g1 wf2 + bf2) -> gate.
-// Backward (part_dyp given): dgate = sum over tiles of the partials of dy
-// p; dz2 = dgate g (1 - g); dz1 = (dz2 wf2^T) swish'(z1); dpool = dz1
-// wf1^T -> dpool, msum, and pool, g1, dz1, dz2 for the SE weight gradients.
-// Shared memory: pool [D], dz2 [D], z1, g1, dz1 [r], msum.
-__global__ void __launch_bounds__(THREADS)
+// The SE gate of sequence b (one block): msum = max(sum mask, 1); pool =
+// (sum over the tiles of `rows` rows, in order, of each tile's sum of m p)
+// / msum; z1 = pool wf1 + bf1; g1 = swish(z1); g = sigmoid(g1 wf2 + bf2)
+// -> gate. Forward (dy null): the tiles' sums of m p are the tile kernel's
+// partials part_mp. Backward (dy given, part_mp null): one pass over the
+// forward's kept p forms each tile's sums of m p and of dy p, four tiles at
+// a time, a quarter of the block on each, added in tile order; dgate = the
+// sum of dy p; dz2 = dgate g (1 - g); dz1 = (dz2 wf2^T) swish'(z1); dpool =
+// dz1 wf1^T -> dpool, msum, and pool, g1, dz1, dz2 for the SE weight
+// gradients. SE_THREADS threads. Shared memory: pool [D], dz2 [D], z1, g1,
+// dz1 [r], msum, gate [D], the four tiles' sums of m p and of dy p [8][D].
+constexpr int SE_THREADS = 4 * THREADS;
+template <typename T>
+__global__ void __launch_bounds__(SE_THREADS)
     se_tiles_kernel(const float* __restrict__ part_mp,
-                    const float* __restrict__ part_dyp,
-                    const float* __restrict__ mask,
+                    const float* __restrict__ p, const T* __restrict__ dy,
+                    int rows, const float* __restrict__ mask,
                     const float* __restrict__ wf1,
                     const float* __restrict__ bf1,
                     const float* __restrict__ wf2,
@@ -839,6 +851,8 @@ __global__ void __launch_bounds__(THREADS)
   float* g1 = z1 + r;
   float* dz1 = g1 + r;
   float* msum_s = dz1 + r;
+  float* gsh = msum_s + 1;
+  float* tsum = gsh + D;
   const int b = blockIdx.x;
   const float* mb = mask + (long long)b * Tn;
   if (threadIdx.x < 32) {
@@ -849,41 +863,69 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
   const float msum = *msum_s;
-  const long long pb = (long long)b * tiles * D;
-  for (int d = threadIdx.x; d < D; d += THREADS) {
-    float s = 0.f;
-    for (int i = 0; i < tiles; ++i) s += part_mp[pb + (long long)i * D + d];
-    pool[d] = s / msum;
+  if (dy) {
+    // quarter q of the block sums tile k0 + q over its rows; the four
+    // tiles' sums are then added to the running sums in tile order
+    for (int d = threadIdx.x; d < D; d += SE_THREADS) pool[d] = dz2[d] = 0.f;
+    const int q = threadIdx.x / THREADS;
+    for (int k0 = 0; k0 < tiles; k0 += 4) {
+      const int t0 = (k0 + q) * rows, t1 = min(Tn, t0 + rows);
+      for (int d = threadIdx.x % THREADS; d < D; d += THREADS) {
+        const long long sb = (long long)b * Tn * D + d;
+        float pm = 0.f, pd = 0.f;
+#pragma unroll 8
+        for (int t = t0; t < t1; ++t) {
+          const float v = p[sb + (long long)t * D];
+          pm += mb[t] * v;
+          pd += widen(dy[sb + (long long)t * D]) * v;
+        }
+        tsum[q * D + d] = pm;
+        tsum[(4 + q) * D + d] = pd;
+      }
+      __syncthreads();
+      for (int d = threadIdx.x; d < D; d += SE_THREADS)
+        for (int i = 0; i < 4 && k0 + i < tiles; ++i) {
+          pool[d] += tsum[i * D + d];
+          dz2[d] += tsum[(4 + i) * D + d];
+        }
+      __syncthreads();
+    }
+    for (int d = threadIdx.x; d < D; d += SE_THREADS) pool[d] /= msum;
+  } else {
+    const long long pb = (long long)b * tiles * D;
+    for (int d = threadIdx.x; d < D; d += SE_THREADS) {
+      float s = 0.f;
+      for (int i = 0; i < tiles; ++i) s += part_mp[pb + (long long)i * D + d];
+      pool[d] = s / msum;
+    }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < r; j += THREADS) {
+  for (int j = threadIdx.x; j < r; j += SE_THREADS) {
     float z = bf1[j];
     for (int d = 0; d < D; ++d) z += pool[d] * wf1[d * r + j];
     z1[j] = z;
     g1[j] = z * sigmoid(z);
   }
   __syncthreads();
-  for (int d = threadIdx.x; d < D; d += THREADS) {
+  for (int d = threadIdx.x; d < D; d += SE_THREADS) {
     float z = bf2[d];
     for (int j = 0; j < r; ++j) z += g1[j] * wf2[j * D + d];
     const float g = sigmoid(z);
     gate[(long long)b * D + d] = g;
-    if (part_dyp) {
-      float dg = 0.f;
-      for (int i = 0; i < tiles; ++i)
-        dg += part_dyp[pb + (long long)i * D + d];
-      dz2[d] = dg * g * (1.f - g);
-    }
+    gsh[d] = g;
   }
-  if (!part_dyp) return;
+  if (!dy) return;
   __syncthreads();
-  for (int j = threadIdx.x; j < r; j += THREADS) {
+  for (int d = threadIdx.x; d < D; d += SE_THREADS)
+    dz2[d] *= gsh[d] * (1.f - gsh[d]);
+  __syncthreads();
+  for (int j = threadIdx.x; j < r; j += SE_THREADS) {
     float s = 0.f;
     for (int d = 0; d < D; ++d) s += dz2[d] * wf2[j * D + d];
     dz1[j] = s * dswish(z1[j], sigmoid(z1[j]));
   }
   __syncthreads();
-  for (int d = threadIdx.x; d < D; d += THREADS) {
+  for (int d = threadIdx.x; d < D; d += SE_THREADS) {
     float s = 0.f;
     for (int j = 0; j < r; ++j) s += dz1[j] * wf1[d * r + j];
     const long long o = (long long)b * D + d;
@@ -891,7 +933,7 @@ __global__ void __launch_bounds__(THREADS)
     pool_out[o] = pool[d];
     dz2_out[o] = dz2[d];
   }
-  for (int j = threadIdx.x; j < r; j += THREADS) {
+  for (int j = threadIdx.x; j < r; j += SE_THREADS) {
     g1_out[(long long)b * r + j] = g1[j];
     dz1_out[(long long)b * r + j] = dz1[j];
   }
@@ -1172,16 +1214,28 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) msum_out[b] = msum;
 }
 
-// out = p * g + x, rounded once.
-template <typename T>
+// out = p * g + x, rounded once; V consecutive elements a thread (V 8
+// where D is a multiple of 8: 16-byte loads of x and out, two of p).
+template <typename T, int V>
+struct alignas(V * sizeof(T)) Vec {
+  T v[V];
+};
+template <typename T, int V>
 __global__ void apply_kernel(const float* __restrict__ p,
                              const float* __restrict__ gate,
                              const T* __restrict__ x, T* __restrict__ out,
                              long long ND, long long TD, int D) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
   if (i >= ND) return;
   const long long b = i / TD;
-  out[i] = narrow<T>(p[i] * gate[b * D + i % D] + widen(x[i]));
+  const int d = (int)(i % D);
+  const Vec<float, V> pv = *reinterpret_cast<const Vec<float, V>*>(p + i);
+  const Vec<T, V> xv = *reinterpret_cast<const Vec<T, V>*>(x + i);
+  Vec<T, V> ov;
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    ov.v[e] = narrow<T>(pv.v[e] * gate[b * D + d + e] + widen(xv.v[e]));
+  *reinterpret_cast<Vec<T, V>*>(out + i) = ov;
 }
 
 // dp = dy * g + dpool * (m / msum) in the compute type, and its column
@@ -1396,6 +1450,19 @@ int blocks_of(long long n, int t = THREADS) { return (int)((n + t - 1) / t); }
 int row_blocks(const Shape& S) { return (S.N + ROWS - 1) / ROWS; }
 int time_chunks(const Shape& S) { return (S.Tn + ROWS - 1) / ROWS; }
 
+template <typename T>
+cudaError_t apply(const float* p, const float* gate, const T* x, T* out,
+                  const Shape& S, cudaStream_t s) {
+  const long long ND = (long long)S.N * S.D, TD = (long long)S.Tn * S.D;
+  if (S.D % 8 == 0)
+    apply_kernel<T, 8><<<blocks_of(ND / 8), THREADS, 0, s>>>(p, gate, x, out,
+                                                             ND, TD, S.D);
+  else
+    apply_kernel<T, 1><<<blocks_of(ND), THREADS, 0, s>>>(p, gate, x, out, ND,
+                                                         TD, S.D);
+  return cudaGetLastError();
+}
+
 // A bump allocator over the caller's workspace; sizes 256-byte aligned.
 struct Carve {
   char* p;
@@ -1411,7 +1478,7 @@ struct Carve {
 template <typename T>
 struct Work {
   T *xn, *s, *dp, *du;
-  float *u, *a, *c, *p, *ds, *dxn;
+  float *u, *a, *c, *ds, *dxn;
   float *gate, *dpool, *msum, *pool, *g1, *dz1, *dz2;
   float *db2_part, *db1_part, *dwdw_part, *ln_part, *dw1_part, *dw2_part;
 };
@@ -1423,7 +1490,6 @@ Work<T> carve(const Shape& S, int splits, bool backward, Carve& c) {
   w.xn = c.take<T>(ND);
   w.a = c.take<float>(NE);
   w.s = c.take<T>(NE);
-  w.p = c.take<float>(ND);
   w.gate = c.take<float>((long long)S.B * S.D);
   if (!backward) return w;
   w.u = c.take<float>(NE);
@@ -1469,10 +1535,11 @@ struct Args {
 };
 
 // The forward up to p (and, for the backward, u and c), then the SE gate
-// (with its backward when dy is given).
+// (with its backward when dy is given). With the forward's p given (the
+// backward), the second product is not taken again.
 template <typename T>
-cudaError_t branch(const Args& A, const Shape& S, const Work<T>& w,
-                   const T* dy, cudaStream_t s) {
+cudaError_t branch(const Args& A, const Shape& S, const Work<T>& w, float* p,
+                   bool have_p, const T* dy, cudaStream_t s) {
   const long long NE = (long long)S.N * S.E;
   ln_kernel<T><<<blocks_of(S.N, THREADS / 32), THREADS, 0, s>>>(
       (const T*)A.x, (const float*)A.gamma, (const float*)A.beta, w.xn, S.N,
@@ -1491,18 +1558,20 @@ cudaError_t branch(const Args& A, const Shape& S, const Work<T>& w,
                                                      w.s, w.c, NE, S.Tn, S.E,
                                                      S.K);
   TRY(cudaGetLastError());
-  Gemm h{};
-  h.A = w.s, h.sam = S.E, h.sak = 1;
-  h.B = A.w2, h.sbk = S.D, h.sbn = 1;
-  h.M = S.N, h.N = S.D, h.K = S.E;
-  h.bias = (const float*)A.b2;
-  h.out0 = w.p;
-  h.ldc = S.D;
-  TRY(gemm<T>(h, s));
+  if (!have_p) {
+    Gemm h{};
+    h.A = w.s, h.sam = S.E, h.sak = 1;
+    h.B = A.w2, h.sbk = S.D, h.sbn = 1;
+    h.M = S.N, h.N = S.D, h.K = S.E;
+    h.bias = (const float*)A.b2;
+    h.out0 = p;
+    h.ldc = S.D;
+    TRY(gemm<T>(h, s));
+  }
   const size_t smem = (2 * (size_t)S.D + 3 * (size_t)S.r + 1) * 4;
   TRY(allow_smem(se_kernel<T>, smem));
   se_kernel<T><<<S.B, THREADS, smem, s>>>(
-      w.p, (const float*)A.mask, (const float*)A.wf1, (const float*)A.bf1,
+      p, (const float*)A.mask, (const float*)A.wf1, (const float*)A.bf1,
       (const float*)A.wf2, (const float*)A.bf2, dy, w.gate, w.dpool, w.msum,
       w.pool, w.g1, w.dz1, w.dz2, S.Tn, S.D, S.r);
   return cudaGetLastError();
@@ -1517,27 +1586,44 @@ bool shape_ok(const Shape& S) {
          time_chunks(S) <= 65535;
 }
 
+// The gradient layout: dgamma, dbeta [D], dw1 [D, E], db1 [E], dwdw [K,
+// E], dw2 [E, D], db2 [D], dwf1 [D, r], dbf1 [r], dwf2 [r, D], dbf2 [D].
+struct Grads {
+  float *dln, *dw1, *db1, *dwdw, *dw2, *db2, *dwf1, *dbf1, *dwf2, *dbf2;
+};
+Grads grads_of(float* g, const Shape& S) {
+  Grads o;
+  o.dln = g;
+  o.dw1 = o.dln + 2 * S.D;
+  o.db1 = o.dw1 + (long long)S.D * S.E;
+  o.dwdw = o.db1 + S.E;
+  o.dw2 = o.dwdw + (long long)S.K * S.E;
+  o.db2 = o.dw2 + (long long)S.E * S.D;
+  o.dwf1 = o.db2 + S.D;
+  o.dbf1 = o.dwf1 + (long long)S.D * S.r;
+  o.dwf2 = o.dbf1 + S.r;
+  o.dbf2 = o.dwf2 + (long long)S.r * S.D;
+  return o;
+}
+
 // The general path (see the top of this file): the chain of row kernels.
 template <typename T>
-cudaError_t chain_forward(const Args& A, void* out, void* work,
+cudaError_t chain_forward(const Args& A, void* out, float* p, void* work,
                           const Shape& S, cudaStream_t s) {
   Carve c{(char*)work};
   const Work<T> w = carve<T>(S, 1, false, c);
-  TRY(branch<T>(A, S, w, nullptr, s));
-  const long long ND = (long long)S.N * S.D;
-  apply_kernel<T><<<blocks_of(ND), THREADS, 0, s>>>(
-      w.p, w.gate, (const T*)A.x, (T*)out, ND, (long long)S.Tn * S.D, S.D);
-  return cudaGetLastError();
+  TRY(branch<T>(A, S, w, p, false, nullptr, s));
+  return apply<T>(p, w.gate, (const T*)A.x, (T*)out, S, s);
 }
 
 template <typename T>
-cudaError_t chain_backward(const Args& A, const void* dy, void* dx,
-                           float* grads, void* work, const Shape& S,
+cudaError_t chain_backward(const Args& A, const void* dy, const float* p,
+                           void* dx, float* grads, void* work, const Shape& S,
                            int splits, cudaStream_t s) {
   Carve c{(char*)work};
   const Work<T> w = carve<T>(S, splits, true, c);
   const long long NE = (long long)S.N * S.E;
-  TRY(branch<T>(A, S, w, (const T*)dy, s));
+  TRY(branch<T>(A, S, w, const_cast<float*>(p), true, (const T*)dy, s));
   dp_kernel<T><<<row_blocks(S), THREADS, 0, s>>>(
       (const T*)dy, w.gate, w.dpool, (const float*)A.mask, w.msum, w.dp,
       w.db2_part, S.N, S.Tn, S.D);
@@ -1567,24 +1653,14 @@ cudaError_t chain_backward(const Args& A, const void* dy, void* dx,
       (const T*)A.x, w.dxn, (const T*)dy, (const float*)A.gamma, (T*)dx,
       w.ln_part, S.N, S.D);
   TRY(cudaGetLastError());
-  // gradient layout: dgamma, dbeta [D], dw1 [D, E], db1 [E], dwdw [K, E],
-  // dw2 [E, D], db2 [D], dwf1 [D, r], dbf1 [r], dwf2 [r, D], dbf2 [D]
-  float* dln = grads;
-  float* dw1 = dln + 2 * S.D;
-  float* db1 = dw1 + (long long)S.D * S.E;
-  float* dwdw = db1 + S.E;
-  float* dw2 = dwdw + (long long)S.K * S.E;
-  float* db2 = dw2 + (long long)S.E * S.D;
-  float* dwf1 = db2 + S.D;
-  float* dbf1 = dwf1 + (long long)S.D * S.r;
-  float* dwf2 = dbf1 + S.r;
-  float* dbf2 = dwf2 + (long long)S.r * S.D;
+  const Grads o = grads_of(grads, S);
   // dw1 = xn^T du and dw2 = s^T dp, the partials of the row splits
   TRY(wgrad::product<T>(w.xn, w.du, w.dw1_part, S.N, S.D, S.E, splits, s));
   TRY(wgrad::product<T>(w.s, w.dp, w.dw2_part, S.N, S.E, S.D, splits, s));
   const int n_se = S.D * S.r * 2 + S.r + S.D;
   se_wgrad_kernel<<<blocks_of(n_se), THREADS, 0, s>>>(
-      w.pool, w.g1, w.dz1, w.dz2, dwf1, dbf1, dwf2, dbf2, S.B, S.D, S.r);
+      w.pool, w.g1, w.dz1, w.dz2, o.dwf1, o.dbf1, o.dwf2, o.dbf2, S.B, S.D,
+      S.r);
   TRY(cudaGetLastError());
   const int parts = S.B * time_chunks(S);
   const struct {
@@ -1593,12 +1669,12 @@ cudaError_t chain_backward(const Args& A, const void* dy, void* dx,
     int parts;
     long long n;
   } sums[] = {
-      {w.ln_part, dln, row_blocks(S), 2LL * S.D},
-      {w.dw1_part, dw1, splits, (long long)S.D * S.E},
-      {w.db1_part, db1, parts, S.E},
-      {w.dwdw_part, dwdw, parts, (long long)S.K * S.E},
-      {w.dw2_part, dw2, splits, (long long)S.E * S.D},
-      {w.db2_part, db2, row_blocks(S), S.D},
+      {w.ln_part, o.dln, row_blocks(S), 2LL * S.D},
+      {w.dw1_part, o.dw1, splits, (long long)S.D * S.E},
+      {w.db1_part, o.db1, parts, S.E},
+      {w.dwdw_part, o.dwdw, parts, (long long)S.K * S.E},
+      {w.dw2_part, o.dw2, splits, (long long)S.E * S.D},
+      {w.db2_part, o.db2, row_blocks(S), S.D},
   };
   for (const auto& r : sums) TRY(wgrad::sum_parts(r.part, r.out, r.parts, r.n, s));
   return cudaSuccess;
@@ -1621,8 +1697,11 @@ inline Cfg cfg_of(bool bf16_, bool backward, int cfg) {
       {{{4, 4, 64}, {1, 8, 32}}, {{4, 4, 32}, {1, 8, 32}}}};  // bf16
   return table[bf16_][backward][cfg];
 }
+inline int tile_rows_of(bool bf16_, bool backward, int cfg) {
+  return 16 * cfg_of(bf16_, backward, cfg).mtp;
+}
 inline int tiles_of(const Shape& S, bool bf16_, bool backward, int cfg) {
-  const int TT = 16 * cfg_of(bf16_, backward, cfg).mtp;
+  const int TT = tile_rows_of(bf16_, backward, cfg);
   return (S.Tn + TT - 1) / TT;
 }
 
@@ -1690,29 +1769,28 @@ long long tile_smem_of(bool backward, int cfg, int Dk, int H) {
   return -1;
 }
 
+// The workspace of the tile and wgmma designs: the SE gate (forward); the
+// SE backward, the compute-type operands of the weight products and the
+// per-tile partials (backward, tb tiles a sequence).
 template <typename T>
 struct TiledWork {
-  float *p, *part_mp, *part_dyp, *gate, *dpool, *msum, *pool, *g1, *dz1,
-      *dz2;
+  float *gate, *part_mp, *dpool, *msum, *pool, *g1, *dz1, *dz2;
   T *xn, *dp, *s, *du;
   float *part_ln, *part_e, *part_db2, *dw1_part, *dw2_part;
 };
 
-// tf, tb: the tiles of a sequence in the forward tile kernel and in the
-// backward one.
+// tb: the forward's tiles (for its pool partials), or the backward's.
 template <typename T>
-TiledWork<T> carve_tiled(const Shape& S, int tf, int tb, int splits,
-                         bool backward, Carve& c) {
+TiledWork<T> carve_tiled(const Shape& S, int tb, int splits, bool backward,
+                         Carve& c) {
   TiledWork<T> w{};
   const long long ND = (long long)S.N * S.D, NE = (long long)S.N * S.E;
   const long long BD = (long long)S.B * S.D;
-  w.part_mp = c.take<float>(BD * tf);
   w.gate = c.take<float>(BD);
   if (!backward) {
-    w.p = c.take<float>(ND);
+    w.part_mp = c.take<float>(BD * tb);
     return w;
   }
-  w.part_dyp = c.take<float>(BD * tf);
   w.dpool = c.take<float>(BD);
   w.msum = c.take<float>(S.B);
   w.pool = c.take<float>(BD);
@@ -1750,74 +1828,118 @@ TileArgs tile_args(const Args& A, const Shape& S, int tiles) {
   return P;
 }
 
-size_t se_smem(const Shape& S) {
-  return (2 * (size_t)S.D + 3 * (size_t)S.r + 1) * 4;
+cwg::Args wg_args(const Args& A, const Shape& S) {
+  cwg::Args a{};
+  a.x = (const bf16*)A.x;
+  a.mask = (const float*)A.mask, a.gamma = (const float*)A.gamma;
+  a.beta = (const float*)A.beta, a.b1 = (const float*)A.b1;
+  a.wdw = (const float*)A.wdw, a.b2 = (const float*)A.b2;
+  a.T = S.Tn, a.E = S.E, a.K = S.K;
+  return a;
 }
 
+size_t se_smem(const Shape& S) {
+  return (11 * (size_t)S.D + 3 * (size_t)S.r + 1) * 4;
+}
+
+// (2) The SE gate from the tile kernel's pool partials over tiles of `rows`
+// rows (forward, dy null), or its backward from the forward's p summed over
+// tiles of `rows` rows.
 template <typename T>
-cudaError_t tiled_forward(const Args& A, void* out, void* work,
-                          const Shape& S, int cfg, cudaStream_t s) {
-  const int tiles = tiles_of(S, sizeof(T) == 2, false, cfg);
-  Carve c{(char*)work};
-  const TiledWork<T> w = carve_tiled<T>(S, tiles, 0, 1, false, c);
-  TileArgs P = tile_args<T>(A, S, tiles);
-  P.p = w.p, P.part_mp = w.part_mp;
-  TRY(tile_kernel<T>(P, false, cfg, s));
-  TRY(allow_smem(se_tiles_kernel, se_smem(S)));
-  se_tiles_kernel<<<S.B, THREADS, se_smem(S), s>>>(
-      w.part_mp, nullptr, (const float*)A.mask, (const float*)A.wf1,
+cudaError_t se_tiles(const Args& A, const Shape& S, const float* p,
+                     const T* dy, int rows, const TiledWork<T>& w,
+                     cudaStream_t s) {
+  TRY(allow_smem(se_tiles_kernel<T>, se_smem(S)));
+  se_tiles_kernel<T><<<S.B, SE_THREADS, se_smem(S), s>>>(
+      w.part_mp, p, dy, rows, (const float*)A.mask, (const float*)A.wf1,
       (const float*)A.bf1, (const float*)A.wf2, (const float*)A.bf2, w.gate,
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, tiles, S.Tn, S.D,
-      S.r);
-  TRY(cudaGetLastError());
-  const long long ND = (long long)S.N * S.D;
-  apply_kernel<T><<<blocks_of(ND), THREADS, 0, s>>>(
-      w.p, w.gate, (const T*)A.x, (T*)out, ND, (long long)S.Tn * S.D, S.D);
+      w.dpool, w.msum, w.pool, w.g1, w.dz1, w.dz2, (S.Tn + rows - 1) / rows,
+      S.Tn, S.D, S.r);
   return cudaGetLastError();
 }
 
+// Rows of a forward tile: the wgmma design's, or tile configuration cfg's.
+inline int fwd_rows(bool bf16_, int cfg, const cwg::Plan& pl) {
+  return pl.wgmma ? cwg::FROWS : tile_rows_of(bf16_, false, cfg);
+}
+
+// The forward of the tile and wgmma designs: (1) the tile kernel, writing
+// p and its pool partials, (2) the SE gate, (3) out = p g + x.
 template <typename T>
-cudaError_t tiled_backward(const Args& A, const void* dy, void* dx,
-                           float* grads, void* work, const Shape& S,
-                           int splits, int cfg_f, int cfg_b, cudaStream_t s) {
-  const bool bf = sizeof(T) == 2;
-  const int tf = tiles_of(S, bf, false, cfg_f), tb = tiles_of(S, bf, true, cfg_b);
+cudaError_t tiled_forward(const Args& A, void* out, float* p, void* work,
+                          const Shape& S, int cfg, const cwg::Plan& pl,
+                          cudaStream_t s) {
+  const int rows = fwd_rows(sizeof(T) == 2, cfg, pl);
+  const int tiles = (S.Tn + rows - 1) / rows;
   Carve c{(char*)work};
-  const TiledWork<T> w = carve_tiled<T>(S, tf, tb, splits, true, c);
-  // (1) p recomputed: the partials of sum m p and sum dy p
-  TileArgs P1 = tile_args<T>(A, S, tf);
-  P1.dy = dy, P1.part_mp = w.part_mp, P1.part_dyp = w.part_dyp;
-  TRY(tile_kernel<T>(P1, false, cfg_f, s));
-  // (2) the SE backward per sequence
-  TRY(allow_smem(se_tiles_kernel, se_smem(S)));
-  se_tiles_kernel<<<S.B, THREADS, se_smem(S), s>>>(
-      w.part_mp, w.part_dyp, (const float*)A.mask, (const float*)A.wf1,
-      (const float*)A.bf1, (const float*)A.wf2, (const float*)A.bf2, w.gate,
-      w.dpool, w.msum, w.pool, w.g1, w.dz1, w.dz2, tf, S.Tn, S.D, S.r);
-  TRY(cudaGetLastError());
-  // (3) the backward tile kernel
-  TileArgs P2 = tile_args<T>(A, S, tb);
-  P2.dy = dy, P2.gate = w.gate, P2.dpool = w.dpool, P2.msum = w.msum;
-  P2.dx = dx, P2.xn_g = w.xn, P2.dp_g = w.dp, P2.s_g = w.s, P2.du_g = w.du;
-  P2.part_ln = w.part_ln, P2.part_e = w.part_e, P2.part_db2 = w.part_db2;
-  TRY(tile_kernel<T>(P2, true, cfg_b, s));
-  // (4) the weight products, the SE weight gradients, the fixed-order sums;
-  // gradient layout: dgamma, dbeta [D], dw1 [D, E], db1 [E], dwdw [K, E],
-  // dw2 [E, D], db2 [D], dwf1 [D, r], dbf1 [r], dwf2 [r, D], dbf2 [D]
-  float* dln = grads;
-  float* dw1 = dln + 2 * S.D;
-  float* db1 = dw1 + (long long)S.D * S.E;  // dwdw follows db1
-  float* dw2 = db1 + S.E + (long long)S.K * S.E;
-  float* db2 = dw2 + (long long)S.E * S.D;
-  float* dwf1 = db2 + S.D;
-  float* dbf1 = dwf1 + (long long)S.D * S.r;
-  float* dwf2 = dbf1 + S.r;
-  float* dbf2 = dwf2 + (long long)S.r * S.D;
+  const TiledWork<T> w = carve_tiled<T>(S, tiles, 1, false, c);
+  if constexpr (sizeof(T) == 2) {
+    if (pl.wgmma) {
+      cwg::Args a = wg_args(A, S);
+      a.p = p, a.part_mp = w.part_mp;
+      switch (S.D / 64) {
+        case 1: TRY(cwg::forward<1>(pl, A.w1, A.w2, a, S.B, s)); break;
+        case 2: TRY(cwg::forward<2>(pl, A.w1, A.w2, a, S.B, s)); break;
+        case 3: TRY(cwg::forward<3>(pl, A.w1, A.w2, a, S.B, s)); break;
+        case 4: TRY(cwg::forward<4>(pl, A.w1, A.w2, a, S.B, s)); break;
+        default: return cudaErrorInvalidValue;
+      }
+    }
+  }
+  if (!pl.wgmma) {
+    TileArgs P = tile_args<T>(A, S, tiles);
+    P.p = p, P.part_mp = w.part_mp;
+    TRY(tile_kernel<T>(P, false, cfg, s));
+  }
+  TRY(se_tiles<T>(A, S, p, nullptr, rows, w, s));
+  return apply<T>(p, w.gate, (const T*)A.x, (T*)out, S, s);
+}
+
+// The backward of the tile and wgmma designs: (1) the SE backward from the
+// forward's p (summed over the forward's tiles), (2) the backward tile
+// kernel, (3) the weight products, the SE weight gradients and five
+// fixed-order sums of the partials: 10 launches.
+template <typename T>
+cudaError_t tiled_backward(const Args& A, const void* dy, const float* p,
+                           void* dx, float* grads, void* work, const Shape& S,
+                           int splits, int cfg_f, int cfg_b,
+                           const cwg::Plan& pl, cudaStream_t s) {
+  const bool bf = sizeof(T) == 2;
+  const int rows_f = fwd_rows(bf, cfg_f, pl);
+  const int tb = pl.wgmma ? cwg::bwd_tiles(S.Tn) : tiles_of(S, bf, true, cfg_b);
+  Carve c{(char*)work};
+  const TiledWork<T> w = carve_tiled<T>(S, tb, splits, true, c);
+  TRY(se_tiles<T>(A, S, p, (const T*)dy, rows_f, w, s));
+  if constexpr (sizeof(T) == 2) {
+    if (pl.wgmma) {
+      cwg::Args a = wg_args(A, S);
+      a.dy = (const bf16*)dy, a.gate = w.gate, a.dpool = w.dpool;
+      a.msum = w.msum, a.dx = (bf16*)dx, a.xn_g = w.xn, a.dp_g = w.dp;
+      a.s_g = w.s, a.du_g = w.du, a.part_ln = w.part_ln;
+      a.part_e = w.part_e, a.part_db2 = w.part_db2;
+      switch (S.D / 64) {
+        case 1: TRY(cwg::backward<1>(pl, A.w1, A.w2, a, S.B, s)); break;
+        case 2: TRY(cwg::backward<2>(pl, A.w1, A.w2, a, S.B, s)); break;
+        case 3: TRY(cwg::backward<3>(pl, A.w1, A.w2, a, S.B, s)); break;
+        case 4: TRY(cwg::backward<4>(pl, A.w1, A.w2, a, S.B, s)); break;
+        default: return cudaErrorInvalidValue;
+      }
+    }
+  }
+  if (!pl.wgmma) {
+    TileArgs P = tile_args<T>(A, S, tb);
+    P.dy = dy, P.gate = w.gate, P.dpool = w.dpool, P.msum = w.msum;
+    P.dx = dx, P.xn_g = w.xn, P.dp_g = w.dp, P.s_g = w.s, P.du_g = w.du;
+    P.part_ln = w.part_ln, P.part_e = w.part_e, P.part_db2 = w.part_db2;
+    TRY(tile_kernel<T>(P, true, cfg_b, s));
+  }
+  const Grads o = grads_of(grads, S);
   TRY(wgrad::product<T>(w.xn, w.du, w.dw1_part, S.N, S.D, S.E, splits, s));
   TRY(wgrad::product<T>(w.s, w.dp, w.dw2_part, S.N, S.E, S.D, splits, s));
   const int n_se = S.D * S.r * 2 + S.r + S.D;
   se_wgrad_kernel<<<blocks_of(n_se), THREADS, 0, s>>>(
-      w.pool, w.g1, w.dz1, w.dz2, dwf1, dbf1, dwf2, dbf2, S.B, S.D, S.r);
+      w.pool, w.g1, w.dz1, w.dz2, o.dwf1, o.dbf1, o.dwf2, o.dbf2, S.B, S.D,
+      S.r);
   TRY(cudaGetLastError());
   const int parts = S.B * tb;
   const struct {
@@ -1826,11 +1948,11 @@ cudaError_t tiled_backward(const Args& A, const void* dy, void* dx,
     int parts;
     long long n;
   } sums[] = {
-      {w.part_ln, dln, parts, 2LL * S.D},
-      {w.dw1_part, dw1, splits, (long long)S.D * S.E},
-      {w.part_e, db1, parts, S.E + (long long)S.K * S.E},
-      {w.dw2_part, dw2, splits, (long long)S.E * S.D},
-      {w.part_db2, db2, parts, S.D},
+      {w.part_ln, o.dln, parts, 2LL * S.D},
+      {w.dw1_part, o.dw1, splits, (long long)S.D * S.E},
+      {w.part_e, o.db1, parts, S.E + (long long)S.K * S.E},  // db1, dwdw
+      {w.dw2_part, o.dw2, splits, (long long)S.E * S.D},
+      {w.part_db2, o.db2, parts, S.D},
   };
   for (const auto& r : sums)
     TRY(wgrad::sum_parts(r.part, r.out, r.parts, r.n, s));
@@ -1841,24 +1963,47 @@ cudaError_t tiled_backward(const Args& A, const void* dy, void* dx,
 
 extern "C" {
 
+// The design of (dtype, D, E, K) into out[0..8]: design (0 tile, 1 wgmma),
+// then for the wgmma design its forward and backward own rows a tile,
+// channels a chunk, ring slots and shared memory (bytes), else zeros.
+// ops/conv_kernel.py's conv_plan gives the same.
+int ishara_conv_plan(int dtype, int D, int E, int K, long long* out) {
+  const cwg::Plan p = cwg::plan(dtype, D, E, K);
+  const long long v[9] = {p.wgmma,
+                          p.wgmma ? cwg::FROWS : 0,
+                          p.wgmma ? cwg::BROWS : 0,
+                          p.wgmma ? cwg::FEC : 0,
+                          p.wgmma ? cwg::BEC : 0,
+                          p.fwd_slots,
+                          p.bwd_slots,
+                          (long long)p.fwd_smem,
+                          (long long)p.bwd_smem};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
 // Bytes of workspace the forward (backward = 0) or backward (1) needs, in
 // units of 256 bytes. dtype 0 = f32, 1 = bf16; splits: the row splits of
 // the backward's weight products; cfg_f, cfg_b: the tile plans of the
 // forward and backward tile kernels (conv_kernel.tile_plan), -1 for the
-// general path.
+// general path; both are ignored where the plan takes the wgmma design.
 int ishara_conv_workspace(int B, int T, int D, int E, int K, int r,
                           int dtype, int backward, int splits, int cfg_f,
                           int cfg_b) {
   const Shape S{B, T, D, E, K, r, B * T};
   Carve c{nullptr};
-  const bool tiled = backward ? cfg_f >= 0 && cfg_b >= 0 : cfg_f >= 0;
+  const bool wg = cwg::plan(dtype, D, E, K).wgmma;
+  const bool tiled =
+      wg || (backward ? cfg_f >= 0 && cfg_b >= 0 : cfg_f >= 0);
   if (tiled) {
-    const int tf = tiles_of(S, dtype == 1, false, cfg_f);
-    const int tb = backward ? tiles_of(S, dtype == 1, true, cfg_b) : 0;
+    const int rows_f = fwd_rows(dtype == 1, cfg_f, cwg::plan(dtype, D, E, K));
+    const int tb = !backward ? (T + rows_f - 1) / rows_f
+                   : wg      ? cwg::bwd_tiles(T)
+                             : tiles_of(S, dtype == 1, true, cfg_b);
     if (dtype == 0)
-      carve_tiled<float>(S, tf, tb, splits, backward != 0, c);
+      carve_tiled<float>(S, tb, splits, backward != 0, c);
     else
-      carve_tiled<bf16>(S, tf, tb, splits, backward != 0, c);
+      carve_tiled<bf16>(S, tb, splits, backward != 0, c);
   } else if (dtype == 0) {
     carve<float>(S, splits, backward != 0, c);
   } else {
@@ -1880,17 +2025,18 @@ int ishara_conv_tile_smem(int dtype, int backward, int cfg, int D, int K) {
                           : tile_smem_of<bf16>(backward != 0, cfg, Dk, H));
 }
 
-// out [B, T, D] = x + SE(pw2(swish(dw(swish(pw1(LN(x))))))) in x's type.
-// Operand types as at the top of this file; workspace of
-// ishara_conv_workspace(.., 0, 1, cfg, -1) * 256 bytes; cfg -1 takes the
-// general path.
+// out [B, T, D] = x + SE(pw2(swish(dw(swish(pw1(LN(x))))))) in x's type,
+// and for the backward p = pw2(...) + b2 (f32 [B, T, D]). Operand types as
+// at the top of this file; workspace of ishara_conv_workspace(.., 0, 1, cfg,
+// -1) * 256 bytes. The design is the plan's (ishara_conv_plan); otherwise
+// cfg picks the tile, -1 the general path.
 int ishara_conv_fwd(int device, int dtype, const void* x, const void* mask,
                     const void* gamma, const void* beta, const void* w1,
                     const void* b1, const void* wdw, const void* w2,
                     const void* b2, const void* wf1, const void* bf1,
-                    const void* wf2, const void* bf2, void* out, void* work,
-                    int B, int T, int D, int E, int K, int r, int cfg,
-                    void* stream) {
+                    const void* wf2, const void* bf2, void* out, void* p,
+                    void* work, int B, int T, int D, int E, int K, int r,
+                    int cfg, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Shape S{B, T, D, E, K, r, B * T};
@@ -1898,26 +2044,30 @@ int ishara_conv_fwd(int device, int dtype, const void* x, const void* mask,
     return (int)cudaErrorInvalidValue;
   const Args A{x, mask, gamma, beta, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cfg >= 0)
-    return dtype == 0 ? (int)tiled_forward<float>(A, out, work, S, cfg, s)
-                      : (int)tiled_forward<bf16>(A, out, work, S, cfg, s);
-  if (dtype == 0) return (int)chain_forward<float>(A, out, work, S, s);
-  return (int)chain_forward<bf16>(A, out, work, S, s);
+  const cwg::Plan pl = cwg::plan(dtype, D, E, K);
+  float* pf = (float*)p;
+  if (pl.wgmma || cfg >= 0)
+    return dtype == 0
+               ? (int)tiled_forward<float>(A, out, pf, work, S, cfg, pl, s)
+               : (int)tiled_forward<bf16>(A, out, pf, work, S, cfg, pl, s);
+  if (dtype == 0) return (int)chain_forward<float>(A, out, pf, work, S, s);
+  return (int)chain_forward<bf16>(A, out, pf, work, S, s);
 }
 
 // dx [B, T, D] in x's type and the eleven parameter gradients, f32, one
 // after the other in grads: dgamma, dbeta [D], dw1 [D, E], db1 [E],
 // dwdw [K, E], dw2 [E, D], db2 [D], dwf1 [D, r], dbf1 [r], dwf2 [r, D],
-// dbf2 [D]. Workspace of ishara_conv_workspace(.., 1, splits, cfg_f, cfg_b)
-// * 256 bytes; cfg_f = cfg_b = -1 takes the general path.
+// dbf2 [D]; p is the forward's. Workspace of
+// ishara_conv_workspace(.., 1, splits, cfg_f, cfg_b) * 256 bytes; the
+// design is the plan's, otherwise cfg_f = cfg_b = -1 takes the general path.
 int ishara_conv_bwd(int device, int dtype, const void* x, const void* mask,
                     const void* dy, const void* gamma, const void* beta,
                     const void* w1, const void* b1, const void* wdw,
                     const void* w2, const void* b2, const void* wf1,
                     const void* bf1, const void* wf2, const void* bf2,
-                    void* dx, void* grads, void* work, int B, int T, int D,
-                    int E, int K, int r, int splits, int cfg_f, int cfg_b,
-                    void* stream) {
+                    const void* p, void* dx, void* grads,
+                    void* work, int B, int T, int D, int E, int K, int r,
+                    int splits, int cfg_f, int cfg_b, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Shape S{B, T, D, E, K, r, B * T};
@@ -1927,14 +2077,16 @@ int ishara_conv_bwd(int device, int dtype, const void* x, const void* mask,
   const Args A{x, mask, gamma, beta, w1, b1, wdw, w2, b2, wf1, bf1, wf2, bf2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* g = (float*)grads;
-  if (cfg_f >= 0)
-    return dtype == 0 ? (int)tiled_backward<float>(A, dy, dx, g, work, S,
-                                                   splits, cfg_f, cfg_b, s)
-                      : (int)tiled_backward<bf16>(A, dy, dx, g, work, S,
-                                                  splits, cfg_f, cfg_b, s);
+  const float* pf = (const float*)p;
+  const cwg::Plan pl = cwg::plan(dtype, D, E, K);
+  if (pl.wgmma || cfg_f >= 0)
+    return dtype == 0 ? (int)tiled_backward<float>(A, dy, pf, dx, g, work, S,
+                                                   splits, cfg_f, cfg_b, pl, s)
+                      : (int)tiled_backward<bf16>(A, dy, pf, dx, g, work, S,
+                                                  splits, cfg_f, cfg_b, pl, s);
   if (dtype == 0)
-    return (int)chain_backward<float>(A, dy, dx, g, work, S, splits, s);
-  return (int)chain_backward<bf16>(A, dy, dx, g, work, S, splits, s);
+    return (int)chain_backward<float>(A, dy, pf, dx, g, work, S, splits, s);
+  return (int)chain_backward<bf16>(A, dy, pf, dx, g, work, S, splits, s);
 }
 
 const char* ishara_error_string(int code) {

@@ -48,7 +48,12 @@ times (``conv_module_kernel_rows``, ``ffn_selection_times``; NVIDIA H100
 
 * ``conv_module_fused``: the kernel (time tiles with a halo) 3.4413 against
   the composition's 3.9721 at T 176 -- True, flipped from False; 8.8953
-  against 9.6932 at T 512 -- True;
+  against 9.6932 at T 512 -- True. These rows hold for bf16 only: at f32
+  the kernel took 2.1137 + 10.3851 ms against the composition's 1.7670 +
+  3.7264 at T 176, and 5.4032 + 28.9458 against 5.5230 + 17.2837 at T 512
+  (``conv_module_kernel_rows``), so f32 takes the composition at every
+  geometry (the ``dtype`` argument); ``fused=True`` on the module still
+  forces the kernel;
 * ``ffn_dropout_kernel`` (hidden 512, rates 0.4 / 0.4): the kernel (its
   ``wgmma`` design) 0.5291 against the composition's 0.5722 at T 176 and
   1.2684 against 1.3707 at T 512 -- True at both (the earlier ``mma.sync``
@@ -73,6 +78,8 @@ hard limit is shared memory, checked apart by
 from __future__ import annotations
 
 import math
+
+import torch
 
 _ANCHORS: dict[tuple[int, int, int], dict] = {
     (256, 176, 256): {
@@ -130,8 +137,13 @@ def ffn_fused_when_dropout(dim: int, T: int,
     return _nearest(dim, T, batch)["ffn_dropout_kernel"]
 
 
-def conv_module_fused(dim: int, T: int, batch: int | None = None) -> bool:
-    """Whether the Squeezeformer conv-module branch runs as one kernel."""
+def conv_module_fused(dim: int, T: int, batch: int | None = None,
+                      dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the Squeezeformer conv-module branch runs as one kernel. f32
+    takes the composition whatever the row: there the kernel lost to it
+    (module docstring)."""
+    if dtype == torch.float32:
+        return False
     return _nearest(dim, T, batch)["conv_module_fused"]
 
 

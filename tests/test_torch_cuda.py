@@ -1293,6 +1293,144 @@ def test_conv_module_kernel_takes_wide_depthwise_kernels(path, B, T, D, E,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,E,K", [(256, 176, 256, 512, 15),
+                                       (256, 512, 256, 512, 15),
+                                       (8, 200, 256, 512, 15),
+                                       (8, 200, 128, 256, 3),
+                                       (8, 200, 128, 256, 15),
+                                       (4, 65, 64, 128, 16),
+                                       (6, 100, 192, 384, 1),
+                                       (3, 1, 256, 512, 15)])
+def test_conv_wgmma_design_matches_plain(B, T, D, E, K):
+    """K7's wgmma design (bf16, ``conv_plan``): the flagship's and the long
+    step's shapes, T 200 (off the 48- and 32-row tiles), T 65 and T 1, D 64
+    to 256, E 128 to 512, 1 to 16 taps, an all-masked sequence; forward,
+    dx and the eleven parameter gradients against the plain version at
+    2e-2, a second backward bit for bit, and one launch each way counted
+    by design."""
+    _card()
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    assert ck.conv_plan(torch.bfloat16, D, E, K) == "wgmma"
+    g = torch.Generator(device="cuda").manual_seed(T + K)
+    x, mask, params = _conv_case(B, T, D, E, K, max(D // 8, 4),
+                                 torch.bfloat16, g)
+    dy = torch.randn((B, T, D), generator=g, device="cuda").to(torch.bfloat16)
+    fwd = dict(ck.conv_module_residual.launches_by_design)
+    bwd = dict(ck.conv_module_residual.launches_bwd_by_design)
+    out = ck.conv_module_residual(x, mask, *params)
+    grads = torch.autograd.grad(out, [x] + params, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    assert ck.conv_module_residual.launches_by_design == dict(
+        fwd, wgmma=fwd["wgmma"] + 1)
+    assert ck.conv_module_residual.launches_bwd_by_design == dict(
+        bwd, wgmma=bwd["wgmma"] + 1)
+    again = torch.autograd.grad(out, [x] + params, dy)
+    with torch.no_grad():
+        args = ck._prep(x, mask, *params)
+        want = ck.conv_module_forward_plain(x, *args)
+        rgrads = ck.conv_module_backward_plain(x, args[0], dy, *args[1:])
+    _close(out, want, 2e-2)
+    assert len(grads) == len(rgrads) == 12
+    for a, b, c in zip(grads, rgrads, again):
+        _close(a, b, 2e-2)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_conv_plan_matches_the_c_plan():
+    """``conv_kernel.conv_plan``'s design equals ``csrc/conv_module.cu``'s
+    ``ishara_conv_plan``'s on both sides of every limit of the rule, and
+    the C plan's wgmma layout (which it alone owns) fits: 48 / 32 own rows
+    a tile, rings of 3 or more slots forward and 4 backward, each block
+    within the 227 KiB an H100 block may take."""
+    _card()
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (32, 64, 128, 144, 192, 256, 320, 512):
+            for E in (64, 96, 128, 256, 512, 1024, 2048):
+                for K in (1, 3, 15, 16, 17, 33):
+                    c = ck.c_plan(dtype, D, E, K)
+                    assert ck.conv_plan(dtype, D, E, K) == c["design"], \
+                        (dtype, D, E, K)
+                    if c["design"] != "wgmma":
+                        continue
+                    assert (c["fwd_rows"], c["bwd_rows"]) == (48, 32)
+                    assert c["fwd_slots"] >= 3 and c["bwd_slots"] == 4
+                    assert max(c["fwd_smem"], c["bwd_smem"]) \
+                        <= ck.SMEM_LIMIT, (D, E, K, c)
+
+
+def _off_alignment(t):
+    """A contiguous copy of ``t`` two bytes off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["w1", "x", "dy"])
+def test_conv_wgmma_launch_it_refuses_raises(what):
+    """A launch the wgmma design refuses raises, and no other design takes
+    it: W1 two bytes off the 16-byte alignment a TMA tensor map needs (the
+    C call refuses it), or x or dy two bytes off the 16-byte vectors the
+    kernels read (the wrapper refuses them before any launch); the context
+    stays usable."""
+    _card()
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x, mask, params = _conv_case(2, 40, 64, 128, 15, 4, torch.bfloat16, g)
+    x, params = x.detach(), [p.detach() for p in params]
+    if what == "w1":         # in the compute type, so _prep keeps it
+        params[2] = _off_alignment(params[2].to(torch.bfloat16))
+    if what == "x":
+        x = _off_alignment(x)
+    before = (ck.conv_module_residual.launches,
+              ck.conv_module_residual.launches_bwd,
+              dict(ck.conv_module_residual.launches_by_design),
+              dict(ck.conv_module_residual.launches_bwd_by_design))
+    if what == "dy":
+        x.requires_grad_()
+        out = ck.conv_module_residual(x, mask, *params)
+        dy = _off_alignment(torch.ones_like(out))
+        with pytest.raises(ValueError, match="dy on 16 bytes"):
+            torch.autograd.grad(out, [x], dy)
+        assert ck.conv_module_residual.launches == before[0] + 1
+        assert ck.conv_module_residual.launches_bwd == before[1]
+    else:
+        err = RuntimeError if what == "w1" else ValueError
+        match = "conv-module forward" if what == "w1" else "x on 16 bytes"
+        with pytest.raises(err, match=match):
+            ck.conv_module_residual(x, mask, *params)
+        assert (ck.conv_module_residual.launches,
+                ck.conv_module_residual.launches_by_design) \
+            == (before[0], before[2])
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.ones(4, device="cuda").sum())
+
+
+@pytest.mark.cuda
+def test_conv_wgmma_kernels_fit_their_registers():
+    """ptxas's report of the wgmma design's kernels (every D it takes):
+    no spills, and no product serialised (no C75xx warning)."""
+    _card()
+    from ishara_tpu_torch.ops import _build
+    from ishara_tpu_torch.ops import conv_kernel as ck
+
+    ck.c_plan(torch.bfloat16, 256, 512, 15)    # builds the library
+    text = _build.build_log("conv_module")
+    assert "C75" not in text
+    blocks = re.split(r"ptxas info\s+: Compiling entry function", text)
+    wg = [b for b in blocks if "wg_kernel" in b.split("\n")[0]]
+    assert len(wg) == 8          # forward and backward at D 64 to 256
+    for b in wg:
+        assert "0 bytes spill stores" in b, b[:300]
+
+
+@pytest.mark.cuda
 def test_conv_tile_smem_mirrors_the_kernel():
     """``conv_kernel.tile_smem`` equals the shared memory
     ``csrc/conv_module.cu`` computes for every tile configuration, at
@@ -1353,10 +1491,10 @@ def test_wide_depthwise_training_step_matches_plain(monkeypatch):
             ck.conv_module_residual.launches_bwd) \
         == (before[0] + 4, before[1] + 4)
     monkeypatch.setattr(ck, "_launch_fwd", lambda x, args:
-                        ck.conv_module_forward_plain(x, *args))
-    monkeypatch.setattr(ck, "_launch_bwd", lambda x, dy, args:
+                        ck.conv_module_forward_plain(x, *args, with_p=True))
+    monkeypatch.setattr(ck, "_launch_bwd", lambda x, dy, args, p:
                         ck.conv_module_backward_plain(x, args[0], dy,
-                                                      *args[1:]))
+                                                      *args[1:], p=p))
     _, mp = step(state.clone(), batch, seed=1)
     assert abs(float(mk["loss"]) - float(mp["loss"])) \
         <= 5e-3 * abs(float(mp["loss"]))
@@ -1388,7 +1526,8 @@ def test_conv_module_kernel_refuses_what_it_cannot_take():
 def test_long_sequence_step_on_the_card_matches_the_cpu():
     """One fused training step of a narrow long-sequence hybrid (T 400,
     attention dropout 0: the table's long row, so the card runs the tiled
-    attention and the conv-module kernels) on the card and on the CPU
+    attention kernel; the conv-module kernel, which the table leaves to the
+    composition at f32, runs by ``fused=True``) on the card and on the CPU
     (compositions), from the same weights and seeds, at f32: loss, gradient
     norm and every gradient."""
     _card()
@@ -1417,6 +1556,7 @@ def test_long_sequence_step_on_the_card_matches_the_cpu():
                         frame_len=400, dropout=0.0, top_dropout=0.2)
     torch.manual_seed(0)
     model = build_model(cfg, device="cpu")
+    _force_conv_kernel(model)
     batch = SyntheticASLFR(num_sequences=4, frames_per_char=16,
                            seed=3).batch(range(4), CTCTokenizer(),
                                          max_frames=600)
@@ -1899,10 +2039,22 @@ def test_exported_fused_beam_program_on_the_card(tmp_path):
 # Causal mode, streaming and the parallel-branches and U-Net families
 # ---------------------------------------------------------------------------
 
+def _force_conv_kernel(model):
+    """``fused=True`` on every Squeezeformer conv module: the selection
+    table sends f32 to the composition, and these steps hold the kernel's
+    f32 path to the CPU (a causal module keeps its composition)."""
+    from ishara_tpu_torch.models.layers import SqueezeformerConvModule
+
+    for m in model.modules():
+        if isinstance(m, SqueezeformerConvModule):
+            m.fused = True
+
+
 def _step_on_card_and_cpu(cfg, dtype="float32"):
     """One fused training step (dropout and augmentation on) of ``cfg``'s
     model on the card and on the CPU from the same weights and seeds:
-    (card metrics, CPU metrics, launches counted on the card by wrapper)."""
+    (card metrics, CPU metrics, launches counted on the card by wrapper).
+    The conv-module kernel is forced (:func:`_force_conv_kernel`)."""
     import copy
 
     from ishara_tpu_torch.config import TrainConfig
@@ -1923,6 +2075,7 @@ def _step_on_card_and_cpu(cfg, dtype="float32"):
 
     torch.manual_seed(0)
     model = build_model(cfg, device="cpu")
+    _force_conv_kernel(model)
     batch = SyntheticASLFR(num_sequences=8, seed=3).batch(
         range(8), CTCTokenizer(), max_frames=64)
     tx, _ = make_optimizer(TrainConfig())

@@ -119,6 +119,9 @@ def test_one_qat_train_step_matches_jax(monkeypatch):
     monkeypatch.setattr(tlayers, "ffn_residual", spy_ffn)
     monkeypatch.setattr(tlayers.conv_kernel, "conv_module_residual", spy_conv)
     jstate, tstate, batch, _ = setup(dropout=0.0)
+    for m in tstate.model.modules():   # f32 takes the composition unforced
+        if isinstance(m, tlayers.SqueezeformerConvModule):
+            m.fused = True
     master = tstate.param_dict()
     w1 = master["squeezeformer.0.ffn1.fc1.weight"].detach().clone()
     cw1 = master["squeezeformer.0.conv.pw1.weight"].detach().clone()

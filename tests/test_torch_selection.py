@@ -64,3 +64,50 @@ def test_clamp_on_a_row_whose_dropout_choice_is_einsum(monkeypatch):
     assert selection.train_attention(256, 512, False, 256) == "flash_blocked"
     row["train_attn"] = "flash_blocked"      # as the reference: "einsum"
     assert selection.train_attention(256, 512, True, 256) == "einsum"
+
+
+@pytest.mark.parametrize("geometry", [FLAGSHIP, LONG, (64, 16, 8),
+                                      (144, 400, 4), (512, 1024, 32)])
+def test_conv_module_kernel_is_taken_by_bf16_only(geometry):
+    """The conv-module rows hold for bf16: f32 takes the composition at
+    every geometry (the kernel lost to it 2.3-2.5x there, PERF.md), bf16
+    reads the row, and the default dtype is bf16's."""
+    import torch
+
+    dim, T, B = geometry
+    row = selection._nearest(dim, T, B)["conv_module_fused"]
+    assert selection.conv_module_fused(dim, T, B, torch.bfloat16) is row
+    assert selection.conv_module_fused(dim, T, B) is row
+    assert selection.conv_module_fused(dim, T, B, torch.float32) is False
+
+
+def test_the_layer_passes_its_dtype_and_fused_true_forces_the_kernel(
+        monkeypatch):
+    """The Squeezeformer conv module asks the table with ``x``'s dtype: in
+    training with the kernel paths taken, f32 runs the composition under
+    ``fused=None`` and the kernel under ``fused=True``; bf16 runs the
+    kernel under ``fused=None`` (the flagship row)."""
+    import torch
+
+    from ishara_tpu_torch.models import layers as tlayers
+
+    calls = []
+    wrapper = tlayers.conv_kernel.conv_module_residual
+
+    def spy(x, *a):
+        calls.append(x.dtype)
+        return wrapper(x, *a)
+
+    monkeypatch.setattr(tlayers, "on_card", lambda x: True)
+    monkeypatch.setattr(tlayers.conv_kernel, "conv_module_residual", spy)
+    monkeypatch.setattr(selection, "_ANCHORS",
+                        {(32, 24, 2): selection._ANCHORS[FLAGSHIP]})
+    for dtype, fused, want in ((torch.float32, None, []),
+                               (torch.float32, True, [torch.float32]),
+                               (torch.bfloat16, None, [torch.bfloat16])):
+        calls.clear()
+        m = tlayers.SqueezeformerConvModule(32, 3, 2, dtype=dtype,
+                                            fused=fused)
+        x = torch.randn((2, 24, 32)).to(dtype)
+        m(x, torch.ones((2, 24), dtype=torch.bool), training=True)
+        assert calls == want, (dtype, fused)

@@ -191,8 +191,10 @@ def test_long_sequence_fused_step_on_the_kernels_matches_jax(monkeypatch):
     heads, T 400, dropout 0, batch 4 -- the table's long row, so with the
     kernel paths taken (as on a CUDA tensor) every attention runs the tiled
     kernel's wrapper and the Squeezeformer conv module the conv-module
-    kernel's (their plain versions, here), and one fused step matches JAX's
-    compositions leaf by leaf."""
+    kernel's (their plain versions, here; the table sends f32 to the
+    composition, so the conv module is given ``fused=True``, as a bf16 step
+    would take it), and one fused step matches JAX's compositions leaf by
+    leaf."""
     from ishara_tpu_torch.models import layers as tlayers
 
     calls = {"conv": 0, "attention": 0}
@@ -212,6 +214,9 @@ def test_long_sequence_fused_step_on_the_kernels_matches_jax(monkeypatch):
                         count("attention", blocked))
     jstate, tstate, batch, _ = setup(frame_len=400, max_raw=600,
                                      frames_per_char=120)
+    for m in tstate.model.modules():
+        if isinstance(m, tlayers.SqueezeformerConvModule):
+            m.fused = True
     assert int(batch["lengths"].max()) > 384
     jstep = jax.jit(j_make_fused(JGroupStats.identity(), 400, aug_prob=0.0,
                                  blank_id=59))

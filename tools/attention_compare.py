@@ -43,7 +43,7 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from ffn_compare import (  # noqa: E402
+from measure import (  # noqa: E402
     STEPS,
     close,
     device_ms,

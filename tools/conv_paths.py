@@ -7,8 +7,10 @@ At x ``[256, T, 256]`` (E 512, r 32, the flagship's widths) and 15, 33 and
 63 depthwise taps, bf16 and f32: the forward and the backward C calls with
 every tile configuration whose shared memory fits, and with the general
 path (the chain of row kernels), each forced in turn; CUDA-event medians.
-The plan ``conv_kernel.tile_plan`` chooses is marked. Prints the card's
-name and power limit first.
+The plan ``conv_kernel.tile_plan`` chooses is marked. A shape that
+``conv_kernel.conv_plan`` gives the wgmma design (bf16, 15 taps) runs it
+whatever the configuration, so it is timed once, as "wgmma". Prints the
+card's name and power limit first.
 """
 
 import argparse
@@ -76,6 +78,7 @@ def main():
             chosen = (ck.tile_plan(T, D, K, dt, False),
                       ck.tile_plan(T, D, K, dt, True))
             chosen = tuple(-1 if p is None else p["config"] for p in chosen)
+            wgmma = ck.conv_plan(dt, D, E, K) == "wgmma"
             for direction in ("fwd", "bwd"):
                 backward = direction == "bwd"
                 cands = [i for i, (mtp, _, ec) in
@@ -83,23 +86,26 @@ def main():
                          if ck.tile_smem(dt, backward, mtp, ec, D, K)
                          <= ck.SMEM_LIMIT] + [-1]
                 line = []
-                for c in cands:
+                for c in cands[:1] if wgmma else cands:
                     if backward:
-                        # the backward's first pass runs the forward tile
-                        # kernel: the chosen forward plan, or none
+                        # the backward takes the forward's p: the chosen
+                        # forward plan's, or the general path's
                         f = chosen[0] if c >= 0 and chosen[0] >= 0 else -1
                         pair = (f, c) if f >= 0 else (-1, -1)
                         if c >= 0 and f < 0:
                             continue
+                        ck._configs = (lambda p: lambda *_a: p)((pair[0], -1))
+                        _, p = ck._launch_fwd(x, a)
                         ck._configs = (lambda p: lambda *_a: p)(pair)
-                        ms = time_ms(lambda: ck._launch_bwd(x, dy, a),
+                        ms = time_ms(lambda: ck._launch_bwd(x, dy, a, p),
                                      args.runs)
                     else:
                         ck._configs = (lambda p: lambda *_a: p)((c, -1))
                         ms = time_ms(lambda: ck._launch_fwd(x, a), args.runs)
                     ck._configs = configs
                     mark = "*" if c == chosen[backward] else ""
-                    name = "general" if c < 0 else f"tile {c}"
+                    name = ("wgmma" if wgmma else "general" if c < 0
+                            else f"tile {c}")
                     line.append(f"{name}{mark} {ms:.4f}")
                 print(f"K {K} {tag} {direction} [{B}, {T}, {D}]: "
                       + ", ".join(line) + " ms", flush=True)

@@ -27,59 +27,24 @@ card's name and power limit. Give the roots as parent, change, change,
 parent to see the spread between runs of the same code.
 """
 
-import dataclasses
 import json
-import shutil
-import statistics
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from measure import (  # noqa: E402
+    STEPS,
+    close,
+    device_ms,
+    load_root,
+    smi,
+    step_ms,
+    train_step_case,
+)
+
 B, T, U, C, BLANK = 256, 176, 64, 60, 59
-
-
-def smi():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def device_ms(fn, runs=50):
-    import torch
-
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(runs):
-        torch.cuda._sleep(2_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
-
-
-def step_ms(step, state, batch):
-    import torch
-
-    for _ in range(3):
-        state, _ = step(state, batch, seed=0)
-    times = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = step(state, batch, seed=0)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def label_sets(SyntheticASLFR, CTCTokenizer):
@@ -96,44 +61,14 @@ def label_sets(SyntheticASLFR, CTCTokenizer):
     return {"smoke": smoke, "step": np.asarray(step, np.int32)}
 
 
-def close(what, got, ref, tol):
-    err = (got - ref).abs()
-    if not bool(got.isfinite().all()) or \
-            not bool((err <= tol * (ref.abs().max() + ref.abs())).all()):
-        raise AssertionError(f"{what}: max_abs_err {float(err.max()):.3e} "
-                             f"outside tol {tol}")
-    return float(err.max())
-
-
 def time_root(root, first_build, card):
     import torch
 
-    for name in [m for m in sys.modules if m.startswith("ishara_tpu_torch")]:
-        del sys.modules[name]
-    sys.path.insert(0, root)
-    try:
-        from ishara_tpu_torch.config import TrainConfig, baseline_config
-        from ishara_tpu_torch.data.synthetic import SyntheticASLFR
-        from ishara_tpu_torch.data.tokenizer import CTCTokenizer
-        from ishara_tpu_torch.models.encoder import build_model
-        from ishara_tpu_torch.ops import _build
-        from ishara_tpu_torch.ops import ctc_kernel as ck
-        from ishara_tpu_torch.preprocess.pipeline import GroupStats
-        from ishara_tpu_torch.train import (
-            TrainState,
-            make_fused_ctc_train_step,
-            make_optimizer,
-        )
-    finally:
-        sys.path.remove(root)
+    _build = load_root(root, first_build)
+    from ishara_tpu_torch.data.synthetic import SyntheticASLFR
+    from ishara_tpu_torch.data.tokenizer import CTCTokenizer
+    from ishara_tpu_torch.ops import ctc_kernel as ck
 
-    if first_build is not None:  # the same source and flags, the same name
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        for lib in Path(first_build).glob("lib*.so"):
-            for f in (lib, lib.with_suffix(".log")):
-                if f.exists() and not (_build.BUILD_DIR / f.name).exists():
-                    shutil.copy(f, _build.BUILD_DIR / f.name)
-    _build.build()
     out = {"root": root, "card": card}
     g = torch.Generator(device="cuda").manual_seed(11)
     x = 2.0 * torch.randn((B, T, C), generator=g, device="cuda")
@@ -164,31 +99,14 @@ def time_root(root, first_build, card):
               f"launch bit-equal {same}; {card}", flush=True)
         del nll, alpha, grad, nll2, alpha2, grad2, rn, ra, rg
 
-    for tag, frame_len, dropout, fpc, max_frames in (
-            ("flagship_step", 176, None, 8, 96),
-            ("long_step", 512, 0.0, 80, 768)):
-        cfg = baseline_config(4).model
-        cfg = dataclasses.replace(cfg, frame_len=frame_len,
-                                  dropout=cfg.dropout if dropout is None
-                                  else dropout)
-        torch.manual_seed(4)
-        model = build_model(cfg, device="cuda")
-        host = SyntheticASLFR(num_sequences=B, frames_per_char=fpc,
-                              seed=3).batch(range(B), CTCTokenizer(),
-                                            max_frames=max_frames)
-        batch = {k: torch.from_numpy(host[k]).cuda()
-                 for k in ("raw", "lengths", "labels")}
-        tx, _ = make_optimizer(TrainConfig())
-        state = TrainState.create(model, tx, device="cuda")
-        step = make_fused_ctc_train_step(GroupStats.identity(),
-                                         cfg.frame_len,
-                                         aug_prob=TrainConfig().aug_prob,
-                                         blank_id=cfg.blank_id)
+    for tag, frame_len, extra, fpc, max_frames in STEPS[:2]:
+        step, state, batch = train_step_case(frame_len, extra, fpc,
+                                             max_frames)
         ms = step_ms(step, state, batch)
         out[tag + "_ms"] = ms
         print(f"{root} {tag} (T {frame_len}): {ms:.2f} ms a step (median of "
               f"10, host clock); {card}", flush=True)
-        del model, state, step, batch
+        del state, step, batch
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return str(_build.BUILD_DIR)

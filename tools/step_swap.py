@@ -34,10 +34,11 @@ def swaps():
                  ck.ctc_backward_plain(logits, labels, alpha, nll, dy,
                                        blank_id))],
         "conv_module": [(cm, "_launch_fwd", lambda x, args:
-                         cm.conv_module_forward_plain(x, *args)),
-                        (cm, "_launch_bwd", lambda x, dy, args:
+                         cm.conv_module_forward_plain(x, *args,
+                                                      with_p=True)),
+                        (cm, "_launch_bwd", lambda x, dy, args, p:
                          cm.conv_module_backward_plain(x, args[0], dy,
-                                                       *args[1:]))],
+                                                       *args[1:], p=p))],
         "attention_blocked": [
             (ab, "_launch_fwd", lambda q, k, v, bias, scale, Tp:
              ab.blocked_attention_forward_plain(q, k, v, bias, scale)),
@@ -58,6 +59,7 @@ def main():
     from ishara_tpu_torch.data.synthetic import SyntheticASLFR
     from ishara_tpu_torch.data.tokenizer import CTCTokenizer
     from ishara_tpu_torch.models.encoder import build_model
+    from ishara_tpu_torch.models.layers import SqueezeformerConvModule
     from ishara_tpu_torch.preprocess import GroupStats
     from ishara_tpu_torch.train import (
         TrainState,
@@ -79,6 +81,9 @@ def main():
                         frame_len=400, dropout=0.0, top_dropout=0.2)
     torch.manual_seed(0)
     model = build_model(cfg, device="cpu")
+    for m in model.modules():   # f32: the table would take the composition
+        if isinstance(m, SqueezeformerConvModule):
+            m.fused = True
     batch = SyntheticASLFR(num_sequences=4, frames_per_char=16,
                            seed=3).batch(range(4), CTCTokenizer(),
                                          max_frames=600)
