@@ -47,11 +47,13 @@ Phases, each of which raises on failure (the exit code is then not 0):
    PyTorch version on the card, with dropout at 0.4 and at 0, at bf16 and
    f32 (the feed-forward branch's f32 form is its general kernels), and
    attention also with 4 heads of 64, 4 of 48 and 2 of 128, a second
-   backward bit for bit (the attention backward by design: bf16 heads of
-   32 and 64 on the one-pass wgmma kernel, which must beat
-   ``F.scaled_dot_product_attention``'s backward at the flagship shape and
-   reads the forward's keep bits, held to ``keep_mask``'s bit for bit; f32
-   and bf16 heads of 48 and 128 on the general passes); the CTC kernels
+   backward bit for bit (the attention kernel's two directions by
+   design: bf16 heads of 32 and 64 on the persistent wgmma forward, whose
+   keep bits are held to ``keep_mask``'s bit for bit, and on the one-pass
+   wgmma backward, which must beat ``F.scaled_dot_product_attention``'s
+   backward at the flagship shape and reads those bits; f32 and bf16 heads
+   of 48 and 128 on the general kernels); the weight product of the
+   feed-forward and conv-module backwards against an f32 matmul; the CTC kernels
    on chip_smoke's labels and on the training
    step's own (times a frame beside the chain floor, a second launch bit
    for bit), and at T 1024 and 2048; the feed-forward
@@ -1580,27 +1582,30 @@ def attention_kernel_rows(smi, runs):
     """K3: forward and dq / dk / dv against the plain version with the same
     Philox mask, dropout 0.4 and 0, bf16 and f32, a fully masked row, heads
     of 32, 64, 48 and 128, the same bits on a second backward; beside
-    F.scaled_dot_product_attention. The backward's design by
-    ``attention_plan``: bf16 heads of 32 and 64 on the wgmma design
-    (csrc/attention_bwd.cuh, on the forward's keep bits, which equal
-    ``keep_mask``'s bit for bit), f32 and bf16 48 / 128 on the general
-    passes; each check asserts the design its launch took."""
+    F.scaled_dot_product_attention. Both directions' design by
+    ``attention_plan``: bf16 heads of 32 and 64 on the wgmma design (the
+    forward of csrc/attention_fwd_wg.cuh, whose keep bits equal
+    ``keep_mask``'s bit for bit; the backward of csrc/attention_bwd.cuh on
+    them), f32 and bf16 48 / 128 on the general kernels; each check asserts
+    the design each launch took."""
     import torch
     import torch.nn.functional as F
 
     from ishara_tpu_torch.ops import attention as at
     from ishara_tpu_torch.ops.dropout import keep_mask
 
-    def took(design, launch):
-        """Runs ``launch``; raises unless it made one backward launch and
-        that one on ``design``."""
-        before = dict(at.flash_mhsa.launches_bwd_by_design)
+    def took(design, launch, direction="backward"):
+        """Runs ``launch``; raises unless it made one launch of K3 in
+        ``direction`` and that one on ``design``."""
+        counts = (at.flash_mhsa.launches_bwd_by_design
+                  if direction == "backward"
+                  else at.flash_mhsa.launches_by_design)
+        before = dict(counts)
         result = launch()
         torch.cuda.synchronize()
-        got = {d: n - before[d] for d, n in
-               at.flash_mhsa.launches_bwd_by_design.items() if n != before[d]}
+        got = {d: n - before[d] for d, n in counts.items() if n != before[d]}
         if got != {design: 1}:
-            raise AssertionError(f"K3's backward took {got}, expected one "
+            raise AssertionError(f"K3's {direction} took {got}, expected one "
                                  f"launch on the {design} design")
         return result
 
@@ -1628,7 +1633,8 @@ def attention_kernel_rows(smi, runs):
         errs = {}
         for rate in (0.4, 0.0):
             q, k, v = split(qkv)
-            o = at.flash_mhsa(q, k, v, bias, seed, scale, rate)
+            o = took(design, lambda: at.flash_mhsa(q, k, v, bias, seed, scale,
+                                                   rate), "forward")
             dq, dk, dv = took(design, lambda: torch.autograd.grad(
                 o, (q, k, v), d_o))
             with torch.no_grad():
@@ -1679,13 +1685,16 @@ def attention_kernel_rows(smi, runs):
                 qd, kd, vd, bias, seed, ro, lse, d_o, scale, 0.4), runs=3,
                 warmup=1, head_start=False)
         f_ms, b_ms = time_ms(fwd, runs=runs), time_ms(bwd, runs=runs)
+        f0_ms = time_ms(lambda: at.flash_mhsa(q, k, v, bias, seed, scale,
+                                              0.0), runs=runs)
         lf_ms, lb_ms = time_ms(lib_fwd, runs=runs), time_ms(lib_bwd, runs=runs)
         size = TB * TH * TT * Dh * qkv.element_size()
         small = bias.numel() * 4 + TB * TH * TT * 4       # bias and lse
         log(f"kernel flash_mhsa [{tag}] q, k, v [{TB}, {TH}, {TT}, {Dh}] "
             f"(o, d(q|k|v)) max_abs_err: rate 0.4 {errs[0.4]}, rate 0 "
             f"{errs[0.0]}, row 0 fully masked and finite PASS; forward "
-            f"{f_ms:.4f} ms backward ({design}) {b_ms:.4f} ms; plain "
+            f"({design}) {f_ms:.4f} ms (at rate 0 {f0_ms:.4f} ms) backward "
+            f"({design}) {b_ms:.4f} ms; plain "
             f"{p_f:.4f} / {p_b:.4f} ms; F.scaled_dot_product_attention "
             f"{lf_ms:.4f} / {lb_ms:.4f} ms: the kernel's forward "
             f"{f_ms / lf_ms:.3f}x, backward {b_ms / lb_ms:.3f}x the "
@@ -1731,7 +1740,8 @@ def attention_kernel_rows(smi, runs):
             d4 = torch.randn((TB, Hx, TT, Dx), generator=g,
                              device=DEVICE).to(dt)
             qa, ka, va = q4.transpose(1, 2).split(Dx, dim=-1)
-            o4 = at.flash_mhsa(qa, ka, va, bias, seed, scale, 0.4)
+            o4 = took(dx, lambda: at.flash_mhsa(qa, ka, va, bias, seed,
+                                                scale, 0.4), "forward")
             g4 = took(dx, lambda: torch.autograd.grad(
                 o4, (qa, ka, va), d4, retain_graph=True))
             with torch.no_grad():
@@ -1749,18 +1759,21 @@ def attention_kernel_rows(smi, runs):
                 o4, (qa, ka, va), d4, retain_graph=True), runs=5)
             log(f"kernel flash_mhsa [{tag}] q, k, v [{TB}, {Hx}, {TT}, {Dx}] "
                 f"rate 0.4 (o, d(q|k|v)) max_abs_err {e4} PASS; forward "
-                f"{f4:.4f} ms backward ({dx}) {b4:.4f} ms on {smi}")
+                f"({dx}) {f4:.4f} ms backward ({dx}) {b4:.4f} ms on {smi}")
             del q4, d4, o4, g4, ro, lse, rg
         ref = "ishara_tpu/ops/attention.py"
         ops_f = 4 * TB * TH * TT * TT * Dh          # q.k and p.v
+        wg = design == "wgmma"
         rows.append(train_row(
-            "flash_mhsa", at.flash_mhsa, "launches", "attention.cu",
+            "flash_mhsa", at.flash_mhsa, "launches",
+            "attention_fwd_wg.cuh" if wg else "attention_tc.cuh",
             f"{ref}:131", errs[0.4][0], f_ms, p_f, 4 * size + small, ops_f,
             tag, lf_ms, smi))
         rows.append(train_row(
             "flash_mhsa[bwd]", at.flash_mhsa, "launches_bwd",
-            "attention_bwd.cuh", f"{ref}:168", errs[0.4][1], b_ms, p_b,
-            8 * size + small, 5 * ops_f // 2, tag, lb_ms, smi))
+            "attention_bwd.cuh" if wg else "attention_tc.cuh", f"{ref}:168",
+            errs[0.4][1], b_ms, p_b, 8 * size + small, 5 * ops_f // 2, tag,
+            lb_ms, smi))
     return rows
 
 
@@ -1811,10 +1824,12 @@ def k4_plan_and_instructions():
             regs[name] = (int(used.group(1)) if used else None,
                           tuple(int(v) for v in spills.groups())
                           if spills else None)
-    fit = len(regs) == 8 and not serialised and all(
+    # K4's two kernels at K 64 to 256, and the weight product of wgrad.cuh
+    fit = len(regs) == 9 and not serialised and all(
         r is not None and r <= 255 and sp == (0, 0, 0)
         for r, sp in regs.values())
-    log(f"K4 registers (ptxas -v, the {len(regs)} wgmma kernel instances): "
+    log(f"K4 registers (ptxas -v, the {len(regs)} wgmma kernel instances, "
+        f"the weight product's included): "
         f"used {sorted({r for r, _ in regs.values()}, key=str)} a thread at "
         f"launch, stack / spill stores / spill loads "
         f"{sorted({sp for _, sp in regs.values()}, key=str)} bytes, "
@@ -1998,6 +2013,72 @@ def ffn_kernel_rows(smi, runs):
     ]
 
 
+def weight_product_rows(smi, runs):
+    """The weight product of K4's and K7's backwards (csrc/wgrad.cuh, the
+    wgmma kernel and the fixed-order sum of its row splits, through
+    ``ffn_kernel.weight_product``) against its plain version, an f32 matmul
+    of the widened operands, at the flagship's shapes (x^T dh and g^T d of
+    K4, xn^T du and s^T dp of K7: N 45056 rows, 256 x 512 and 512 x 256), at
+    a row count off the 64-row step, and on the general kernel (f32 and
+    widths off the 8-grid); the same bits on a second launch; timed beside
+    the plain version and ``torch.mm`` with an f32 output (a yardstick
+    only)."""
+    import torch
+
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    N = TB * TT
+    rows, errs, times = [], {}, {}
+    for n, p, q, dt in ((N, TD, TM, torch.bfloat16),
+                        (N, TM, TD, torch.bfloat16),
+                        (N - 37, TD, TM, torch.bfloat16),
+                        (515, TD, TM, torch.float32),
+                        (515, 36, 20, torch.bfloat16)):
+        a = torch.randn((n, p), generator=g, device=DEVICE).to(dt)
+        b = torch.randn((n, q), generator=g, device=DEVICE).to(dt)
+        design = fk.product_design(dt, p, q)
+        before = dict(fk.weight_product.launches_by_design)
+        got = fk.weight_product(a, b)
+        torch.cuda.synchronize()
+        if fk.weight_product.launches_by_design != dict(
+                before, **{design: before[design] + 1}):
+            raise AssertionError(f"the weight product [{n}, {p}] x [{n}, "
+                                 f"{q}] did not launch on {design}")
+        want = a.float().T @ b.float()
+        what = f"weight product {str(dt)[6:]} [{n}, {p}]^T [{n}, {q}]"
+        err = close(what, got, want, 1e-4)
+        if not torch.equal(got, fk.weight_product(a, b)):
+            raise AssertionError(f"{what}: a second launch gave other bits")
+        log(f"  {what} ({design}): max_abs_err {err:.3e} against the f32 "
+            f"matmul, the same bits on a second launch PASS")
+        if n == N and dt == torch.bfloat16:
+            errs[(p, q)] = err
+            ms = time_ms(lambda: fk.weight_product(a, b), runs=runs)
+            plain = time_ms(lambda: a.float().T @ b.float(), runs=5)
+            try:
+                lib = time_ms(lambda: torch.mm(a.T, b,
+                                               out_dtype=torch.float32),
+                              runs=runs)
+            except (RuntimeError, TypeError):
+                lib = None
+            times[(p, q)] = (ms, plain, lib)
+            log(f"kernel weight_product [{n}, {p}]^T [{n}, {q}] bf16: "
+                f"{ms:.4f} ms (the product over {fk.wgrad_splits(n, p, q)} "
+                f"row splits and their sum); plain {plain:.4f} ms; torch.mm "
+                f"with an f32 output "
+                f"{'none' if lib is None else f'{lib:.4f} ms'} on {smi}")
+        del a, b, got, want
+    # K4's dw1 x^T dh ([N, 256]^T [N, 512]); dw2 and K7's are the same
+    # sizes. Bytes: each operand read once, the f32 result written once.
+    ms, plain, lib = times[(TD, TM)]
+    rows.append(train_row(
+        "weight_product", fk.weight_product, "launches", "wgrad.cuh",
+        "ishara_tpu/ops/ffn_kernel.py:104", errs[(TD, TM)], ms, plain,
+        N * (TD + TM) * 2 + TD * TM * 4, 2 * N * TD * TM, "bf16", lib, smi))
+    return rows
+
+
 def train_kernel_phase(smi, runs: int = 20):
     """Every training kernel against its plain version at full width, timed
     beside its plain version, its bound and a library call."""
@@ -2005,7 +2086,7 @@ def train_kernel_phase(smi, runs: int = 20):
 
     rows = []
     for make in (ctc_kernel_rows, dropout_kernel_rows, attention_kernel_rows,
-                 ffn_kernel_rows):
+                 ffn_kernel_rows, weight_product_rows):
         rows += make(smi, runs)
         torch.cuda.empty_cache()
     return rows
@@ -2118,25 +2199,55 @@ def log_k8_designs(label, steps, require):
 def zero_k3_designs():
     from ishara_tpu_torch.ops import attention as at
 
-    for design in at.flash_mhsa.launches_bwd_by_design:
-        at.flash_mhsa.launches_bwd_by_design[design] = 0
+    for counts in (at.flash_mhsa.launches_by_design,
+                   at.flash_mhsa.launches_bwd_by_design):
+        for design in counts:
+            counts[design] = 0
 
 
 def log_k3_designs(label, steps, require=None):
-    """Logs K3's backward launches by design (``attention_plan``) since
-    :func:`zero_k3_designs`; ``require``: the counts they must equal."""
+    """Logs K3's forward and backward launches by design
+    (``attention_plan``) since :func:`zero_k3_designs`; ``require``: the
+    counts each direction's must equal."""
     from ishara_tpu_torch.ops import attention as at
 
-    got = {d: n for d, n in at.flash_mhsa.launches_bwd_by_design.items()
-           if n}
-    ok = require is None or got == require
-    log(f"{label}: K3 backward launches by design over {steps} step(s): "
-        f"{got or 'none'}"
-        + ("" if require is None else " PASS" if ok else
-           f" FAIL (expected {require})"))
+    for direction, counts in (("forward", at.flash_mhsa.launches_by_design),
+                              ("backward",
+                               at.flash_mhsa.launches_bwd_by_design)):
+        got = {d: n for d, n in counts.items() if n}
+        ok = require is None or got == require
+        log(f"{label}: K3 {direction} launches by design over {steps} "
+            f"step(s): {got or 'none'}"
+            + ("" if require is None else " PASS" if ok else
+               f" FAIL (expected {require})"))
+        if not ok:
+            raise AssertionError(f"{label}: K3's {direction} launches took "
+                                 f"other designs than {require}: {got}")
+
+
+def zero_product_counts():
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    fk.weight_product.launches = 0
+    for design in fk.weight_product.launches_by_design:
+        fk.weight_product.launches_by_design[design] = 0
+
+
+def log_product_counts(label, steps, require):
+    """Logs the weight product's launches by design (csrc/wgrad.cuh, inside
+    K4's and K7's backwards) since :func:`zero_product_counts`; raises
+    unless they equal ``require``. Returns the count on wgmma."""
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    got = {d: n for d, n in fk.weight_product.launches_by_design.items() if n}
+    ok = got == require
+    log(f"{label}: weight product launches by design over {steps} step(s): "
+        f"{got or 'none'} " + ("PASS" if ok else f"FAIL (expected "
+                                                f"{require})"))
     if not ok:
-        raise AssertionError(f"{label}: K3's backward launches took other "
+        raise AssertionError(f"{label}: the weight product took other "
                              f"designs than {require}: {got}")
+    return got.get("wgmma", 0)
 
 
 def zero_k7_designs():
@@ -2208,6 +2319,10 @@ def train_counters():
 STEP_LAUNCHES = {"ffn_residual": 16, "flash_mhsa": 8, "fast_dropout_add": 4,
                  "conv_module_residual": 4, "fast_dropout": 1,
                  "ctc_loss_kernel": 1}
+# The weight products a step (csrc/wgrad.cuh): two in each backward of K4
+# and of K7.
+STEP_PRODUCTS = 2 * (STEP_LAUNCHES["ffn_residual"]
+                     + STEP_LAUNCHES["conv_module_residual"])
 # The same step at f32 (the data-parallel phase): the selection table sends
 # the conv module to its composition there, where the kernel lost to it.
 DP_STEP_LAUNCHES = dict(STEP_LAUNCHES, conv_module_residual=0)
@@ -2304,6 +2419,12 @@ def time_steps(label, step, state, batch, smi, top=16):
     for key, count, t in sorted(rows, key=lambda r: -r[2])[:top]:
         log(f"  {t / 3e3:9.3f} ms/step {100 * t / busy:5.1f}% "
             f"{count / 3:7.1f} calls/step  {key[:90]}")
+    prod = [(c, t) for key, c, t in rows if any(
+        name in key for name in ("product_wg_kernel", "product_tc_kernel",
+                                 "product_general_kernel"))]
+    log(f"{label}: the weight products (wgrad::product_*_kernel) "
+        f"{sum(t for _, t in prod) / 3e3:.3f} ms a step, "
+        f"{sum(c for c, _ in prod) / 3:.1f} calls a step")
     return state
 
 
@@ -2331,6 +2452,7 @@ def run_counted(step, state, batch, steps):
     zero_k4_designs()
     zero_k3_designs()
     zero_k7_designs()
+    zero_product_counts()
     torch.cuda.reset_peak_memory_stats()
     losses = []
     for _ in range(steps):
@@ -2393,11 +2515,14 @@ def train_phase(smi, steps: int = 20):
     log_k4_designs("train", steps, wgmma_k4(steps))
     log_k3_designs("train", steps, {"wgmma": 8 * steps})
     log_k7_designs("train", steps, wgmma_k7(steps))
+    products = log_product_counts("train", steps,
+                                  {"wgmma": STEP_PRODUCTS * steps})
     for (name, direction), n in launches.items():
         if n != steps * STEP_LAUNCHES.get(name, 0):
             raise AssertionError(
                 f"{name}.{direction} = {n} over {steps} steps, expected "
                 f"{STEP_LAUNCHES.get(name, 0)} a step")
+    launches[("weight_product", "launches")] = products
     # each step draws other masks and augmentations, so "lower at the end
     # than at the start" compares the means of the first and the last three
     first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
@@ -3134,6 +3259,7 @@ def long_train_phase(smi, steps: int = 10):
     zero_k4_designs()
     zero_k8_designs()
     zero_k7_designs()
+    zero_product_counts()
     losses = []
     for _ in range(steps):
         state, m = step(state, batch, seed=0)
@@ -3150,6 +3276,8 @@ def long_train_phase(smi, steps: int = 10):
     log_k8_designs("long train", steps, {"forward": {"wgmma": 8 * steps},
                                          "backward": {"wgmma": 8 * steps}})
     log_k7_designs("long train", steps, wgmma_k7(steps))
+    log_product_counts("long train", steps, {
+        "wgmma": 2 * LONG_STEP_LAUNCHES["conv_module_residual"] * steps})
     for (name, direction), n in launches.items():
         if n != steps * LONG_STEP_LAUNCHES[name]:
             raise AssertionError(
@@ -3856,6 +3984,8 @@ def translation_train_phase(smi, steps: int = 20):
     state = state0.clone()
     for w in counters.values():
         w.launches = w.launches_bwd = 0
+    zero_k3_designs()
+    zero_product_counts()
     losses = []
     for _ in range(steps):
         state, m = step(state, batch, seed=0)
@@ -3868,6 +3998,8 @@ def translation_train_phase(smi, steps: int = 20):
         f"make_fused_translation_train_step, loss "
         + " ".join(f"{v:.3f}" for v in losses))
     log(f"translation train: kernel launches over the run {launches}")
+    log_k3_designs("translation train", steps, {})
+    log_product_counts("translation train", steps, {})
     for (name, direction), n in launches.items():
         want = steps * TR_SITES if name == "fast_dropout" else 0
         if n != want:
@@ -4156,6 +4288,9 @@ def causal_train_phase(smi, steps: int = 10):
         + " ".join(f"{v:.3f}" for v in losses))
     log(f"causal train: kernel launches over the run {launches}")
     log_k4_designs("causal train", steps, wgmma_k4(steps))
+    log_k3_designs("causal train", steps, {})
+    log_product_counts("causal train", steps, {
+        "wgmma": 2 * CAUSAL_STEP_LAUNCHES["ffn_residual"] * steps})
     for (name, direction), n in launches.items():
         if n != steps * CAUSAL_STEP_LAUNCHES[name]:
             raise AssertionError(
@@ -4417,6 +4552,12 @@ def families_phase(smi, reqs, steps: int = 3):
         log_k7_designs(f"{name} train", steps,
                        wgmma_k7(steps) if want["conv_module_residual"]
                        else {"forward": {}, "backward": {}})
+        log_k3_designs(f"{name} train", steps,
+                       {"wgmma": want["flash_mhsa"] * steps}
+                       if want["flash_mhsa"] else {})
+        products = 2 * (want["ffn_residual"] + want["conv_module_residual"])
+        log_product_counts(f"{name} train", steps,
+                           {"wgmma": products * steps} if products else {})
         time_steps(f"{name} train", step, state, batch, smi, top=8)
         del state0
 
@@ -4649,6 +4790,7 @@ def qat_phase(smi, steps: int = 10):
     state, losses, launches = run_counted(qstep, state0.clone(), batch, steps)
     log_k4_designs("qat", steps)
     log_k3_designs("qat", steps, {"wgmma": 8 * steps})
+    log_product_counts("qat", steps, {"wgmma": STEP_PRODUCTS * steps})
     for (name, direction), n in launches.items():
         if n != steps * STEP_LAUNCHES.get(name, 0):
             raise AssertionError(f"qat: {name}.{direction} = {n} over "
@@ -4769,9 +4911,11 @@ def remat_phase(smi):
         states[remat] = TrainState.create(model, tx, device=DEVICE)
     for remat, s in states.items():
         zero_k4_designs()
+        zero_k3_designs()
         s, m = step(s.clone(), batch, seed=0)
         torch.cuda.synchronize()
         log_k4_designs(f"remat={remat}", 1)
+        log_k3_designs(f"remat={remat}", 1)
         out[remat] = (s, m)
     (a, ma), (b, mb) = out[False], out[True]
     same = (torch.equal(ma["loss"], mb["loss"])

@@ -13,12 +13,13 @@ storing them. On a CUDA tensor it launches ``csrc/attention.cu`` or
 raises; on a CPU tensor it runs the plain version beside it
 (:func:`mhsa_forward_plain`, :func:`mhsa_backward_plain`): the same
 arithmetic, f32 on values widened from ``q``'s dtype, one rounding on the
-way out. The forward runs on the tensor-core core of
-``csrc/attention_tc.cuh``; the backward takes the design that
-:func:`attention_plan` names: ``"wgmma"`` (bf16 heads of 32 and 64 whose
-q, k, v TMA can read: one pass of ``csrc/attention_bwd.cuh`` on the keep
-bits that the forward then also writes, :func:`unpack_keep_bits`) or
-``"general"`` (the two passes of the core, which regenerate the mask).
+way out. Both directions take the design that :func:`attention_plan`
+names: ``"wgmma"`` (bf16 heads of 32 and 64 whose q, k, v TMA can read:
+the persistent forward of ``csrc/attention_fwd_wg.cuh`` on a TMA key /
+value ring, which also writes the keep bits, :func:`unpack_keep_bits`, and
+one pass of ``csrc/attention_bwd.cuh`` on them) or ``"general"`` (the
+forward and the two backward passes of the tensor-core core of
+``csrc/attention_tc.cuh``, which regenerate the mask).
 
 The dropout mask is the Philox function of :mod:`.dropout` under the site's
 ``seed``, with the flat index into ``[B, H, T, T]`` as the counter: every
@@ -49,23 +50,26 @@ MAX_T = 384          # the reference's routing to this kernel
 HEAD_CHUNK = 256     # heads wider than this run in chunks of this width
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# the backward's designs and the rule that picks one, mirrored from
-# csrc/attention_bwd.cuh's k3wg::plan (which alone owns the wgmma design's
-# layout: its consumers, key-tile groups, shared memory and registers)
+# the designs and the rule that picks one for both directions, mirrored
+# from csrc/attention_bwd.cuh's k3wg::plan (which, with attention.cu's plan,
+# alone owns the wgmma layouts: consumers, key-tile groups, shared memory
+# and registers)
 DESIGNS = ("general", "wgmma")
 _WG_HEADS = (32, 64)           # head widths of the wgmma design
 
 
 def attention_plan(dtype, T: int, Dh: int, aligned: bool) -> str:
-    """Which backward design ``csrc/attention.cu`` runs for ``[B, H, T,
-    Dh]`` heads of ``dtype``: a rule on these alone, the same as the C
-    ``k3wg::plan`` (``ishara_attention_plan``). ``aligned``: q, k, v start
-    on 16 bytes and their strides over b, h, t are multiples of 8 elements
-    (:func:`tma_aligned`).
+    """Which design ``csrc/attention.cu`` runs, forward and backward, for
+    ``[B, H, T, Dh]`` heads of ``dtype``: a rule on these alone, the same as
+    the C ``k3wg::plan`` (``ishara_attention_plan``). ``aligned``: q, k, v
+    start on 16 bytes and their strides over b, h, t are multiples of 8
+    elements (:func:`tma_aligned`).
 
-    * ``"wgmma"``: bf16, ``Dh`` 32 or 64, ``1 <= T <= 384``, aligned -- one
-      block a head, on the forward's keep bits;
-    * ``"general"``: everything else (the two mma.sync passes)."""
+    * ``"wgmma"``: bf16, ``Dh`` 32 or 64, ``1 <= T <= 384``, aligned -- the
+      persistent forward that writes the keep bits, and a backward of one
+      block a head on them;
+    * ``"general"``: everything else (the mma.sync forward and two
+      backward passes)."""
     if dtype == torch.bfloat16 and Dh in _WG_HEADS and 1 <= T <= MAX_T \
             and aligned:
         return "wgmma"
@@ -74,17 +78,21 @@ def attention_plan(dtype, T: int, Dh: int, aligned: bool) -> str:
 
 def c_plan(dtype, T: int, Dh: int, aligned: bool) -> dict:
     """``csrc/attention.cu``'s own plan (needs the built library): its
-    ``design`` (as :func:`attention_plan` names it) and, for the wgmma
-    design, ``consumers`` (warpgroups of 64 keys), ``groups`` (key-tile
-    groups a block walks), ``stages``, ``ds_bufs``, ``smem`` (bytes a
-    block) and ``reg_limit`` (setmaxnreg of a consumer thread)."""
-    out = (ctypes.c_longlong * 7)()
+    ``design`` (as :func:`attention_plan` names it, both directions) and,
+    for the wgmma design, the backward's ``consumers`` (warpgroups of 64
+    keys), ``groups`` (key-tile groups a block walks), ``stages``,
+    ``ds_bufs``, ``smem`` (bytes a block) and ``reg_limit`` (setmaxnreg of
+    a consumer thread), and the forward's ``fwd_consumers`` (warpgroups of
+    64 queries), ``fwd_smem`` and ``fwd_reg_limit`` (0 on the general
+    design)."""
+    out = (ctypes.c_longlong * 10)()
     fn = _build.function("attention", "ishara_attention_plan",
                          [ctypes.c_int] * 4 + [ctypes.c_void_p])
     _build.check("attention", fn(_DTYPE_CODE.get(dtype, 2), T, Dh,
                                  int(aligned), ctypes.addressof(out)),
                  "attention plan")
-    keys = ("consumers", "groups", "stages", "ds_bufs", "smem", "reg_limit")
+    keys = ("consumers", "groups", "stages", "ds_bufs", "smem", "reg_limit",
+            "fwd_consumers", "fwd_smem", "fwd_reg_limit")
     return {"design": DESIGNS[out[0]],
             **{key: int(v) for key, v in zip(keys, out[1:])}}
 
@@ -244,7 +252,7 @@ def _mask_heads(shape, runs) -> int:
     return stride // (T * T)
 
 
-def backward_plan(q, k, v) -> str:
+def plan_of(q, k, v) -> str:
     """:func:`attention_plan` of a call on these q, k, v (as the launches
     take them: unit stride over the head dimension)."""
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
@@ -254,8 +262,8 @@ def backward_plan(q, k, v) -> str:
 
 def _launch_fwd(q, k, v, bias, seed, scale, rate, offset=0, runs=None):
     """(o, lse, bits): bits are the keep decisions, int32 ``[B, H, T,
-    ceil(T / 32)]``, where the backward's plan is the wgmma design and
-    ``rate > 0``, else None."""
+    ceil(T / 32)]``, where the plan is the wgmma design and ``rate > 0``,
+    else None."""
     _check_cuda(q, k, v, bias, seed)
     heads = _mask_heads(q.shape, runs)
     B, H, T, Dh = q.shape
@@ -264,7 +272,7 @@ def _launch_fwd(q, k, v, bias, seed, scale, rate, offset=0, runs=None):
     o = torch.empty((B, H, T, Dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     bits = None
-    if rate > 0.0 and backward_plan(q, k, v) == "wgmma":
+    if rate > 0.0 and plan_of(q, k, v) == "wgmma":
         bits = torch.empty((B, H, T, keep_words(T)), dtype=torch.int32,
                            device=q.device)
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -290,7 +298,7 @@ def _launch_bwd(q, k, v, bias, seed, o, lse, d_o, scale, rate, offset=0,
     heads = _mask_heads(q.shape, runs)
     q, k, v, d_o = (_unit_last(t) for t in (q, k, v, d_o))
     d_o = d_o.to(q.dtype)
-    wgmma = backward_plan(q, k, v) == "wgmma"
+    wgmma = plan_of(q, k, v) == "wgmma"
     if wgmma and not tma_aligned(d_o):
         d_o = d_o.contiguous()
     dq, dk, dv = (torch.empty((B, H, T, Dh), dtype=q.dtype, device=q.device)
@@ -325,6 +333,7 @@ class _FlashMhsa(torch.autograd.Function):
             o, lse, bits = _launch_fwd(q, k, v, bias, seed, scale, rate,
                                        offset=offset, runs=runs)
             flash_mhsa.launches += 1
+            flash_mhsa.launches_by_design[plan_of(q, k, v)] += 1
         ctx.save_for_backward(q, k, v, bias, seed, o, lse, bits)
         ctx.scale, ctx.rate = scale, rate
         ctx.offset, ctx.runs = offset, runs
@@ -343,7 +352,7 @@ class _FlashMhsa(torch.autograd.Function):
                                 runs=ctx.runs, bits=bits)
             flash_mhsa.launches_bwd += 1
             flash_mhsa.launches_bwd_by_design[
-                backward_plan(q, k, v)] += 1
+                plan_of(q, k, v)] += 1
         return (*grads, None, None, None, None, None, None)
 
 
@@ -374,8 +383,9 @@ def flash_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # launches of the forward and of the backward kernels (one count for the
-# two passes of the general design), in all and, for the backward, by the
-# design (attention_plan) that took them
+# two passes of the general design), in all and by the design
+# (attention_plan) that took them
 flash_mhsa.launches = 0
 flash_mhsa.launches_bwd = 0
+flash_mhsa.launches_by_design = dict.fromkeys(DESIGNS, 0)
 flash_mhsa.launches_bwd_by_design = dict.fromkeys(DESIGNS, 0)

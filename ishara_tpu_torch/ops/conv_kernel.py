@@ -40,7 +40,7 @@ import ctypes
 import torch
 
 from . import _build
-from .ffn_kernel import wgrad_splits
+from .ffn_kernel import count_products, wgrad_splits
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -415,6 +415,7 @@ class _ConvModuleResidual(torch.autograd.Function):
             grads = _launch_bwd(x, dy, args, p)
             design = design_of(x, args[3].shape[1], args[5].shape[0], True)
             conv_module_residual.launches_bwd += 1
+            count_products(x.dtype, x.shape[-1], args[3].shape[1], 2)
             conv_module_residual.launches_bwd_by_design[design] += 1
         dx, *dparams = grads
         return (dx, None,

@@ -24,22 +24,23 @@
 // Bound: bytes. At B 256, H 8, T 176, Dh 32 in bf16 the forward moves
 // 94 MB (0.028 ms at 3.35 TB/s; 103 MB with the keep bits) for 8 GFLOP
 // (0.008 ms on the tensor cores) and the backward 186 MB for 20 GFLOP.
-// Design: the forward on the tensor-core core of attention_tc.cuh (64-query
-// tiles of 4 warps, 64-key tiles by cp.async, mma.sync bf16 / 3xTF32, the
-// softmax and P in registers; the Philox words computed once per 4 weights
-// and shared by shuffles). The backward takes one of two designs by a rule
-// on (dtype, T, Dh, whether TMA can read q, k, v) alone, k3wg::plan,
-// mirrored by attention_plan in ops/attention.py:
-// - wgmma (bf16, heads of 32 and 64): one pass of attention_bwd.cuh on the
-//   keep bits the forward then also writes (the caller passes their
+// Both directions take one of two designs by one rule on (dtype, T, Dh,
+// whether TMA can read q, k, v) alone, k3wg::plan, mirrored by
+// attention_plan in ops/attention.py:
+// - wgmma (bf16, heads of 32 and 64, T <= 384): the forward of
+//   attention_fwd_wg.cuh (K8's persistent forward on a TMA key / value
+//   ring with K3's unit of three query tiles, the Philox words drawn while
+//   the products run) writes the keep bits where the rate is above 0, and
+//   the one pass of attention_bwd.cuh reads them (the caller passes their
 //   buffer to both launches);
-// - general (everything else): the two passes of attention_tc.cuh, which
-//   regenerate the Philox mask.
+// - general (everything else): the forward and the two backward passes of
+//   the tensor-core core of attention_tc.cuh (mma.sync bf16 / 3xTF32),
+//   which regenerate the Philox mask.
 // A launch whose bits do not suit its design is refused; nothing falls
 // back.
 
+#include "attention_fwd_wg.cuh"
 #include "attention_tc.cuh"
-#include "attention_bwd.cuh"
 
 namespace {
 
@@ -53,16 +54,24 @@ bool qkv_tma_ok(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The backward's plan of (dtype, T, Dh, aligned) into out[0..6]: design
-// (0 general, 1 wgmma), consumers, groups, stages, ds_bufs, smem (bytes),
-// reg_limit. ops/attention.py's attention_plan gives the same design; the
-// layout is this plan's alone.
+// The plan of (dtype, T, Dh, aligned) into out[0..9]: the design (0
+// general, 1 wgmma; both directions), the backward's consumers, groups,
+// stages, ds_bufs, smem (bytes) and reg_limit, then the forward's
+// consumers, smem (bytes) and reg_limit (0 on the general design).
+// ops/attention.py's attention_plan gives the same design; the layouts are
+// this plan's alone.
 int ishara_attention_plan(int dtype, int T, int Dh, int aligned,
                           long long* out) {
   const k3wg::Plan p = k3wg::plan(dtype, T, Dh, aligned);
-  const long long v[7] = {p.design, p.consumers, p.groups, p.stages,
-                          p.ds_bufs, (long long)p.smem, p.reg_limit};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const bool wg = p.design == k3wg::WGMMA;
+  const long long v[10] = {
+      p.design,      p.consumers,
+      p.groups,      p.stages,
+      p.ds_bufs,     (long long)p.smem,
+      p.reg_limit,   wg ? k8wg::K3_NW : 0,
+      wg ? (long long)k8wg::fwd_smem(Dh, k8wg::K3_NW) : 0,
+      wg ? k8wg::consumer_regs(k8wg::K3_NW) : 0};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -70,9 +79,9 @@ int ishara_attention_plan(int dtype, int T, int Dh, int aligned,
 // b, h, t in qs, ks, vs; unit stride over Dh), bias [B, T] f32, one int32
 // seed on the device, the mask's index offset and heads a batch row
 // (mask_heads, 0: H). dtype 0 = f32, 1 = bf16.
-// threshold 0 means no dropout. bits: null, or (where the plan takes the
-// wgmma backward and threshold > 0) uint32 [B, H, T, ceil(T / 32)] that
-// receives the keep decisions (attention_bwd.cuh's layout).
+// threshold 0 means no dropout. bits: null, or (exactly where the plan is
+// wgmma and threshold > 0) uint32 [B, H, T, ceil(T / 32)] that receives
+// the keep decisions (attention_bwd.cuh's layout).
 int ishara_attention_fwd(int device, const void* q, const void* k,
                          const void* v, const long long* qs,
                          const long long* ks, const long long* vs,
@@ -83,6 +92,44 @@ int ishara_attention_fwd(int device, const void* q, const void* k,
                          int mask_heads, int dtype, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  if (mask_heads != 0 && mask_heads < H) return (int)cudaErrorInvalidValue;
+  if (T > 384) return (int)cudaErrorInvalidValue;
+  const k3wg::Plan p =
+      k3wg::plan(dtype, T, Dh, qkv_tma_ok(q, k, v, qs, ks, vs));
+  if (p.design == k3wg::WGMMA) {
+    const long long rows = (long long)k8wg::K3_NW * k8wg::ROWS;
+    const long long nq = (T + rows - 1) / rows;
+    if ((bits != nullptr) != (threshold != 0u) || B <= 0 || H <= 0 ||
+        (long long)B * H * nq >= (1LL << 31))
+      return (int)cudaErrorInvalidValue;
+    k8wg::Args a{};
+    a.bias = (const float*)bias;
+    a.o = (__nv_bfloat16*)o;
+    a.lse = (float*)lse;
+    a.H = H, a.T = T, a.Tc = T;
+    a.nq = (int)nq;
+    a.nt = (T + k8wg::ROWS - 1) / k8wg::ROWS;
+    a.units = (int)((long long)B * H * nq);
+    a.scale = scale;
+    a.seed = (const int*)seed;
+    a.threshold = threshold;
+    a.keep_scale = keep_scale;
+    a.offset = offset;
+    a.Hm = mask_heads;
+    a.bits = (uint32_t*)bits;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    constexpr int NWG = k8wg::K3_NW;
+    if (Dh == 32)
+      return (int)(threshold ? k8wg::launch_fwd<32, NWG, true>(
+                                   q, k, v, qs, ks, vs, a, B, s)
+                             : k8wg::launch_fwd<32, NWG, false>(
+                                   q, k, v, qs, ks, vs, a, B, s));
+    return (int)(threshold ? k8wg::launch_fwd<64, NWG, true>(
+                                 q, k, v, qs, ks, vs, a, B, s)
+                           : k8wg::launch_fwd<64, NWG, false>(
+                                 q, k, v, qs, ks, vs, a, B, s));
+  }
+  if (bits) return (int)cudaErrorInvalidValue;
   tc::Params P{};
   P.q = q, P.k = k, P.v = v;
   tc::set_strides(P.qs, qs);
@@ -98,15 +145,6 @@ int ishara_attention_fwd(int device, const void* q, const void* k,
   P.keep_scale = keep_scale;
   P.offset = offset;
   P.Hm = mask_heads;
-  if (mask_heads != 0 && mask_heads < H) return (int)cudaErrorInvalidValue;
-  if (T > 384) return (int)cudaErrorInvalidValue;
-  if (bits) {
-    const k3wg::Plan p =
-        k3wg::plan(dtype, T, Dh, qkv_tma_ok(q, k, v, qs, ks, vs));
-    if (p.design != k3wg::WGMMA || threshold == 0u)
-      return (int)cudaErrorInvalidValue;
-    P.bits = (uint32_t*)bits;
-  }
   return tc::dispatch(P, dtype, false, stream);
 }
 

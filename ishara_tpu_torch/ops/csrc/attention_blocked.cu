@@ -98,9 +98,10 @@ int ishara_blocked_attention_fwd(int device, const void* q, const void* k,
     a.units = (int)((long long)B * H * nq);
     a.scale = scale;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return (int)(Dh == 32 ? k8wg::launch_fwd<32>(q, k, v, qs, ks, vs, a, B, s)
-                          : k8wg::launch_fwd<64>(q, k, v, qs, ks, vs, a, B,
-                                                 s));
+    return (int)(Dh == 32 ? k8wg::launch_fwd<32, k8wg::NW, false>(
+                                q, k, v, qs, ks, vs, a, B, s)
+                          : k8wg::launch_fwd<64, k8wg::NW, false>(
+                                q, k, v, qs, ks, vs, a, B, s));
   }
   tc::Params P{};
   P.q = q, P.k = k, P.v = v;

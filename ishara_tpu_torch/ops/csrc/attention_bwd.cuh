@@ -41,7 +41,7 @@
 //
 // The design:
 // - the forward writes one bit a weight, the keep decisions it draws anyway
-//   (attention_tc.cuh, store_keep_bits): uint32 [B, H, T, ceil(T / 32)],
+//   (attention_fwd_wg.cuh, store_bits): uint32 [B, H, T, ceil(T / 32)],
 //   word c of query row r holding keys 32 c .. 32 c + 31, key k at bit
 //   k % 32, keys >= T zero. This kernel reads them and draws no Philox
 //   word, so the offsets and head runs of a data- or tensor-parallel rank

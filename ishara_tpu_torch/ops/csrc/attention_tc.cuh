@@ -1,7 +1,7 @@
 // The tensor-core attention core shared by attention.cu (K3, one [T, T]
 // block, dropout) and attention_blocked.cu (K8, any T, no dropout): the
-// forward, a dQ pass and a dK / dV pass, on Hopper (sm_90a). K3's forward
-// runs here always; K8's bf16 heads of 32 and 64 have left it (below).
+// forward, a dQ pass and a dK / dV pass, on Hopper (sm_90a). The bf16
+// heads of 32 and 64 of both kernels have left it (below).
 //
 // Replaces the CUDA-core tiles that both kernels had before: the [T, T]
 // products of ishara_tpu/ops/attention.py (_fwd_kernel, _bwd_kernel behind
@@ -40,13 +40,13 @@
 //   prologue) and the dK / dV pass (S^T, dP^T, dV, dK: 4 products). The
 //   function needs 5; the two recomputed ones cost less than the f32
 //   partial-dQ traffic a one-pass split would move. The bf16 heads of 32
-//   and 64 have left this core where TMA can read q, k, v: K3's backward
-//   runs in one pass of five wgmma products a head (attention_bwd.cuh) on
-//   keep bits that the forward below writes (store_keep_bits); K8's forward
-//   on a TMA key / value ring (attention_fwd_wg.cuh) and its backward in
-//   the same one pass without keep bits (heads of 32 to T 640, of 64 to T
-//   384). The kernels here serve the rest: K3's forward, f32, other widths,
-//   strides TMA cannot read, and K8's backward past those T.
+//   and 64 have left this core where TMA can read q, k, v: both kernels'
+//   forwards run on a TMA key / value ring (attention_fwd_wg.cuh; K3's
+//   writing the keep bits), K3's backward in one pass of five wgmma
+//   products a head (attention_bwd.cuh) on those bits, K8's in the same
+//   one pass without them (heads of 32 to T 640, of 64 to T 384). The
+//   kernels here serve the rest: f32, other widths, strides TMA cannot
+//   read, and K8's backward past those T.
 //
 // Keys: key j < T has the caller's bias, T <= j < Tc has the bias -1e30
 // (K8's padded keys, k = v = 0, which count in an all-masked row's
@@ -84,8 +84,6 @@ struct Params {
   void* o;             // [B, H, T, Dh] contiguous
   float* lse;          // [B, H, T]
   float* delta;        // [B, H, T], written by the dQ pass
-  uint32_t* bits;      // [B, H, T, ceil(T / 32)]: the forward's keep bits
-                       // (K3 with dropout, for attention_bwd.cuh), or null
   void *dq, *dk, *dv;  // [B, H, T, Dh] contiguous
   int B, H, T, Tc, Dh;
   float scale;
@@ -354,40 +352,6 @@ __device__ __forceinline__ void keep_colmajor(const Params& P, uint32_t seed,
   }
 }
 
-// The forward's keep decisions kp (keep_rowmajor's layout, rows row0 + g
-// and + 8, keys col0 + 8 n + 2 t (+1), col0 % 32 == 0) as bits for the
-// one-pass backward (attention_bwd.cuh): word c of query row r holds keys
-// 32 c .. 32 c + 31, key k at bit k % 32, keys >= T 0. A lane's keys of a
-// word sit at bits 8 m + 2 t (+1); a quad ORs its lanes' words and lane t
-// stores one of the rows' words.
-template <int NT>
-__device__ __forceinline__ void store_keep_bits(const Params& P, long long bh,
-                                                int row0, int col0,
-                                                const float kp[NT][4]) {
-  constexpr int NWD = NT / 4;  // 32-key words a row of the tile
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int W = (P.T + 31) >> 5;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-    for (int c = 0; c < NWD; ++c) {
-      uint32_t v = 0u;
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-          v |= (uint32_t)(kp[4 * c + m][2 * hh + b] != 0.f) << (8 * m + b);
-      v <<= 2 * t;
-      v |= __shfl_xor_sync(0xffffffffu, v, 1);
-      v |= __shfl_xor_sync(0xffffffffu, v, 2);
-      const int row = row0 + g + 8 * hh, word = col0 / 32 + c;
-      const int left = P.T - 32 * word;  // the word's keys below T
-      if (left < 32) v &= left > 0 ? (1u << left) - 1u : 0u;
-      if (t == hh * NWD + c && row < P.T && word < W)
-        P.bits[((uint64_t)bh * P.T + row) * W + word] = v;
-    }
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -529,9 +493,6 @@ __global__ void __launch_bounds__(THREADS, DP <= 64 ? 4 : 1)
     if (P.threshold) {
       float kp[BN / 8][4];
       keep_rowmajor<BN / 8>(P, seed, bh, q0 + warp * 16, j * BN, kp);
-      if constexpr (BN == 64)  // the tiles of heads of 32 and 64
-        if (P.bits)
-          store_keep_bits<BN / 8>(P, bh, q0 + warp * 16, j * BN, kp);
 #pragma unroll
       for (int n = 0; n < BN / 8; ++n)
 #pragma unroll

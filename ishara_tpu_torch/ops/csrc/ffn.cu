@@ -1239,4 +1239,25 @@ const char* ishara_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// out [P, Q] f32 = A^T . Bm for A [N, P] and Bm [N, Q] (contiguous, the
+// compute type) as the backward's step 2 and 3 run it: wgrad.cuh's product
+// over S row splits into part [S, P * Q] f32 (scratch), then their
+// fixed-order sum. The standalone entry of the product that K4's and K7's
+// backwards launch, for holding it against its plain version and timing it.
+int ishara_weight_product(int device, int dtype, const void* a,
+                          const void* b, void* part, void* out, int N, int P,
+                          int Q, int S, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = dtype == 0 ? wgrad::product<float>((const float*)a, (const float*)b,
+                                         (float*)part, N, P, Q, S, s)
+                 : wgrad::product<bf16>((const bf16*)a, (const bf16*)b,
+                                        (float*)part, N, P, Q, S, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)wgrad::sum_parts((const float*)part, (float*)out, S,
+                               (long long)P * Q, s);
+}
+
 }  // extern "C"

@@ -7,17 +7,36 @@
 // split s writes its partial part[s] [P, Q] f32, and sum_parts adds the
 // partials in a fixed order. No atomics, so a gradient is the same from run
 // to run.
+//
+// Replaces no Pallas call of its own: it is the dW products inside K4's
+// and K7's Pallas backwards (ishara_tpu/ops/ffn_kernel.py:104, `dw1 =
+// _dot_tn(x, dhb)` under pallas_call :177; ishara_tpu/ops/conv_kernel.py
+// :331), which a Hopper block cannot carry from one grid step to the next.
+//
+// Bound at the flagship's shapes (N = 256 x 176 = 45056 rows, P x Q = 256 x
+// 512 or 512 x 256, bf16): bytes. A call reads 45056 x 768 bf16 = 69 MB,
+// 0.021 ms at 3.35 TB/s, for 11.8 GFLOP, 0.012 ms at 989 TFLOP/s; the
+// partials are this design's traffic on top.
+//
 // Two product kernels:
 //
-// - bf16 with P and Q multiples of 8 (16-byte rows): a pipelined
-//   tensor-core product. A block of 8 warps owns a 128 x 128 tile of dW and
-//   one split, and walks its rows 32 at a time: each step's A and Bm rows
-//   ([32][128] each) come through a 4-stage cp.async ring in shared memory,
-//   so three steps are in flight while one is multiplied; both operands are
-//   read with ldmatrix.trans (A^T is the A operand, Bm's rows are k-major),
-//   and mma.sync m16n8k16 accumulates a 64 x 32 patch a warp in registers.
-//   Rows past N, and columns past P or Q, read as zeros. Splits: enough to
-//   give the card's 132 SMs two blocks each (the caller's choice of S).
+// - bf16 with P and Q multiples of 8 and 16-byte bases (what TMA reads):
+//   warpgroup products on a TMA ring (product_wg_kernel). A block owns a
+//   128 x 128 tile of dW and one split and walks its rows 64 at a time:
+//   one producer thread brings each step's A [64][128] and Bm [64][128] (as
+//   four [64][64] boxes in the 128-byte swizzle, rows past N and columns
+//   past P or Q as TMA's zeros) into a ring of WG_STAGES slots; two consumer
+//   warpgroups each own 64 rows of dW (p) and all 128 columns (q), two
+//   m64n64 accumulators, and run wgmma with A^T read MN-major through the
+//   transpose bit and Bm MN-major as the B operand, one step's products in
+//   flight while the next step's wait; setmaxnreg gives the producer 40
+//   registers and the consumers 232. The products are a small share of the
+//   time (the step's 32 KB at an SM's share of the memory rate take ~4x its
+//   products'), so the design is about keeping every SM's loads in flight:
+//   S splits are about one block an SM (wgrad_splits in ops/ffn_kernel.py:
+//   16 at the flagship), which also halves the partials of the mma.sync
+//   design that came before (33 splits, 17 MB written and read again a
+//   call at the flagship; 8.4 MB now);
 // - f32 FMAs on the CUDA cores otherwise (f32, or widths off the 8-grid).
 //
 // sum_parts also adds the per-block column sums of the bias and norm
@@ -27,7 +46,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include "mma.cuh"
+
+#include "hopper.cuh"
 
 // Internal linkage: every source that includes this header gets its own
 // copy, so no two of the port's libraries share a symbol.
@@ -50,65 +70,105 @@ __device__ __forceinline__ bf16 narrow<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-constexpr int TC_TILE = 128, TC_STEP = 32, TC_STAGES = 4;
-constexpr int TC_LD = TC_TILE + 8;  // row stride of a staged tile (bf16)
-constexpr size_t TC_SMEM = (size_t)TC_STAGES * 2 * TC_STEP * TC_LD * 2;
+constexpr int WG_TILE = 128;    // rows (p) and columns (q) of a block's dW
+constexpr int WG_STEP = 64;     // rows of A and Bm a ring slot
+constexpr int WG_STAGES = 6;    // ring slots
+constexpr int WG_BOX = 64 * 64 * 2;  // one [64][64] bf16 box
+constexpr int WG_THREADS = 384;      // the producer and two consumers
+constexpr int WG_PRODUCER_REGS = 40, WG_CONSUMER_REGS = 232;
+constexpr size_t WG_SMEM =
+    1024 + (size_t)WG_STAGES * 4 * WG_BOX + 16 * WG_STAGES;
 
-// Split blockIdx.z of the rows, TC_STEP at a time, into dW[p0.., q0..].
-__global__ void __launch_bounds__(THREADS)
-    product_tc_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
+// Split blockIdx.z of the rows, WG_STEP at a time, into dW[p0.., q0..]
+// (ta: A [N, P], tb: Bm [N, Q], boxes [64][64]). An empty split writes
+// zeros.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    product_wg_kernel(const __grid_constant__ CUtensorMap ta,
+                      const __grid_constant__ CUtensorMap tb,
                       float* __restrict__ part, int N, int P, int Q,
                       int steps_per_split) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [stage][A | B][32][LD]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 1, wn = warp >> 1;          // 64 rows, 32 columns
-  const int p0 = blockIdx.x * TC_TILE, q0 = blockIdx.y * TC_TILE;
-  const int steps = (N + TC_STEP - 1) / TC_STEP;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) &
+                                    1023u);  // [slot][A0, A1, B0, B1][BOX]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * 4 * WG_BOX);
+  uint64_t* empty = full + WG_STAGES;
+  const int p0 = blockIdx.x * WG_TILE, q0 = blockIdx.y * WG_TILE;
+  const int steps = (N + WG_STEP - 1) / WG_STEP;
   const int s0 = blockIdx.z * steps_per_split;
   const int n_steps = max(0, min(steps, s0 + steps_per_split) - s0);
-  auto stage_a = [&](int st) { return ring + (size_t)st * 2 * TC_STEP * TC_LD; };
-  auto issue = [&](int i) {
-    const int r0 = (s0 + i) * TC_STEP, st = i % TC_STAGES;
-    const int rows = min(TC_STEP, N - r0);
-    tc::load_tile<bf16>(stage_a(st), TC_LD, A + (size_t)r0 * P + p0, P,
-                        TC_STEP, TC_TILE, rows, P - p0, true, threadIdx.x,
-                        THREADS);
-    tc::load_tile<bf16>(stage_a(st) + TC_STEP * TC_LD, TC_LD,
-                        Bm + (size_t)r0 * Q + q0, Q, TC_STEP, TC_TILE, rows,
-                        Q - q0, true, threadIdx.x, THREADS);
-  };
-  float acc[4][4][4];
-  tc::zero_acc(acc);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 2 * 4);  // a lane of each consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    regs_dec<WG_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % WG_STAGES, r0 = (s0 + i) * WG_STEP;
+        unsigned char* slot = ring + s * 4 * WG_BOX;
+        bar_wait(&empty[s], ((i / WG_STAGES) & 1) ^ 1);
+        bar_expect(&full[s], 4 * WG_BOX);
+        tma_load(slot, &ta, &full[s], p0, r0);
+        tma_load(slot + WG_BOX, &ta, &full[s], p0 + 64, r0);
+        tma_load(slot + 2 * WG_BOX, &tb, &full[s], q0, r0);
+        tma_load(slot + 3 * WG_BOX, &tb, &full[s], q0 + 64, r0);
+      }
+    }
+    return;
+  }
+  regs_inc<WG_CONSUMER_REGS>();
+  const int w = (threadIdx.x - 128) >> 7;  // the consumer: dW rows 64 w ..
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  float acc0[32], acc1[32];  // columns q0 .. + 63 and q0 + 64 .. + 127
 #pragma unroll
-  for (int i = 0; i < TC_STAGES - 1; ++i) {
-    if (i < n_steps) issue(i);
-    tc::cp_async_commit();
-  }
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+  constexpr uint64_t K16 = (16 * 128) >> 4;  // 16 rows on: one k16 step
   for (int i = 0; i < n_steps; ++i) {
-    tc::cp_async_wait<TC_STAGES - 2>();
-    __syncthreads();
-    if (i + TC_STAGES - 1 < n_steps) issue(i + TC_STAGES - 1);
-    tc::cp_async_commit();
-    const bf16* As = stage_a(i % TC_STAGES);
-    tc::warp_mma<4, 4, true, true>(acc, As + wm * 64, TC_LD, 0,
-                                   As + TC_STEP * TC_LD + wn * 32, TC_LD,
-                                   TC_STEP);
+    const int s = i % WG_STAGES;
+    unsigned char* slot = ring + s * 4 * WG_BOX;
+    const uint64_t ad = desc(slot + w * WG_BOX);
+    const uint64_t bd0 = desc(slot + 2 * WG_BOX);
+    const uint64_t bd1 = desc(slot + 3 * WG_BOX);
+    bar_wait(&full[s], (i / WG_STAGES) & 1);
+    fence_regs(acc0);
+    fence_regs(acc1);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      mma_ss<1, 1>(acc0, ad + ks * K16, bd0 + ks * K16, 1);
+      mma_ss<1, 1>(acc1, ad + ks * K16, bd1 + ks * K16, 1);
+    }
+    wg_commit();
+    wg_wait<1>();  // the step before is done: its slot goes back
+    if (i > 0 && lane == 0) bar_arrive(&empty[(i - 1) % WG_STAGES]);
   }
+  wg_wait<0>();
+  fence_regs(acc0);
+  fence_regs(acc1);
+  // element 4 jj + e: dW row 64 w + 16 warp + g + 8 (e >> 1), column
+  // 8 jj + 2 t + (e & 1) of the accumulator's 64
   float* dst = part + (size_t)blockIdx.z * P * Q;
   const int g = lane >> 2, t = lane & 3;
+  auto store = [&](const float (&acc)[32], int qa) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = p0 + wm * 64 + i * 16 + g + 8 * h;
-        const int q = q0 + wn * 32 + j * 8 + 2 * t;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = p0 + 64 * w + 16 * warp + g + 8 * hh;
+        const int q = qa + 8 * jj + 2 * t;
         if (p >= P || q >= Q) continue;  // Q is even: q + 1 < Q too
         *reinterpret_cast<float2*>(dst + (size_t)p * Q + q) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            make_float2(acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
       }
+  };
+  store(acc0, q0);
+  store(acc1, q0 + 64);
 }
 
 // A block of 16 x 16 threads owns a 64 x 64 tile of the result and one
@@ -190,7 +250,9 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Whether the tensor-core product takes these operands.
+// Whether the wgmma product takes these operands: bf16, rows of 16-byte
+// multiples (P, Q multiples of 8) from 16-byte bases, so that TMA reads
+// them.
 template <typename T>
 inline bool product_on_tensor_cores(const T* A, const T* Bm, int P, int Q) {
   return sizeof(T) == 2 && P % 8 == 0 && Q % 8 == 0 &&
@@ -198,23 +260,27 @@ inline bool product_on_tensor_cores(const T* A, const T* Bm, int P, int Q) {
          reinterpret_cast<uintptr_t>(Bm) % 16 == 0;
 }
 
-// part [S][P][Q] = the S row splits' shares of A^T . Bm.
+// part [S][P][Q] = the S row splits' shares of A^T . Bm. A launch the
+// chosen kernel refuses fails; nothing falls back.
 template <typename T>
 inline cudaError_t product(const T* A, const T* Bm, float* part, int N, int P,
                            int Q, int S, cudaStream_t s) {
+  if (N < 1 || P < 1 || Q < 1 || S < 1) return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
     if (product_on_tensor_cores(A, Bm, P, Q)) {
-      const int per_split = ((N + TC_STEP - 1) / TC_STEP + S - 1) / S;
-      if (TC_SMEM > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            product_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)TC_SMEM);
-        if (e != cudaSuccess) return e;
-      }
-      product_tc_kernel<<<dim3((P + TC_TILE - 1) / TC_TILE,
-                               (Q + TC_TILE - 1) / TC_TILE, S),
-                          THREADS, TC_SMEM, s>>>(A, Bm, part, N, P, Q,
-                                                 per_split);
+      CUtensorMap ta, tb;
+      cudaError_t e = hopper::tensor_map(&ta, A, N, P, 64, 64);
+      if (e == cudaSuccess) e = hopper::tensor_map(&tb, Bm, N, Q, 64, 64);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(product_wg_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)WG_SMEM);
+      if (e != cudaSuccess) return e;
+      const int per_split = ((N + WG_STEP - 1) / WG_STEP + S - 1) / S;
+      product_wg_kernel<<<dim3((P + WG_TILE - 1) / WG_TILE,
+                               (Q + WG_TILE - 1) / WG_TILE, S),
+                          WG_THREADS, WG_SMEM, s>>>(ta, tb, part, N, P, Q,
+                                                    per_split);
       return cudaGetLastError();
     }
   }

@@ -42,17 +42,77 @@ import torch
 from . import _build
 from .dropout import keep_mask, threshold_of
 
-_SPLIT_BLOCKS = 264   # blocks the weight-gradient products aim for: 2 an SM
-_WGRAD_TILE, _WGRAD_STEP = 128, 32   # csrc/wgrad.cuh's output tile, row step
+_SPLIT_BLOCKS = 132   # blocks the weight-gradient products aim for: 1 an SM
+_WGRAD_TILE, _WGRAD_STEP = 128, 64   # csrc/wgrad.cuh's output tile, row step
 
 
 def wgrad_splits(n: int, p: int, q: int) -> int:
     """Row splits of ``csrc/wgrad.cuh``'s product ``A^T . B`` over ``n``
     rows (``A`` ``[n, p]``, ``B`` ``[n, q]``): enough splits that the
-    ``128 x 128`` output tiles make about ``_SPLIT_BLOCKS`` blocks, and no
-    more than one split a 32-row step."""
+    ``128 x 128`` output tiles make about ``_SPLIT_BLOCKS`` blocks (the
+    wgmma product runs one block an SM), and no more than one split a
+    64-row step."""
     tiles = -(-p // _WGRAD_TILE) * -(-q // _WGRAD_TILE)
     return max(1, min(-(-n // _WGRAD_STEP), _SPLIT_BLOCKS // tiles))
+
+
+# the weight product's designs (csrc/wgrad.cuh): wgmma for bf16 operands
+# whose rows TMA reads (16-byte multiples: p, q multiples of 8), general
+# (f32 FMAs) otherwise
+def product_design(dtype, p: int, q: int) -> str:
+    """The kernel ``csrc/wgrad.cuh`` runs ``A^T . B`` on for contiguous
+    ``A`` ``[n, p]`` and ``B`` ``[n, q]`` of ``dtype`` (as K4's and K7's
+    backwards give it): ``"wgmma"`` at bf16 with ``p`` and ``q``
+    multiples of 8, ``"general"`` otherwise."""
+    if dtype == torch.bfloat16 and p % 8 == 0 and q % 8 == 0:
+        return "wgmma"
+    return "general"
+
+
+def weight_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A^T . B``, f32 ``[p, q]``, for ``a`` ``[n, p]`` and ``b`` ``[n,
+    q]`` of one dtype (f32 or bf16): on a CUDA tensor ``csrc/wgrad.cuh``'s
+    product over :func:`wgrad_splits` row splits and their fixed-order sum,
+    as K4's and K7's backwards run it (``ishara_weight_product``), on the
+    design :func:`product_design` names; on a CPU tensor its plain version,
+    an f32 matmul of the widened operands. Gradients do not flow."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0] \
+            or a.dtype != b.dtype or a.device != b.device:
+        raise ValueError("a [n, p] and b [n, q] must agree in rows, dtype "
+                         "and device")
+    if a.device.type == "cpu":
+        return a.float().T @ b.float()
+    if a.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the weight product takes f32 or bf16, got "
+                         f"{a.dtype}")
+    a, b = a.contiguous(), b.contiguous()
+    (n, p), q = a.shape, b.shape[1]
+    splits = wgrad_splits(n, p, q)
+    part = torch.empty((splits, p * q), dtype=torch.float32, device=a.device)
+    out = torch.empty((p, q), dtype=torch.float32, device=a.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("ffn", "ishara_weight_product",
+                         [I, I, P, P, P, P, I, I, I, I, P])
+    rc = fn(_build.device_index(a), _DTYPE_CODE[a.dtype], a.data_ptr(),
+            b.data_ptr(), part.data_ptr(), out.data_ptr(), n, p, q, splits,
+            _build.stream_of(a))
+    _build.check("ffn", rc, "weight product kernel")
+    count_products(a.dtype, p, q, 1)
+    return out
+
+
+def count_products(dtype, p: int, q: int, n: int) -> None:
+    """Adds ``n`` launches of the weight product at ``[., p] x [., q]`` of
+    ``dtype`` to :func:`weight_product`'s counts (the wrappers of K4's and
+    K7's backwards call it for the two products each runs)."""
+    weight_product.launches += n
+    weight_product.launches_by_design[product_design(dtype, p, q)] += n
+
+
+# launches of the weight product kernel, in all and by design: its own
+# wrapper's and those inside K4's and K7's backwards
+weight_product.launches = 0
+weight_product.launches_by_design = {"wgmma": 0, "general": 0}
 
 
 # csrc/ffn.cu's designs and the rule that picks one, mirrored from its plan()
@@ -341,6 +401,7 @@ class _FfnResidual(torch.autograd.Function):
             grads = _launch_bwd(x2, dy2, w1c, b1f, w2c, seeds, *ctx.rates,
                                 row_offset=ctx.row_offset, hidden=ctx.hidden)
             ffn_residual.launches_bwd += 1
+            count_products(x2.dtype, *w1c.shape, 2)
             ffn_residual.launches_bwd_by_design[
                 ffn_plan(x2.dtype, *w1c.shape).design] += 1
         dx, dw1, db1, dw2, db2 = grads

@@ -1,7 +1,8 @@
-"""The attention kernel K3's backward plan and keep bits
+"""The attention kernel K3's plan and keep bits
 (``ishara_tpu_torch/ops/attention.py``): ``attention_plan``, the rule on
-(dtype, T, Dh, aligned) that sends a backward to the wgmma design of
-``csrc/attention_bwd.cuh`` or to the general passes of
+(dtype, T, Dh, aligned) that sends both directions to the wgmma design
+(the forward of ``csrc/attention_fwd_wg.cuh``, the backward of
+``csrc/attention_bwd.cuh``) or to the general kernels of
 ``csrc/attention_tc.cuh`` (its C rule is held to it on the card,
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``); ``pack_keep_bits`` /
 ``unpack_keep_bits``, the layout of the bits that the forward writes for the
@@ -80,13 +81,13 @@ def test_tma_aligned_takes_the_layers_views(Dh, rows_ok):
     qkv = torch.zeros((2, 23, 4, 3 * Dh), dtype=BF16)
     q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
     assert at.tma_aligned(q, k, v) == rows_ok
-    assert at.backward_plan(q, k, v) == (
+    assert at.plan_of(q, k, v) == (
         "wgmma" if rows_ok and Dh in (32, 64) else "general")
     assert not at.tma_aligned(qkv.reshape(-1)[1:1 + 2 * 4 * 23 * 8].reshape(
         2, 4, 23, 8))
 
 
-@pytest.mark.parametrize("T", [1, 23, 32, 33, 64, 70])
+@pytest.mark.parametrize("T", [1, 23, 32, 33, 64, 70, 174, 177])
 @pytest.mark.parametrize("rate", [0.0, 0.4])
 def test_keep_bits_round_trip_the_philox_mask(T, rate):
     """``unpack_keep_bits(pack_keep_bits(keep))`` is ``keep_mask``'s mask, at
@@ -197,6 +198,47 @@ def test_plain_backward_on_the_bits_matches_pallas_interpret(dtype,
     for a, b, name in zip(by_bits, want_g, "qkv"):
         np.testing.assert_allclose(as_np(a), np.asarray(b, np.float32),
                                    rtol=g_tol, atol=g_tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,T,Dh,view,design", [
+    (BF16, 176, 32, "layer", "wgmma"), (BF16, 176, 64, "layer", "wgmma"),
+    (BF16, 1, 32, "layer", "wgmma"), (BF16, 384, 32, "layer", "wgmma"),
+    (BF16, 385, 32, "layer", "general"), (BF16, 176, 48, "layer", "general"),
+    (BF16, 176, 128, "layer", "general"), (F32, 176, 32, "layer", "general"),
+    (F32, 384, 64, "layer", "general"), (BF16, 176, 32, "unaligned",
+                                         "general"),
+    (BF16, 177, 32, "contiguous", "wgmma")])
+def test_forward_takes_the_plan_s_design(dtype, T, Dh, view, design):
+    """The forward takes the design ``attention_plan`` names for its q, k,
+    v (``plan_of``), the backward's: the wgmma forward exactly where the
+    wgmma backward runs, so that the keep bits it writes are there for it;
+    q, k, v as the layer makes them (views of one ``[B, T, H, 3 Dh]``
+    projection), contiguous, or at an offset TMA cannot read."""
+    B, H = 2, 3
+    if view == "unaligned":
+        flat = torch.zeros(1 + 3 * B * H * T * Dh, dtype=dtype)[1:]
+        q, k, v = flat.reshape(3, B, H, T, Dh)
+    elif view == "layer":
+        qkv = torch.zeros((B, T, H, 3 * Dh), dtype=dtype)
+        q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    else:
+        q = k = v = torch.zeros((B, H, T, Dh), dtype=dtype)
+    assert at.plan_of(q, k, v) == design
+    assert at.attention_plan(dtype, T, Dh, at.tma_aligned(q, k, v)) \
+        == design
+
+
+def test_wrapper_counts_forward_launches_by_design():
+    """``flash_mhsa.launches_by_design`` has a count for each design, as
+    ``launches_bwd_by_design``; a CPU tensor runs the plain versions and
+    launches nothing."""
+    assert set(at.flash_mhsa.launches_by_design) == set(at.DESIGNS)
+    before = dict(at.flash_mhsa.launches_by_design)
+    launches = at.flash_mhsa.launches
+    q = torch.randn((1, 2, 8, 32))
+    at.flash_mhsa(q, q, q, torch.zeros((1, 8)), None, 0.1, 0.3)
+    assert at.flash_mhsa.launches_by_design == before
+    assert at.flash_mhsa.launches == launches
 
 
 def test_wrapper_counts_backward_launches_by_design():

@@ -285,9 +285,10 @@ def test_tile_plan_takes_wide_depthwise_kernels(K, dtype, backward):
 
 
 @pytest.mark.parametrize("n,p,q,want", [
-    (131072, 256, 512, 33),     # K7's dw1 / dw2 at the long step
-    (45056, 256, 512, 33),      # K4's at the flagship step
-    (40, 128, 256, 2),          # one split a 32-row step at most
+    (131072, 256, 512, 16),     # K7's dw1 / dw2 at the long step
+    (45056, 256, 512, 16),      # K4's at the flagship step
+    (40, 128, 256, 1),          # one split a 64-row step at most
+    (200, 128, 256, 4),
     (64, 4096, 4096, 1),        # more tiles than the target: one split
 ])
 def test_weight_product_splits(n, p, q, want):

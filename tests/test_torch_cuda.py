@@ -416,11 +416,12 @@ def test_attention_kernels_match_plain(T, Dh, rate, dtype, tol):
     """T not a multiple of 4 (masks straddle Philox blocks), one to six
     64-key tiles, heads of 8 to 256 (each zero-padded to 32, 64, 128 or
     256; 12 takes the narrow copy path), a fully masked row; forward and
-    dq, dk, dv. The backward takes the wgmma design (csrc/attention_bwd.cuh:
-    one to three key-tile groups from T 1 to 384) at bf16 heads of 32 and
-    64, there on the keep bits that the forward wrote (bit for bit
-    ``keep_mask``'s, zero past T), and the general passes otherwise (f32;
-    bf16 48 pads to 64 there). At T 1 the softmax over one key has no
+    dq, dk, dv. Both directions take the wgmma design at bf16 heads of 32
+    and 64 (the forward of csrc/attention_fwd_wg.cuh, one or two units of
+    three query tiles; the backward of csrc/attention_bwd.cuh, one to three
+    key-tile groups from T 1 to 384), the backward there on the keep bits
+    that the forward wrote (bit for bit ``keep_mask``'s, zero past T), and
+    the general kernels otherwise (f32; bf16 48 pads to 64 there). At T 1 the softmax over one key has no
     gradient: dq and dk are 0 up to the rounding of ``delta = dO . O``
     against ``dP``, so there both are held within the tolerance of the
     size of those terms, max |dO . O| * max |k| * scale, instead of to each
@@ -442,13 +443,16 @@ def test_attention_kernels_match_plain(T, Dh, rate, dtype, tol):
     q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
     design = "wgmma" if dtype == torch.bfloat16 and Dh in (32, 64) \
         else "general"
-    assert at.backward_plan(q, k, v) == design
+    assert at.plan_of(q, k, v) == design
     before = dict(at.flash_mhsa.launches_bwd_by_design)
+    before_fwd = dict(at.flash_mhsa.launches_by_design)
     o = at.flash_mhsa(q, k, v, bias, seed, scale, rate)
     grads = torch.autograd.grad(o, (q, k, v), d_o)
     torch.cuda.synchronize()
     assert at.flash_mhsa.launches_bwd_by_design == dict(
         before, **{design: before[design] + 1})
+    assert at.flash_mhsa.launches_by_design == dict(
+        before_fwd, **{design: before_fwd[design] + 1})
     with torch.no_grad():
         _, _, bits = at._launch_fwd(q, k, v, bias, seed, scale, rate)
         ro, lse = at.mhsa_forward_plain(q, k, v, bias, seed, scale, rate)
@@ -545,7 +549,9 @@ def test_attention_plan_matches_the_c_plan():
     (``ishara_attention_plan``) at every T of K3's range and the widths
     around the wgmma design's; the C plan's wgmma layout covers every key
     tile, fits a block's shared memory, and its registers (setmaxnreg) fit
-    a thread."""
+    a thread; its forward takes three consumer warpgroups of 160 registers
+    (with the producer's 24, within an SM's 65536) and a shared memory
+    independent of T."""
     _card()
     from ishara_tpu_torch.ops import attention as at
 
@@ -564,28 +570,34 @@ def test_attention_plan_matches_the_c_plan():
                     assert last.get(Dh, 0) <= c["smem"] <= 227 * 1024, c
                     assert c["reg_limit"] <= 255, c
                     last[Dh] = c["smem"]
+                    assert (c["fwd_consumers"], c["fwd_reg_limit"]) \
+                        == (3, 160), c
+                    assert 128 * (3 * 160 + 24) <= 65536
+                    assert c["fwd_smem"] == at.c_plan(
+                        dtype, 1, Dh, aligned)["fwd_smem"] <= 227 * 1024
 
 
 @pytest.mark.cuda
 def test_attention_wgmma_kernels_fit_their_registers():
     """ptxas's own report (``-Xptxas -v``, kept in the build's log) of the
-    wgmma backward's instances (heads of 32 and 64): at most 255 registers
-    a thread, no stack frame, no spills and no serialised wgmma (C7515,
-    C7512)."""
+    wgmma backward's instances (heads of 32 and 64) and of the wgmma
+    forward's (heads of 32 and 64, with and without dropout): at most 255
+    registers a thread, no stack frame, no spills and no serialised wgmma
+    (C7512, C7513, C7515, C7520)."""
     _card()
     from ishara_tpu_torch.ops import _build
 
     _build.build()
     log = _build.build_log("attention")
     assert not [line for line in log.splitlines()
-                if ("C7512" in line or "C7515" in line)
-                and "bwd_wg_kernel" in line]
+                if re.search(r"\(C75(12|13|15|20)\)", line)
+                and "wg_kernel" in line]
     reports = {}
     for entry in log.split("Function properties for ")[1:]:
         name = entry.split(maxsplit=1)[0]
-        if "bwd_wg_kernel" in name:
+        if "wg_kernel" in name:
             reports[name] = entry.split("Compile time")[0]
-    assert len(reports) == 2
+    assert len(reports) == 6
     for name, report in reports.items():
         assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill " \
             "loads" in report, (name, report)
@@ -612,6 +624,80 @@ def test_attention_kernel_refuses_what_it_cannot_take():
     q = torch.zeros((1, 1, 8, 8), device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         at.flash_mhsa(q, q, q, torch.zeros((1, 8), device="cuda"))
+    # the wgmma forward refuses a dropout launch without keep bits, and the
+    # general one a launch with them: nothing falls back
+    q = torch.zeros((1, 2, 40, 32), device="cuda", dtype=torch.bfloat16)
+    bias, seed = torch.zeros((1, 40), device="cuda"), torch.zeros(
+        (1,), dtype=torch.int32, device="cuda")
+    for wrong in ("general", "wgmma"):
+        qw = q if wrong == "general" else q.float()
+        real = at.plan_of
+        at.plan_of = lambda *a, wrong=wrong: wrong
+        try:
+            with pytest.raises(RuntimeError, match="forward kernel failed"):
+                at._launch_fwd(qw, qw, qw, bias, seed, 0.1, 0.3)
+        finally:
+            at.plan_of = real
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,Dh,offset", [
+    (256, 8, 176, 32, 0), (256, 8, 384, 32, 0), (256, 4, 176, 64, 0),
+    (16, 8, 177, 32, 0), (16, 8, 176, 32, 3 * 8 * 176 * 176),
+    (16, 4, 176, 64, 5)])
+def test_attention_wgmma_forward_matches_plain(B, H, T, Dh, offset):
+    """The wgmma forward (csrc/attention_fwd_wg.cuh, K3's unit of three
+    query tiles) at the flagship's shape, K3's longest T, heads of 64, an
+    odd T and offsets (a data-parallel shard's rows; an offset not a
+    multiple of 4 and the odd T take the slow Philox path), each with a
+    fully masked row, rate 0.4 and 0: o and lse within bf16's tolerance
+    (0.02) of ``mhsa_forward_plain``, the keep bits equal to
+    ``pack_keep_bits(keep_mask(...))`` bit for bit, the wgmma backward on
+    them within the same tolerance of the plain backward, and a second
+    forward the same bits."""
+    _card()
+    from ishara_tpu_torch.ops import attention as at
+    from ishara_tpu_torch.ops.dropout import keep_mask
+
+    g = torch.Generator(device="cuda").manual_seed(T + Dh)
+    qkv = torch.randn((B, T, H, 3 * Dh), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    d_o = torch.randn((B, H, T, Dh), generator=g, device="cuda").to(
+        torch.bfloat16)
+    lengths = torch.randint(40, T + 1, (B,), generator=g, device="cuda")
+    lengths[0] = 0                                   # every key masked
+    bias = at.mask_to_bias(torch.arange(T, device="cuda")[None, :]
+                           < lengths[:, None])
+    seed = torch.tensor([977], dtype=torch.int32, device="cuda")
+    scale = (H * Dh) ** -0.5
+    q, k, v = qkv.transpose(1, 2).split(Dh, dim=-1)
+    assert at.plan_of(q, k, v) == "wgmma"
+    for rate in (0.4, 0.0):
+        before = at.flash_mhsa.launches_by_design["wgmma"]
+        o = at.flash_mhsa(q, k, v, bias, seed, scale, rate, offset)
+        assert at.flash_mhsa.launches_by_design["wgmma"] == before + 1
+        with torch.no_grad():
+            o2, lse, bits = at._launch_fwd(q, k, v, bias, seed, scale, rate,
+                                           offset)
+            assert torch.equal(o, o2)
+            ro, rlse = at.mhsa_forward_plain(q, k, v, bias, seed, scale,
+                                             rate, offset=offset)
+        _close(o, ro, 2e-2)
+        _close(lse, rlse, 2e-2)
+        if rate > 0.0:
+            assert torch.equal(bits, at.pack_keep_bits(
+                keep_mask(seed, (B, H, T, T), rate, offset)))
+        else:
+            assert bits is None
+        del o2, bits
+        grads = torch.autograd.grad(o, (q, k, v), d_o)
+        with torch.no_grad():
+            rgrads = at.mhsa_backward_plain(q, k, v, bias, seed, ro, rlse,
+                                            d_o, scale, rate, offset=offset)
+        for a, b in zip(grads, rgrads):
+            _close(a, b, 2e-2)
+        del ro, rlse, rgrads, grads
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
@@ -872,6 +958,41 @@ def test_ffn_wgmma_design_on_a_slice_of_the_hidden():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,p,q,design", [
+    # the flagship's K4 dw1 / dw2 and K7 dw1 / dw2 (xn^T du, s^T dp)
+    (torch.bfloat16, 45056, 256, 512, "wgmma"),
+    (torch.bfloat16, 45056, 512, 256, "wgmma"),
+    # rows off the 64-row step, widths off the 128 tile
+    (torch.bfloat16, 45056 - 37, 256, 512, "wgmma"),
+    (torch.bfloat16, 515, 72, 200, "wgmma"),
+    (torch.bfloat16, 40, 8, 136, "wgmma"),
+    # the general kernel: f32 and widths off the 8-grid
+    (torch.float32, 515, 256, 512, "general"),
+    (torch.bfloat16, 515, 36, 20, "general")])
+def test_weight_product_matches_f32_matmul(dtype, n, p, q, design):
+    """``csrc/wgrad.cuh``'s product and fixed-order sum (``weight_product``,
+    as K4's and K7's backwards run it) against an f32 matmul of the widened
+    operands, within 1e-4 of the largest entry (the same products in
+    another order of f32 sums); a second launch gives the same bits; the
+    launch is counted on its design."""
+    _card()
+    from ishara_tpu_torch.ops import ffn_kernel as fk
+
+    g = torch.Generator(device="cuda").manual_seed(n + p)
+    a = torch.randn((n, p), generator=g, device="cuda").to(dtype)
+    b = torch.randn((n, q), generator=g, device="cuda").to(dtype)
+    assert fk.product_design(dtype, p, q) == design
+    before = dict(fk.weight_product.launches_by_design)
+    got = fk.weight_product(a, b)
+    assert fk.weight_product.launches_by_design == dict(
+        before, **{design: before[design] + 1})
+    want = a.float().T @ b.float()
+    assert got.shape == (p, q) and got.dtype == torch.float32
+    _close(got, want, 1e-4)
+    assert torch.equal(got, fk.weight_product(a, b))
+
+
+@pytest.mark.cuda
 def test_ffn_plan_matches_the_c_plan():
     """``ffn_plan`` mirrors csrc/ffn.cu's own rule (``ishara_ffn_plan``)
     at every shape of the CPU tests' table."""
@@ -887,10 +1008,11 @@ def test_ffn_plan_matches_the_c_plan():
 @pytest.mark.cuda
 def test_ffn_wgmma_kernels_fit_their_registers():
     """ptxas's own report (``-Xptxas -v``, kept in the build's log) of every
-    instance of the wgmma design's two kernels: at most 255 registers a
-    thread, no stack frame, no spills and no serialised wgmma (C7512), so
-    the accumulators that ``ffn_plan``'s ``acc_regs`` counts stay in the
-    registers setmaxnreg gives a consumer."""
+    instance of the wgmma design's two kernels and of the wgmma weight
+    product (csrc/wgrad.cuh): at most 255 registers a thread, no stack
+    frame, no spills and no serialised wgmma (C7512), so the accumulators
+    that ``ffn_plan``'s ``acc_regs`` counts stay in the registers setmaxnreg
+    gives a consumer."""
     _card()
     from ishara_tpu_torch.ops import _build
 
@@ -901,9 +1023,11 @@ def test_ffn_wgmma_kernels_fit_their_registers():
     reports = {}
     for entry in log.split("Function properties for ")[1:]:
         name = entry.split(maxsplit=1)[0]
-        if "ffn_fwd_wg_kernel" in name or "ffn_bwd_wg_kernel" in name:
+        if "ffn_fwd_wg_kernel" in name or "ffn_bwd_wg_kernel" in name \
+                or "product_wg_kernel" in name:
             reports[name] = entry.split("Compile time")[0]
-    assert len(reports) == 8   # two kernels at K 64, 128, 192 and 256
+    # two kernels at K 64, 128, 192 and 256, and the weight product
+    assert len(reports) == 9
     for name, report in reports.items():
         assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill " \
             "loads" in report, (name, report)
@@ -1414,8 +1538,9 @@ def test_conv_wgmma_launch_it_refuses_raises(what):
 
 @pytest.mark.cuda
 def test_conv_wgmma_kernels_fit_their_registers():
-    """ptxas's report of the wgmma design's kernels (every D it takes):
-    no spills, and no product serialised (no C75xx warning)."""
+    """ptxas's report of the wgmma design's kernels (every D it takes) and
+    of the wgmma weight product (csrc/wgrad.cuh): no spills, and no product
+    serialised (no C75xx warning)."""
     _card()
     from ishara_tpu_torch.ops import _build
     from ishara_tpu_torch.ops import conv_kernel as ck
@@ -1425,7 +1550,8 @@ def test_conv_wgmma_kernels_fit_their_registers():
     assert "C75" not in text
     blocks = re.split(r"ptxas info\s+: Compiling entry function", text)
     wg = [b for b in blocks if "wg_kernel" in b.split("\n")[0]]
-    assert len(wg) == 8          # forward and backward at D 64 to 256
+    assert len(wg) == 9   # forward and backward at D 64 to 256, the product
+    assert sum("product_wg_kernel" in b.split("\n")[0] for b in wg) == 1
     for b in wg:
         assert "0 bytes spill stores" in b, b[:300]
 

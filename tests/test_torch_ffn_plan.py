@@ -86,3 +86,26 @@ def test_wrapper_counts_launches_by_design_and_pads_by_the_plan():
     out.sum().backward()
     assert (fk.ffn_residual.launches_by_design,
             fk.ffn_residual.launches_bwd_by_design) == before
+
+
+@pytest.mark.parametrize("dtype,p,q,design", [
+    (torch.bfloat16, 256, 512, "wgmma"), (torch.bfloat16, 512, 256, "wgmma"),
+    (torch.bfloat16, 8, 136, "wgmma"), (torch.bfloat16, 36, 20, "general"),
+    (torch.bfloat16, 256, 12, "general"), (torch.float32, 256, 512,
+                                            "general")])
+def test_weight_product_design_by_the_rule(dtype, p, q, design):
+    """The weight product (``csrc/wgrad.cuh``) runs on wgmma exactly at bf16
+    with rows of 16-byte multiples (p and q multiples of 8), the general f32
+    kernel otherwise; its plain version on a CPU tensor is the f32 matmul of
+    the widened operands, and it launches nothing there."""
+    assert fk.product_design(dtype, p, q) == design
+    g = torch.Generator().manual_seed(p + q)
+    a = torch.randn((70, p), generator=g).to(dtype)
+    b = torch.randn((70, q), generator=g).to(dtype)
+    before = dict(fk.weight_product.launches_by_design)
+    got = fk.weight_product(a, b)
+    assert got.dtype == torch.float32 and got.shape == (p, q)
+    assert torch.equal(got, a.float().T @ b.float())
+    assert fk.weight_product.launches_by_design == before
+    with pytest.raises(ValueError, match="rows"):
+        fk.weight_product(a, b[:-1])

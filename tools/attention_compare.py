@@ -14,9 +14,10 @@ build; ``tools/ffn_compare.py``'s helpers). Then:
   ``[B, T, H, 3 Dh]`` projection) at ``[256, 8, 176, 32]`` (the flagship)
   and ``[256, 8, 384, 32]`` (K3's longest T), a padded tail and one fully
   masked row: the forward and the backward (dq, dk, dv), each held against
-  the plain version (chip_smoke.py's tolerance), with the backward's design
-  where the checkout names one; then the median of 50 launches by CUDA
-  events, each after a ~2 ms device spin (device time only);
+  the plain version (chip_smoke.py's tolerance), with each direction's
+  design where the checkout names one; then the median of 50 launches by
+  CUDA events, each after a ~2 ms device spin (device time only), and the
+  forward's at dropout 0 too;
 - ``F.scaled_dot_product_attention`` (additive mask, the same dropout rate
   and scale) forward and backward on the same inputs, timed the same way;
 - K8 at ``[256, 8, 512, 32]`` (no dropout), forward and backward, held
@@ -30,8 +31,11 @@ build; ``tools/ffn_compare.py``'s helpers). Then:
   own kernels' time a step (``tc::fwd_kernel``, ``tc::dq_kernel``,
   ``tc::dkv_kernel``, ``k3wg::bwd_wg_kernel``, ``k8wg::fwd_wg_kernel``; on
   the long step these names are K8's, which shares the core and the
-  backward). Compare steps by the busy time: the host's clock varies from
-  call to call far more.
+  backward), the weight products' of K4's and K7's backwards
+  (``wgrad::``'s product kernels) and all of ``wgrad::``'s kernels (the
+  products and the fixed-order sums of their and the bias and norm
+  gradients' partials). Compare steps by the busy time: the host's clock
+  varies from call to call far more.
 
 Prints one line a measurement and a JSON object a checkout, each with the
 card's name and power limit. Give the roots as parent, change, change,
@@ -59,6 +63,10 @@ RATE = 0.4
 TOL = 0.02   # chip_smoke.py's TRAIN_TOL["bf16"]
 K3_KERNELS = ("tc::fwd_kernel<", "tc::dq_kernel<", "tc::dkv_kernel<",
               "k3wg::bwd_wg_kernel<", "k8wg::fwd_wg_kernel<")
+# the weight products of K4's and K7's backwards (csrc/wgrad.cuh's kernels;
+# their partial sums share the name space with the bias and norm sums)
+PRODUCT_KERNELS = ("product_wg_kernel", "product_tc_kernel",
+                   "product_general_kernel")
 
 
 def k3_times(at, T, card, out):
@@ -95,8 +103,12 @@ def k3_times(at, T, card, out):
               + [close(f"K3 T {T} d{n}", a, b, TOL)
                  for n, a, b in zip("qkv", grads, rgrads)])
     del ro, lse, rgrads
-    design = at.backward_plan(q, k, v) \
-        if hasattr(at, "backward_plan") else "general"
+    plan = getattr(at, "plan_of", getattr(at, "backward_plan", None))
+    design = plan(q, k, v) if plan else "general"
+    # the forward's design: the plan's where the checkout counts the
+    # forward by design, the mma.sync core before
+    fwd_design = design if hasattr(at.flash_mhsa, "launches_by_design") \
+        else "general"
     mask = bias[:, None, None, :].to(torch.bfloat16)
     lq = qkv.detach().clone().requires_grad_()
 
@@ -106,15 +118,18 @@ def k3_times(at, T, card, out):
                                               dropout_p=RATE, scale=scale)
 
     lo = lib_fwd()
-    rows = {"design": design, "max_abs_err": err,
+    rows = {"design": design, "fwd_design": fwd_design, "max_abs_err": err,
             "fwd_ms": device_ms(fwd), "bwd_ms": device_ms(bwd),
+            "fwd0_ms": device_ms(lambda: at.flash_mhsa(q, k, v, bias, seed,
+                                                       scale, 0.0)),
             "sdpa_fwd_ms": device_ms(lib_fwd),
             "sdpa_bwd_ms": device_ms(lambda: torch.autograd.grad(
                 lo, lq, d_o, retain_graph=True))}
     out[f"k3_T{T}"] = rows
     print(f"{out['root']} K3 q, k, v [{B}, {H}, {T}, {DH}] bf16 rate {RATE} "
-          f"(backward: {design}): forward {rows['fwd_ms']:.4f} ms, backward "
-          f"{rows['bwd_ms']:.4f} ms; F.scaled_dot_product_attention "
+          f"(forward: {fwd_design}, backward: {design}): forward "
+          f"{rows['fwd_ms']:.4f} ms (rate 0: {rows['fwd0_ms']:.4f} ms), "
+          f"backward {rows['bwd_ms']:.4f} ms; F.scaled_dot_product_attention "
           f"{rows['sdpa_fwd_ms']:.4f} / {rows['sdpa_bwd_ms']:.4f} ms "
           f"(backward {rows['bwd_ms'] / rows['sdpa_bwd_ms']:.3f}x); "
           f"max_abs_err {err:.3e} (tol {TOL}); {card}", flush=True)
@@ -200,15 +215,21 @@ def time_root(root, first_build, card):
         launches = (at.flash_mhsa.launches - before[0],
                     at.flash_mhsa.launches_bwd - before[1])
         ms = step_ms(step, state, batch)
-        busy, k3 = step_device_ms(step, state, batch, names=K3_KERNELS)
+        busy, own = step_device_ms(step, state, batch, names={
+            "k3": K3_KERNELS, "products": PRODUCT_KERNELS,
+            "wgrad": ("wgrad::",)})
         out[tag + "_ms"] = ms
         out[tag + "_busy_ms"] = busy
-        out[tag + "_k3_device_ms"] = k3
+        out[tag + "_k3_device_ms"] = own["k3"]
+        out[tag + "_product_device_ms"] = own["products"]
+        out[tag + "_wgrad_device_ms"] = own["wgrad"]
         out[tag + "_k3_launches"] = launches
         print(f"{root} {tag} (T {frame_len}): {ms:.2f} ms a step (median of "
               f"10, host clock); device busy {busy:.3f} ms a step, the "
-              f"attention core's kernels {k3:.3f} ms a step (profiler, 5 "
-              f"steps); K3 {launches[0]} + {launches[1]} launches a step; "
+              f"attention core's kernels {own['k3']:.3f} ms a step, the "
+              f"weight products {own['products']:.3f} ms a step (with every "
+              f"fixed-order sum of wgrad.cuh {own['wgrad']:.3f}) (profiler, "
+              f"5 steps); K3 {launches[0]} + {launches[1]} launches a step; "
               f"{card}", flush=True)
         del state, step, batch
         torch.cuda.empty_cache()

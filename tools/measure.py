@@ -79,7 +79,8 @@ def step_ms(step, state, batch):
 def step_device_ms(step, state, batch, n=5, names=("ffn_",)):
     """The device's busy time a step and the time a step of the kernels
     whose name holds one of ``names`` (K4's own, ``ffn_``, by default), over
-    ``n`` steps under the profiler."""
+    ``n`` steps under the profiler. ``names`` may be a dict of such tuples:
+    the second result is then a dict of their times a step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -94,8 +95,13 @@ def step_device_ms(step, state, batch, n=5, names=("ffn_",)):
     busy = sum(t for _, t in rows) / n / 1e3
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
-    own = sum(t for key, t in rows if any(m in key for m in names)) / n / 1e3
-    return busy, own
+    def own(parts):
+        return sum(t for key, t in rows if any(m in key for m in parts)) \
+            / n / 1e3
+
+    if isinstance(names, dict):
+        return busy, {label: own(parts) for label, parts in names.items()}
+    return busy, own(names)
 
 
 def close(what, got, ref, tol):
